@@ -1,22 +1,31 @@
 #!/usr/bin/env python3
-"""Drive the port's C-GCN evaluation path on one NVIDIA GPU.
+"""Drive the port's C-GCN evaluation and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases, one JSON line each:
 
 1. device — the card's name, count and power limit;
-2. build  — ``nvcc`` builds every kernel of the path from
-   ``gcn_tpu_torch/csrc``;
-3. kernel — each kernel against its plain PyTorch version on the card at the
-   main path's shapes: max error and its tolerance, median time by CUDA
-   events, the plain version's time, one PyTorch library call's time as a
+2. build  — ``nvcc`` builds every kernel of both paths from
+   ``gcn_tpu_torch/csrc``, one process per source, in parallel;
+3. kernel — each kernel (the scan and the grouped matmul, forward and
+   backward) against its plain PyTorch version on the card at the main
+   path's shapes: max error and its tolerance, median time by CUDA events,
+   the plain version's time, one PyTorch library call's time as a
    yardstick, and the kernel's bound at the card's peak rates;
 4. slice  — ``Evaluator`` at full ``cgcn_preset`` widths (random weights
    from a seeded ``torch.Generator``) over B=50 batches of the in-repo
    TACRED JSON and of synthetic sentences at the N=96 bucket, all through
    the port's own loader.  The same forward with the plain versions on the
-   card and on the CPU must agree; every kernel must have launched.
+   card and on the CPU must agree; every forward kernel must have launched;
+5. train  — ``Trainer.update`` at the same widths (sgd 0.3, clip 5,
+   pooling_l2 0.003, word dropout 0.04, dropouts 0.5) over the training
+   batches of the in-repo train split and of the synthetic sentences.  All
+   four kernels must have launched; a trainer on the plain versions on the
+   card, from the same weights and seed, must follow it for 3 steps; with
+   dropout off one step on the card must match one on the CPU; the loss
+   on one fixed batch must fall over 20 steps; and ms per step,
+   sentences/s and the device's busy time by kernel are measured at N=96.
 
 Then one line with every kernel's numbers, the ``nvidia-smi`` name and
 power limit, and the last line ``{"ok": true, "device": {...}}``.  Any
@@ -47,6 +56,12 @@ TOL_BF16 = 1e-2               # bf16 storage, error over max(1, |ref|): one
                               # rounding flip is at most 2^-7 of |y|
 TOL_SLICE = 1e-4              # logits and h_out per valid row, over
                               # max(1, |row|), kernels vs plain, f32
+TOL_BWD = 1e-4                # backward kernels vs plain, f32, error over
+                              # max(1, max |ref|): dW_hh and dS sum
+                              # thousands of products in another order
+TOL_TRAIN = 1e-4              # trainers: loss relative, every parameter
+                              # over max(1, max |p|)
+TRAIN_STEPS_FALL = 20         # steps on one fixed batch
 
 
 def emit(obj) -> None:
@@ -139,8 +154,10 @@ def synthetic_records(rng, count: int, n_max: int, deprel_freq) -> list:
 
 
 def load_batches(cfg, vocab, rng):
-    """B=50 batches of the in-repo TACRED splits and of synthetic sentences
-    at the N=96 bucket, through the port's loader."""
+    """B=50 batches through the port's loader: evaluation batches of the
+    in-repo TACRED splits and of synthetic sentences at the N=96 bucket,
+    and training batches (shuffled, word dropout) of the in-repo train split
+    and of the same synthetic sentences."""
     from gcn_tpu_torch.data.dataset import Batcher, RelationDataset
 
     data_dir = os.path.join(HERE, "dataset", "tacred")
@@ -152,18 +169,21 @@ def load_batches(cfg, vocab, rng):
                 for d in rec["stanford_deprel"]:
                     freq[d] = freq.get(d, 0) + 1
         ds = RelationDataset(path, cfg, vocab)
-        real.extend(Batcher(ds, B))
+        real.extend(Batcher(ds, B, evaluation=True))
+        if split == "train":
+            real_train = list(Batcher(ds, B, seed=SEED))
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "synthetic.json")
         with open(path, "w") as f:
             json.dump(synthetic_records(rng, B * SYNTH_BATCHES, N_BUCKET,
                                         freq), f)
         ds = RelationDataset(path, cfg, vocab)
-        synth = list(Batcher(ds, B))
-    for batch in synth:
+        synth = list(Batcher(ds, B, evaluation=True))
+        synth_train = list(Batcher(ds, B, seed=SEED))
+    for batch in synth + synth_train:
         if batch["words"].shape != (B, N_BUCKET):
             fail(f"synthetic batch shape {batch['words'].shape}")
-    return real, synth
+    return real, synth, real_train, synth_train
 
 
 # --------------------------------------------------------------- kernels
@@ -221,17 +241,23 @@ def check_lstm(torch, rng, dev) -> dict:
     }
 
 
-def check_gmm(torch, rng, dev, synth_batch) -> list[dict]:
+def band_group_sizes(torch, synth_batch, dev):
+    """Group sizes of the two stacked bands' relation ids, as the model
+    builds them for a synthetic N=96 batch (R = 87 groups)."""
     from gcn_tpu_torch import constants as C
-    from gcn_tpu_torch.ops import grouped_matmul as mod
     from gcn_tpu_torch.ops.gcn_layers import make_group_plan
 
-    # relation ids of the two stacked bands, as the model builds them
     deprel = torch.tensor(synth_batch["deprel"], dtype=torch.long)
     r = len(C.DEPREL_TO_ID) + 2
     ids_f = torch.where(deprel == 0, r - 1, deprel)
     ids_r = deprel + C.DEPREL_FORWARD_BOUND
-    gs = make_group_plan(torch.cat([ids_f, ids_r]), r).group_sizes.to(dev)
+    return make_group_plan(torch.cat([ids_f, ids_r]), r).group_sizes.to(dev)
+
+
+def check_gmm(torch, rng, dev, gs) -> list[dict]:
+    from gcn_tpu_torch.ops import grouped_matmul as mod
+
+    r = gs.shape[0]
     m, h = 2 * B * N_BUCKET, 200
     out = []
     for t in (400, 200):
@@ -271,6 +297,152 @@ def check_gmm(torch, rng, dev, synth_batch) -> list[dict]:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
             "library": "torch._grouped_mm f32",
+        })
+    return out
+
+
+def scaled_err(a, b) -> float:
+    """max |a - b| over max(1, max |b|)."""
+    return max_err(a, b) / max(1.0, float(b.float().abs().max()))
+
+
+def check_lstm_backward(torch, rng, dev) -> dict:
+    from gcn_tpu_torch.ops import lstm_scan as mod
+
+    g, t, h = 2, N_BUCKET, 200
+    lengths = rng.randint(1, t + 1, B)
+    lengths[:2] = (1, t)
+    len_t = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    xp = torch.tensor(rng.randn(t, g, B, 4 * h) * 0.5, dtype=torch.float32,
+                      device=dev)
+    bnd = 1.0 / np.sqrt(h)
+    w_hh = torch.tensor(rng.uniform(-bnd, bnd, (g, h, 4 * h)),
+                        dtype=torch.float32, device=dev)
+    keep = torch.tensor((rng.rand(t, g, B) > 0.1).astype(np.float32),
+                        device=dev)
+    ct = torch.tensor(rng.randn(t, g, B, h), dtype=torch.float32, device=dev)
+    valid = (torch.arange(t, device=dev)[:, None, None, None]
+             < len_t[None, None, :, None])
+
+    def inputs(dtype, kp):
+        """The forward's states and a cotangent that depends on them."""
+        xq, wq = xp.to(dtype), w_hh.to(dtype)
+        hs, cs = mod.lstm_scan_plain(xq, len_t, wq, kp)
+        gy = torch.where(valid, hs.float() * ct, 0.0).contiguous()
+        return gy, xq, len_t, wq, hs, cs, kp
+
+    errs, abs_errs = {}, {}
+    for name, dtype, kp in (("f32", torch.float32, None),
+                            ("f32_keep", torch.float32, keep),
+                            ("bf16", torch.bfloat16, None)):
+        args = inputs(dtype, kp)
+        got = mod.lstm_scan_backward(*args)
+        want = mod.lstm_scan_backward_plain(*args)
+        errs[name] = max(scaled_err(a, b) for a, b in zip(got, want))
+        abs_errs[name] = max(max_err(a, b) for a, b in zip(got, want))
+    torch.cuda.synchronize()
+    ok = (errs["f32"] <= TOL_BWD and errs["f32_keep"] <= TOL_BWD
+          and errs["bf16"] <= TOL_BF16)
+
+    args = inputs(torch.float32, None)
+    ms = time_ms(lambda: mod.lstm_scan_backward(*args), 20)
+    plain_ms = time_ms(lambda: mod.lstm_scan_backward_plain(*args), 3)
+    # yardstick: cuDNN's bidirectional LSTM layer over the packed sequence,
+    # forward + backward minus forward (its backward also produces the
+    # input projection's gradients)
+    lstm = torch.nn.LSTM(360, h, batch_first=True, bidirectional=True).to(dev)
+    x = torch.randn(B, t, 360, device=dev, requires_grad=True)
+    len_cpu = torch.tensor(lengths, dtype=torch.int64)
+
+    def lib_fwd():
+        packed = torch.nn.utils.rnn.pack_padded_sequence(
+            x, len_cpu, batch_first=True, enforce_sorted=False)
+        return lstm(packed)[0].data
+
+    grad_out = torch.randn_like(lib_fwd())
+    leaves = [x] + list(lstm.parameters())
+    fwd_ms = time_ms(lib_fwd, 20)
+    fwd_bwd_ms = time_ms(
+        lambda: torch.autograd.grad(lib_fwd(), leaves, grad_out), 20)
+    steps = int(lengths.sum())
+    flops = 6.0 * g * steps * h * 4 * h
+    n_bytes = 4 * (3 * args[0].numel() + 2 * xp.numel() + 2 * w_hh.numel()
+                   + B)
+    bound_ms, bound_by = bound(n_bytes, flops)
+    return {
+        "name": "lstm_scan_backward", "route": "cuda",
+        "source": "gcn_tpu_torch/csrc/lstm_scan_backward.cu",
+        "replaces": "gcn_tpu/ops/pallas/lstm_scan.py:262",
+        "shape": {"T": t, "G": g, "B": B, "H": h, "sum_len": steps},
+        "max_abs_err": abs_errs["f32"], "errs": errs,
+        "tol": {"f32": TOL_BWD, "bf16": TOL_BF16}, "ok": ok,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": fwd_bwd_ms - fwd_ms,
+        "library": "torch.nn.LSTM (cuDNN) bidirectional, packed, D=360, "
+                   "forward+backward minus forward",
+        "library_fwd_ms": fwd_ms, "library_fwd_bwd_ms": fwd_bwd_ms,
+    }
+
+
+def check_gmm_backward(torch, rng, dev, gs) -> list[dict]:
+    from gcn_tpu_torch.ops import grouped_matmul as mod
+
+    r = gs.shape[0]
+    m, h = 2 * B * N_BUCKET, 200
+    out = []
+    for t in (400, 200):
+        x = torch.tensor(rng.uniform(-1, 1, (m, t)), dtype=torch.float32,
+                         device=dev)
+        s = torch.tensor(rng.randn(r, t, h) / np.sqrt(t), dtype=torch.float32,
+                         device=dev)
+        g = torch.tensor(rng.randn(m, h) * 0.1, dtype=torch.float32,
+                         device=dev)
+        errs, abs_err = {}, 0.0
+        for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            args = (x.to(dtype), g.to(dtype), s.to(dtype), gs)
+            got = mod.grouped_matmul_backward(*args)
+            want = mod.grouped_matmul_backward_plain(*args)
+            errs[name] = max(scaled_err(a, b) for a, b in zip(got, want))
+            if name == "f32":
+                abs_err = max(max_err(a, b) for a, b in zip(got, want))
+            if bool(got[1][gs == 0].any()):
+                fail("grouped_matmul_backward: dS of an empty group")
+        torch.cuda.synchronize()
+        ms = time_ms(lambda: mod.grouped_matmul_backward(x, g, s, gs), 20)
+        plain_ms = time_ms(
+            lambda: mod.grouped_matmul_backward_plain(x, g, s, gs), 10)
+        # yardstick only (the port never calls it): torch._grouped_mm's
+        # autograd backward, forward+backward minus forward, where it runs
+        # in f32
+        offs = torch.cumsum(gs, 0, dtype=torch.int32)
+        grouped_mm = getattr(torch, "_grouped_mm", None)
+        library_ms, library_note = None, "torch._grouped_mm is absent"
+        if grouped_mm is not None:
+            xr = x.clone().requires_grad_()
+            sr = s.clone().requires_grad_()
+            try:
+                fwd_ms = time_ms(lambda: grouped_mm(xr, sr, offs=offs), 20)
+                fwd_bwd_ms = time_ms(lambda: torch.autograd.grad(
+                    grouped_mm(xr, sr, offs=offs), [xr, sr], g), 20)
+                library_ms = fwd_bwd_ms - fwd_ms
+                library_note = ("torch._grouped_mm f32 autograd, "
+                                "forward+backward minus forward")
+            except (RuntimeError, NotImplementedError) as e:
+                library_note = f"not measured: {str(e)[:200]}"
+        used = int((gs > 0).sum())
+        n_bytes = 4 * (2 * x.numel() + g.numel() + 2 * used * t * h + r)
+        bound_ms, bound_by = bound(n_bytes, 4.0 * m * t * h)
+        out.append({
+            "name": f"grouped_matmul_backward_T{t}", "route": "cuda",
+            "source": "gcn_tpu_torch/csrc/grouped_matmul_backward.cu",
+            "replaces": "gcn_tpu/ops/pallas/grouped_matmul.py:208",
+            "shape": {"M": m, "T": t, "H": h, "R": r, "groups_used": used},
+            "max_abs_err": abs_err, "errs": errs,
+            "tol": {"f32": TOL_BWD, "bf16": TOL_BF16},
+            "ok": errs["f32"] <= TOL_BWD and errs["bf16"] <= TOL_BF16,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "library": library_note,
         })
     return out
 
@@ -361,6 +533,169 @@ def run_slice(torch, dev, real, synth, vocab_size: int) -> dict:
 
 
 
+# ----------------------------------------------------------------- train
+KERNEL_GROUPS = (  # device time by category, matched on kernel names
+    ("scan forward kernel", ("lstm_scan_fwd_kernel",)),
+    ("scan backward kernels", ("lstm_scan_bwd_kernel", "lstm_dw_kernel")),
+    ("grouped matmul forward kernel", ("grouped_matmul_fwd_kernel",)),
+    ("grouped matmul backward kernels", ("grouped_matmul_dx_kernel",
+                                         "grouped_matmul_ds_kernel")),
+    ("copies", ("Memcpy", "Memset")),
+    ("library matmuls", ("gemm", "cublas", "cutlass", "xmma")),
+)
+
+
+def device_time(torch, fn) -> dict:
+    """Run ``fn`` under ``torch.profiler``: the device's busy ms by
+    category and its ten longest kernels, or ``None`` where the trace
+    holds no device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_cat = {name: 0.0 for name, _ in KERNEL_GROUPS}
+    by_cat["other kernels (elementwise, reductions, optimizer)"] = 0.0
+    by_name: dict = {}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = evt.time_range.elapsed_us() / 1e3
+        by_name[evt.name] = by_name.get(evt.name, 0.0) + ms
+        for cat, keys in KERNEL_GROUPS:
+            if any(k.lower() in evt.name.lower() for k in keys):
+                by_cat[cat] += ms
+                break
+        else:
+            by_cat["other kernels (elementwise, reductions, optimizer)"] += ms
+    if not by_name:
+        return None
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {"busy_ms": sum(by_name.values()), "by_category_ms": by_cat,
+            "top_kernels_ms": {k[:90]: v for k, v in top}}
+
+
+def params_err(a, b) -> float:
+    """Largest parameter difference of two trainers, each over
+    max(1, max |p|)."""
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    return max(max_err(sa[k].cpu(), sb[k].cpu())
+               / max(1.0, float(sb[k].abs().max())) for k in sb)
+
+
+def run_train(torch, dev, real_train, synth_train, vocab_size) -> dict:
+    from gcn_tpu_torch.config import cgcn_preset
+    from gcn_tpu_torch.models.gcn import GCNClassifier, init_params
+    from gcn_tpu_torch.ops import grouped_matmul, lstm_scan
+    from gcn_tpu_torch.train.trainer import Trainer
+
+    base = {"model.vocab_size": vocab_size, "train.batch_size": B,
+            "train.effective_batch_size": B}
+    cfg = cgcn_preset(**base)
+    plain_cfg = cgcn_preset(**base, **{"model.rnn_impl": "scan",
+                                       "model.deprel_factored": "ragged"})
+    nodrop_cfg = cgcn_preset(**base, **{"model.input_dropout": 0.0,
+                                        "model.rnn_dropout": 0.0,
+                                        "model.gcn_dropout": 0.0})
+    if cfg.train.update_gap != 1 or cfg.train.optim != "sgd":
+        fail("the train slice expects one sgd step per batch")
+    model = GCNClassifier(cfg.model)
+    init_params(model, torch.Generator().manual_seed(SEED))
+    state = model.state_dict()
+    kernels = {"lstm_scan_forward": lstm_scan.KERNEL,
+               "lstm_scan_backward": lstm_scan.BACKWARD_KERNEL,
+               "grouped_matmul_forward": grouped_matmul.KERNEL,
+               "grouped_matmul_backward": grouped_matmul.BACKWARD_KERNEL}
+    batches = real_train + synth_train
+    tr = Trainer(cfg, state, device=dev)
+
+    # the main path, counted
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [tr.update(b) for b in batches]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    for name, count in launches.items():
+        if count == 0:
+            fail(f"kernel {name} was not launched on the train path")
+    losses = [float(l) for l in losses]
+    if not all(np.isfinite(losses)):
+        fail(f"non-finite training loss: {losses}")
+
+    # kernels against the plain versions on the card: same weights, seed
+    # and batches, so the same dropout masks
+    a = Trainer(cfg, state, device=dev)
+    p = Trainer(plain_cfg, state, device=dev)
+    loss_err = 0.0
+    for b in batches[:3]:
+        la, lp = float(a.update(b)), float(p.update(b))
+        loss_err = max(loss_err, abs(la - lp) / abs(lp))
+    param_err = params_err(a, p)
+    # dropout off: one step on the card against one on the CPU
+    c = Trainer(nodrop_cfg, state, device=dev)
+    cpu = Trainer(nodrop_cfg, state, device="cpu")
+    lc, lcpu = float(c.update(real_train[0])), float(cpu.update(real_train[0]))
+    cpu_loss_err = abs(lc - lcpu) / abs(lcpu)
+    cpu_param_err = params_err(c, cpu)
+    if max(loss_err, param_err, cpu_loss_err, cpu_param_err) > TOL_TRAIN:
+        fail(f"trainers disagree: plain on the card loss {loss_err} params "
+             f"{param_err}; cpu loss {cpu_loss_err} params {cpu_param_err}")
+
+    # the loss falls on one fixed batch
+    f = Trainer(cfg, state, device=dev)
+    fall = [float(f.update(real_train[0])) for _ in range(TRAIN_STEPS_FALL)]
+    if not np.mean(fall[-5:]) < np.mean(fall[:5]):
+        fail(f"the loss did not fall on a fixed batch: {fall}")
+
+    # speed at N=96: host wall time per step, the device's timeline span
+    # (CUDA events around the epoch) and its busy time (profiler)
+    def epoch():
+        for b in synth_train:
+            tr.update(b)
+
+    epoch()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        epoch()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    span_ms = time_ms(epoch, 3, warmup=0)
+    busy = device_time(torch, epoch)
+    steps = len(synth_train)
+    n_sent = sum(int(b["example_mask"].sum()) for b in synth_train)
+    wall = min(walls)
+    return {
+        "phase": "train", "steps": len(batches),
+        "batches": {"real": len(real_train), "synthetic_n96": steps},
+        "launches": launches,
+        "launches_per_step": {k: v / len(batches)
+                              for k, v in launches.items()},
+        "first_pass_s": first_s, "losses": losses,
+        "plain_card": {"loss_rel_err": loss_err, "param_err": param_err,
+                       "steps": 3},
+        "cpu_no_dropout": {"loss_rel_err": cpu_loss_err,
+                           "param_err": cpu_param_err, "steps": 1},
+        "tol": TOL_TRAIN, "fixed_batch_losses": fall,
+        "ms_per_step_n96": wall / steps * 1e3,
+        "walls_s": walls,
+        "sentences_per_s_n96": n_sent / wall,
+        "device_span_ms_per_step_n96": span_ms / steps,
+        "device_busy_ms_per_step_n96": (
+            None if busy is None else busy["busy_ms"] / steps),
+        "device_time_per_step_n96": None if busy is None else {
+            "by_category_ms": {k: v / steps for k, v in
+                               busy["by_category_ms"].items()},
+            "top_kernels_ms": {k: v / steps for k, v in
+                               busy["top_kernels_ms"].items()}},
+    }
+
+
 def main() -> int:
     import torch
 
@@ -386,7 +721,9 @@ def main() -> int:
           "python": sys.version.split()[0]})
 
     t0 = time.perf_counter()
-    report = _cuda.build_all([lstm_scan.KERNEL, grouped_matmul.KERNEL])
+    report = _cuda.build_all([lstm_scan.KERNEL, lstm_scan.BACKWARD_KERNEL,
+                              grouped_matmul.KERNEL,
+                              grouped_matmul.BACKWARD_KERNEL])
     build_s = time.perf_counter() - t0
     emit({"phase": "build", "seconds": build_s,
           "per_kernel_s": {k: v["seconds"] for k, v in report.items()},
@@ -398,9 +735,12 @@ def main() -> int:
     vocab = Vocab.load(os.path.join(HERE, "dataset", "vocab", "vocab.pkl"))
     from gcn_tpu_torch.config import cgcn_preset
 
-    real, synth = load_batches(cgcn_preset(), vocab, rng)
-    rows = [check_lstm(torch, rng, dev)] + check_gmm(torch, rng, dev,
-                                                      synth[0])
+    real, synth, real_train, synth_train = load_batches(cgcn_preset(), vocab,
+                                                        rng)
+    gs = band_group_sizes(torch, synth[0], dev)
+    rows = ([check_lstm(torch, rng, dev)] + check_gmm(torch, rng, dev, gs)
+            + [check_lstm_backward(torch, rng, dev)]
+            + check_gmm_backward(torch, rng, dev, gs))
     for row in rows:
         emit({"phase": "kernel", **row})
     bad = [r["name"] for r in rows if not r["ok"]]
@@ -409,15 +749,29 @@ def main() -> int:
 
     sl = run_slice(torch, dev, real, synth, vocab.size)
     emit(sl)
+    tr = run_train(torch, dev, real_train, synth_train, vocab.size)
+    emit(tr)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    by_kernel = {"lstm_scan_forward": "lstm_scan",
-                 "grouped_matmul_forward_T400": "grouped_matmul",
-                 "grouped_matmul_forward_T200": "grouped_matmul"}
+    kernel_of = {"lstm_scan_forward": "lstm_scan_forward",
+                 "grouped_matmul_forward_T400": "grouped_matmul_forward",
+                 "grouped_matmul_forward_T200": "grouped_matmul_forward",
+                 "lstm_scan_backward": "lstm_scan_backward",
+                 "grouped_matmul_backward_T400": "grouped_matmul_backward",
+                 "grouped_matmul_backward_T200": "grouped_matmul_backward"}
+    eval_launches = {"lstm_scan_forward": sl["launches"]["lstm_scan"],
+                     "grouped_matmul_forward":
+                         sl["launches"]["grouped_matmul"]}
+    line = []
     for row in rows:
-        row["launches"] = sl["launches"][by_kernel[row["name"]]]
-    emit({"kernels": [{k: row[k] for k in keys} for row in rows]})
+        kernel = kernel_of[row["name"]]
+        row["launches"] = tr["launches"][kernel]
+        line.append({**{k: row[k] for k in keys},
+                     "launches_per_train_step":
+                         tr["launches_per_step"][kernel],
+                     "launches_eval_path": eval_launches.get(kernel, 0)})
+    emit({"kernels": line})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

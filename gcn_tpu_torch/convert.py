@@ -1,4 +1,4 @@
-"""Carry a flax parameter tree across to the port's ``state_dict``.
+"""Carry a flax parameter tree across to the port's ``state_dict`` and back.
 
 ``gcn_tpu.models.gcn.GCNClassifier.init`` gives ``{'params': {...}}`` with
 nested dicts (``rnn``, ``mlp0``, ``classifier``); the port's modules use
@@ -7,11 +7,13 @@ separator::
 
     word_emb, pos_emb, ner_emb, deprel_emb
     rnn/l{i}_{fwd,bwd}_{w_ih,w_hh,b_ih,b_hh}   → rnn.l{i}_...
-    gcn_deprel_w{l}, gcn_deprel_b{l}
+    gcn_deprel_w{l}, gcn_deprel_b{l}    (gcn_deprel_w, gcn_deprel_b when
+                                        deprel_shared_w is set)
     mlp{i}/{kernel,bias}, classifier/{kernel,bias}
 
 The tree holds numpy arrays (``jax.device_get`` of the params), so this
-module needs neither JAX nor flax.
+module needs neither JAX nor flax.  ``params_to_jax`` is the inverse, so
+that parameters can be compared after training steps on both sides.
 """
 
 from __future__ import annotations
@@ -40,3 +42,16 @@ def params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
 
     walk(tree, "")
     return out
+
+
+def params_to_jax(state_dict: Mapping) -> dict:
+    """The inverse of ``params_from_jax``: a ``{'params': {...}}`` tree of
+    f32 numpy arrays, nested at each ``.`` of the ``state_dict`` names."""
+    tree: dict = {}
+    for name, value in state_dict.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = value.detach().to("cpu", torch.float32).numpy().copy()
+    return {"params": tree}

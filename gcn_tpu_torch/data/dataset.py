@@ -9,13 +9,19 @@ unpacked ``Batcher``), giving the same numpy batch dicts:
 * batches padded to the smallest length bucket ≥ their longest sentence,
   and on the batch axis with an ``example_mask``.
 
-Only what evaluation needs is here: file order, no word dropout.  Training
-order, cross-sentence packing and BERT inputs are not ported yet.
+Training batches follow the JAX ``Batcher`` bit for bit: one
+``random.Random(seed)`` shuffle at construction, an optional stable sort by
+length bucket, fixed chunks every epoch, and word→UNK dropout re-drawn at
+every materialization from one ``np.random.RandomState(seed)`` in the same
+call order (never re-dropping an UNK).  Evaluation batches keep file order
+and drop no words.  Cross-sentence packing and BERT inputs are not ported
+yet.
 """
 
 from __future__ import annotations
 
 import json
+import random
 from dataclasses import dataclass
 from typing import Iterator
 
@@ -101,13 +107,29 @@ class RelationDataset:
 
 
 class Batcher:
-    """Chunk a dataset, in file order, into static-shape padded batches."""
+    """Chunk a dataset into static-shape padded batches: shuffled once and
+    with word dropout for training, in file order and without for
+    evaluation (``evaluation=True``)."""
 
-    def __init__(self, dataset: RelationDataset, batch_size: int):
+    def __init__(self, dataset: RelationDataset, batch_size: int,
+                 evaluation: bool = False, seed: int = 1234,
+                 length_buckets=None, pad_batches: bool = True,
+                 group_by_length: bool = False):
         self.ds = dataset
         self.batch_size = batch_size
-        self.length_buckets = sorted(dataset.cfg.data.length_buckets)
+        self.evaluation = evaluation
+        self.rng = np.random.RandomState(seed)
+        self.pad_batches = pad_batches
+        self.length_buckets = sorted(
+            length_buckets or dataset.cfg.data.length_buckets)
         order = list(range(len(dataset)))
+        if not evaluation:
+            random.Random(seed).shuffle(order)
+        if group_by_length:
+            order = sorted(order, key=lambda i: self._bucket_len(
+                dataset.examples[i].length))
+        self.order = order
+        self.num_examples = len(order)
         self.gold_labels = [
             dataset.id2label[dataset.examples[i].relation] for i in order
         ]
@@ -134,7 +156,7 @@ class Batcher:
 
     def materialize(self, chunk: list[int]) -> dict[str, np.ndarray]:
         exs = [self.ds.examples[i] for i in chunk]
-        pad_b = self.batch_size
+        pad_b = self.batch_size if self.pad_batches else len(exs)
         n = self._bucket_len(max(e.length for e in exs))
         e_cap = n  # a tree over n tokens has < n edges
 
@@ -153,9 +175,16 @@ class Batcher:
         edge_deprel = np.zeros((pad_b, e_cap), dtype=np.int32)
         edge_mask = np.zeros((pad_b, e_cap), dtype=bool)
 
+        word_do = 0.0 if self.evaluation else self.ds.cfg.train.word_dropout
         for b, ex in enumerate(exs):
             L = ex.length
-            words[b, :L] = ex.words
+            w = ex.words
+            if word_do > 0:
+                # UNK substitution, never re-dropping an existing UNK
+                drop = (self.rng.random_sample(L) < word_do) & (
+                    w != constants.UNK_ID)
+                w = np.where(drop, constants.UNK_ID, w)
+            words[b, :L] = w
             pos[b, :L] = ex.pos
             ner[b, :L] = ex.ner
             deprel[b, :L] = ex.deprel

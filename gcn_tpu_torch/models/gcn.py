@@ -1,10 +1,14 @@
-"""The C-GCN relation classifier, evaluation forward.
+"""The C-GCN relation classifier.
 
 Counterpart of ``gcn_tpu.models.gcn.GCNClassifier`` for the configuration
 the repo ships as ``cgcn_preset``: embeddings → BiLSTM → ``full_deprel``
-GCN layers on the factored path → pooling → MLP → logits.  Deterministic
-mode only (no dropout), unpacked batches, f32.  Other modes raise
-``NotImplementedError``.
+GCN layers on the factored path → pooling → MLP → logits, differentiable
+end to end.  ``deterministic=False`` applies the JAX model's stochastic
+points in its order, each drawn from the caller's ``torch.Generator``:
+embedding dropout, input dropout, the BiLSTM's inter-layer dropout, rnn
+dropout, then per GCN layer edge dropout and deprel forgetting on the
+forward band, the same on the reverse band, and gcn dropout between
+layers.  Unpacked batches, f32.  Other modes raise ``NotImplementedError``.
 
 Parameters keep the flax names and layouts (``word_emb``,
 ``rnn.l0_fwd_w_ih [D, 4H]``, ``gcn_deprel_w0 [D, T, H]``,
@@ -22,6 +26,12 @@ from torch import nn
 from gcn_tpu_torch import constants
 from gcn_tpu_torch.config import ModelConfig
 from gcn_tpu_torch.ops.adjacency import build_adjacency
+from gcn_tpu_torch.ops.dropout import (
+    drop_edges,
+    dropout,
+    embedding_dropout_mask,
+    forget_ids,
+)
 from gcn_tpu_torch.ops.gcn_layers import (
     compose_relation_transforms,
     grouped_bilinear,
@@ -42,7 +52,6 @@ def _check_supported(cfg: ModelConfig) -> None:
         "compute_dtype": cfg.compute_dtype != "float32",
         "use_pallas": cfg.use_pallas is True,
         "graph_partition": cfg.graph_partition != "none",
-        "deprel_shared_w": cfg.deprel_shared_w,
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
@@ -67,10 +76,11 @@ class BiLSTM(nn.Module):
     """Parameter container for ``ops.lstm.bilstm`` (``l{i}_{fwd,bwd}_*``)."""
 
     def __init__(self, in_dim: int, hidden: int, num_layers: int,
-                 impl: str):
+                 impl: str, dropout_rate: float):
         super().__init__()
         self.num_layers = num_layers
         self.impl = impl
+        self.dropout_rate = dropout_rate
         for li in range(num_layers):
             for d in ("fwd", "bwd"):
                 shapes = {"w_ih": (in_dim, 4 * hidden),
@@ -82,14 +92,16 @@ class BiLSTM(nn.Module):
                         nn.Parameter(torch.empty(shape)))
             in_dim = 2 * hidden
 
-    def forward(self, x, lengths):
+    def forward(self, x, lengths, deterministic=True, generator=None):
         params = [
             {d: {k: getattr(self, f"l{li}_{d}_{k}")
                  for k in ("w_ih", "w_hh", "b_ih", "b_hh")}
              for d in ("fwd", "bwd")}
             for li in range(self.num_layers)
         ]
-        return bilstm(params, x, lengths, impl=self.impl)
+        return bilstm(params, x, lengths, impl=self.impl,
+                      inter_dropout=self.dropout_rate,
+                      deterministic=deterministic, generator=generator)
 
 
 class GCNClassifier(nn.Module):
@@ -110,17 +122,28 @@ class GCNClassifier(nn.Module):
                 torch.empty(len(constants.NER_TO_ID), cfg.ner_dim))
         in_dim = cfg.emb_dim + cfg.pos_dim + cfg.ner_dim
         self.rnn = BiLSTM(in_dim, cfg.rnn_hidden, cfg.rnn_layers,
-                          impl=cfg.rnn_impl)
+                          impl=cfg.rnn_impl, dropout_rate=cfg.rnn_dropout)
         self.deprel_emb = nn.Parameter(
             torch.empty(len(constants.DEPREL_TO_ID), d))
-        for l in range(cfg.num_layers):
-            t_l = 2 * cfg.rnn_hidden if l == 0 else cfg.hidden_dim
-            self.register_parameter(
-                f"gcn_deprel_w{l}",
-                nn.Parameter(torch.empty(d, t_l, cfg.hidden_dim)))
-            self.register_parameter(
-                f"gcn_deprel_b{l}",
-                nn.Parameter(torch.empty(d, cfg.hidden_dim)))
+        t0 = 2 * cfg.rnn_hidden
+        if cfg.deprel_shared_w:
+            # the reference's one W for every layer
+            if cfg.num_layers > 1 and t0 != cfg.hidden_dim:
+                raise ValueError(
+                    "deprel_shared_w requires gcn_input_dim == hidden_dim "
+                    "for stacked layers")
+            self.gcn_deprel_w = nn.Parameter(
+                torch.empty(d, t0, cfg.hidden_dim))
+            self.gcn_deprel_b = nn.Parameter(torch.empty(d, cfg.hidden_dim))
+        else:
+            for l in range(cfg.num_layers):
+                t_l = t0 if l == 0 else cfg.hidden_dim
+                self.register_parameter(
+                    f"gcn_deprel_w{l}",
+                    nn.Parameter(torch.empty(d, t_l, cfg.hidden_dim)))
+                self.register_parameter(
+                    f"gcn_deprel_b{l}",
+                    nn.Parameter(torch.empty(d, cfg.hidden_dim)))
         fan_in = 3 * cfg.hidden_dim
         for i in range(cfg.mlp_layers):
             setattr(self, f"mlp{i}", TorchDense(fan_in, cfg.hidden_dim))
@@ -128,14 +151,21 @@ class GCNClassifier(nn.Module):
         self.classifier = TorchDense(fan_in, cfg.num_class)
 
     def deprel_weights(self, l: int):
+        if self.cfg.deprel_shared_w:
+            return self.gcn_deprel_w, self.gcn_deprel_b
         return (getattr(self, f"gcn_deprel_w{l}"),
                 getattr(self, f"gcn_deprel_b{l}"))
 
     def _bilinear_impl(self) -> str:
         return "ragged" if self.cfg.deprel_factored == "ragged" else "auto"
 
-    def forward(self, batch: dict):
+    def forward(self, batch: dict, deterministic: bool = True,
+                generator=None):
+        """``deterministic=False`` draws every dropout mask from
+        ``generator`` (a ``torch.Generator`` on the batch's device)."""
         cfg = self.cfg
+        if not deterministic and generator is None:
+            raise ValueError("a stochastic forward needs a generator")
         words = batch["words"]
         n = words.shape[1]
         adj = build_adjacency(batch["edge_parent"], batch["edge_child"],
@@ -143,6 +173,10 @@ class GCNClassifier(nn.Module):
 
         # embeddings (padding_idx=0 semantics for words)
         word_vecs = self.word_emb[words]
+        mult = embedding_dropout_mask(words, cfg.vocab_size, cfg.emb_dropout,
+                                      deterministic, generator)
+        if mult is not None:
+            word_vecs = word_vecs * mult
         word_vecs = word_vecs.masked_fill((words == 0)[..., None], 0.0)
         embs = [word_vecs]
         if cfg.pos_dim > 0:
@@ -150,14 +184,19 @@ class GCNClassifier(nn.Module):
         if cfg.ner_dim > 0:
             embs.append(self.ner_emb[batch["ner"]])
         h = torch.cat(embs, dim=2)
-        h = self.rnn(h, batch["lengths"])
+        h = dropout(h, cfg.input_dropout, deterministic, generator)
+        h = self.rnn(h, batch["lengths"], deterministic, generator)
+        h = dropout(h, cfg.rnn_dropout, deterministic, generator)
 
         # GCN stack: per-layer factored full_deprel aggregation
         deprel = batch["deprel"]
         plans: dict = {}
         for l in range(cfg.num_layers):
-            axw = self._full_deprel_factored(h, adj, deprel, l, plans)
+            axw = self._full_deprel_factored(h, adj, deprel, l, plans,
+                                             deterministic, generator)
             h = torch.relu(axw / adj.denom)
+            if l < cfg.num_layers - 1:
+                h = dropout(h, cfg.gcn_dropout, deterministic, generator)
 
         h_out = pool(h, adj.pool_mask, cfg.pooling)
         subj_out = pool(h, ~batch["subj_mask"], cfg.pooling)
@@ -176,7 +215,19 @@ class GCNClassifier(nn.Module):
                                table.new_zeros((1, d))], dim=0)
         return compose_relation_transforms(table_aug, w, b)
 
-    def _full_deprel_factored(self, h, adj, deprel, l, plans):
+    def _group_plan(self, plans, key, ids, n_groups, deterministic):
+        """The sort plan, shared across layers when the relation ids cannot
+        differ between them (no deprel forgetting in this forward)."""
+        reusable = deterministic or self.cfg.deprel_keep_prop >= 1.0
+        if reusable and key in plans:
+            return plans[key]
+        plan = make_group_plan(ids, n_groups)
+        if reusable:
+            plans[key] = plan
+        return plan
+
+    def _full_deprel_factored(self, h, adj, deprel, l, plans, deterministic,
+                              generator):
         cfg = self.cfg
         w, b = self.deprel_weights(l)
         r = self.deprel_emb.shape[0]
@@ -185,30 +236,34 @@ class GCNClassifier(nn.Module):
         s, bs = self._factored_tables(w, b)
         impl = self._bilinear_impl()
 
-        # forward band: id 0 (padding) takes the all-zeros row; past
-        # deprel_max_depth every token takes the all-ones row
-        ids_f = torch.where(deprel == 0, zero_id, deprel)
-        if past_depth:
-            ids_f = torch.full_like(ids_f, ones_id)
+        def band_ids(ids):
+            # forgetting → the all-ones row; past deprel_max_depth every
+            # token takes the all-ones row
+            ids = forget_ids(ids, ones_id, cfg.deprel_keep_prop,
+                             deterministic, generator)
+            return torch.full_like(ids, ones_id) if past_depth else ids
+
+        # forward band: id 0 (padding) takes the all-zeros row
+        a_f = drop_edges(adj.forward, cfg.edge_keep_prob, deterministic,
+                         generator)
+        ids_f = band_ids(torch.where(deprel == 0, zero_id, deprel))
         if not cfg.deprel_directed:
-            ids_r = deprel + constants.DEPREL_FORWARD_BOUND
-            if past_depth:
-                ids_r = torch.full_like(ids_r, ones_id)
+            a_r = drop_edges(adj.reverse, cfg.edge_keep_prob, deterministic,
+                             generator)
+            ids_r = band_ids(deprel + constants.DEPREL_FORWARD_BOUND)
             # both bands share S: one grouped matmul over the stacked bands
             ids2 = torch.cat([ids_f, ids_r], dim=0)
-            key = ("stk", past_depth)
-            if key not in plans:
-                plans[key] = make_group_plan(ids2, s.shape[0])
+            plan = self._group_plan(plans, ("stk", past_depth), ids2,
+                                    s.shape[0], deterministic)
             x2 = grouped_bilinear(torch.cat([h, h], dim=0), ids2, s, bs,
-                                  impl=impl, plan=plans[key])
+                                  impl=impl, plan=plan)
             bsz = h.shape[0]
-            out = adj.forward @ x2[:bsz] + adj.reverse @ x2[bsz:]
+            out = a_f @ x2[:bsz] + a_r @ x2[bsz:]
         else:
-            key = ("fwd", past_depth)
-            if key not in plans:
-                plans[key] = make_group_plan(ids_f, s.shape[0])
-            out = adj.forward @ grouped_bilinear(h, ids_f, s, bs, impl=impl,
-                                                 plan=plans[key])
+            plan = self._group_plan(plans, ("fwd", past_depth), ids_f,
+                                    s.shape[0], deterministic)
+            out = a_f @ grouped_bilinear(h, ids_f, s, bs, impl=impl,
+                                         plan=plan)
         if cfg.deprel_self_loop:
             e_self = self.deprel_emb[constants.SELF_LOOP_INDEX]
             if past_depth:
@@ -240,7 +295,8 @@ def init_params(model: GCNClassifier, generator: torch.Generator) -> None:
         uniform(p, 1.0 / math.sqrt(cfg.rnn_hidden))
     normal(model.deprel_emb)
     model.deprel_emb[0] = 0.0
-    for l in range(cfg.num_layers):
+    layers = 1 if cfg.deprel_shared_w else cfg.num_layers
+    for l in range(layers):
         w, b = model.deprel_weights(l)
         bound = 1.0 / math.sqrt(w.shape[1])
         uniform(w, bound)

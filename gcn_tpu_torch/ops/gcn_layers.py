@@ -1,11 +1,17 @@
-"""Factored full_deprel operators (evaluation forward).
+"""Factored full_deprel operators.
 
 Counterpart of the factored path of ``gcn_tpu.ops.gcn_layers``.  The
 per-token bilinear transform ``out[m] = Σ_d e[m,d]·(h[m] @ W[d] + b[d])``
 with ``e = table[ids]`` is linear in ``e``, so it equals
 ``h[m] @ S[ids[m]] + bias[ids[m]]`` with the composed per-relation
 matrices ``S[r] = Σ_d table[r,d]·W[d]``: sort the tokens by relation, one
-grouped matmul, un-sort.
+grouped matmul, un-sort.  Every step is differentiable: the grouped
+matmul through its ``autograd.Function`` (the backward kernels), the sort
+and un-sort through ``permute_rows``, whose backward is the opposite gather
+(JAX's ``permute_rows`` VJP; torch's own indexing backward would
+scatter-add through a sort), the bias gather as a one-hot matmul whose
+backward is ``onehotᵀ @ g`` (as in JAX), and ``S`` and the table through
+autograd of the composition.
 """
 
 from __future__ import annotations
@@ -14,10 +20,7 @@ from typing import NamedTuple
 
 import torch
 
-from gcn_tpu_torch.ops.grouped_matmul import (
-    grouped_matmul,
-    grouped_matmul_plain,
-)
+from gcn_tpu_torch.ops.grouped_matmul import grouped_matmul_fn
 
 
 def compose_relation_transforms(table, w, b):
@@ -30,30 +33,54 @@ class GroupPlan(NamedTuple):
     perm: torch.Tensor         # [M] sorted position → token row
     inv_perm: torch.Tensor     # [M] token row → sorted position
     group_sizes: torch.Tensor  # [R] int32 tokens per relation
-    ids: torch.Tensor          # [M] relation id per token row
+    onehot: torch.Tensor       # [M, R] f32 relation of each token row
 
 
 def make_group_plan(ids, n_groups: int) -> GroupPlan:
-    """Sort plan over the flattened relation ids (stable, as in JAX)."""
+    """Sort plan over the flattened relation ids (stable, as in JAX); the
+    one-hot rows carry the bias gather and give the group sizes by a
+    reduction (no host sync on the card)."""
     flat = ids.reshape(-1).long()
     perm = torch.argsort(flat, stable=True)
     inv_perm = torch.argsort(perm, stable=True)
-    group_sizes = torch.bincount(flat, minlength=n_groups).to(torch.int32)
-    return GroupPlan(perm, inv_perm, group_sizes, flat)
+    onehot = torch.nn.functional.one_hot(flat, n_groups).float()
+    group_sizes = onehot.sum(dim=0).to(torch.int32)
+    return GroupPlan(perm, inv_perm, group_sizes, onehot)
+
+
+class PermuteRows(torch.autograd.Function):
+    """``x[perm]`` whose backward gathers the cotangent by ``inv_perm``."""
+
+    @staticmethod
+    def forward(ctx, x, perm, inv_perm):
+        ctx.save_for_backward(inv_perm)
+        return x[perm]
+
+    @staticmethod
+    def backward(ctx, g):
+        (inv_perm,) = ctx.saved_tensors
+        return g[inv_perm], None, None
+
+
+def permute_rows(x, perm, inv_perm):
+    """Rows of x reordered by the permutation ``perm`` (differentiable)."""
+    return PermuteRows.apply(x, perm, inv_perm)
 
 
 def grouped_bilinear(h, ids, s, bs, impl: str = "auto", plan=None):
     """``out[b,n] = h[b,n] @ S[ids[b,n]] + bias[ids[b,n]]``; h [B, N, T],
     ids [B, N], s [R, T, H], bs [R, H] → [B, N, H].  ``impl``: "auto" /
-    "pallas" = the grouped-matmul kernel on CUDA tensors, "ragged" = its
-    plain version."""
+    "pallas" = the grouped-matmul kernels on CUDA tensors, "ragged" = their
+    plain versions."""
     b_sz, n, t = h.shape
     if plan is None:
         plan = make_group_plan(ids, s.shape[0])
-    gmm = grouped_matmul_plain if impl == "ragged" else grouped_matmul
-    h_sorted = h.reshape(b_sz * n, t)[plan.perm].contiguous()
-    out = gmm(h_sorted, s.contiguous(), plan.group_sizes)[plan.inv_perm]
-    return (out + bs[plan.ids]).reshape(b_sz, n, s.shape[-1])
+    h_sorted = permute_rows(h.reshape(b_sz * n, t), plan.perm,
+                            plan.inv_perm).contiguous()
+    out_sorted = grouped_matmul_fn(h_sorted, s.contiguous(), plan.group_sizes,
+                                   use_kernel=impl != "ragged")
+    out = permute_rows(out_sorted, plan.inv_perm, plan.perm)
+    return (out + plan.onehot @ bs).reshape(b_sz, n, s.shape[-1])
 
 
 def self_loop_traverse(h, e_self, w, b):

@@ -1,10 +1,14 @@
 """Masked LSTM scan: G independent LSTMs advanced in lockstep over T steps.
 
-Counterpart of ``gcn_tpu.ops.pallas.lstm_scan`` (forward only).  On a CUDA
-tensor ``lstm_scan_forward`` launches the hand-written kernel in
-``csrc/lstm_scan.cu``; on a CPU tensor it runs ``lstm_scan_plain``, the
-same function as a Python loop over t.  Layouts are the JAX kernel's:
-``xp [T, G, B, 4H]`` (gate order i, f, g, o), ``w_hh [G, H, 4H]``.
+Counterpart of ``gcn_tpu.ops.pallas.lstm_scan``.  On a CUDA tensor
+``lstm_scan_forward`` launches the hand-written kernel in
+``csrc/lstm_scan.cu`` and ``lstm_scan_backward`` the one in
+``csrc/lstm_scan_backward.cu`` (full BPTT and dW_hh); on a CPU tensor they
+run ``lstm_scan_plain`` and ``lstm_scan_backward_plain``, the same
+functions as Python loops over t.  ``lstm_scan`` ties them together as a
+``torch.autograd.Function``, as ``jax.custom_vjp`` ties the Pallas kernels.
+Layouts are the JAX kernel's: ``xp [T, G, B, 4H]`` (gate order i, f, g, o),
+``w_hh [G, H, 4H]``.
 """
 
 from __future__ import annotations
@@ -22,6 +26,12 @@ KERNEL = CudaKernel("lstm_scan.cu", {
 })
 _SYMBOL = {torch.float32: "lstm_scan_forward_f32",
            torch.bfloat16: "lstm_scan_forward_bf16"}
+BACKWARD_KERNEL = CudaKernel("lstm_scan_backward.cu", {
+    name: [_P] * 10 + [_I] * 4 + [_P]
+    for name in ("lstm_scan_backward_f32", "lstm_scan_backward_bf16")
+})
+_BACKWARD_SYMBOL = {torch.float32: "lstm_scan_backward_f32",
+                    torch.bfloat16: "lstm_scan_backward_bf16"}
 
 
 def lstm_scan_plain(xp, lengths, w_hh, keep=None):
@@ -51,19 +61,16 @@ def lstm_scan_plain(xp, lengths, w_hh, keep=None):
     return (torch.stack(hs).to(xp.dtype), torch.stack(cs).to(xp.dtype))
 
 
-def lstm_scan_forward(xp, lengths, w_hh, keep=None):
-    """(h_states, c_states) [T, G, B, H] of the masked LSTM scan: the CUDA
-    kernel for CUDA tensors, ``lstm_scan_plain`` for CPU tensors."""
-    if xp.device.type == "cpu":
-        return lstm_scan_plain(xp, lengths, w_hh, keep)
+def _check(fname, xp, lengths, w_hh, keep, states=()):
+    """Device, type, shape and contiguity checks of the CUDA wrappers."""
     if xp.device.type != "cuda":
-        raise ValueError(f"lstm_scan_forward: unsupported device {xp.device}")
+        raise ValueError(f"{fname}: unsupported device {xp.device}")
     if xp.dim() != 4 or xp.shape[-1] % 4:
         raise ValueError(f"xp must be [T, G, B, 4H], got {tuple(xp.shape)}")
     t_dim, g_dim, b, h4 = xp.shape
     hd = h4 // 4
     if xp.dtype not in _SYMBOL:
-        raise TypeError(f"lstm_scan_forward: unsupported dtype {xp.dtype}")
+        raise TypeError(f"{fname}: unsupported dtype {xp.dtype}")
     if w_hh.dtype != xp.dtype or tuple(w_hh.shape) != (g_dim, hd, h4):
         raise ValueError(f"w_hh must be [{g_dim}, {hd}, {h4}] {xp.dtype}, "
                          f"got {tuple(w_hh.shape)} {w_hh.dtype}")
@@ -72,13 +79,26 @@ def lstm_scan_forward(xp, lengths, w_hh, keep=None):
     if keep is not None and (keep.dtype != torch.float32
                              or tuple(keep.shape) != (t_dim, g_dim, b)):
         raise ValueError("keep must be [T, G, B] float32")
-    operands = [xp, lengths, w_hh] + ([keep] if keep is not None else [])
-    for a in operands:
+    for name, a, dtype in states:
+        if a.dtype != dtype or tuple(a.shape) != (t_dim, g_dim, b, hd):
+            raise ValueError(f"{name} must be [{t_dim}, {g_dim}, {b}, {hd}] "
+                             f"{dtype}, got {tuple(a.shape)} {a.dtype}")
+    operands = [xp, lengths, w_hh] + [a for _, a, _ in states]
+    for a in operands + ([keep] if keep is not None else []):
         if a.device != xp.device:
-            raise ValueError(
-                "lstm_scan_forward: operands on different devices")
+            raise ValueError(f"{fname}: operands on different devices")
         if not a.is_contiguous():
-            raise ValueError("lstm_scan_forward: operands must be contiguous")
+            raise ValueError(f"{fname}: operands must be contiguous")
+    return t_dim, g_dim, b, hd
+
+
+def lstm_scan_forward(xp, lengths, w_hh, keep=None):
+    """(h_states, c_states) [T, G, B, H] of the masked LSTM scan: the CUDA
+    kernel for CUDA tensors, ``lstm_scan_plain`` for CPU tensors."""
+    if xp.device.type == "cpu":
+        return lstm_scan_plain(xp, lengths, w_hh, keep)
+    t_dim, g_dim, b, hd = _check("lstm_scan_forward", xp, lengths, w_hh,
+                                 keep)
     h_out = torch.empty((t_dim, g_dim, b, hd), dtype=xp.dtype,
                         device=xp.device)
     c_out = torch.empty_like(h_out)
@@ -92,3 +112,113 @@ def lstm_scan_forward(xp, lengths, w_hh, keep=None):
             torch.cuda.current_stream(xp.device).cuda_stream,
         )
     return h_out, c_out
+
+
+def lstm_scan_backward_plain(gy, xp, lengths, w_hh, h, c, keep=None):
+    """Plain PyTorch version of the full-BPTT backward: (dxp [T, G, B, 4H],
+    dw_hh [G, H, 4H]), both f32.  ``gy`` [T, G, B, H] f32 must be zero at
+    ``t >= length``; ``h``/``c`` are the forward's states.  Gates are
+    recomputed from ``xp + h_prev @ w_hh``; frozen rows pass dh/dc through
+    to t-1; ``keep[t]`` scales h_prev, c_prev and the cotangent sent back."""
+    t_dim, g_dim, b, h4 = xp.shape
+    hd = h4 // 4
+    w = w_hh.float()
+    w_t = w.transpose(1, 2)
+    dh = xp.new_zeros((g_dim, b, hd), dtype=torch.float32)
+    dc = torch.zeros_like(dh)
+    dw = xp.new_zeros((g_dim, hd, h4), dtype=torch.float32)
+    dxp = xp.new_empty((t_dim, g_dim, b, h4), dtype=torch.float32)
+    for t in reversed(range(t_dim)):
+        if t > 0:
+            h_prev, c_prev = h[t - 1].float(), c[t - 1].float()
+        else:
+            h_prev, c_prev = torch.zeros_like(dh), torch.zeros_like(dh)
+        kp = keep[t].float()[:, :, None] if keep is not None else None
+        if kp is not None:
+            h_prev, c_prev = h_prev * kp, c_prev * kp
+        gates = xp[t].float() + torch.bmm(h_prev, w)
+        i, f, g, o = gates.split(hd, dim=-1)
+        i, f, g, o = (torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g),
+                      torch.sigmoid(o))
+        dh_tot = dh + gy[t].float()
+        tc = torch.tanh(c[t].float())
+        dc_all = dc + dh_tot * o * (1.0 - tc * tc)
+        dgates = torch.cat([dc_all * g * i * (1.0 - i),
+                            dc_all * c_prev * f * (1.0 - f),
+                            dc_all * i * (1.0 - g * g),
+                            dh_tot * tc * o * (1.0 - o)], dim=-1)
+        valid = (lengths > t)[None, :, None]
+        dgates = torch.where(valid, dgates, 0.0)
+        dh_prev = torch.bmm(dgates, w_t)
+        dc_prev = dc_all * f
+        if kp is not None:
+            dh_prev, dc_prev = dh_prev * kp, dc_prev * kp
+        dh = torch.where(valid, dh_prev, dh_tot)
+        dc = torch.where(valid, dc_prev, dc)
+        dw += torch.bmm(h_prev.transpose(1, 2), dgates)
+        dxp[t] = dgates
+    return dxp, dw
+
+
+def lstm_scan_backward(gy, xp, lengths, w_hh, h, c, keep=None):
+    """(dxp [T, G, B, 4H], dw_hh [G, H, 4H]), both f32: the CUDA kernel for
+    CUDA tensors, ``lstm_scan_backward_plain`` for CPU tensors."""
+    if xp.device.type == "cpu":
+        return lstm_scan_backward_plain(gy, xp, lengths, w_hh, h, c, keep)
+    t_dim, g_dim, b, hd = _check(
+        "lstm_scan_backward", xp, lengths, w_hh, keep,
+        states=(("gy", gy, torch.float32), ("h", h, xp.dtype),
+                ("c", c, xp.dtype)))
+    dxp = torch.empty((t_dim, g_dim, b, 4 * hd), dtype=torch.float32,
+                      device=xp.device)
+    dw = torch.zeros((g_dim, hd, 4 * hd), dtype=torch.float32,
+                     device=xp.device)
+    if dxp.numel() == 0:
+        return dxp, dw
+    w_hh_t = w_hh.transpose(1, 2).contiguous()
+    with torch.cuda.device(xp.device):
+        BACKWARD_KERNEL.launch(
+            _BACKWARD_SYMBOL[xp.dtype], gy.data_ptr(), xp.data_ptr(),
+            h.data_ptr(), c.data_ptr(), w_hh.data_ptr(), w_hh_t.data_ptr(),
+            keep.data_ptr() if keep is not None else None,
+            lengths.data_ptr(), dxp.data_ptr(), dw.data_ptr(), t_dim, g_dim,
+            b, hd, torch.cuda.current_stream(xp.device).cuda_stream,
+        )
+    return dxp, dw
+
+
+class LstmScan(torch.autograd.Function):
+    """``(h_states, c_states)`` of the masked scan with the full-BPTT
+    backward (``_lstm_scan_core`` of the JAX package); ``c_states`` is not
+    differentiable.  ``use_kernel=False`` runs the plain versions both ways
+    on any device (the JAX package's ``rnn_impl="scan"`` skips its kernel
+    likewise)."""
+
+    @staticmethod
+    def forward(ctx, xp, lengths, w_hh, keep, use_kernel):
+        fwd = lstm_scan_forward if use_kernel else lstm_scan_plain
+        h, c = fwd(xp, lengths, w_hh, keep)
+        ctx.save_for_backward(xp, lengths, w_hh, h, c, keep)
+        ctx.use_kernel = use_kernel
+        ctx.mark_non_differentiable(c)
+        return h, c
+
+    @staticmethod
+    def backward(ctx, gy, _gc):
+        xp, lengths, w_hh, h, c, keep = ctx.saved_tensors
+        # frozen rows copy h[t-1]: their cotangent reaches t-1 through the
+        # carry inside the backward, so gy must be zero past the length
+        tpos = torch.arange(gy.shape[0], device=gy.device)[:, None, None, None]
+        gy = torch.where(tpos < lengths[None, None, :, None], gy.float(),
+                         0.0).contiguous()
+        bwd = lstm_scan_backward if ctx.use_kernel else \
+            lstm_scan_backward_plain
+        dxp, dw = bwd(gy, xp, lengths, w_hh, h, c, keep)
+        return dxp.to(xp.dtype), None, dw.to(w_hh.dtype), None, None
+
+
+def lstm_scan(xp, lengths, w_hh, keep=None, use_kernel: bool = True):
+    """Differentiable h_states [T, G, B, H] of the masked scan (see
+    ``LstmScan``)."""
+    h, _ = LstmScan.apply(xp, lengths, w_hh, keep, use_kernel)
+    return h

@@ -54,6 +54,16 @@ class Evaluator:
         model.load_state_dict(state_dict)
         self.model = model.to(self.device).eval()
 
+    @classmethod
+    def for_model(cls, cfg: Config, model: GCNClassifier) -> "Evaluator":
+        """An evaluator over an existing model (the trainer's), sharing its
+        parameters and device."""
+        ev = cls.__new__(cls)
+        ev.cfg = cfg
+        ev.device = next(model.parameters()).device
+        ev.model = model
+        return ev
+
     @torch.no_grad()
     def _eval_core(self, batch: dict):
         """(probs [B, C], loss) for one device batch."""

@@ -9,7 +9,9 @@ Every test here needs a card and skips where there is none.  It also holds
 the seeded input makers that tests/test_torch_port_kernels.py feeds to the
 JAX kernels.  Tolerances: 1e-5 absolute (LSTM) and 1e-4 absolute + 1e-5
 relative (grouped matmul, sums of 24 products) in f32; bf16 outputs within
-2e-2 (one bf16 rounding step at |y| < 2).
+2e-2 (one bf16 rounding step at |y| < 2).  The backward kernels: 1e-4 of
+max(1, max |reference|) in f32 (BPTT sums up to T·4H products per dW
+entry in another order) and 1e-2 of it in bf16.
 """
 
 import numpy as np
@@ -21,6 +23,7 @@ from gcn_tpu_torch.models.gcn import GCNClassifier, init_params
 from gcn_tpu_torch.ops import grouped_matmul as gmm_mod
 from gcn_tpu_torch.ops import lstm_scan as lstm_mod
 from gcn_tpu_torch.train.evaluator import Evaluator, batch_to_device
+from gcn_tpu_torch.train.trainer import Trainer
 
 GMM_CASES = ["random", "empty_groups", "one_group", "straddle_tile",
              "rows_past_sum"]
@@ -54,6 +57,72 @@ def gmm_case(name):
     x = rng.randn(m, t).astype(np.float32)
     s = rng.randn(gs.shape[0], t, h).astype(np.float32)
     return x, s, gs.astype(np.int32)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the port's tests: their tensors are small,
+    and the suite runs several workers at once, where torch's default pool
+    of one thread per core oversubscribes the cores (a CPU test took 20×
+    as long beside five busy processes)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def scaled_err(got, want) -> float:
+    """max |got - want| over max(1, max |want|)."""
+    want = want.float()
+    return float((got.float() - want).abs().max()) / max(
+        1.0, float(want.abs().max()))
+
+
+def lstm_backward_inputs(rng, dtype, device, with_keep, t=12, g=2, b=6,
+                         h=8):
+    """Forward states and a data-dependent cotangent, zero past length."""
+    xp, lengths, w_hh, keep = lstm_inputs(rng, t, g, b, h)
+    xp_t = torch.from_numpy(xp).to(device, dtype)
+    w_t = torch.from_numpy(w_hh).to(device, dtype)
+    len_t = torch.from_numpy(lengths).to(device)
+    keep_t = torch.from_numpy(keep).to(device) if with_keep else None
+    hs, cs = lstm_mod.lstm_scan_plain(xp_t, len_t, w_t, keep_t)
+    gy = hs.float() * torch.from_numpy(rng.randn(t, g, b, h).astype(
+        np.float32)).to(device)
+    tpos = torch.arange(t, device=device)[:, None, None, None]
+    gy = torch.where(tpos < len_t[None, None, :, None], gy, 0.0)
+    return gy.contiguous(), xp_t, len_t, w_t, hs, cs, keep_t
+
+
+def small_cfg(**extra):
+    return cgcn_preset(**{"model.emb_dim": 16, "model.pos_dim": 4,
+                          "model.ner_dim": 4, "model.hidden_dim": 16,
+                          "model.rnn_hidden": 8, "model.deprel_emb_dim": 6,
+                          "model.vocab_size": 30, **extra})
+
+
+def random_batch(rng, b=6, n=16, vocab=30):
+    """A padded batch of random trees over ``vocab`` word ids."""
+    lengths = rng.randint(4, n + 1, b).astype(np.int32)
+    valid = np.arange(n)[None, :] < lengths[:, None]
+    parent = np.zeros((b, n), np.int32)
+    child = np.zeros((b, n), np.int32)
+    for i, length in enumerate(lengths):
+        child[i, :length - 1] = np.arange(1, length)
+        parent[i, :length - 1] = [rng.randint(0, c) for c in range(1, length)]
+    return {
+        "words": np.where(valid, rng.randint(2, vocab, (b, n)), 0),
+        "pos": np.where(valid, rng.randint(2, 40, (b, n)), 0),
+        "ner": np.where(valid, rng.randint(2, 14, (b, n)), 0),
+        "deprel": np.where(valid, rng.randint(2, 42, (b, n)), 0),
+        "lengths": lengths,
+        "subj_mask": np.eye(b, n, dtype=bool),
+        "obj_mask": np.eye(b, n, 2, dtype=bool),
+        "edge_parent": parent, "edge_child": child,
+        "edge_mask": np.arange(n)[None, :] < (lengths - 1)[:, None],
+        "labels": rng.randint(0, 42, b).astype(np.int32),
+        "example_mask": np.ones(b, bool),
+    }
 
 
 @pytest.fixture
@@ -116,34 +185,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
 def test_evaluator_on_card_matches_cpu(cuda_device):
     """A small C-GCN: the kernel path on the card against the plain path
     on the CPU, logits within 1e-4 on every row of a random batch."""
-    cfg = cgcn_preset(**{"model.emb_dim": 16, "model.pos_dim": 4,
-                         "model.ner_dim": 4, "model.hidden_dim": 16,
-                         "model.rnn_hidden": 8, "model.deprel_emb_dim": 6,
-                         "model.vocab_size": 30})
+    cfg = small_cfg()
     model = GCNClassifier(cfg.model)
     init_params(model, torch.Generator().manual_seed(0))
-    rng = np.random.RandomState(0)
-    b, n = 6, 16
-    lengths = rng.randint(4, n + 1, b).astype(np.int32)
-    valid = np.arange(n)[None, :] < lengths[:, None]
-    parent = np.zeros((b, n), np.int32)
-    child = np.zeros((b, n), np.int32)
-    for i, length in enumerate(lengths):
-        child[i, :length - 1] = np.arange(1, length)
-        parent[i, :length - 1] = [rng.randint(0, c) for c in range(1, length)]
-    batch = {
-        "words": np.where(valid, rng.randint(2, 30, (b, n)), 0),
-        "pos": np.where(valid, rng.randint(2, 40, (b, n)), 0),
-        "ner": np.where(valid, rng.randint(2, 14, (b, n)), 0),
-        "deprel": np.where(valid, rng.randint(2, 42, (b, n)), 0),
-        "lengths": lengths,
-        "subj_mask": np.eye(b, n, dtype=bool),
-        "obj_mask": np.eye(b, n, 2, dtype=bool),
-        "edge_parent": parent, "edge_child": child,
-        "edge_mask": np.arange(n)[None, :] < (lengths - 1)[:, None],
-        "labels": rng.randint(0, 42, b).astype(np.int32),
-        "example_mask": np.ones(b, bool),
-    }
+    batch = random_batch(np.random.RandomState(0))
     state = model.state_dict()
     card = Evaluator(cfg, state, device=cuda_device)
     cpu = Evaluator(cfg, state, device="cpu")
@@ -154,3 +199,61 @@ def test_evaluator_on_card_matches_cpu(cuda_device):
     assert lstm_mod.KERNEL.launches == launches[0] + 1
     assert gmm_mod.KERNEL.launches == launches[1] + cfg.model.num_layers
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_keep", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_backward_kernel_matches_plain(cuda_device, dtype, with_keep):
+    args = lstm_backward_inputs(np.random.RandomState(9), dtype, cuda_device,
+                                with_keep, t=20, b=19, h=24)
+    launches = lstm_mod.BACKWARD_KERNEL.launches
+    got = lstm_mod.lstm_scan_backward(*args)
+    want = lstm_mod.lstm_scan_backward_plain(*args)
+    assert lstm_mod.BACKWARD_KERNEL.launches == launches + 1
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32
+        assert scaled_err(a, b) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", GMM_CASES)
+def test_grouped_matmul_backward_kernel_matches_plain(cuda_device, name):
+    x, s, gs = (torch.from_numpy(a).to(cuda_device) for a in gmm_case(name))
+    g = torch.from_numpy(np.random.RandomState(3).randn(
+        x.shape[0], s.shape[2]).astype(np.float32)).to(cuda_device)
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+        args = (x.to(dtype), g.to(dtype), s.to(dtype), gs)
+        launches = gmm_mod.BACKWARD_KERNEL.launches
+        dx, ds = gmm_mod.grouped_matmul_backward(*args)
+        assert gmm_mod.BACKWARD_KERNEL.launches == launches + 1
+        want_dx, want_ds = gmm_mod.grouped_matmul_backward_plain(*args)
+        assert dx.dtype == dtype and ds.dtype == torch.float32
+        assert scaled_err(dx, want_dx) <= tol
+        assert scaled_err(ds, want_ds) <= tol
+        assert not bool(ds[gs == 0].any())
+
+
+@pytest.mark.cuda
+def test_trainer_on_card_matches_cpu(cuda_device):
+    """Dropout off: three steps with the kernels on the card against the
+    plain versions on the CPU, losses and parameters within 1e-4."""
+    cfg = small_cfg(**{"model.input_dropout": 0.0, "model.rnn_dropout": 0.0,
+                       "model.gcn_dropout": 0.0})
+    model = GCNClassifier(cfg.model)
+    init_params(model, torch.Generator().manual_seed(0))
+    state = model.state_dict()
+    card = Trainer(cfg, state, device=cuda_device)
+    cpu = Trainer(cfg, state, device="cpu")
+    launches = [k.launches for k in (lstm_mod.BACKWARD_KERNEL,
+                                     gmm_mod.BACKWARD_KERNEL)]
+    rng = np.random.RandomState(1)
+    for _ in range(3):
+        batch = random_batch(rng)
+        got, want = float(card.update(batch)), float(cpu.update(batch))
+        assert abs(got - want) <= 1e-4 * max(1.0, abs(want))
+    assert lstm_mod.BACKWARD_KERNEL.launches == launches[0] + 3
+    assert gmm_mod.BACKWARD_KERNEL.launches == launches[1] + 3 * 2
+    for k, v in cpu.model.state_dict().items():
+        assert scaled_err(card.model.state_dict()[k].cpu(), v) <= 1e-4, k

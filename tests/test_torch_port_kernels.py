@@ -22,7 +22,12 @@ from gcn_tpu.ops.pallas.lstm_scan import _run_forward
 from gcn_tpu_torch.ops import grouped_matmul as gmm_mod
 from gcn_tpu_torch.ops import lstm_scan as lstm_mod
 from gcn_tpu_torch.ops.lstm import bilstm
-from tests.test_torch_port_cuda import GMM_CASES, gmm_case, lstm_inputs
+from tests.test_torch_port_cuda import (  # noqa: F401
+    GMM_CASES,
+    gmm_case,
+    lstm_inputs,
+    one_torch_thread,
+)
 
 ATOL = 1e-5
 

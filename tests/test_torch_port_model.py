@@ -41,6 +41,7 @@ from gcn_tpu_torch.data.vocab import Vocab
 from gcn_tpu_torch.models.gcn import GCNClassifier, init_params
 from gcn_tpu_torch.train import scorer
 from gcn_tpu_torch.train.evaluator import Evaluator, batch_to_device
+from tests.test_torch_port_cuda import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(REPO, "dataset", "tacred")
@@ -72,7 +73,8 @@ def _batches(jcfg, tcfg, split="test", bs=8):
                      JaxVocab.load(VOCAB), evaluation=True)
     tds = RelationDataset(os.path.join(DATA, f"{split}.json"), tcfg,
                           Vocab.load(VOCAB))
-    return JaxBatcher(jds, bs, evaluation=True), Batcher(tds, bs)
+    return (JaxBatcher(jds, bs, evaluation=True),
+            Batcher(tds, bs, evaluation=True))
 
 
 @pytest.mark.parametrize("split", ["train", "dev", "test"])
@@ -147,8 +149,7 @@ def test_init_params_match_jax_distributions():
 def test_unsupported_modes_raise():
     for ov in ({"model.adj_type": "regular"}, {"model.rnn": False},
                {"model.compute_dtype": "bfloat16"},
-               {"model.deprel_factored": False},
-               {"model.deprel_shared_w": True}):
+               {"model.deprel_factored": False}):
         _, tcfg = _configs(**ov)
         with pytest.raises(NotImplementedError):
             GCNClassifier(tcfg.model)

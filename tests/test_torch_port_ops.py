@@ -15,6 +15,7 @@ from gcn_tpu.ops import pooling as jpool
 from gcn_tpu.ops.lstm import _reverse_by_length as jax_reverse
 from gcn_tpu_torch.ops import adjacency, gcn_layers, pooling
 from gcn_tpu_torch.ops.lstm import _reverse_by_length
+from tests.test_torch_port_cuda import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 
