@@ -1,31 +1,47 @@
 #!/usr/bin/env python3
-"""Drive the port's C-GCN evaluation and training paths on one NVIDIA GPU.
+"""Drive the port's C-GCN and paper-GCN paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases, one JSON line each:
 
 1. device — the card's name, count and power limit;
-2. build  — ``nvcc`` builds every kernel of both paths from
+2. build  — ``nvcc`` builds every kernel source of the paths from
    ``gcn_tpu_torch/csrc``, one process per source, in parallel;
 3. kernel — each kernel (the scan and the grouped matmul, forward and
-   backward) against its plain PyTorch version on the card at the main
-   path's shapes: max error and its tolerance, median time by CUDA events,
+   backward; the band aggregation and its pair backward; the fused GCN
+   layer and its sym-pair backward) against its plain PyTorch version on
+   the card at the main paths' shapes: max error and its tolerance, median
+   time by CUDA events (for the edge-list kernels, of tens of
+   microseconds, by a replayed CUDA graph of the call, and also eagerly),
    the plain version's time, one PyTorch library call's time as a
    yardstick, and the kernel's bound at the card's peak rates;
-4. slice  — ``Evaluator`` at full ``cgcn_preset`` widths (random weights
+4. slice  — for each path, ``Evaluator`` at full widths (random weights
    from a seeded ``torch.Generator``) over B=50 batches of the in-repo
    TACRED JSON and of synthetic sentences at the N=96 bucket, all through
    the port's own loader.  The same forward with the plain versions on the
-   card and on the CPU must agree; every forward kernel must have launched;
-5. train  — ``Trainer.update`` at the same widths (sgd 0.3, clip 5,
-   pooling_l2 0.003, word dropout 0.04, dropouts 0.5) over the training
-   batches of the in-repo train split and of the synthetic sentences.  All
-   four kernels must have launched; a trainer on the plain versions on the
-   card, from the same weights and seed, must follow it for 3 steps; with
-   dropout off one step on the card must match one on the CPU; the loss
-   on one fixed batch must fall over 20 steps; and ms per step,
-   sentences/s and the device's busy time by kernel are measured at N=96.
+   card (for the edge-list layers: the dense bands from
+   ``build_adjacency`` and ``bmm``, which the fused layers' plain versions
+   compute) and on the CPU must agree, and on a fused path the same
+   weights on the dense bands with the scan and grouped-matmul kernels
+   too.  Every kernel's count is read: each forward kernel of the path
+   must have launched (an edge-list kernel once per layer and forward),
+   and no other kernel at all;
+5. train  — for each path, ``Trainer.update`` at the same widths (sgd 0.3,
+   clip 5, pooling_l2 0.003, the preset's dropouts) over the training
+   batches of the in-repo train split and of the synthetic sentences.
+   Every kernel of the path must have launched (the edge-list kernels once
+   per layer and step), and no other; a trainer on the plain versions on
+   the card, from the same weights and seed, must follow it for 3 steps;
+   with dropout off one step on the card must match one on the CPU; the
+   loss on one fixed batch must fall over 20 steps; and ms per step,
+   sentences/s, the device's busy time by kernel and the device memory
+   one step adds are measured at N=96.
+
+The paths: ``cgcn`` (``cgcn_preset``: BiLSTM, factored full_deprel on
+dense bands), ``cgcn_fused`` (the same with ``use_pallas=True``: the band
+aggregation kernels) and ``gcn_fused`` (``gcn_preset`` with
+``use_pallas=True``: the paper's GCN on the fused layer kernels).
 
 Then one line with every kernel's numbers, the ``nvidia-smi`` name and
 power limit, and the last line ``{"ok": true, "device": {...}}``.  Any
@@ -91,6 +107,35 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, reps: int = 50) -> float:
+    """Milliseconds per call of ``fn`` on the device alone: the call
+    captured once in a CUDA graph and replayed ``reps`` times between one
+    pair of events, so no Python or launch overhead sits between the
+    kernels.  For kernels of tens of microseconds, where one event pair
+    around an eager call (``time_ms``) also times the host's wrapper."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up outside the capture
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def bound(n_bytes: float, flops: float) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES * 1e3
     t_ops = flops / PEAK_F32_FLOPS * 1e3
@@ -101,7 +146,8 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def rel_err(a, b) -> float:
+def scaled_err(a, b) -> float:
+    """max |a - b| over max(1, max |b|)."""
     return max_err(a, b) / max(1.0, float(b.float().abs().max()))
 
 
@@ -209,7 +255,7 @@ def check_lstm(torch, rng, dev) -> dict:
     xb, wb = xp.bfloat16(), w_hh.bfloat16()
     hk, ck = mod.lstm_scan_forward(xb, lengths, wb)
     hp, cp = mod.lstm_scan_plain(xb, lengths, wb)
-    errs["bf16"] = max(rel_err(hk, hp), rel_err(ck, cp))
+    errs["bf16"] = max(scaled_err(hk, hp), scaled_err(ck, cp))
     torch.cuda.synchronize()
     ok = (errs["f32"] <= TOL_F32 and errs["f32_keep"] <= TOL_F32
           and errs["bf16"] <= TOL_BF16)
@@ -267,7 +313,7 @@ def check_gmm(torch, rng, dev, gs) -> list[dict]:
                          device=dev)
         err = max_err(mod.grouped_matmul(x, s, gs),
                       mod.grouped_matmul_plain(x, s, gs))
-        err_bf16 = rel_err(mod.grouped_matmul(x.bfloat16(), s.bfloat16(), gs),
+        err_bf16 = scaled_err(mod.grouped_matmul(x.bfloat16(), s.bfloat16(), gs),
                            mod.grouped_matmul_plain(x.bfloat16(),
                                                     s.bfloat16(), gs))
         torch.cuda.synchronize()
@@ -299,11 +345,6 @@ def check_gmm(torch, rng, dev, gs) -> list[dict]:
             "library": "torch._grouped_mm f32",
         })
     return out
-
-
-def scaled_err(a, b) -> float:
-    """max |a - b| over max(1, max |b|)."""
-    return max_err(a, b) / max(1.0, float(b.float().abs().max()))
 
 
 def check_lstm_backward(torch, rng, dev) -> dict:
@@ -447,62 +488,298 @@ def check_gmm_backward(torch, rng, dev, gs) -> list[dict]:
     return out
 
 
+def edge_lists(torch, batch, dev):
+    """The edge-list kernels' operands of one batch: parent and child int32
+    and the mask bool, [B, E] on the card."""
+    return (torch.tensor(batch["edge_parent"], dtype=torch.int32, device=dev),
+            torch.tensor(batch["edge_child"], dtype=torch.int32, device=dev),
+            torch.tensor(batch["edge_mask"], dtype=torch.bool, device=dev))
+
+
+def edge_facts(torch, edges, n: int) -> tuple[int, int]:
+    """(bytes of the edge lists, edges that count: mask set, ends in
+    [0, n))."""
+    from gcn_tpu_torch.ops.spmm import valid_edges
+
+    n_bytes = sum(t.numel() * t.element_size() for t in edges)
+    return n_bytes, int(valid_edges(*edges, n).sum())
+
+
+TIMING_GRAPH = ("ms, plain_ms, library_ms: one CUDA graph of the call "
+                "replayed 50 times, L2 warm; eager_ms: median of one event "
+                "pair around each of 20 eager calls, the wrapper included")
+
+
+def check_band(torch, rng, dev, edges) -> list[dict]:
+    """Kernels 5 and 6 at the C-GCN layer's shapes (x [B, 96, 200])."""
+    from gcn_tpu_torch.ops import band_aggregate as mod
+    from gcn_tpu_torch.ops.adjacency import build_adjacency
+
+    b, n, h = edges[0].shape[0], N_BUCKET, 200
+    x_f, x_r, x_s = (torch.tensor(rng.randn(b, n, h), dtype=torch.float32,
+                                  device=dev) for _ in range(3))
+    fwd_errs, fwd_abs = {}, 0.0
+    for relu in (True, False):
+        got = mod.band_aggregate_forward(*edges, x_f, x_r, x_s, relu)
+        want = mod.band_aggregate_plain(*edges, x_f, x_r, x_s, relu)
+        fwd_errs[f"relu={relu}"] = scaled_err(got, want)
+        fwd_abs = max(fwd_abs, max_err(got, want))
+    got = mod.pair_aggregate(*edges, x_f)
+    want = mod.pair_aggregate_plain(*edges, x_f)
+    pair_err = max(scaled_err(a, w) for a, w in zip(got, want))
+    pair_abs = max(max_err(a, w) for a, w in zip(got, want))
+    torch.cuda.synchronize()
+    # yardstick only (the port never calls it): the dense path's product on
+    # a band built beforehand; the build is timed apart
+    build_ms = graph_ms(lambda: build_adjacency(*edges, n))
+    adj = build_adjacency(*edges, n)
+    band_fr = torch.cat([adj.forward, adj.reverse], dim=2)   # [B, N, 2N]
+    x_fr = torch.cat([x_f, x_r], dim=1)                      # [B, 2N, H]
+    band_tf = torch.cat([adj.reverse, adj.forward], dim=1)   # [B, 2N, N]
+    e_bytes, valid = edge_facts(torch, edges, n)
+    rows = []
+    for name, line, fn, plain, lib, lib_note, err, abs_err, n_bytes, flops \
+            in (
+        ("band_aggregate_forward", 88,
+         lambda: mod.band_aggregate_forward(*edges, x_f, x_r, x_s),
+         lambda: mod.band_aggregate_plain(*edges, x_f, x_r, x_s),
+         lambda: torch.bmm(band_fr, x_fr),
+         "torch.bmm of the prebuilt [A_f | A_f^T] band [B, N, 2N] with "
+         "[x_f; x_r] (no x_s, denom or ReLU)",
+         max(fwd_errs.values()), fwd_abs, 4 * 4 * x_f.numel() + e_bytes,
+         2.0 * valid * h + 3.0 * x_f.numel()),
+        ("band_aggregate_pair", 149,
+         lambda: mod.pair_aggregate(*edges, x_f),
+         lambda: mod.pair_aggregate_plain(*edges, x_f),
+         lambda: torch.bmm(band_tf, x_f),
+         "torch.bmm of the prebuilt [A_f^T; A_f] band [B, 2N, N] with x",
+         pair_err, pair_abs, 3 * 4 * x_f.numel() + e_bytes,
+         2.0 * valid * h),
+    ):
+        bound_ms, bound_by = bound(n_bytes, flops)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "gcn_tpu_torch/csrc/band_aggregate.cu",
+            "replaces": f"gcn_tpu/ops/pallas/band_aggregate.py:{line}",
+            "shape": {"B": b, "N": n, "E": edges[0].shape[1], "H": h,
+                      "valid_edges": valid},
+            "max_abs_err": abs_err,
+            "errs": fwd_errs if name.endswith("forward") else {"f32": err},
+            "tol": {"f32": TOL_F32}, "ok": err <= TOL_F32,
+            "ms": graph_ms(fn), "plain_ms": graph_ms(plain),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": graph_ms(lib), "library": lib_note,
+            "library_band_build_ms": build_ms, "timing": TIMING_GRAPH,
+            "eager_ms": time_ms(fn, 20),
+        })
+    return rows
+
+
+def check_spmm(torch, rng, dev, edges) -> list[dict]:
+    """Kernels 7 and 8 at the paper GCN's two layers' shapes (h [B, 96, T]
+    with T = 360 and 200, W [T, 200])."""
+    from gcn_tpu_torch.ops import spmm_fused as mod
+    from gcn_tpu_torch.ops.adjacency import build_adjacency
+
+    b, n, hd = edges[0].shape[0], N_BUCKET, 200
+    build_ms = graph_ms(lambda: build_adjacency(*edges, n))
+    adj = build_adjacency(*edges, n)
+    s_full = adj.combined + torch.eye(n, device=dev)  # A_f + A_f^T + diag
+    e_bytes, valid = edge_facts(torch, edges, n)
+    rows = []
+    for t in (360, 200):
+        h = torch.tensor(rng.randn(b, n, t), dtype=torch.float32, device=dev)
+        g = torch.tensor(rng.randn(b, n, t), dtype=torch.float32, device=dev)
+        w = torch.tensor(rng.uniform(-1, 1, (t, hd)) / np.sqrt(t),
+                         dtype=torch.float32, device=dev)
+        bias = torch.tensor(rng.uniform(-0.1, 0.1, hd), dtype=torch.float32,
+                            device=dev)
+        got = mod.gcn_spmm_forward(*edges, h, w, bias)
+        want = mod.gcn_spmm_plain(*edges, h, w, bias)
+        fwd_err, fwd_abs = scaled_err(got, want), max_err(got, want)
+        got = mod.sym_pair(*edges, g, h)
+        want = mod.sym_pair_plain(*edges, g, h)
+        pair_err = max(scaled_err(a, w_) for a, w_ in zip(got, want))
+        pair_abs = max(max_err(a, w_) for a, w_ in zip(got, want))
+        torch.cuda.synchronize()
+        gh = torch.cat([g, h], dim=2)
+        gather = 2.0 * valid * t + 2.0 * b * n * t   # S·x of one operand
+        for name, line, fn, plain, lib, lib_note, err, abs_err, n_bytes, \
+                flops in (
+            (f"spmm_fused_forward_T{t}", 88,
+             lambda: mod.gcn_spmm_forward(*edges, h, w, bias),
+             lambda: mod.gcn_spmm_plain(*edges, h, w, bias),
+             lambda: torch.bmm(s_full, h) @ w,
+             "torch.bmm of the prebuilt S = A_f + A_f^T + diag(incident+1) "
+             "band with h, then @ W (two calls; no 2b, denom or ReLU)",
+             fwd_err, fwd_abs,
+             4 * (h.numel() + w.numel() + hd + b * n * hd) + e_bytes,
+             2.0 * b * n * t * hd + gather + 3.0 * b * n * hd),
+            (f"spmm_fused_sym_pair_T{t}", 174,
+             lambda: mod.sym_pair(*edges, g, h),
+             lambda: mod.sym_pair_plain(*edges, g, h),
+             lambda: torch.bmm(s_full, gh),
+             "torch.bmm of the prebuilt S band with [x1 | x2] [B, N, 2T]",
+             pair_err, pair_abs, 4 * 4 * h.numel() + e_bytes, 2 * gather),
+        ):
+            bound_ms, bound_by = bound(n_bytes, flops)
+            rows.append({
+                "name": name, "route": "cuda",
+                "source": "gcn_tpu_torch/csrc/spmm_fused.cu",
+                "replaces": f"gcn_tpu/ops/pallas/spmm_fused.py:{line}",
+                "shape": {"B": b, "N": n, "E": edges[0].shape[1], "T": t,
+                          "H": hd, "valid_edges": valid},
+                "max_abs_err": abs_err, "errs": {"f32": err},
+                "tol": {"f32": TOL_F32}, "ok": err <= TOL_F32,
+                "ms": graph_ms(fn), "plain_ms": graph_ms(plain),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": graph_ms(lib), "library": lib_note,
+                "library_band_build_ms": build_ms, "timing": TIMING_GRAPH,
+                "eager_ms": time_ms(fn, 20),
+            })
+    return rows
+
+
+# ----------------------------------------------------------------- paths
+# The counted main paths: each configuration's preset and overrides, and
+# the kernels its evaluation forward and its train step must launch.
+PATHS = {
+    "cgcn": ("cgcn_preset", {}),
+    "cgcn_fused": ("cgcn_preset", {"model.use_pallas": True}),
+    "gcn_fused": ("gcn_preset", {"model.use_pallas": True}),
+}
+PATH_KERNELS = {
+    "cgcn": (("lstm_scan_forward", "grouped_matmul_forward"),
+             ("lstm_scan_backward", "grouped_matmul_backward")),
+    "cgcn_fused": (("lstm_scan_forward", "grouped_matmul_forward",
+                    "band_aggregate_forward"),
+                   ("lstm_scan_backward", "grouped_matmul_backward",
+                    "band_aggregate_pair")),
+    "gcn_fused": (("spmm_fused_forward",), ("spmm_fused_sym_pair",)),
+}
+# the plain versions: the scan's and the grouped matmul's, and for the
+# edge-list layers the dense bands (``build_adjacency`` + ``bmm``, what
+# their plain versions compute)
+PLAIN = {"model.rnn_impl": "scan", "model.deprel_factored": "ragged",
+         "model.use_pallas": False}
+EDGE_LIST_KERNELS = ("band_aggregate_forward", "band_aggregate_pair",
+                     "spmm_fused_forward", "spmm_fused_sym_pair")
+
+
+def kernel_table() -> dict:
+    """Every kernel of the port by the name its row carries."""
+    from gcn_tpu_torch.ops import band_aggregate, grouped_matmul, lstm_scan
+    from gcn_tpu_torch.ops import spmm_fused
+
+    return {"lstm_scan_forward": lstm_scan.KERNEL,
+            "lstm_scan_backward": lstm_scan.BACKWARD_KERNEL,
+            "grouped_matmul_forward": grouped_matmul.KERNEL,
+            "grouped_matmul_backward": grouped_matmul.BACKWARD_KERNEL,
+            "band_aggregate_forward": band_aggregate.KERNEL,
+            "band_aggregate_pair": band_aggregate.PAIR_KERNEL,
+            "spmm_fused_forward": spmm_fused.KERNEL,
+            "spmm_fused_sym_pair": spmm_fused.SYM_PAIR_KERNEL}
+
+
+def path_config(path: str, **extra):
+    from gcn_tpu_torch import config
+
+    preset, overrides = PATHS[path]
+    return getattr(config, preset)(**{**overrides, **extra})
+
+
+def counted(fn):
+    """Run ``fn`` with every kernel's count set to 0 just before; returns
+    (its result, every count just after)."""
+    import torch
+
+    kernels = kernel_table()
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: k.launches for name, k in kernels.items()}
+
+
+def check_launches(path: str, what: str, launches: dict, expected,
+                   runs: int, num_layers: int) -> dict:
+    """Fail unless every kernel in ``expected`` launched and no other did,
+    and each edge-list kernel of ``expected`` ran once per layer; returns
+    the launches per run (``runs`` forwards or steps)."""
+    for name, count in launches.items():
+        if (count > 0) != (name in expected):
+            role = "belongs to" if name in expected else "is not on"
+            fail(f"{path}: kernel {name} launched {count} times in the "
+                 f"{what}, whose path it {role}")
+    per_run = {k: v / runs for k, v in launches.items()}
+    for name in EDGE_LIST_KERNELS:
+        if name in expected and per_run[name] != num_layers:
+            fail(f"{path}: {name} launched {per_run[name]} times per "
+                 f"{what} run, not once per layer")
+    return per_run
+
+
 # ----------------------------------------------------------------- slice
-def run_slice(torch, dev, real, synth, vocab_size: int) -> dict:
-    from gcn_tpu_torch.config import cgcn_preset
+def run_slice(torch, dev, real, synth, vocab_size: int, path: str) -> dict:
     from gcn_tpu_torch.models.gcn import GCNClassifier, init_params
-    from gcn_tpu_torch.ops import grouped_matmul, lstm_scan
     from gcn_tpu_torch.train.evaluator import Evaluator, batch_to_device
     from gcn_tpu_torch.train.scorer import score
 
-    cfg = cgcn_preset(**{"model.vocab_size": vocab_size})
-    cfg.train.batch_size = B
-    plain_cfg = cgcn_preset(**{"model.vocab_size": vocab_size,
-                               "model.rnn_impl": "scan",
-                               "model.deprel_factored": "ragged"})
+    base = {"model.vocab_size": vocab_size, "train.batch_size": B}
+    cfg = path_config(path, **base)
+    plain_cfg = path_config(path, **base, **PLAIN)
     model = GCNClassifier(cfg.model)
     init_params(model, torch.Generator().manual_seed(SEED))
     state = model.state_dict()
     ev = Evaluator(cfg, state, device=dev)
     ev_plain = Evaluator(plain_cfg, state, device=dev)
-    ev_cpu = Evaluator(plain_cfg, state, device="cpu")
-    kernels = (lstm_scan.KERNEL, grouped_matmul.KERNEL)
+    # on the CPU every kernel's wrapper runs its plain version
+    ev_cpu = Evaluator(cfg, state, device="cpu")
+    fused = cfg.model.use_pallas is True
+    if fused:  # the same weights on the dense bands (use_pallas=False)
+        ev_dense = Evaluator(path_config(path, **base,
+                                         **{"model.use_pallas": False}),
+                             state, device=dev)
 
     # the main path, counted
-    for k in kernels:
-        k.launches = 0
-    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    preds, probs, loss = ev.evaluate(real + synth)
-    torch.cuda.synchronize()
+    (preds, probs, loss), launches = counted(
+        lambda: ev.evaluate(real + synth))
     first_s = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in kernels}
-    for name, count in launches.items():
-        if count == 0:
-            fail(f"kernel {name} was not launched on the main path")
+    per_forward = check_launches(path, "evaluation forward", launches,
+                                 PATH_KERNELS[path][0], len(real + synth),
+                                 cfg.model.num_layers)
     n_sent = sum(int(b["example_mask"].sum()) for b in real + synth)
     if len(preds) != n_sent or not np.isfinite(loss):
-        fail(f"evaluate gave {len(preds)} predictions for {n_sent}, "
+        fail(f"{path}: evaluate gave {len(preds)} predictions for {n_sent}, "
              f"loss {loss}")
 
     # the same forward with the plain versions, on the card and the CPU,
-    # over the batches' valid rows (padded rows pool -1e12 fills)
-    err, err_cpu = 0.0, 0.0
+    # and on the dense bands, over the batches' valid rows (padded rows
+    # pool -1e12 fills)
+    err, err_cpu, err_dense = 0.0, 0.0, 0.0
     with torch.no_grad():
         for i, b in enumerate(real + synth):
             lk, hk = ev.model(batch_to_device(b, dev))
             lp, hp = ev_plain.model(batch_to_device(b, dev))
             if lk.shape != (B, cfg.model.num_class) or not bool(
                     torch.isfinite(lk).all()):
-                fail(f"logits shape {tuple(lk.shape)} or non-finite")
+                fail(f"{path}: logits shape {tuple(lk.shape)} or "
+                     "non-finite")
             valid = torch.from_numpy(b["example_mask"]).to(dev)
             err = max(err, row_err(lk[valid], lp[valid]),
                       row_err(hk[valid], hp[valid]))
+            if fused:
+                ld, hd = ev_dense.model(batch_to_device(b, dev))
+                err_dense = max(err_dense, row_err(lk[valid], ld[valid]),
+                                row_err(hk[valid], hd[valid]))
             if i == 0:
                 lc, _ = ev_cpu.model(batch_to_device(b, "cpu"))
                 err_cpu = row_err(lk[valid].cpu(), lc[valid.cpu()])
-    if err > TOL_SLICE or err_cpu > TOL_SLICE:
-        fail(f"slice logits differ: card plain {err}, cpu {err_cpu}")
+    if max(err, err_cpu, err_dense) > TOL_SLICE:
+        fail(f"{path}: slice logits differ: card plain {err}, cpu "
+             f"{err_cpu}, dense bands {err_dense}")
 
     gold = [l for b in real + synth for l in
             (b["labels"][b["example_mask"]]).tolist()]
@@ -522,15 +799,16 @@ def run_slice(torch, dev, real, synth, vocab_size: int) -> dict:
         return n / best
 
     return {
-        "phase": "slice", "sentences": n_sent,
+        "phase": "slice", "path": path, "sentences": n_sent,
         "batches": {"real": len(real), "synthetic_n96": len(synth)},
-        "launches": launches, "first_pass_s": first_s,
+        "launches": launches, "launches_per_forward": per_forward,
+        "first_pass_s": first_s,
         "row_err_plain_card": err, "row_err_plain_cpu": err_cpu,
+        "row_err_dense_bands": err_dense if fused else None,
         "tol": TOL_SLICE, "loss": loss, "f1_random_weights": f1,
         "sentences_per_s_real": rate(real),
         "sentences_per_s_n96": rate(synth),
     }
-
 
 
 # ----------------------------------------------------------------- train
@@ -540,6 +818,10 @@ KERNEL_GROUPS = (  # device time by category, matched on kernel names
     ("grouped matmul forward kernel", ("grouped_matmul_fwd_kernel",)),
     ("grouped matmul backward kernels", ("grouped_matmul_dx_kernel",
                                          "grouped_matmul_ds_kernel")),
+    ("band aggregate forward kernel", ("band_aggregate_fwd_kernel",)),
+    ("band aggregate pair kernel", ("band_pair_kernel",)),
+    ("fused GCN layer forward kernel", ("spmm_fused_fwd_kernel",)),
+    ("fused GCN layer sym pair kernel", ("spmm_sym_pair_kernel",)),
     ("copies", ("Memcpy", "Memset")),
     ("library matmuls", ("gemm", "cublas", "cutlass", "xmma")),
 )
@@ -584,47 +866,36 @@ def params_err(a, b) -> float:
                / max(1.0, float(sb[k].abs().max())) for k in sb)
 
 
-def run_train(torch, dev, real_train, synth_train, vocab_size) -> dict:
-    from gcn_tpu_torch.config import cgcn_preset
+def run_train(torch, dev, real_train, synth_train, vocab_size,
+              path: str) -> dict:
     from gcn_tpu_torch.models.gcn import GCNClassifier, init_params
-    from gcn_tpu_torch.ops import grouped_matmul, lstm_scan
     from gcn_tpu_torch.train.trainer import Trainer
 
     base = {"model.vocab_size": vocab_size, "train.batch_size": B,
             "train.effective_batch_size": B}
-    cfg = cgcn_preset(**base)
-    plain_cfg = cgcn_preset(**base, **{"model.rnn_impl": "scan",
-                                       "model.deprel_factored": "ragged"})
-    nodrop_cfg = cgcn_preset(**base, **{"model.input_dropout": 0.0,
-                                        "model.rnn_dropout": 0.0,
-                                        "model.gcn_dropout": 0.0})
+    cfg = path_config(path, **base)
+    plain_cfg = path_config(path, **base, **PLAIN)
+    nodrop_cfg = path_config(path, **base, **{"model.input_dropout": 0.0,
+                                              "model.rnn_dropout": 0.0,
+                                              "model.gcn_dropout": 0.0})
     if cfg.train.update_gap != 1 or cfg.train.optim != "sgd":
         fail("the train slice expects one sgd step per batch")
     model = GCNClassifier(cfg.model)
     init_params(model, torch.Generator().manual_seed(SEED))
     state = model.state_dict()
-    kernels = {"lstm_scan_forward": lstm_scan.KERNEL,
-               "lstm_scan_backward": lstm_scan.BACKWARD_KERNEL,
-               "grouped_matmul_forward": grouped_matmul.KERNEL,
-               "grouped_matmul_backward": grouped_matmul.BACKWARD_KERNEL}
     batches = real_train + synth_train
     tr = Trainer(cfg, state, device=dev)
 
     # the main path, counted
-    for k in kernels.values():
-        k.launches = 0
-    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    losses = [tr.update(b) for b in batches]
-    torch.cuda.synchronize()
+    losses, launches = counted(lambda: [tr.update(b) for b in batches])
     first_s = time.perf_counter() - t0
-    launches = {name: k.launches for name, k in kernels.items()}
-    for name, count in launches.items():
-        if count == 0:
-            fail(f"kernel {name} was not launched on the train path")
+    per_step = check_launches(path, "train step", launches,
+                              PATH_KERNELS[path][0] + PATH_KERNELS[path][1],
+                              len(batches), cfg.model.num_layers)
     losses = [float(l) for l in losses]
     if not all(np.isfinite(losses)):
-        fail(f"non-finite training loss: {losses}")
+        fail(f"{path}: non-finite training loss: {losses}")
 
     # kernels against the plain versions on the card: same weights, seed
     # and batches, so the same dropout masks
@@ -642,14 +913,15 @@ def run_train(torch, dev, real_train, synth_train, vocab_size) -> dict:
     cpu_loss_err = abs(lc - lcpu) / abs(lcpu)
     cpu_param_err = params_err(c, cpu)
     if max(loss_err, param_err, cpu_loss_err, cpu_param_err) > TOL_TRAIN:
-        fail(f"trainers disagree: plain on the card loss {loss_err} params "
-             f"{param_err}; cpu loss {cpu_loss_err} params {cpu_param_err}")
+        fail(f"{path}: trainers disagree: plain on the card loss {loss_err} "
+             f"params {param_err}; cpu loss {cpu_loss_err} params "
+             f"{cpu_param_err}")
 
     # the loss falls on one fixed batch
     f = Trainer(cfg, state, device=dev)
     fall = [float(f.update(real_train[0])) for _ in range(TRAIN_STEPS_FALL)]
     if not np.mean(fall[-5:]) < np.mean(fall[:5]):
-        fail(f"the loss did not fall on a fixed batch: {fall}")
+        fail(f"{path}: the loss did not fall on a fixed batch: {fall}")
 
     # speed at N=96: host wall time per step, the device's timeline span
     # (CUDA events around the epoch) and its busy time (profiler)
@@ -667,15 +939,22 @@ def run_train(torch, dev, real_train, synth_train, vocab_size) -> dict:
         walls.append(time.perf_counter() - t)
     span_ms = time_ms(epoch, 3, warmup=0)
     busy = device_time(torch, epoch)
+    # device memory one step adds above what is allocated before it
+    # (activations, saved tensors, gradients): the fused paths keep no
+    # [B, N, N] band
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    tr.update(synth_train[0])
+    torch.cuda.synchronize()
+    peak_mib = (torch.cuda.max_memory_allocated() - before) / 2**20
     steps = len(synth_train)
     n_sent = sum(int(b["example_mask"].sum()) for b in synth_train)
     wall = min(walls)
     return {
-        "phase": "train", "steps": len(batches),
+        "phase": "train", "path": path, "steps": len(batches),
         "batches": {"real": len(real_train), "synthetic_n96": steps},
-        "launches": launches,
-        "launches_per_step": {k: v / len(batches)
-                              for k, v in launches.items()},
+        "launches": launches, "launches_per_step": per_step,
         "first_pass_s": first_s, "losses": losses,
         "plain_card": {"loss_rel_err": loss_err, "param_err": param_err,
                        "steps": 3},
@@ -686,6 +965,7 @@ def run_train(torch, dev, real_train, synth_train, vocab_size) -> dict:
         "walls_s": walls,
         "sentences_per_s_n96": n_sent / wall,
         "device_span_ms_per_step_n96": span_ms / steps,
+        "step_peak_mib_n96": peak_mib,
         "device_busy_ms_per_step_n96": (
             None if busy is None else busy["busy_ms"] / steps),
         "device_time_per_step_n96": None if busy is None else {
@@ -696,6 +976,22 @@ def run_train(torch, dev, real_train, synth_train, vocab_size) -> dict:
     }
 
 
+# the path whose train run gives each kernel's "launches" in the kernels
+# line: the one that brought the kernel in
+HOME_PATH = {"lstm_scan_forward": "cgcn", "lstm_scan_backward": "cgcn",
+             "grouped_matmul_forward": "cgcn",
+             "grouped_matmul_backward": "cgcn",
+             "band_aggregate_forward": "cgcn_fused",
+             "band_aggregate_pair": "cgcn_fused",
+             "spmm_fused_forward": "gcn_fused",
+             "spmm_fused_sym_pair": "gcn_fused"}
+
+
+def kernel_of(row_name: str) -> str:
+    """The kernel a kernel-phase row measures (rows carry a shape suffix)."""
+    return next(k for k in HOME_PATH if row_name.startswith(k))
+
+
 def main() -> int:
     import torch
 
@@ -704,7 +1000,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     from gcn_tpu_torch.data.vocab import Vocab
-    from gcn_tpu_torch.ops import _cuda, grouped_matmul, lstm_scan
+    from gcn_tpu_torch.ops import _cuda
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -721,12 +1017,10 @@ def main() -> int:
           "python": sys.version.split()[0]})
 
     t0 = time.perf_counter()
-    report = _cuda.build_all([lstm_scan.KERNEL, lstm_scan.BACKWARD_KERNEL,
-                              grouped_matmul.KERNEL,
-                              grouped_matmul.BACKWARD_KERNEL])
+    report = _cuda.build_all(list(kernel_table().values()))
     build_s = time.perf_counter() - t0
     emit({"phase": "build", "seconds": build_s,
-          "per_kernel_s": {k: v["seconds"] for k, v in report.items()},
+          "per_source_s": {k: v["seconds"] for k, v in report.items()},
           "ptxas": {k: [l.strip() for l in v["log"].splitlines()
                         if "registers" in l or "spill" in l]
                     for k, v in report.items()}})
@@ -735,42 +1029,45 @@ def main() -> int:
     vocab = Vocab.load(os.path.join(HERE, "dataset", "vocab", "vocab.pkl"))
     from gcn_tpu_torch.config import cgcn_preset
 
+    # cgcn_preset and gcn_preset prune alike (prune_k 1), so both paths
+    # read the same batches
     real, synth, real_train, synth_train = load_batches(cgcn_preset(), vocab,
                                                         rng)
     gs = band_group_sizes(torch, synth[0], dev)
+    edges = edge_lists(torch, synth[0], dev)
     rows = ([check_lstm(torch, rng, dev)] + check_gmm(torch, rng, dev, gs)
             + [check_lstm_backward(torch, rng, dev)]
-            + check_gmm_backward(torch, rng, dev, gs))
+            + check_gmm_backward(torch, rng, dev, gs)
+            + check_band(torch, rng, dev, edges)
+            + check_spmm(torch, rng, dev, edges))
     for row in rows:
         emit({"phase": "kernel", **row})
     bad = [r["name"] for r in rows if not r["ok"]]
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
 
-    sl = run_slice(torch, dev, real, synth, vocab.size)
-    emit(sl)
-    tr = run_train(torch, dev, real_train, synth_train, vocab.size)
-    emit(tr)
+    slices, trains = {}, {}
+    for path in PATHS:
+        slices[path] = run_slice(torch, dev, real, synth, vocab.size, path)
+        emit(slices[path])
+        trains[path] = run_train(torch, dev, real_train, synth_train,
+                                 vocab.size, path)
+        emit(trains[path])
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    kernel_of = {"lstm_scan_forward": "lstm_scan_forward",
-                 "grouped_matmul_forward_T400": "grouped_matmul_forward",
-                 "grouped_matmul_forward_T200": "grouped_matmul_forward",
-                 "lstm_scan_backward": "lstm_scan_backward",
-                 "grouped_matmul_backward_T400": "grouped_matmul_backward",
-                 "grouped_matmul_backward_T200": "grouped_matmul_backward"}
-    eval_launches = {"lstm_scan_forward": sl["launches"]["lstm_scan"],
-                     "grouped_matmul_forward":
-                         sl["launches"]["grouped_matmul"]}
     line = []
     for row in rows:
-        kernel = kernel_of[row["name"]]
-        row["launches"] = tr["launches"][kernel]
+        kernel = kernel_of(row["name"])
+        row["launches"] = trains[HOME_PATH[kernel]]["launches"][kernel]
+        by_path = {
+            path: {"eval_forward":
+                   slices[path]["launches_per_forward"][kernel],
+                   "train_step": trains[path]["launches_per_step"][kernel]}
+            for path in PATHS}
         line.append({**{k: row[k] for k in keys},
-                     "launches_per_train_step":
-                         tr["launches_per_step"][kernel],
-                     "launches_eval_path": eval_launches.get(kernel, 0)})
+                     "launches_path": HOME_PATH[kernel],
+                     "launches_by_path": by_path})
     emit({"kernels": line})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -3,9 +3,10 @@
 Each ``csrc/*.cu`` file exposes a plain ``extern "C"`` interface (no
 PyTorch headers), so it compiles in seconds into its own shared library
 under ``gcn_tpu_torch/_build/``.  The library's name carries a hash of the
-source and the flags: a changed source builds anew, an unchanged one is
-loaded as it is.  A build writes to a temporary name and renames it into
-place, so an interrupted build leaves no lock and no half-written library.
+source, the shared headers (``csrc/*.cuh``) and the flags: a changed
+source or header builds anew, an unchanged one is loaded as it is.  A
+build writes to a temporary name and renames it into place, so an
+interrupted build leaves no lock and no half-written library.
 
 Nothing here runs at import time; the first launch of a kernel builds it,
 and ``build_all`` builds several at once (one ``nvcc`` each, in parallel).
@@ -46,29 +47,33 @@ def _nvcc() -> str:
 
 
 class CudaKernel:
-    """One ``csrc`` source, its exported C functions and a launch count.
+    """One kernel entry of a ``csrc`` source: its exported C functions and
+    a launch count.
 
     ``functions`` maps each exported name to its ctypes argument types;
     every exported launcher returns the ``cudaGetLastError()`` code.
     ``launches`` counts successful launches and is reset by callers that
-    want to know whether a path went through the kernel.
+    want to know whether a path went through the kernel.  Several entries
+    may share one source (``name`` tells them apart); they share its
+    library and count their launches apart.
     """
 
-    def __init__(self, source: str, functions: dict[str, list]):
+    def __init__(self, source: str, functions: dict[str, list],
+                 name: str | None = None):
         self.source = CSRC / source
         self.functions = functions
+        self.name = name or self.source.stem
         self.launches = 0
         self._lib = None
 
-    @property
-    def name(self) -> str:
-        return self.source.stem
-
     def lib_path(self) -> Path:
+        headers = b"".join(h.read_bytes()
+                           for h in sorted(CSRC.glob("*.cuh")))
         digest = hashlib.sha256(
-            self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+            self.source.read_bytes() + headers
+            + " ".join(NVCC_FLAGS).encode()
         ).hexdigest()[:16]
-        return BUILD_DIR / f"lib{self.name}-{digest}.so"
+        return BUILD_DIR / f"lib{self.source.stem}-{digest}.so"
 
     def _start_build(self):
         out = self.lib_path()
@@ -81,6 +86,9 @@ class CudaKernel:
                                 stderr=subprocess.STDOUT, text=True)
         return proc, tmp, out
 
+    def _error_string(self, lib):
+        return getattr(lib, f"{self.source.stem}_error_string")
+
     def load(self):
         if self._lib is None:
             build_all([self])
@@ -89,7 +97,7 @@ class CudaKernel:
                 fn = getattr(lib, fname)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            err = getattr(lib, f"{self.name}_error_string")
+            err = self._error_string(lib)
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
             self._lib = lib
@@ -99,31 +107,35 @@ class CudaKernel:
         lib = self.load()
         rc = getattr(lib, fname)(*args)
         if rc != 0:
-            msg = getattr(lib, f"{self.name}_error_string")(rc).decode()
+            msg = self._error_string(lib)(rc).decode()
             raise RuntimeError(f"{fname}: CUDA error {rc} ({msg})")
         self.launches += 1
 
 
 def build_all(kernels: list[CudaKernel]) -> dict[str, dict]:
-    """Build every kernel that has no library yet, one ``nvcc`` per
-    source, all started together.  Returns, per kernel, the build's
+    """Build every source that has no library yet, one ``nvcc`` per
+    source, all started together.  Returns, per source, the build's
     seconds (0 when the library was already there) and the compiler's
     output (the ``ptxas -v`` register and shared-memory report)."""
     t0 = time.perf_counter()
     started = {}
     try:
+        report = {}
         for k in kernels:
+            stem = k.source.stem
+            if stem in report:
+                continue
+            report[stem] = {"seconds": 0.0, "log": ""}
             job = k._start_build()
             if job is not None:
-                started[k.name] = job
-        report = {k.name: {"seconds": 0.0, "log": ""} for k in kernels}
-        for name, (proc, tmp, out) in started.items():
+                started[stem] = job
+        for stem, (proc, tmp, out) in started.items():
             log, _ = proc.communicate(timeout=NVCC_TIMEOUT_S)
             if proc.returncode != 0:
                 raise RuntimeError(
-                    f"nvcc failed for {name} (rc {proc.returncode}):\n{log}")
+                    f"nvcc failed for {stem} (rc {proc.returncode}):\n{log}")
             os.replace(tmp, out)
-            report[name] = {"seconds": time.perf_counter() - t0, "log": log}
+            report[stem] = {"seconds": time.perf_counter() - t0, "log": log}
     finally:
         for proc, tmp, _ in started.values():
             if proc.poll() is None:

@@ -3,7 +3,9 @@
 Counterpart of ``gcn_tpu.ops.adjacency``: one scatter-add builds the forward
 band ``A_f[b, parent, child]``; the reverse band is its transpose; nodes
 touching an edge get the self loop; ``denom = deg_out + deg_in + incident +
-1``; tokens with no incident edge are excluded from sentence pooling.
+1``; tokens with no incident edge are excluded from sentence pooling.  An edge
+whose parent or child lies outside ``[0, n)`` is dropped, as JAX's scatter
+with ``mode="drop"`` drops it.
 """
 
 from __future__ import annotations
@@ -11,6 +13,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from gcn_tpu_torch.ops.spmm import valid_edges
 
 
 class Adjacency(NamedTuple):
@@ -23,16 +27,26 @@ class Adjacency(NamedTuple):
     def reverse(self) -> torch.Tensor:
         return self.forward.transpose(1, 2)
 
+    @property
+    def combined(self) -> torch.Tensor:
+        """Forward + reverse band + the self loop of every incident node:
+        the reference's 0/1 ``adj_matrix`` of the regular mode."""
+        diag = torch.diag_embed(self.incident.to(self.forward.dtype))
+        return self.forward + self.reverse + diag
+
 
 def build_adjacency(edge_parent, edge_child, edge_mask, n: int,
                     dtype=torch.float32) -> Adjacency:
     """Scatter [B, E] edge lists into the dense forward band.  Padded edge
-    slots carry (0, 0) with mask 0, so they add nothing."""
+    slots carry (0, 0) with mask 0, and an edge with an end outside
+    [0, n) is folded into the mask, so neither adds anything."""
     b = edge_parent.shape[0]
+    vals = valid_edges(edge_parent, edge_child, edge_mask, n).to(dtype)
     flat = (torch.arange(b, device=edge_parent.device)[:, None] * (n * n)
-            + edge_parent.long() * n + edge_child.long())
+            + edge_parent.long().clamp(0, n - 1) * n
+            + edge_child.long().clamp(0, n - 1))
     forward = torch.zeros(b * n * n, dtype=dtype, device=edge_parent.device)
-    forward.index_add_(0, flat.reshape(-1), edge_mask.reshape(-1).to(dtype))
+    forward.index_add_(0, flat.reshape(-1), vals.reshape(-1))
     forward = forward.reshape(b, n, n)
     deg_out = forward.sum(dim=2)
     deg_in = forward.sum(dim=1)

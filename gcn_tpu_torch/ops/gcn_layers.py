@@ -1,6 +1,9 @@
-"""Factored full_deprel operators.
+"""Dense GCN layer operators: the regular mode and factored full_deprel.
 
-Counterpart of the factored path of ``gcn_tpu.ops.gcn_layers``.  The
+Counterpart of ``regular_layer`` and of the factored path of
+``gcn_tpu.ops.gcn_layers``.  ``regular_layer`` is ``((A+I)h)W + 2b`` on a
+prebuilt combined band, plain ``torch.matmul`` as JAX leaves it to XLA.
+The
 per-token bilinear transform ``out[m] = Σ_d e[m,d]·(h[m] @ W[d] + b[d])``
 with ``e = table[ids]`` is linear in ``e``, so it equals
 ``h[m] @ S[ids[m]] + bias[ids[m]]`` with the composed per-relation
@@ -21,6 +24,15 @@ from typing import NamedTuple
 import torch
 
 from gcn_tpu_torch.ops.grouped_matmul import grouped_matmul_fn
+
+
+def regular_layer(h, adj_combined, w, b, no_adj: bool = False):
+    """``W(Ah) + W(h)`` in the fused form ``((A+I)h)W + 2b`` for h
+    [B, N, T], the combined band [B, N, N], W [T, H] and b [H].
+    ``no_adj`` zeroes only the neighbour sum (the caller's denominator
+    keeps the true degrees)."""
+    ax = h if no_adj else adj_combined @ h + h
+    return ax @ w + 2.0 * b
 
 
 def compose_relation_transforms(table, w, b):

@@ -1,0 +1,135 @@
+"""The regular-mode GCN layer from padded edge lists, with no [B, N, N] band.
+
+Counterpart of ``gcn_tpu.ops.pallas.spmm_fused``:
+
+    out = relu((((A_f + A_fᵀ + diag(incident) + I) h) W + 2b) / denom)
+    denom = deg_out + deg_in + incident + 1
+
+On a CUDA tensor ``gcn_spmm_forward`` launches the hand-written kernel in
+``csrc/spmm_fused.cu``, which does the product with W in its own body,
+and ``sym_pair`` (``(S x1, S x2)`` with ``S = A_f + A_fᵀ +
+diag(incident + 1)``, the backward's aggregation) its second kernel; on a
+CPU tensor each runs its plain version (the dense band from
+``build_adjacency``, ``torch.bmm`` and ``torch.matmul``).
+``fused_gcn_spmm`` ties them together as a ``torch.autograd.Function``
+whose backward follows the JAX package's custom VJP: ``gs = g·relu′ /
+denom``, ``db = 2Σgs``, ``gw = gs Wᵀ``, ``(dh, Sh) = sym_pair(gw, h)``,
+``dW = (Sh)ᵀ gs``; the two small products with W are ``torch.matmul``,
+as JAX leaves them to XLA outside its kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from gcn_tpu_torch.ops._cuda import CudaKernel
+from gcn_tpu_torch.ops.adjacency import build_adjacency
+from gcn_tpu_torch.ops.band_aggregate import band_denom, check_edges
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+KERNEL = CudaKernel("spmm_fused.cu", {
+    "spmm_fused_forward_f32": [_P] * 7 + [_I] * 5 + [_P]})
+SYM_PAIR_KERNEL = CudaKernel("spmm_fused.cu", {
+    "spmm_fused_sym_pair_f32": [_P] * 7 + [_I] * 5 + [_P]},
+    name="spmm_fused_sym_pair")
+FORWARD_TILE_BYTES = 4 * (32 * 33 + 32 * 68)  # the forward's fixed tiles
+
+
+def _sym_band(parent, child, mask, n, dtype):
+    """(A_f + A_fᵀ, incident + 1 as [B, N, 1], denom [B, N, 1])."""
+    adj = build_adjacency(parent, child, mask, n, dtype)
+    diag = (adj.incident.to(dtype) + 1.0)[..., None]
+    return adj.forward + adj.reverse, diag, adj.denom
+
+
+def gcn_spmm_plain(parent, child, mask, h, w, b):
+    """Plain PyTorch version: the dense band, ``torch.bmm`` and
+    ``torch.matmul``."""
+    band, diag, denom = _sym_band(parent, child, mask, h.shape[1], h.dtype)
+    ah = torch.bmm(band, h) + diag * h
+    return torch.relu((ah @ w + 2.0 * b) / denom)
+
+
+def gcn_spmm_forward(parent, child, mask, h, w, b):
+    """The fused layer: parent/child [B, E] int32, mask [B, E] bool,
+    h [B, N, T], w [T, H], b [H] f32 → [B, N, H].  The CUDA kernel for
+    CUDA tensors, the plain version for CPU tensors."""
+    if h.device.type == "cpu":
+        return gcn_spmm_plain(parent, child, mask, h, w, b)
+    bsz, n, e = check_edges("gcn_spmm_forward", parent, child, mask, (h,),
+                            extra_smem=FORWARD_TILE_BYTES)
+    t = h.shape[2]
+    if w.dim() != 2 or w.shape[0] != t or b.shape != (w.shape[1],):
+        raise ValueError(f"w must be [{t}, H] and b [H], got "
+                         f"{tuple(w.shape)} and {tuple(b.shape)}")
+    for a in (w, b):
+        if a.dtype != torch.float32 or a.device != h.device \
+                or not a.is_contiguous():
+            raise ValueError("w and b must be contiguous f32 on h's device")
+    hdim = w.shape[1]
+    out = torch.empty((bsz, n, hdim), dtype=h.dtype, device=h.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(h.device):
+        KERNEL.launch(
+            "spmm_fused_forward_f32", parent.data_ptr(), child.data_ptr(),
+            mask.data_ptr(), h.data_ptr(), w.data_ptr(), b.data_ptr(),
+            out.data_ptr(), bsz, n, e, t, hdim,
+            torch.cuda.current_stream(h.device).cuda_stream)
+    return out
+
+
+def sym_pair_plain(parent, child, mask, x1, x2):
+    """Plain PyTorch version of ``sym_pair``."""
+    band, diag, _ = _sym_band(parent, child, mask, x1.shape[1], x1.dtype)
+    return torch.bmm(band, x1) + diag * x1, torch.bmm(band, x2) + diag * x2
+
+
+def sym_pair(parent, child, mask, x1, x2):
+    """``(S x1, S x2)``, ``S = A_f + A_fᵀ + diag(incident + 1)``, for
+    x1 [B, N, T1], x2 [B, N, T2] f32: the CUDA kernel for CUDA tensors,
+    the plain version for CPU tensors."""
+    if x1.device.type == "cpu":
+        return sym_pair_plain(parent, child, mask, x1, x2)
+    bsz, n, e = check_edges("sym_pair", parent, child, mask, (x1, x2))
+    o1, o2 = torch.empty_like(x1), torch.empty_like(x2)
+    t1, t2 = x1.shape[2], x2.shape[2]
+    if bsz * n == 0 or t1 + t2 == 0:
+        return o1, o2
+    with torch.cuda.device(x1.device):
+        SYM_PAIR_KERNEL.launch(
+            "spmm_fused_sym_pair_f32", parent.data_ptr(), child.data_ptr(),
+            mask.data_ptr(), x1.data_ptr(), x2.data_ptr(), o1.data_ptr(),
+            o2.data_ptr(), bsz, n, e, t1, t2,
+            torch.cuda.current_stream(x1.device).cuda_stream)
+    return o1, o2
+
+
+class FusedGcnSpmm(torch.autograd.Function):
+    """``gcn_spmm_forward`` with the backward of the JAX package's custom
+    VJP (``_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, parent, child, mask, h, w, b):
+        out = gcn_spmm_forward(parent, child, mask, h, w, b)
+        ctx.save_for_backward(parent, child, mask, h, w, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        parent, child, mask, h, w, out = ctx.saved_tensors
+        denom = band_denom(parent, child, mask, h.shape[1])
+        gs = torch.where(out > 0, g, 0.0) / denom
+        db = 2.0 * gs.sum(dim=(0, 1))
+        gw = (gs @ w.T).contiguous()
+        dh, ah = sym_pair(parent, child, mask, gw, h)
+        dw = ah.reshape(-1, ah.shape[-1]).T @ gs.reshape(-1, gs.shape[-1])
+        return None, None, None, dh, dw, db
+
+
+def fused_gcn_spmm(parent, child, mask, h, w, b):
+    """Differentiable regular-mode GCN layer from edge lists (see
+    ``FusedGcnSpmm``)."""
+    return FusedGcnSpmm.apply(parent, child, mask, h, w, b)

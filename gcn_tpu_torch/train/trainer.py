@@ -115,8 +115,16 @@ class Trainer:
         self.global_step += 1
         loss = self._loss(batch_to_device(batch, self.device),
                           self.step_generator(step))
-        grads = torch.autograd.grad(loss, list(self.params.values()))
-        return loss.detach(), dict(zip(self.params, grads))
+        # every parameter but those the model names unused must reach the
+        # loss (autograd raises otherwise); those get a zero gradient, as
+        # under jax.grad
+        unused = self.model.unused_params
+        used = [k for k in self.params if k not in unused]
+        grads = dict(zip(used, torch.autograd.grad(
+            loss, [self.params[k] for k in used])))
+        return loss.detach(), {
+            k: grads[k] if k in grads else torch.zeros_like(p)
+            for k, p in self.params.items()}
 
     def update(self, batch: dict) -> torch.Tensor:
         """Forward + backward on one numpy batch; steps the optimizer every

@@ -11,23 +11,30 @@ JAX kernels.  Tolerances: 1e-5 absolute (LSTM) and 1e-4 absolute + 1e-5
 relative (grouped matmul, sums of 24 products) in f32; bf16 outputs within
 2e-2 (one bf16 rounding step at |y| < 2).  The backward kernels: 1e-4 of
 max(1, max |reference|) in f32 (BPTT sums up to T·4H products per dW
-entry in another order) and 1e-2 of it in bf16.
+entry in another order) and 1e-2 of it in bf16.  The edge-list kernels
+(band aggregation, fused GCN layer, their backward pairs): 1e-5 of
+max(1, max |reference|) in f32, sums of a few neighbour rows (and, in the
+fused layer, T products) in another order than the dense band's matmul.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from gcn_tpu_torch.config import cgcn_preset
+from gcn_tpu_torch.config import cgcn_preset, gcn_preset
 from gcn_tpu_torch.models.gcn import GCNClassifier, init_params
+from gcn_tpu_torch.ops import band_aggregate as band_mod
 from gcn_tpu_torch.ops import grouped_matmul as gmm_mod
 from gcn_tpu_torch.ops import lstm_scan as lstm_mod
+from gcn_tpu_torch.ops import spmm_fused as spmm_mod
 from gcn_tpu_torch.train.evaluator import Evaluator, batch_to_device
 from gcn_tpu_torch.train.trainer import Trainer
 
 GMM_CASES = ["random", "empty_groups", "one_group", "straddle_tile",
              "rows_past_sum"]
 JAX_TILE_M = 128  # the Pallas kernel's row tile (the CUDA kernel's is 64)
+EDGE_CASES = ["random", "duplicates", "self_edge", "all_masked", "isolated",
+              "out_of_range"]
 
 
 def lstm_inputs(rng, t=12, g=2, b=6, h=8):
@@ -57,6 +64,35 @@ def gmm_case(name):
     x = rng.randn(m, t).astype(np.float32)
     s = rng.randn(gs.shape[0], t, h).astype(np.float32)
     return x, s, gs.astype(np.int32)
+
+
+def edge_case(name, b=3, n=10, e=10):
+    """Padded edge lists (parent, child int32 [b, e], mask bool [b, e]) of
+    one of ``EDGE_CASES``: random edges with 70 % of the slots set; each
+    edge doubled; self-edges; a sentence with every slot masked; nodes 0
+    and n-1 touched by no edge; edges with a parent, a child or both at
+    or past n (set in the mask, to be dropped)."""
+    rng = np.random.RandomState(sum(map(ord, name)))
+    lo, hi = (1, n - 1) if name == "isolated" else (0, n)
+    parent = rng.randint(lo, hi, (b, e)).astype(np.int32)
+    child = rng.randint(lo, hi, (b, e)).astype(np.int32)
+    mask = rng.rand(b, e) < 0.7
+    if name == "duplicates":
+        half = e // 2
+        parent[:, half:2 * half] = parent[:, :half]
+        child[:, half:2 * half] = child[:, :half]
+        mask[:] = True
+    elif name == "self_edge":
+        child[:, :3] = parent[:, :3]
+        mask[:, :3] = True
+    elif name == "all_masked":
+        mask[1] = False
+    elif name == "out_of_range":
+        parent[:, 0] = n
+        child[:, 1] = n + 3
+        parent[:, 2], child[:, 2] = n + 1, n
+        mask[:, :3] = True
+    return parent, child, mask
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -94,8 +130,8 @@ def lstm_backward_inputs(rng, dtype, device, with_keep, t=12, g=2, b=6,
     return gy.contiguous(), xp_t, len_t, w_t, hs, cs, keep_t
 
 
-def small_cfg(**extra):
-    return cgcn_preset(**{"model.emb_dim": 16, "model.pos_dim": 4,
+def small_cfg(preset=cgcn_preset, **extra):
+    return preset(**{"model.emb_dim": 16, "model.pos_dim": 4,
                           "model.ner_dim": 4, "model.hidden_dim": 16,
                           "model.rnn_hidden": 8, "model.deprel_emb_dim": 6,
                           "model.vocab_size": 30, **extra})
@@ -255,5 +291,122 @@ def test_trainer_on_card_matches_cpu(cuda_device):
         assert abs(got - want) <= 1e-4 * max(1.0, abs(want))
     assert lstm_mod.BACKWARD_KERNEL.launches == launches[0] + 3
     assert gmm_mod.BACKWARD_KERNEL.launches == launches[1] + 3 * 2
+    for k, v in cpu.model.state_dict().items():
+        assert scaled_err(card.model.state_dict()[k].cpu(), v) <= 1e-4, k
+
+
+EDGE_SIZES = {"long": (2, 300, 300),      # a sentence past the 128 bucket
+              "past_48kb": (2, 3000, 3000)}  # lists above 48 KB of smem
+
+
+def edge_tensors(name, device):
+    """An ``edge_case`` (or a long one of ``EDGE_SIZES``) on ``device``,
+    with its (b, n)."""
+    b, n, e = EDGE_SIZES.get(name, (3, 10, 10))
+    arrays = edge_case("random" if name in EDGE_SIZES else name, b, n, e)
+    return [torch.from_numpy(a).to(device) for a in arrays], b, n
+
+
+def features(rng, device, *shapes):
+    return [torch.from_numpy(rng.randn(*s).astype(np.float32)).to(device)
+            for s in shapes]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", EDGE_CASES + list(EDGE_SIZES))
+def test_band_aggregate_kernels_match_plain(cuda_device, name):
+    edges, b, n = edge_tensors(name, cuda_device)
+    xs = features(np.random.RandomState(5), cuda_device, *[(b, n, 70)] * 3)
+    for relu in (True, False):
+        launches = band_mod.KERNEL.launches
+        got = band_mod.band_aggregate_forward(*edges, *xs, relu)
+        again = band_mod.band_aggregate_forward(*edges, *xs, relu)
+        assert band_mod.KERNEL.launches == launches + 2
+        assert torch.equal(got, again)  # no float atomics
+        want = band_mod.band_aggregate_plain(*edges, *xs, relu)
+        assert scaled_err(got, want) <= 1e-5
+    launches = band_mod.PAIR_KERNEL.launches
+    got = band_mod.pair_aggregate(*edges, xs[0])
+    assert band_mod.PAIR_KERNEL.launches == launches + 1
+    for a, w in zip(got, band_mod.pair_aggregate_plain(*edges, xs[0])):
+        assert scaled_err(a, w) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", EDGE_CASES + list(EDGE_SIZES))
+def test_spmm_fused_kernels_match_plain(cuda_device, name):
+    edges, b, n = edge_tensors(name, cuda_device)
+    rng = np.random.RandomState(6)
+    h, x2 = features(rng, cuda_device, (b, n, 75), (b, n, 40))
+    w, bias = features(rng, cuda_device, (75, 70), (70,))
+    w = w / np.sqrt(75)
+    launches = spmm_mod.KERNEL.launches
+    got = spmm_mod.gcn_spmm_forward(*edges, h, w, bias)
+    again = spmm_mod.gcn_spmm_forward(*edges, h, w, bias)
+    assert spmm_mod.KERNEL.launches == launches + 2
+    assert torch.equal(got, again)
+    assert scaled_err(got, spmm_mod.gcn_spmm_plain(*edges, h, w, bias)) \
+        <= 1e-5
+    launches = spmm_mod.SYM_PAIR_KERNEL.launches
+    got = spmm_mod.sym_pair(*edges, h, x2)
+    assert spmm_mod.SYM_PAIR_KERNEL.launches == launches + 1
+    for a, want in zip(got, spmm_mod.sym_pair_plain(*edges, h, x2)):
+        assert a.shape == want.shape
+        assert scaled_err(a, want) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_edge_list_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    (parent, child, mask), b, n = edge_tensors("random", cuda_device)
+    x = torch.randn(b, n, 8, device=cuda_device)
+    with pytest.raises(TypeError, match="int32"):
+        band_mod.pair_aggregate(parent.long(), child, mask, x)
+    with pytest.raises(ValueError, match="contiguous"):
+        band_mod.pair_aggregate(parent, child, mask,
+                                x.transpose(1, 2).contiguous()
+                                .transpose(1, 2))
+    with pytest.raises(TypeError):
+        spmm_mod.sym_pair(parent, child, mask, x.double(), x.double())
+    big = 15000
+    edges = [torch.zeros(1, big, dtype=torch.int32, device=cuda_device)] * 2
+    with pytest.raises(ValueError, match="shared memory"):
+        band_mod.pair_aggregate(*edges, torch.zeros(
+            1, big, dtype=torch.bool, device=cuda_device),
+            torch.zeros(1, big, 1, device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", [cgcn_preset, gcn_preset])
+def test_fused_path_on_card_matches_cpu(cuda_device, preset):
+    """use_pallas=True, dropout off: the evaluation forward and three train
+    steps with the edge-list kernels on the card against the plain
+    versions on the CPU, within 1e-4; every kernel of the path counted."""
+    cfg = small_cfg(preset, **{"model.use_pallas": True,
+                               "model.input_dropout": 0.0,
+                               "model.rnn_dropout": 0.0,
+                               "model.gcn_dropout": 0.0})
+    mod = band_mod if preset is cgcn_preset else spmm_mod
+    pair = mod.PAIR_KERNEL if preset is cgcn_preset else mod.SYM_PAIR_KERNEL
+    model = GCNClassifier(cfg.model)
+    init_params(model, torch.Generator().manual_seed(0))
+    state = model.state_dict()
+    batch = random_batch(np.random.RandomState(0))
+    launches = mod.KERNEL.launches
+    with torch.no_grad():
+        got, _ = Evaluator(cfg, state, device=cuda_device).model(
+            batch_to_device(batch, cuda_device))
+        want, _ = Evaluator(cfg, state, device="cpu").model(
+            batch_to_device(batch, torch.device("cpu")))
+    assert mod.KERNEL.launches == launches + cfg.model.num_layers
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+    card = Trainer(cfg, state, device=cuda_device)
+    cpu = Trainer(cfg, state, device="cpu")
+    launches = pair.launches
+    rng = np.random.RandomState(1)
+    for _ in range(3):
+        batch = random_batch(rng)
+        got, want = float(card.update(batch)), float(cpu.update(batch))
+        assert abs(got - want) <= 1e-4 * max(1.0, abs(want))
+    assert pair.launches == launches + 3 * cfg.model.num_layers
     for k, v in cpu.model.state_dict().items():
         assert scaled_err(card.model.state_dict()[k].cpu(), v) <= 1e-4, k

@@ -147,7 +147,8 @@ def test_init_params_match_jax_distributions():
 
 
 def test_unsupported_modes_raise():
-    for ov in ({"model.adj_type": "regular"}, {"model.rnn": False},
+    for ov in ({"model.adj_type": "diagonal_deprel"},
+               {"model.adj_type": "attention"},
                {"model.compute_dtype": "bfloat16"},
                {"model.deprel_factored": False}):
         _, tcfg = _configs(**ov)
@@ -214,6 +215,28 @@ def test_port_never_loads_the_native_builder():
         with open(path) as f:
             text = f.read()
         assert "libgraphbuilder" not in text and "native/" not in text, path
+
+
+def test_library_name_covers_every_included_header(tmp_path, monkeypatch):
+    """Each source's ``#include "..."`` names a shared ``csrc/*.cuh``, and
+    editing that header renames the library, so a build never loads one
+    made from an older header."""
+    from gcn_tpu_torch.ops import _cuda
+
+    for src in _cuda.CSRC.glob("*.cu"):
+        for line in src.read_text().splitlines():
+            if line.startswith('#include "'):
+                header = line.split('"')[1]
+                assert header.endswith(".cuh"), (src.name, header)
+                assert (_cuda.CSRC / header).exists(), (src.name, header)
+    for f in ("band_aggregate.cu", "edge_lists.cuh"):
+        (tmp_path / f).write_bytes((_cuda.CSRC / f).read_bytes())
+    monkeypatch.setattr(_cuda, "CSRC", tmp_path)
+    kernel = _cuda.CudaKernel("band_aggregate.cu", {})
+    before = kernel.lib_path()
+    with open(tmp_path / "edge_lists.cuh", "a") as f:
+        f.write("// edited\n")
+    assert kernel.lib_path() != before
 
 
 def test_entry_point_needs_a_card_unless_asked_for_the_cpu():
