@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the port's C-GCN and paper-GCN paths on one NVIDIA GPU.
+"""Drive the port's C-GCN, paper-GCN and attention paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -10,28 +10,33 @@ Phases, one JSON line each:
    ``gcn_tpu_torch/csrc``, one process per source, in parallel;
 3. kernel — each kernel (the scan and the grouped matmul, forward and
    backward; the band aggregation and its pair backward; the fused GCN
-   layer and its sym-pair backward) against its plain PyTorch version on
-   the card at the main paths' shapes: max error and its tolerance, median
-   time by CUDA events (for the edge-list kernels, of tens of
-   microseconds, by a replayed CUDA graph of the call, and also eagerly),
-   the plain version's time, one PyTorch library call's time as a
-   yardstick, and the kernel's bound at the card's peak rates;
+   layer and its sym-pair backward; the SDDMM and its backward; the
+   deprel bilinear transform, v2 and v1) against its plain PyTorch version
+   on the card at the main paths' shapes (the SDDMM also at N = E = 1200,
+   where ``attention_impl="auto"`` takes the edge backend): max error and
+   its tolerance, median time by CUDA events (for the edge-list kernels,
+   of tens of microseconds, by a replayed CUDA graph of the call, and also
+   eagerly), the plain version's time, one PyTorch library call's time as
+   a yardstick where one computes the same function, and the kernel's
+   bound at the card's peak rates;
 4. slice  — for each path, ``Evaluator`` at full widths (random weights
    from a seeded ``torch.Generator``) over B=50 batches of the in-repo
    TACRED JSON and of synthetic sentences at the N=96 bucket, all through
    the port's own loader.  The same forward with the plain versions on the
-   card (for the edge-list layers: the dense bands from
+   card (``PLAIN``: for the edge-list layers the dense bands from
    ``build_adjacency`` and ``bmm``, which the fused layers' plain versions
-   compute) and on the CPU must agree, and on a fused path the same
-   weights on the dense bands with the scan and grouped-matmul kernels
-   too.  Every kernel's count is read: each forward kernel of the path
-   must have launched (an edge-list kernel once per layer and forward),
-   and no other kernel at all;
+   compute; for the attention edge backend the dense one; for the
+   non-factored bilinear the einsum) and on the CPU must agree, on a fused
+   path the same weights on the dense bands with the kernels too, and on
+   ``cgcn_bilinear`` the factored ``cgcn`` on the same weights.  Every
+   kernel's count is read: each kernel must have launched exactly as often
+   per forward as ``EXPECTED`` says, which is 0 for a kernel off the
+   path;
 5. train  — for each path, ``Trainer.update`` at the same widths (sgd 0.3,
    clip 5, pooling_l2 0.003, the preset's dropouts) over the training
    batches of the in-repo train split and of the synthetic sentences.
-   Every kernel of the path must have launched (the edge-list kernels once
-   per layer and step), and no other; a trainer on the plain versions on
+   Every kernel must have launched exactly as often per step as
+   ``EXPECTED`` says (0 off the path); a trainer on the plain versions on
    the card, from the same weights and seed, must follow it for 3 steps;
    with dropout off one step on the card must match one on the CPU; the
    loss on one fixed batch must fall over 20 steps; and ms per step,
@@ -40,8 +45,12 @@ Phases, one JSON line each:
 
 The paths: ``cgcn`` (``cgcn_preset``: BiLSTM, factored full_deprel on
 dense bands), ``cgcn_fused`` (the same with ``use_pallas=True``: the band
-aggregation kernels) and ``gcn_fused`` (``gcn_preset`` with
-``use_pallas=True``: the paper's GCN on the fused layer kernels).
+aggregation kernels), ``gcn_fused`` (``gcn_preset`` with
+``use_pallas=True``: the paper's GCN on the fused layer kernels),
+``cgcn_attn`` (``cgcn_preset`` with ``adj_type="attention"`` and
+``attention_impl="edge"``: the SDDMM kernels) and ``cgcn_bilinear``
+(``cgcn_preset`` with ``deprel_factored=False`` and ``use_pallas=True``:
+the bilinear v2 kernel feeding the band aggregation).
 
 Then one line with every kernel's numbers, the ``nvidia-smi`` name and
 power limit, and the last line ``{"ok": true, "device": {...}}``.  Any
@@ -640,36 +649,252 @@ def check_spmm(torch, rng, dev, edges) -> list[dict]:
     return rows
 
 
+def forest_edges(torch, rng, dev, n: int):
+    """[B, n] edge lists of B seeded random trees with lengths in
+    [n/2, n] (one at n), the padded slots masked: the giant-forest regime
+    where ``attention_impl="auto"`` takes the edge backend."""
+    parent = np.zeros((B, n), np.int32)
+    child = np.zeros((B, n), np.int32)
+    mask = np.zeros((B, n), bool)
+    for i in range(B):
+        length = n if i == 0 else int(rng.randint(n // 2, n + 1))
+        order = rng.permutation(length)
+        for k in range(1, length):     # each node hangs off an earlier one
+            parent[i, k - 1] = order[rng.randint(0, k)]
+            child[i, k - 1] = order[k]
+        mask[i, :length - 1] = True
+    return (torch.tensor(parent, device=dev), torch.tensor(child, device=dev),
+            torch.tensor(mask, device=dev))
+
+
+def touched_rows(torch, edges, n: int) -> tuple[int, int]:
+    """Distinct (sentence, node) rows that counted edges read as parents
+    and as children."""
+    from gcn_tpu_torch.ops.spmm import valid_edges
+
+    parent, child, mask = edges
+    ok = valid_edges(parent, child, mask, n)
+    base = torch.arange(parent.shape[0], device=parent.device)[:, None] * n
+    return tuple(int(torch.unique((base + idx.long())[ok]).numel())
+                 for idx in (parent, child))
+
+
+def edge_csr(torch, edges, n: int, values, transpose: bool = False):
+    """A library yardstick's prebuilt operand: the counted edges of [B, E]
+    lists as one block-diagonal [B·n, B·n] CSR matrix with ``values``
+    [B, E] at (parent, child), at (child, parent) if ``transpose``.
+    Returns it and ``pick``, which takes a [B, E] tensor to its entries'
+    order (by row, then column)."""
+    from gcn_tpu_torch.ops.spmm import valid_edges
+
+    parent, child, mask = edges
+    ok = valid_edges(parent, child, mask, n)
+    size = parent.shape[0] * n
+    base = torch.arange(parent.shape[0], device=parent.device)[:, None] * n
+    rows, cols = (base + parent.long())[ok], (base + child.long())[ok]
+    if transpose:
+        rows, cols = cols, rows
+    order = torch.argsort(rows * size + cols)
+    crow = torch.zeros(size + 1, dtype=torch.long, device=parent.device)
+    crow[1:] = torch.cumsum(torch.bincount(rows, minlength=size), 0)
+
+    def pick(t):
+        return t[ok][order]
+
+    return (torch.sparse_csr_tensor(crow, cols[order], pick(values),
+                                    (size, size), check_invariants=False),
+            pick)
+
+
+def check_sddmm(torch, rng, dev, edges) -> list[dict]:
+    """Kernels 9 and 10 at the attention layer's shapes (q, k [B, 96, 200],
+    the synthetic batch's edges) and on a forest at N = E = 1200."""
+    from gcn_tpu_torch.ops import sddmm as mod
+
+    h = 200
+    rows = []
+    for tag, case in (("N96", edges),
+                      ("N1200", forest_edges(torch, rng, dev, 1200))):
+        b, e = case[0].shape
+        n = N_BUCKET if tag == "N96" else 1200
+        u, v = (torch.tensor(rng.randn(b, n, h) / np.sqrt(h),
+                             dtype=torch.float32, device=dev)
+                for _ in range(2))
+        g = torch.tensor(rng.randn(b, e), dtype=torch.float32, device=dev)
+        got = mod.sddmm_forward(*case, u, v)
+        again = mod.sddmm_forward(*case, u, v)
+        want = mod.sddmm_plain(*case, u, v)
+        fwd_err, fwd_abs = scaled_err(got, want), max_err(got, want)
+        got_b = mod.sddmm_backward(*case, g, u, v)
+        again_b = mod.sddmm_backward(*case, g, u, v)
+        want_b = mod.sddmm_backward_plain(*case, g, u, v)
+        bwd_err = max(scaled_err(a, w) for a, w in zip(got_b, want_b))
+        bwd_abs = max(max_err(a, w) for a, w in zip(got_b, want_b))
+        torch.cuda.synchronize()
+        same = {"forward": bool(torch.equal(got, again)),
+                "backward": all(torch.equal(a, w)
+                                for a, w in zip(got_b, again_b))}
+        e_bytes, valid = edge_facts(torch, case, n)
+        rows_p, rows_c = touched_rows(torch, case, n)
+        gathered = 4 * h * (rows_p + rows_c)
+        # yardsticks only (the port never calls them): cuSPARSE's SDDMM
+        # and two sparse-dense products on block-diagonal CSR patterns of
+        # the counted edges, built beforehand and not timed, as the band
+        # rows' prebuilt bands; each is held against the plain version
+        u2, v2 = u.reshape(b * n, h), v.reshape(b * n, h)
+        pattern, pick = edge_csr(torch, case, n, torch.zeros_like(g))
+        a_g, _ = edge_csr(torch, case, n, g)
+        a_gt, _ = edge_csr(torch, case, n, g, transpose=True)
+
+        def lib_fwd():
+            return torch.sparse.sampled_addmm(pattern, u2, v2.t())
+
+        def lib_bwd():
+            return a_g @ v2, a_gt @ u2
+
+        lib_fwd_err = scaled_err(lib_fwd().values(), pick(want))
+        lib_bwd_err = max(scaled_err(a.reshape(b, n, h), w)
+                          for a, w in zip(lib_bwd(), want_b))
+        for name, line, fn, plain, lib, lib_note, lib_err, err, abs_err, \
+                tol, n_bytes, flops in (
+            (f"sddmm_forward_{tag}", 64,
+             lambda: mod.sddmm_forward(*case, u, v),
+             lambda: mod.sddmm_plain(*case, u, v), lib_fwd,
+             "torch.sparse.sampled_addmm of the prebuilt CSR edge pattern "
+             "[B·N, B·N] with u and v^T (counted edges only, in CSR order)",
+             lib_fwd_err, fwd_err, fwd_abs,
+             TOL_F32, e_bytes + gathered + 4 * b * e, 2.0 * valid * h),
+            (f"sddmm_backward_{tag}", 132,
+             lambda: mod.sddmm_backward(*case, g, u, v),
+             lambda: mod.sddmm_backward_plain(*case, g, u, v), lib_bwd,
+             "two calls, one an output: the prebuilt CSR pattern with "
+             "values g @ v, and its prebuilt transpose @ u",
+             lib_bwd_err, bwd_err, bwd_abs, TOL_BWD,
+             e_bytes + 4 * b * e + gathered + 2 * 4 * b * n * h,
+             4.0 * valid * h),
+        ):
+            bound_ms, bound_by = bound(n_bytes, flops)
+            kind = name.split("_")[1]
+            rows.append({
+                "name": name, "route": "cuda",
+                "source": "gcn_tpu_torch/csrc/sddmm.cu",
+                "replaces": f"gcn_tpu/ops/pallas/sddmm.py:{line}",
+                "shape": {"B": b, "N": n, "E": e, "H": h,
+                          "valid_edges": valid, "parent_rows": rows_p,
+                          "child_rows": rows_c},
+                "max_abs_err": abs_err, "errs": {"f32": err},
+                "same_bits_twice": same[kind],
+                "library_err": lib_err,
+                "tol": {"f32": tol},
+                "ok": err <= tol and same[kind] and lib_err <= tol,
+                "ms": graph_ms(fn), "plain_ms": graph_ms(plain),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": graph_ms(lib), "library": lib_note,
+                "timing": TIMING_GRAPH, "eager_ms": time_ms(fn, 20),
+            })
+    return rows
+
+
+def check_bilinear(torch, rng, dev) -> tuple[list[dict], int]:
+    """Kernels 11 and 12 at the non-factored C-GCN layer's shapes (M =
+    B·N = 4800 tokens, D = 50, H = 200, T = 400 and 200); returns the rows
+    and the launches of v1 in this phase (its only caller here)."""
+    from gcn_tpu_torch.ops import deprel_bilinear as mod
+
+    m, d, h = B * N_BUCKET, 50, 200
+    rows, v1_launches = [], 0
+    for t in (400, 200):
+        x = torch.tensor(rng.randn(m, t), dtype=torch.float32, device=dev)
+        e = torch.tensor(rng.randn(m, d), dtype=torch.float32, device=dev)
+        w = torch.tensor(rng.uniform(-1, 1, (d, t, h)) / np.sqrt(t),
+                         dtype=torch.float32, device=dev)
+        # yardstick only (the port never calls it); it may form [M, D, T]
+        # (384 MB at T = 400)
+        library_ms = time_ms(lambda: torch.einsum("md,mt,dth->mh", e, x, w),
+                             10)
+        n_bytes = 4 * (x.numel() + e.numel() + w.numel() + m * h)
+        bound_ms, bound_by = bound(n_bytes, 2.0 * m * d * t * h)
+        for version, line in (("v2", 143), ("v1", 57)):
+            plain = getattr(mod, f"bilinear_{version}_plain")
+            (got, again), counts = counted(lambda: [
+                mod.bilinear_forward(x, e, w, version) for _ in range(2)])
+            v1_launches += counts["deprel_bilinear_v1"]
+            want = plain(x, e, w)
+            err, abs_err = scaled_err(got, want), max_err(got, want)
+            same = bool(torch.equal(got, again))
+            rows.append({
+                "name": f"deprel_bilinear_{version}_T{t}", "route": "cuda",
+                "source": "gcn_tpu_torch/csrc/deprel_bilinear.cu",
+                "replaces": f"gcn_tpu/ops/pallas/deprel_bilinear.py:{line}",
+                "shape": {"M": m, "T": t, "D": d, "H": h},
+                "max_abs_err": abs_err, "errs": {"f32": err},
+                "same_bits_twice": same, "tol": {"f32": TOL_F32},
+                "ok": err <= TOL_F32 and same,
+                "ms": time_ms(lambda: mod.bilinear_forward(x, e, w, version),
+                              10),
+                "plain_ms": time_ms(lambda: plain(x, e, w), 5),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms,
+                "library": 'torch.einsum("md,mt,dth->mh", e, x, w)',
+            })
+    return rows, v1_launches
+
+
 # ----------------------------------------------------------------- paths
-# The counted main paths: each configuration's preset and overrides, and
-# the kernels its evaluation forward and its train step must launch.
+# The counted main paths: each configuration's preset and overrides.
 PATHS = {
     "cgcn": ("cgcn_preset", {}),
     "cgcn_fused": ("cgcn_preset", {"model.use_pallas": True}),
     "gcn_fused": ("gcn_preset", {"model.use_pallas": True}),
+    "cgcn_attn": ("cgcn_preset", {"model.adj_type": "attention",
+                                  "model.attention_impl": "edge"}),
+    "cgcn_bilinear": ("cgcn_preset", {"model.deprel_factored": False,
+                                      "model.use_pallas": True}),
 }
-PATH_KERNELS = {
-    "cgcn": (("lstm_scan_forward", "grouped_matmul_forward"),
-             ("lstm_scan_backward", "grouped_matmul_backward")),
-    "cgcn_fused": (("lstm_scan_forward", "grouped_matmul_forward",
-                    "band_aggregate_forward"),
-                   ("lstm_scan_backward", "grouped_matmul_backward",
-                    "band_aggregate_pair")),
-    "gcn_fused": (("spmm_fused_forward",), ("spmm_fused_sym_pair",)),
+# Each kernel's launches per evaluation forward and per train step (the
+# step's forward included) on each path, at 2 GCN layers: the scans once,
+# the grouped matmul once a layer (both bands stacked), an edge-list
+# layer kernel once a layer, the SDDMM and the bilinear once a band and
+# layer.  Every kernel not named launches 0 times.
+_CGCN = {"lstm_scan_forward": 1, "grouped_matmul_forward": 2}
+_CGCN_BWD = {"lstm_scan_backward": 1, "grouped_matmul_backward": 2}
+EXPECTED = {
+    "cgcn": (_CGCN, {**_CGCN, **_CGCN_BWD}),
+    "cgcn_fused": ({**_CGCN, "band_aggregate_forward": 2},
+                   {**_CGCN, **_CGCN_BWD, "band_aggregate_forward": 2,
+                    "band_aggregate_pair": 2}),
+    "gcn_fused": ({"spmm_fused_forward": 2},
+                  {"spmm_fused_forward": 2, "spmm_fused_sym_pair": 2}),
+    "cgcn_attn": ({"lstm_scan_forward": 1, "sddmm_forward": 4},
+                  {"lstm_scan_forward": 1, "sddmm_forward": 4,
+                   "lstm_scan_backward": 1, "sddmm_backward": 4}),
+    "cgcn_bilinear": ({"lstm_scan_forward": 1, "deprel_bilinear_v2": 4,
+                       "band_aggregate_forward": 2},
+                      {"lstm_scan_forward": 1, "deprel_bilinear_v2": 4,
+                       "band_aggregate_forward": 2, "lstm_scan_backward": 1,
+                       "band_aggregate_pair": 2}),
 }
-# the plain versions: the scan's and the grouped matmul's, and for the
-# edge-list layers the dense bands (``build_adjacency`` + ``bmm``, what
-# their plain versions compute)
-PLAIN = {"model.rnn_impl": "scan", "model.deprel_factored": "ragged",
-         "model.use_pallas": False}
-EDGE_LIST_KERNELS = ("band_aggregate_forward", "band_aggregate_pair",
-                     "spmm_fused_forward", "spmm_fused_sym_pair")
+# Each path's card-side reference, the plain versions: the scan's and the
+# grouped matmul's; for the edge-list layers the dense bands
+# (``build_adjacency`` + ``bmm``, what their plain versions compute); for
+# the attention edge backend the dense backend; for the non-factored
+# bilinear on the fused path the einsum on the dense bands.
+_PLAIN = {"model.rnn_impl": "scan", "model.deprel_factored": "ragged",
+          "model.use_pallas": False}
+PLAIN = {
+    "cgcn": _PLAIN, "cgcn_fused": _PLAIN, "gcn_fused": _PLAIN,
+    "cgcn_attn": {"model.rnn_impl": "scan", "model.attention_impl": "dense"},
+    "cgcn_bilinear": {"model.rnn_impl": "scan", "model.use_pallas": False},
+}
+# a path whose logits must also equal another path's on the same weights:
+# the non-factored full_deprel against the factored one (both exact)
+CROSS = {"cgcn_bilinear": "cgcn"}
 
 
 def kernel_table() -> dict:
     """Every kernel of the port by the name its row carries."""
     from gcn_tpu_torch.ops import band_aggregate, grouped_matmul, lstm_scan
-    from gcn_tpu_torch.ops import spmm_fused
+    from gcn_tpu_torch.ops import deprel_bilinear, sddmm, spmm_fused
 
     return {"lstm_scan_forward": lstm_scan.KERNEL,
             "lstm_scan_backward": lstm_scan.BACKWARD_KERNEL,
@@ -678,7 +903,11 @@ def kernel_table() -> dict:
             "band_aggregate_forward": band_aggregate.KERNEL,
             "band_aggregate_pair": band_aggregate.PAIR_KERNEL,
             "spmm_fused_forward": spmm_fused.KERNEL,
-            "spmm_fused_sym_pair": spmm_fused.SYM_PAIR_KERNEL}
+            "spmm_fused_sym_pair": spmm_fused.SYM_PAIR_KERNEL,
+            "sddmm_forward": sddmm.KERNEL,
+            "sddmm_backward": sddmm.BACKWARD_KERNEL,
+            "deprel_bilinear_v2": deprel_bilinear.KERNEL_V2,
+            "deprel_bilinear_v1": deprel_bilinear.KERNEL_V1}
 
 
 def path_config(path: str, **extra):
@@ -702,21 +931,16 @@ def counted(fn):
     return out, {name: k.launches for name, k in kernels.items()}
 
 
-def check_launches(path: str, what: str, launches: dict, expected,
-                   runs: int, num_layers: int) -> dict:
-    """Fail unless every kernel in ``expected`` launched and no other did,
-    and each edge-list kernel of ``expected`` ran once per layer; returns
-    the launches per run (``runs`` forwards or steps)."""
-    for name, count in launches.items():
-        if (count > 0) != (name in expected):
-            role = "belongs to" if name in expected else "is not on"
-            fail(f"{path}: kernel {name} launched {count} times in the "
-                 f"{what}, whose path it {role}")
+def check_launches(path: str, what: str, launches: dict, expected: dict,
+                   runs: int) -> dict:
+    """Fail unless every kernel launched exactly ``expected`` times per
+    run (0 for a kernel not named) over ``runs`` forwards or steps;
+    returns the launches per run."""
     per_run = {k: v / runs for k, v in launches.items()}
-    for name in EDGE_LIST_KERNELS:
-        if name in expected and per_run[name] != num_layers:
-            fail(f"{path}: {name} launched {per_run[name]} times per "
-                 f"{what} run, not once per layer")
+    for name, count in per_run.items():
+        if count != expected.get(name, 0):
+            fail(f"{path}: kernel {name} launched {count} times per {what}, "
+                 f"not {expected.get(name, 0)}")
     return per_run
 
 
@@ -728,7 +952,7 @@ def run_slice(torch, dev, real, synth, vocab_size: int, path: str) -> dict:
 
     base = {"model.vocab_size": vocab_size, "train.batch_size": B}
     cfg = path_config(path, **base)
-    plain_cfg = path_config(path, **base, **PLAIN)
+    plain_cfg = path_config(path, **base, **PLAIN[path])
     model = GCNClassifier(cfg.model)
     init_params(model, torch.Generator().manual_seed(SEED))
     state = model.state_dict()
@@ -741,6 +965,9 @@ def run_slice(torch, dev, real, synth, vocab_size: int, path: str) -> dict:
         ev_dense = Evaluator(path_config(path, **base,
                                          **{"model.use_pallas": False}),
                              state, device=dev)
+    cross = CROSS.get(path)
+    if cross:  # the same weights on another path
+        ev_cross = Evaluator(path_config(cross, **base), state, device=dev)
 
     # the main path, counted
     t0 = time.perf_counter()
@@ -748,17 +975,16 @@ def run_slice(torch, dev, real, synth, vocab_size: int, path: str) -> dict:
         lambda: ev.evaluate(real + synth))
     first_s = time.perf_counter() - t0
     per_forward = check_launches(path, "evaluation forward", launches,
-                                 PATH_KERNELS[path][0], len(real + synth),
-                                 cfg.model.num_layers)
+                                 EXPECTED[path][0], len(real + synth))
     n_sent = sum(int(b["example_mask"].sum()) for b in real + synth)
     if len(preds) != n_sent or not np.isfinite(loss):
         fail(f"{path}: evaluate gave {len(preds)} predictions for {n_sent}, "
              f"loss {loss}")
 
     # the same forward with the plain versions, on the card and the CPU,
-    # and on the dense bands, over the batches' valid rows (padded rows
-    # pool -1e12 fills)
-    err, err_cpu, err_dense = 0.0, 0.0, 0.0
+    # on the dense bands and on the cross path, over the batches' valid
+    # rows (padded rows pool -1e12 fills)
+    err, err_cpu, err_dense, err_cross = 0.0, 0.0, 0.0, 0.0
     with torch.no_grad():
         for i, b in enumerate(real + synth):
             lk, hk = ev.model(batch_to_device(b, dev))
@@ -774,12 +1000,16 @@ def run_slice(torch, dev, real, synth, vocab_size: int, path: str) -> dict:
                 ld, hd = ev_dense.model(batch_to_device(b, dev))
                 err_dense = max(err_dense, row_err(lk[valid], ld[valid]),
                                 row_err(hk[valid], hd[valid]))
+            if cross:
+                lx, hx = ev_cross.model(batch_to_device(b, dev))
+                err_cross = max(err_cross, row_err(lk[valid], lx[valid]),
+                                row_err(hk[valid], hx[valid]))
             if i == 0:
                 lc, _ = ev_cpu.model(batch_to_device(b, "cpu"))
                 err_cpu = row_err(lk[valid].cpu(), lc[valid.cpu()])
-    if max(err, err_cpu, err_dense) > TOL_SLICE:
+    if max(err, err_cpu, err_dense, err_cross) > TOL_SLICE:
         fail(f"{path}: slice logits differ: card plain {err}, cpu "
-             f"{err_cpu}, dense bands {err_dense}")
+             f"{err_cpu}, dense bands {err_dense}, {cross} {err_cross}")
 
     gold = [l for b in real + synth for l in
             (b["labels"][b["example_mask"]]).tolist()]
@@ -805,6 +1035,7 @@ def run_slice(torch, dev, real, synth, vocab_size: int, path: str) -> dict:
         "first_pass_s": first_s,
         "row_err_plain_card": err, "row_err_plain_cpu": err_cpu,
         "row_err_dense_bands": err_dense if fused else None,
+        "row_err_cross": {cross: err_cross} if cross else None,
         "tol": TOL_SLICE, "loss": loss, "f1_random_weights": f1,
         "sentences_per_s_real": rate(real),
         "sentences_per_s_n96": rate(synth),
@@ -822,6 +1053,10 @@ KERNEL_GROUPS = (  # device time by category, matched on kernel names
     ("band aggregate pair kernel", ("band_pair_kernel",)),
     ("fused GCN layer forward kernel", ("spmm_fused_fwd_kernel",)),
     ("fused GCN layer sym pair kernel", ("spmm_sym_pair_kernel",)),
+    ("sddmm forward kernel", ("sddmm_fwd_kernel",)),
+    ("sddmm backward kernel", ("sddmm_bwd_kernel",)),
+    ("deprel bilinear kernels", ("deprel_bilinear_v2_kernel",
+                                 "deprel_bilinear_v1_kernel")),
     ("copies", ("Memcpy", "Memset")),
     ("library matmuls", ("gemm", "cublas", "cutlass", "xmma")),
 )
@@ -874,7 +1109,7 @@ def run_train(torch, dev, real_train, synth_train, vocab_size,
     base = {"model.vocab_size": vocab_size, "train.batch_size": B,
             "train.effective_batch_size": B}
     cfg = path_config(path, **base)
-    plain_cfg = path_config(path, **base, **PLAIN)
+    plain_cfg = path_config(path, **base, **PLAIN[path])
     nodrop_cfg = path_config(path, **base, **{"model.input_dropout": 0.0,
                                               "model.rnn_dropout": 0.0,
                                               "model.gcn_dropout": 0.0})
@@ -891,8 +1126,7 @@ def run_train(torch, dev, real_train, synth_train, vocab_size,
     losses, launches = counted(lambda: [tr.update(b) for b in batches])
     first_s = time.perf_counter() - t0
     per_step = check_launches(path, "train step", launches,
-                              PATH_KERNELS[path][0] + PATH_KERNELS[path][1],
-                              len(batches), cfg.model.num_layers)
+                              EXPECTED[path][1], len(batches))
     losses = [float(l) for l in losses]
     if not all(np.isfinite(losses)):
         fail(f"{path}: non-finite training loss: {losses}")
@@ -977,14 +1211,18 @@ def run_train(torch, dev, real_train, synth_train, vocab_size,
 
 
 # the path whose train run gives each kernel's "launches" in the kernels
-# line: the one that brought the kernel in
+# line: the one that brought the kernel in; v1 is on no path, and its
+# launches are those of the kernel phase
 HOME_PATH = {"lstm_scan_forward": "cgcn", "lstm_scan_backward": "cgcn",
              "grouped_matmul_forward": "cgcn",
              "grouped_matmul_backward": "cgcn",
              "band_aggregate_forward": "cgcn_fused",
              "band_aggregate_pair": "cgcn_fused",
              "spmm_fused_forward": "gcn_fused",
-             "spmm_fused_sym_pair": "gcn_fused"}
+             "spmm_fused_sym_pair": "gcn_fused",
+             "sddmm_forward": "cgcn_attn", "sddmm_backward": "cgcn_attn",
+             "deprel_bilinear_v2": "cgcn_bilinear",
+             "deprel_bilinear_v1": None}
 
 
 def kernel_of(row_name: str) -> str:
@@ -1002,6 +1240,7 @@ def main() -> int:
     from gcn_tpu_torch.data.vocab import Vocab
     from gcn_tpu_torch.ops import _cuda
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -1035,13 +1274,19 @@ def main() -> int:
                                                         rng)
     gs = band_group_sizes(torch, synth[0], dev)
     edges = edge_lists(torch, synth[0], dev)
+    # in row order from one generator, so no row's inputs depend on the
+    # rows after it
     rows = ([check_lstm(torch, rng, dev)] + check_gmm(torch, rng, dev, gs)
             + [check_lstm_backward(torch, rng, dev)]
             + check_gmm_backward(torch, rng, dev, gs)
             + check_band(torch, rng, dev, edges)
-            + check_spmm(torch, rng, dev, edges))
+            + check_spmm(torch, rng, dev, edges)
+            + check_sddmm(torch, rng, dev, edges))
+    bilinear_rows, v1_launches = check_bilinear(torch, rng, dev)
+    rows += bilinear_rows
     for row in rows:
         emit({"phase": "kernel", **row})
+    emit({"phase": "kernels_done", "at_s": time.perf_counter() - t_start})
     bad = [r["name"] for r in rows if not r["ok"]]
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
@@ -1049,24 +1294,26 @@ def main() -> int:
     slices, trains = {}, {}
     for path in PATHS:
         slices[path] = run_slice(torch, dev, real, synth, vocab.size, path)
-        emit(slices[path])
+        emit({**slices[path], "at_s": time.perf_counter() - t_start})
         trains[path] = run_train(torch, dev, real_train, synth_train,
                                  vocab.size, path)
-        emit(trains[path])
+        emit({**trains[path], "at_s": time.perf_counter() - t_start})
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     line = []
     for row in rows:
         kernel = kernel_of(row["name"])
-        row["launches"] = trains[HOME_PATH[kernel]]["launches"][kernel]
+        home = HOME_PATH[kernel]
+        row["launches"] = (v1_launches if home is None
+                           else trains[home]["launches"][kernel])
         by_path = {
             path: {"eval_forward":
                    slices[path]["launches_per_forward"][kernel],
                    "train_step": trains[path]["launches_per_step"][kernel]}
             for path in PATHS}
         line.append({**{k: row[k] for k in keys},
-                     "launches_path": HOME_PATH[kernel],
+                     "launches_path": home or "kernel phase",
                      "launches_by_path": by_path})
     emit({"kernels": line})
     print(smi, flush=True)

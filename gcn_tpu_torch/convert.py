@@ -9,6 +9,8 @@ separator::
     rnn/l{i}_{fwd,bwd}_{w_ih,w_hh,b_ih,b_hh}   → rnn.l{i}_...
     gcn_deprel_w{l}, gcn_deprel_b{l}    (gcn_deprel_w, gcn_deprel_b when
                                         deprel_shared_w is set)
+    gcn_w{l}_kernel, gcn_w{l}_bias      (regular and attention modes)
+    attn_q{l}, attn_k{l}                (attention mode)
     mlp{i}/{kernel,bias}, classifier/{kernel,bias}
 
 The tree holds numpy arrays (``jax.device_get`` of the params), so this

@@ -1,6 +1,6 @@
 // One sentence's adjacency lists in shared memory, built from its padded
 // edge list: the common first step of the edge-list kernels in
-// band_aggregate.cu and spmm_fused.cu.
+// band_aggregate.cu, spmm_fused.cu and sddmm.cu.
 //
 //   parent, child  [E] int32   edge p -> c
 //   mask           [E] uint8   0 = padded slot
@@ -26,14 +26,17 @@ struct Lists {
   const int* nbr_f;    //         their children, in edge order
   const int* start_r;  // [n + 1] node i's reverse list: edges with child i
   const int* nbr_r;    //         their parents, in edge order
+  const int* edge_f;   // with kEdgeIds: the edge of each entry of nbr_f
+  const int* edge_r;   //                and of nbr_r (else null)
 };
 
 // Dynamic shared memory that build_lists takes.
-inline size_t lists_bytes(int n, int e) {
-  return sizeof(int) * (4 * (size_t)e + 4 * (size_t)n + 2);
+inline size_t lists_bytes(int n, int e, bool edge_ids = false) {
+  return sizeof(int) * ((edge_ids ? 6 : 4) * (size_t)e + 4 * (size_t)n + 2);
 }
 
 // Every thread of the block calls it; it ends with a barrier.
+template <bool kEdgeIds = false>
 __device__ inline Lists build_lists(const int* __restrict__ parent,
                                     const int* __restrict__ child,
                                     const unsigned char* __restrict__ mask,
@@ -46,6 +49,8 @@ __device__ inline Lists build_lists(const int* __restrict__ parent,
   int* start_r = start_f + n + 1;
   int* nbr_f = start_r + n + 1;  // [e]
   int* nbr_r = nbr_f + e;        // [e]
+  int* edge_f = nbr_r + e;       // [e], with kEdgeIds only
+  int* edge_r = edge_f + e;      // [e], with kEdgeIds only
   for (int i = threadIdx.x; i < e; i += blockDim.x) {
     const int p = parent[i], c = child[i];
     const bool ok = mask[i] != 0 && p >= 0 && p < n && c >= 0 && c < n;
@@ -85,9 +90,14 @@ __device__ inline Lists build_lists(const int* __restrict__ parent,
     }
     nbr_f[start_f[p] + rank_f] = c;
     nbr_r[start_r[c] + rank_r] = p;
+    if (kEdgeIds) {
+      edge_f[start_f[p] + rank_f] = i;
+      edge_r[start_r[c] + rank_r] = i;
+    }
   }
   __syncthreads();
-  return Lists{start_f, nbr_f, start_r, nbr_r};
+  return Lists{start_f, nbr_f, start_r, nbr_r, kEdgeIds ? edge_f : nullptr,
+               kEdgeIds ? edge_r : nullptr};
 }
 
 // A launch's `dynamic` bytes beside the kernel's `fixed` static tiles:

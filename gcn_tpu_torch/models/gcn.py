@@ -1,25 +1,33 @@
 """The C-GCN and the paper's GCN relation classifier.
 
-Counterpart of ``gcn_tpu.models.gcn.GCNClassifier`` for the two
-configurations the repo ships: ``cgcn_preset`` (embeddings → BiLSTM →
-``full_deprel`` GCN layers on the factored path → pooling → MLP → logits)
-and ``gcn_preset`` (the ``regular`` mode, with or without the BiLSTM),
-differentiable end to end.  With ``use_pallas=True`` the GCN layers run
-on the fused edge-list path as in JAX, with no [B, N, N] band: a
-``full_deprel`` layer is one ``fused_band_aggregate`` call (while edge
-dropout is inactive), a ``regular`` layer one ``fused_gcn_spmm`` call
-(unless ``no_adj``); ``"auto"`` is off, the dense bands.
-``deterministic=False`` applies the JAX model's stochastic points in its
-order, each drawn from the caller's ``torch.Generator``: embedding
-dropout, input dropout, the BiLSTM's inter-layer dropout, rnn dropout,
-then per GCN layer edge dropout and deprel forgetting on the forward
-band, the same on the reverse band, and gcn dropout between layers.
-Unpacked batches, f32.  Other modes raise ``NotImplementedError``.
+Counterpart of ``gcn_tpu.models.gcn.GCNClassifier`` for three modes:
+``full_deprel`` (``cgcn_preset``: embeddings → BiLSTM → full_deprel GCN
+layers → pooling → MLP → logits), ``regular`` (``gcn_preset``, with or
+without the BiLSTM) and ``attention`` (edge-attention aggregation),
+differentiable end to end.  full_deprel runs factored (the grouped
+matmul, ``deprel_factored`` "auto"/"ragged"/"pallas"/True) or not
+(``deprel_factored=False``: the per-token bilinear transform, an einsum on
+the dense bands, the ``deprel_bilinear`` kernel on the fused path).  With
+``use_pallas=True`` the GCN layers run on the fused edge-list path as in
+JAX, with no [B, N, N] band: a ``full_deprel`` layer is one
+``fused_band_aggregate`` call (while edge dropout is inactive), a
+``regular`` layer one ``fused_gcn_spmm`` call (unless ``no_adj``);
+``"auto"`` is off, the dense bands.  The attention mode picks its backend
+from ``attention_impl`` instead: dense masked-softmax bands, or edge lists
+(``sddmm`` → ``edge_softmax`` → weighted SpMM), ``"auto"`` by the size of
+the [B, N, N] score buffer.  ``deterministic=False`` applies the JAX
+model's stochastic points in its order, each drawn from the caller's
+``torch.Generator``: embedding dropout, input dropout, the BiLSTM's
+inter-layer dropout, rnn dropout, then per GCN layer edge dropout and
+deprel forgetting on the forward band, the same on the reverse band, and
+gcn dropout between layers.  Unpacked batches, f32.  Other modes raise
+``NotImplementedError``.
 
 Parameters keep the flax names and layouts (``word_emb``,
 ``rnn.l0_fwd_w_ih [D, 4H]``, ``gcn_deprel_w0 [D, T, H]``,
-``gcn_w0_kernel [T, H]``, ``mlp0.kernel [in, out]``, ...), so
-``convert.params_from_jax`` carries a flax tree across name for name.
+``gcn_w0_kernel [T, H]``, ``attn_q0 [T, H]``, ``mlp0.kernel [in, out]``,
+...), so ``convert.params_from_jax`` carries a flax tree across name for
+name.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from gcn_tpu_torch import constants
 from gcn_tpu_torch.config import ModelConfig
 from gcn_tpu_torch.ops.adjacency import build_adjacency
 from gcn_tpu_torch.ops.band_aggregate import fused_band_aggregate
+from gcn_tpu_torch.ops.deprel_bilinear import deprel_bilinear_batched
 from gcn_tpu_torch.ops.dropout import (
     drop_edges,
     dropout,
@@ -41,6 +50,7 @@ from gcn_tpu_torch.ops.dropout import (
 )
 from gcn_tpu_torch.ops.gcn_layers import (
     compose_relation_transforms,
+    full_deprel_layer,
     grouped_bilinear,
     make_group_plan,
     regular_layer,
@@ -48,15 +58,37 @@ from gcn_tpu_torch.ops.gcn_layers import (
 )
 from gcn_tpu_torch.ops.lstm import bilstm
 from gcn_tpu_torch.ops.pooling import pool
-from gcn_tpu_torch.ops.spmm import node_degrees
+from gcn_tpu_torch.ops.sddmm import edge_softmax, sddmm
+from gcn_tpu_torch.ops.spmm import (
+    node_degrees,
+    spmm_forward,
+    spmm_reverse,
+    valid_edges,
+)
 from gcn_tpu_torch.ops.spmm_fused import fused_gcn_spmm
+
+# attention_impl="auto": the largest [B, N, N] f32 score buffer the dense
+# backend may allocate before auto takes the edge backend (JAX's budget)
+ATTN_DENSE_BYTE_BUDGET = 256 << 20
+
+
+def resolve_attention_impl(impl: str, b: int, n: int) -> str:
+    """The attention backend for a [B, N] batch, as JAX resolves it:
+    "dense" or "edge" as asked; "auto" is dense while the [B, N, N] f32
+    score buffer fits ``ATTN_DENSE_BYTE_BUDGET``, else edge."""
+    if impl not in ("auto", "dense", "edge"):
+        raise ValueError(f"unknown attention_impl {impl!r}: "
+                         "expected auto | dense | edge")
+    if impl == "auto":
+        return "dense" if b * n * n * 4 <= ATTN_DENSE_BYTE_BUDGET else "edge"
+    return impl
 
 
 def _check_supported(cfg: ModelConfig) -> None:
+    resolve_attention_impl(cfg.attention_impl, 0, 0)
     unsupported = {
-        "adj_type": cfg.adj_type not in ("regular", "full_deprel"),
-        "deprel_factored": (cfg.adj_type == "full_deprel"
-                            and cfg.deprel_factored is False),
+        "adj_type": cfg.adj_type not in ("regular", "full_deprel",
+                                         "attention"),
         "dataset": cfg.dataset != "tacred",
         "use_bert_embeddings": cfg.use_bert_embeddings,
         "compute_dtype": cfg.compute_dtype != "float32",
@@ -66,8 +98,8 @@ def _check_supported(cfg: ModelConfig) -> None:
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
-            f"the port runs the regular mode and the factored full_deprel "
-            f"mode; unsupported settings: {', '.join(bad)}")
+            f"the port runs the regular, full_deprel and attention modes; "
+            f"unsupported settings: {', '.join(bad)}")
 
 
 class TorchDense(nn.Module):
@@ -119,8 +151,8 @@ class GCNClassifier(nn.Module):
     output [B, H], both f32, as the JAX model does.
 
     ``unused_params`` names the parameters that no forward reaches (the
-    regular mode's one-wide deprel table, kept for flax's tree): their
-    gradient is zero, as under ``jax.grad``."""
+    one-wide deprel table of the regular and attention modes, kept for
+    flax's tree): their gradient is zero, as under ``jax.grad``."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -139,21 +171,24 @@ class GCNClassifier(nn.Module):
                               impl=cfg.rnn_impl,
                               dropout_rate=cfg.rnn_dropout)
         t0 = 2 * cfg.rnn_hidden if cfg.rnn else in_dim
-        # the regular mode's table is a one-wide dummy, as in JAX
-        d = cfg.deprel_emb_dim if cfg.adj_type == "full_deprel" else 1
+        # the regular and attention modes' table is a one-wide dummy, as in
+        # JAX
+        full = cfg.adj_type == "full_deprel"
+        d = cfg.deprel_emb_dim if full else 1
         self.deprel_emb = nn.Parameter(
             torch.empty(len(constants.DEPREL_TO_ID), d))
-        self.unused_params = frozenset(
-            {"deprel_emb"} if cfg.adj_type == "regular" else ())
-        if cfg.adj_type == "regular":
+        self.unused_params = frozenset(() if full else {"deprel_emb"})
+        if not full:
             for l in range(cfg.num_layers):
                 t_l = t0 if l == 0 else cfg.hidden_dim
-                self.register_parameter(
-                    f"gcn_w{l}_kernel",
-                    nn.Parameter(torch.empty(t_l, cfg.hidden_dim)))
-                self.register_parameter(
-                    f"gcn_w{l}_bias", nn.Parameter(torch.empty(
-                        cfg.hidden_dim)))
+                names = ["gcn_w{}_kernel", "gcn_w{}_bias"]
+                if cfg.adj_type == "attention":
+                    names += ["attn_q{}", "attn_k{}"]
+                for name in names:
+                    shape = ((cfg.hidden_dim,) if name.endswith("bias")
+                             else (t_l, cfg.hidden_dim))
+                    self.register_parameter(
+                        name.format(l), nn.Parameter(torch.empty(shape)))
         elif cfg.deprel_shared_w:
             # the reference's one W for every layer
             if cfg.num_layers > 1 and t0 != cfg.hidden_dim:
@@ -185,9 +220,14 @@ class GCNClassifier(nn.Module):
                 getattr(self, f"gcn_deprel_b{l}"))
 
     def gcn_weights(self, l: int):
-        """The regular mode's layer transform (kernel [T, H], bias [H])."""
+        """The regular and attention modes' layer transform (kernel
+        [T, H], bias [H])."""
         return (getattr(self, f"gcn_w{l}_kernel"),
                 getattr(self, f"gcn_w{l}_bias"))
+
+    def _use_factored(self) -> bool:
+        v = self.cfg.deprel_factored
+        return True if v in ("auto", "ragged", "pallas") else bool(v)
 
     def _bilinear_impl(self) -> str:
         return "ragged" if self.cfg.deprel_factored == "ragged" else "auto"
@@ -198,9 +238,10 @@ class GCNClassifier(nn.Module):
         regular mode no ``no_adj``, for full_deprel no active edge dropout
         (a stochastic forward with ``edge_keep_prob < 1`` samples per-band
         masks, which the one-mask kernels do not model, and takes the
-        dense bands)."""
+        dense bands).  The attention mode's backend is ``attention_impl``,
+        not this flag."""
         cfg = self.cfg
-        if cfg.use_pallas is not True:
+        if cfg.use_pallas is not True or cfg.adj_type == "attention":
             return False
         if cfg.adj_type == "regular":
             return not cfg.no_adj
@@ -216,8 +257,12 @@ class GCNClassifier(nn.Module):
         words = batch["words"]
         n = words.shape[1]
         fused = self.use_fused(deterministic)
-        if fused:
-            # the kernels' operand types; no band is built on this path
+        attn_impl = None
+        if cfg.adj_type == "attention":
+            attn_impl = resolve_attention_impl(cfg.attention_impl,
+                                               words.shape[0], n)
+        if fused or attn_impl == "edge":
+            # the kernels' operand types; no band is built on these paths
             edges = (batch["edge_parent"].to(torch.int32).contiguous(),
                      batch["edge_child"].to(torch.int32).contiguous(),
                      batch["edge_mask"].bool().contiguous())
@@ -257,13 +302,18 @@ class GCNClassifier(nn.Module):
                 else:
                     h = torch.relu(regular_layer(h, adj.combined, w, b,
                                                  cfg.no_adj) / adj.denom)
+            elif cfg.adj_type == "attention":
+                agg, hw, b = self._attention(
+                    h, l, adj, None if attn_impl == "dense" else edges)
+                # the self connection is unnormalized, and no denominator
+                h = torch.relu(agg + hw + b)
             elif fused:
                 x_f, x_r, x_s = self._full_deprel_components(
                     h, deprel, l, plans, deterministic, generator)
                 h = fused_band_aggregate(*edges, x_f, x_r, x_s)
             else:
-                axw = self._full_deprel_factored(h, adj, deprel, l, plans,
-                                                 deterministic, generator)
+                axw = self._full_deprel_dense(h, adj, deprel, l, plans,
+                                              deterministic, generator)
                 h = torch.relu(axw / adj.denom)
             if l < cfg.num_layers - 1:
                 h = dropout(h, cfg.gcn_dropout, deterministic, generator)
@@ -277,13 +327,75 @@ class GCNClassifier(nn.Module):
         logits = self.classifier(out)
         return logits.float(), h_out.float()
 
-    def _factored_tables(self, w, b):
-        """Relation table + an all-ones and an all-zeros row, composed."""
+    # ----------------------------------------------------------- attention
+    def _attention(self, h, l, adj, edges):
+        """One attention layer's aggregate, ``h @ W`` and bias: scaled
+        dot-product scores ``q[dst]·k[src]/√H`` per tree edge, normalized
+        over each destination's edges, weighting the ``h @ W`` messages of
+        both bands.  The edge backend takes the edge lists ``edges``, the
+        dense one (``edges`` None) the ``Adjacency``."""
+        w, b = self.gcn_weights(l)
+        q = h @ getattr(self, f"attn_q{l}")
+        k = h @ getattr(self, f"attn_k{l}")
+        hw = h @ w
+        scale = 1.0 / math.sqrt(self.cfg.hidden_dim)
+        if edges is None:
+            return self._attention_dense(q, k, hw, adj, scale), hw, b
+        ep, ec, em = edges
+        n = h.shape[1]
+        ok = valid_edges(ep, ec, em, n)
+        # forward band: messages child → parent, normalized at the parent
+        a_f = edge_softmax(ep, sddmm(ep, ec, ok, q, k) * scale, ok, n)
+        agg = spmm_forward(hw, ep, ec, ok, edge_weights=a_f)
+        # reverse band: messages parent → child, normalized at the child
+        a_r = edge_softmax(ec, sddmm(ec, ep, ok, q, k) * scale, ok, n)
+        agg = agg + spmm_reverse(hw, ep, ec, ok, edge_weights=a_r)
+        return agg, hw, b
+
+    @staticmethod
+    def _attention_dense(q, k, hw, adj, scale):
+        """Both bands share one score matrix ``S[b,x,y] = q[x]·k[y]``; a
+        masked softmax per destination row, each term weighted by its
+        edge count (a duplicated edge counts twice in the softmax and the
+        aggregate, as on the edge lists), then a dense aggregate.  The
+        row maximum is a constant of the softmax (JAX stops its
+        gradient)."""
+        s = torch.einsum("bxh,byh->bxy", q, k) * scale
+        agg = None
+        for cnt in (adj.forward, adj.reverse):  # destination = parent, child
+            m = cnt > 0
+            sm = torch.where(m, s, torch.full((), -1e30, dtype=s.dtype,
+                                              device=s.device))
+            mx = sm.amax(dim=2, keepdim=True).detach()
+            ex = torch.where(m, cnt * torch.exp(sm - mx),
+                             torch.zeros((), dtype=s.dtype, device=s.device))
+            den = ex.sum(dim=2, keepdim=True).clamp(min=1e-30)
+            band = (ex / den) @ hw
+            agg = band if agg is None else agg + band
+        return agg
+
+    # --------------------------------------------------------- full_deprel
+    def _relation_table(self):
+        """The relation table + an all-ones row (forgotten relations and
+        layers past ``deprel_max_depth``) and an all-zeros row (padding)."""
         table = self.deprel_emb
         d = table.shape[1]
-        table_aug = torch.cat([table, table.new_ones((1, d)),
-                               table.new_zeros((1, d))], dim=0)
-        return compose_relation_transforms(table_aug, w, b)
+        return torch.cat([table, table.new_ones((1, d)),
+                          table.new_zeros((1, d))], dim=0)
+
+    def _relation_rows(self, ids):
+        """The relation table's rows for ids [B, N] → [B, N, D], as a
+        one-hot matmul (JAX gathers): its backward is one ``onehotᵀ @ g``
+        product, where PyTorch's index backward serialises on repeated
+        rows (89 rows for the 4800 tokens of a band: 6.3 ms of the
+        non-factored C-GCN's train step on an H100 at B=50, N=96)."""
+        table = self._relation_table()
+        onehot = torch.nn.functional.one_hot(ids.long(), table.shape[0])
+        return onehot.to(table.dtype) @ table
+
+    def _factored_tables(self, w, b):
+        """The relation table's rows composed with W and b."""
+        return compose_relation_transforms(self._relation_table(), w, b)
 
     def _group_plan(self, plans, key, ids, n_groups, deterministic):
         """The sort plan, shared across layers when the relation ids cannot
@@ -306,6 +418,30 @@ class GCNClassifier(nn.Module):
             return torch.full_like(ids, ones_id)
         return ids
 
+    def _band_inputs(self, adj, deprel, l, deterministic, generator):
+        """(a_f, ids_f, a_r, ids_r): each band's (edge-dropped) adjacency
+        and relation ids, drawn in JAX's order (edge drop forward, forget
+        forward, edge drop reverse, forget reverse), so that the factored
+        and the non-factored paths consume one generator alike.  The
+        bands are None without ``adj`` (the fused path, where edge
+        dropout is inactive), the reverse ones for a directed model."""
+        cfg = self.cfg
+        zero_id = self.deprel_emb.shape[0] + 1
+        a_f = a_r = ids_r = None
+        if adj is not None:
+            a_f = drop_edges(adj.forward, cfg.edge_keep_prob, deterministic,
+                             generator)
+        # forward band: id 0 (padding) takes the all-zeros row
+        ids_f = self._band_ids(torch.where(deprel == 0, zero_id, deprel), l,
+                               deterministic, generator)
+        if not cfg.deprel_directed:
+            if adj is not None:
+                a_r = drop_edges(adj.reverse, cfg.edge_keep_prob,
+                                 deterministic, generator)
+            ids_r = self._band_ids(deprel + constants.DEPREL_FORWARD_BOUND,
+                                   l, deterministic, generator)
+        return a_f, ids_f, a_r, ids_r
+
     def _band_messages(self, h, ids_f, ids_r, l, plans, deterministic):
         """(x_f, x_r): h through each band's relation transforms, by one
         grouped matmul over the stacked bands (they share S); x_r is None
@@ -327,37 +463,35 @@ class GCNClassifier(nn.Module):
         bsz = h.shape[0]
         return x2[:bsz], x2[bsz:]
 
-    def _self_loop(self, h, l):
-        """The self-loop transform of h (all-ones past deprel_max_depth)."""
-        w, b = self.deprel_weights(l)
+    def _self_loop_emb(self, l):
+        """The self-loop relation's embedding (all-ones past
+        deprel_max_depth), or None without the self loop."""
+        if not self.cfg.deprel_self_loop:
+            return None
         e_self = self.deprel_emb[constants.SELF_LOOP_INDEX]
         if l >= self.cfg.deprel_max_depth:
             e_self = torch.ones_like(e_self)
-        return self_loop_traverse(h, e_self, w, b)
+        return e_self
 
-    def _full_deprel_factored(self, h, adj, deprel, l, plans, deterministic,
-                              generator):
-        """The dense-band full_deprel layer before its denominator."""
-        cfg = self.cfg
-        zero_id = self.deprel_emb.shape[0] + 1
-        # forward band: id 0 (padding) takes the all-zeros row
-        a_f = drop_edges(adj.forward, cfg.edge_keep_prob, deterministic,
-                         generator)
-        ids_f = self._band_ids(torch.where(deprel == 0, zero_id, deprel), l,
-                               deterministic, generator)
-        ids_r = None
-        if not cfg.deprel_directed:
-            a_r = drop_edges(adj.reverse, cfg.edge_keep_prob, deterministic,
-                             generator)
-            ids_r = self._band_ids(deprel + constants.DEPREL_FORWARD_BOUND,
-                                   l, deterministic, generator)
+    def _full_deprel_dense(self, h, adj, deprel, l, plans, deterministic,
+                           generator):
+        """The dense-band full_deprel layer before its denominator:
+        factored (grouped matmul) or the einsum ``full_deprel_layer``."""
+        a_f, ids_f, a_r, ids_r = self._band_inputs(adj, deprel, l,
+                                                   deterministic, generator)
+        w, b = self.deprel_weights(l)
+        e_self = self._self_loop_emb(l)
+        if not self._use_factored():
+            e_rev = None if ids_r is None else self._relation_rows(ids_r)
+            return full_deprel_layer(h, a_f, self._relation_rows(ids_f),
+                                     e_rev, e_self, w, b, adj_reverse=a_r)
         x_f, x_r = self._band_messages(h, ids_f, ids_r, l, plans,
                                        deterministic)
         out = a_f @ x_f
         if x_r is not None:
             out = out + a_r @ x_r
-        if cfg.deprel_self_loop:
-            out = out + self._self_loop(h, l)
+        if e_self is not None:
+            out = out + self_loop_traverse(h, e_self, w, b)
         return out
 
     def _full_deprel_components(self, h, deprel, l, plans, deterministic,
@@ -365,21 +499,24 @@ class GCNClassifier(nn.Module):
         """(x_f, x_r, x_s) of the fused path, contiguous for the kernel:
         the layer is ``(A_f x_f + A_fᵀ x_r + x_s)/denom``, x_r zero for a
         directed model, x_s zero without the self loop.  Edge dropout is
-        inactive here, so only forgetting draws."""
-        cfg = self.cfg
-        zero_id = self.deprel_emb.shape[0] + 1
-        ids_f = self._band_ids(torch.where(deprel == 0, zero_id, deprel), l,
-                               deterministic, generator)
-        ids_r = None
-        if not cfg.deprel_directed:
-            ids_r = self._band_ids(deprel + constants.DEPREL_FORWARD_BOUND,
-                                   l, deterministic, generator)
-        x_f, x_r = self._band_messages(h, ids_f, ids_r, l, plans,
-                                       deterministic)
+        inactive here, so only forgetting draws.  The per-token transform
+        is the grouped matmul (factored) or the ``deprel_bilinear`` v2
+        kernel (``deprel_factored=False``)."""
+        _, ids_f, _, ids_r = self._band_inputs(None, deprel, l,
+                                               deterministic, generator)
+        w, b = self.deprel_weights(l)
+        if self._use_factored():
+            x_f, x_r = self._band_messages(h, ids_f, ids_r, l, plans,
+                                           deterministic)
+        else:
+            x_f = deprel_bilinear_batched(h, self._relation_rows(ids_f), w, b)
+            x_r = (None if ids_r is None else deprel_bilinear_batched(
+                h, self._relation_rows(ids_r), w, b))
         if x_r is None:
             x_r = torch.zeros_like(x_f)
-        if cfg.deprel_self_loop:
-            x_s = self._self_loop(h, l)
+        e_self = self._self_loop_emb(l)
+        if e_self is not None:
+            x_s = self_loop_traverse(h, e_self, w, b)
         else:
             x_s = torch.zeros_like(x_f)
         return x_f.contiguous(), x_r.contiguous(), x_s.contiguous()
@@ -409,12 +546,15 @@ def init_params(model: GCNClassifier, generator: torch.Generator) -> None:
             uniform(p, 1.0 / math.sqrt(cfg.rnn_hidden))
     normal(model.deprel_emb)
     model.deprel_emb[0] = 0.0
-    if cfg.adj_type == "regular":
+    if cfg.adj_type in ("regular", "attention"):
         for l in range(cfg.num_layers):
             w, b = model.gcn_weights(l)
             bound = 1.0 / math.sqrt(w.shape[0])
             uniform(w, bound)
             uniform(b, bound)
+            if cfg.adj_type == "attention":
+                uniform(getattr(model, f"attn_q{l}"), bound)
+                uniform(getattr(model, f"attn_k{l}"), bound)
     else:
         for l in range(1 if cfg.deprel_shared_w else cfg.num_layers):
             w, b = model.deprel_weights(l)
@@ -426,4 +566,3 @@ def init_params(model: GCNClassifier, generator: torch.Generator) -> None:
         bound = 1.0 / math.sqrt(layer.kernel.shape[0])
         uniform(layer.kernel, bound)
         uniform(layer.bias, bound)
-

@@ -1,7 +1,9 @@
 """Dense adjacency bands from padded edge lists.
 
 Counterpart of ``gcn_tpu.ops.adjacency``: one scatter-add builds the forward
-band ``A_f[b, parent, child]``; the reverse band is its transpose; nodes
+band ``A_f[b, parent, child]``, which counts the edges p → c (0/1 on a
+tree; a duplicated edge counts twice, and the dense attention backend
+weights its softmax by these counts); the reverse band is its transpose; nodes
 touching an edge get the self loop; ``denom = deg_out + deg_in + incident +
 1``; tokens with no incident edge are excluded from sentence pooling.  An edge
 whose parent or child lies outside ``[0, n)`` is dropped, as JAX's scatter
@@ -18,7 +20,7 @@ from gcn_tpu_torch.ops.spmm import valid_edges
 
 
 class Adjacency(NamedTuple):
-    forward: torch.Tensor    # [B, N, N] parent→child band (0/1)
+    forward: torch.Tensor    # [B, N, N] parent→child edge counts
     incident: torch.Tensor   # [B, N] bool — node touches ≥1 edge
     denom: torch.Tensor      # [B, N, 1] degree normalizer
     pool_mask: torch.Tensor  # [B, N] bool — True = exclude from pooling
@@ -30,7 +32,8 @@ class Adjacency(NamedTuple):
     @property
     def combined(self) -> torch.Tensor:
         """Forward + reverse band + the self loop of every incident node:
-        the reference's 0/1 ``adj_matrix`` of the regular mode."""
+        the reference's ``adj_matrix`` of the regular mode (0/1 on a
+        tree)."""
         diag = torch.diag_embed(self.incident.to(self.forward.dtype))
         return self.forward + self.reverse + diag
 

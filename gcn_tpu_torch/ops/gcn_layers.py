@@ -1,8 +1,11 @@
-"""Dense GCN layer operators: the regular mode and factored full_deprel.
+"""Dense GCN layer operators: the regular mode and full_deprel.
 
-Counterpart of ``regular_layer`` and of the factored path of
-``gcn_tpu.ops.gcn_layers``.  ``regular_layer`` is ``((A+I)h)W + 2b`` on a
-prebuilt combined band, plain ``torch.matmul`` as JAX leaves it to XLA.
+Counterpart of ``regular_layer``, ``bilinear_traverse``,
+``full_deprel_layer`` and the factored path of ``gcn_tpu.ops.gcn_layers``.
+``regular_layer`` is ``((A+I)h)W + 2b`` on a prebuilt combined band, plain
+``torch.matmul`` as JAX leaves it to XLA; ``full_deprel_layer`` is the
+non-factored layer (``deprel_factored=False``) on the dense bands, its
+per-token transform one 3-operand ``einsum`` (``bilinear_traverse``).
 The
 per-token bilinear transform ``out[m] = Σ_d e[m,d]·(h[m] @ W[d] + b[d])``
 with ``e = table[ids]`` is linear in ``e``, so it equals
@@ -93,6 +96,32 @@ def grouped_bilinear(h, ids, s, bs, impl: str = "auto", plan=None):
                                    use_kernel=impl != "ragged")
     out = permute_rows(out_sorted, plan.inv_perm, plan.perm)
     return (out + plan.onehot @ bs).reshape(b_sz, n, s.shape[-1])
+
+
+def bilinear_traverse(h, e, w, b):
+    """``out[b,n] = Σ_d e[b,n,d]·(h[b,n] @ W[d] + bias[d])`` for h
+    [B, N, T], e [B, N, D], W [D, T, H], b [D, H] → [B, N, H]: one
+    3-operand einsum, whose contraction order PyTorch chooses (it may form
+    the [B, N, D, T] outer product, as the reference does)."""
+    out = torch.einsum("bnd,bnt,dth->bnh", e, h, w)
+    return out + torch.einsum("bnd,dh->bnh", e, b)
+
+
+def full_deprel_layer(h, adj_forward, e_fwd, e_rev, e_self, w, b,
+                      adj_reverse=None):
+    """The non-factored full_deprel layer before its denominator:
+    ``A_f T(h, e_fwd) + A_r T(h, e_rev) + S(h)``.  ``e_rev`` None: a
+    directed model (no reverse band); ``e_self`` None: no self loop;
+    ``adj_reverse`` defaults to ``A_fᵀ`` (edge dropout draws its own
+    mask per band)."""
+    out = adj_forward @ bilinear_traverse(h, e_fwd, w, b)
+    if e_rev is not None:
+        rev = adj_reverse if adj_reverse is not None \
+            else adj_forward.transpose(1, 2)
+        out = out + rev @ bilinear_traverse(h, e_rev, w, b)
+    if e_self is not None:
+        out = out + self_loop_traverse(h, e_self, w, b)
+    return out
 
 
 def self_loop_traverse(h, e_self, w, b):

@@ -15,6 +15,11 @@ entry in another order) and 1e-2 of it in bf16.  The edge-list kernels
 (band aggregation, fused GCN layer, their backward pairs): 1e-5 of
 max(1, max |reference|) in f32, sums of a few neighbour rows (and, in the
 fused layer, T products) in another order than the dense band's matmul.
+The SDDMM and its backward: 1e-5 of max(1, max |reference|) (dot products
+of H terms, sums over a node's edges).  The bilinear kernels: 1e-4 of
+max(1, max |reference|) (sums of D·T products, up to 20000, in another
+order than the plain version's matmul).  Every edge-list and bilinear
+kernel gives the same bits when it is called twice (no float atomics).
 """
 
 import numpy as np
@@ -24,9 +29,12 @@ import torch
 from gcn_tpu_torch.config import cgcn_preset, gcn_preset
 from gcn_tpu_torch.models.gcn import GCNClassifier, init_params
 from gcn_tpu_torch.ops import band_aggregate as band_mod
+from gcn_tpu_torch.ops import deprel_bilinear as bilinear_mod
 from gcn_tpu_torch.ops import grouped_matmul as gmm_mod
 from gcn_tpu_torch.ops import lstm_scan as lstm_mod
+from gcn_tpu_torch.ops import sddmm as sddmm_mod
 from gcn_tpu_torch.ops import spmm_fused as spmm_mod
+from gcn_tpu_torch.ops.spmm import valid_edges
 from gcn_tpu_torch.train.evaluator import Evaluator, batch_to_device
 from gcn_tpu_torch.train.trainer import Trainer
 
@@ -297,13 +305,17 @@ def test_trainer_on_card_matches_cpu(cuda_device):
 
 EDGE_SIZES = {"long": (2, 300, 300),      # a sentence past the 128 bucket
               "past_48kb": (2, 3000, 3000)}  # lists above 48 KB of smem
+# the attention edge backend's regime (auto takes it from N = 1159 at
+# B = 50), and more edge slots than nodes (a multigraph)
+FOREST = {"forest": (50, 1200, 1200), "more_edges": (4, 12, 30)}
 
 
 def edge_tensors(name, device):
-    """An ``edge_case`` (or a long one of ``EDGE_SIZES``) on ``device``,
-    with its (b, n)."""
-    b, n, e = EDGE_SIZES.get(name, (3, 10, 10))
-    arrays = edge_case("random" if name in EDGE_SIZES else name, b, n, e)
+    """An ``edge_case`` (or a long one of ``EDGE_SIZES`` or ``FOREST``) on
+    ``device``, with its (b, n)."""
+    sizes = {**EDGE_SIZES, **FOREST}
+    b, n, e = sizes.get(name, (3, 10, 10))
+    arrays = edge_case("random" if name in sizes else name, b, n, e)
     return [torch.from_numpy(a).to(device) for a in arrays], b, n
 
 
@@ -408,5 +420,120 @@ def test_fused_path_on_card_matches_cpu(cuda_device, preset):
         got, want = float(card.update(batch)), float(cpu.update(batch))
         assert abs(got - want) <= 1e-4 * max(1.0, abs(want))
     assert pair.launches == launches + 3 * cfg.model.num_layers
+    for k, v in cpu.model.state_dict().items():
+        assert scaled_err(card.model.state_dict()[k].cpu(), v) <= 1e-4, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", EDGE_CASES + list(EDGE_SIZES) + list(FOREST))
+def test_sddmm_kernels_match_plain(cuda_device, name):
+    edges, b, n = edge_tensors(name, cuda_device)
+    rng = np.random.RandomState(7)
+    u, v = features(rng, cuda_device, (b, n, 70), (b, n, 70))
+    (g,) = features(rng, cuda_device, tuple(edges[0].shape))
+    launches = sddmm_mod.KERNEL.launches
+    got = sddmm_mod.sddmm_forward(*edges, u, v)
+    again = sddmm_mod.sddmm_forward(*edges, u, v)
+    assert sddmm_mod.KERNEL.launches == launches + 2
+    assert torch.equal(got, again)
+    assert scaled_err(got, sddmm_mod.sddmm_plain(*edges, u, v)) <= 1e-5
+    # masked edges and edges with an end outside [0, n) score exactly 0
+    assert not got[~valid_edges(*edges, n)].any()
+    launches = sddmm_mod.BACKWARD_KERNEL.launches
+    got = sddmm_mod.sddmm_backward(*edges, g, u, v)
+    again = sddmm_mod.sddmm_backward(*edges, g, u, v)
+    assert sddmm_mod.BACKWARD_KERNEL.launches == launches + 2
+    want = sddmm_mod.sddmm_backward_plain(*edges, g, u, v)
+    for a, a2, w in zip(got, again, want):
+        assert torch.equal(a, a2)  # no float atomics
+        assert scaled_err(a, w) <= 1e-5
+
+
+BILINEAR_SHAPES = {"ragged": (70, 37, 5, 70),    # M, T, D, H: no tile fits
+                   "small": (130, 40, 9, 24),
+                   "c_gcn_layer1": (4800, 200, 50, 200)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version", ["v2", "v1"])
+@pytest.mark.parametrize("shape", sorted(BILINEAR_SHAPES))
+def test_deprel_bilinear_kernels_match_plain(cuda_device, shape, version):
+    m, t, d, h = BILINEAR_SHAPES[shape]
+    rng = np.random.RandomState(8)
+    x, e, w = features(rng, cuda_device, (m, t), (m, d), (d, t, h))
+    w = w / np.sqrt(t)
+    kernel = bilinear_mod._KERNELS[version][0]
+    launches = kernel.launches
+    got = bilinear_mod.bilinear_forward(x, e, w, version)
+    again = bilinear_mod.bilinear_forward(x, e, w, version)
+    assert kernel.launches == launches + 2
+    assert torch.equal(got, again)
+    plain = getattr(bilinear_mod, f"bilinear_{version}_plain")
+    assert scaled_err(got, plain(x, e, w)) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    (parent, child, mask), b, n = edge_tensors("random", cuda_device)
+    u = torch.randn(b, n, 8, device=cuda_device)
+    with pytest.raises(ValueError, match="differ"):
+        sddmm_mod.sddmm_forward(parent, child, mask, u,
+                                torch.zeros(b, n, 4, device=cuda_device))
+    with pytest.raises(TypeError):
+        sddmm_mod.sddmm_forward(parent, child, mask, u.double(), u.double())
+    with pytest.raises(ValueError, match="g must be"):
+        sddmm_mod.sddmm_backward(parent, child, mask,
+                                 torch.zeros(b, 1, device=cuda_device), u, u)
+    x = torch.randn(16, 8, device=cuda_device)
+    e = torch.randn(16, 3, device=cuda_device)
+    w = torch.randn(3, 8, 5, device=cuda_device)
+    with pytest.raises(TypeError):
+        bilinear_mod.bilinear_forward(x.bfloat16(), e.bfloat16(),
+                                      w.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        bilinear_mod.bilinear_forward(x.T.contiguous().T, e, w)
+    with pytest.raises(ValueError, match="expected"):
+        bilinear_mod.bilinear_forward(x, e, w[:, :4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["attention", "bilinear"])
+def test_new_paths_on_card_match_cpu(cuda_device, mode):
+    """The attention edge backend and the non-factored fused full_deprel,
+    dropout off: the evaluation forward and three train steps with the
+    kernels on the card against the plain versions on the CPU, within
+    1e-4; every kernel of the path counted."""
+    extra = ({"model.adj_type": "attention", "model.attention_impl": "edge"}
+             if mode == "attention" else
+             {"model.deprel_factored": False, "model.use_pallas": True})
+    cfg = small_cfg(**extra, **{"model.input_dropout": 0.0,
+                                "model.rnn_dropout": 0.0,
+                                "model.gcn_dropout": 0.0})
+    fwd, bwd = ((sddmm_mod.KERNEL, sddmm_mod.BACKWARD_KERNEL)
+                if mode == "attention"
+                else (bilinear_mod.KERNEL_V2, band_mod.PAIR_KERNEL))
+    per_layer = 2  # a kernel call per band and layer, or pair per layer
+    per_layer_bwd = 2 if mode == "attention" else 1
+    model = GCNClassifier(cfg.model)
+    init_params(model, torch.Generator().manual_seed(0))
+    state = model.state_dict()
+    batch = random_batch(np.random.RandomState(0))
+    launches = fwd.launches
+    with torch.no_grad():
+        got, _ = Evaluator(cfg, state, device=cuda_device).model(
+            batch_to_device(batch, cuda_device))
+        want, _ = Evaluator(cfg, state, device="cpu").model(
+            batch_to_device(batch, torch.device("cpu")))
+    assert fwd.launches == launches + per_layer * cfg.model.num_layers
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+    card = Trainer(cfg, state, device=cuda_device)
+    cpu = Trainer(cfg, state, device="cpu")
+    launches = bwd.launches
+    rng = np.random.RandomState(1)
+    for _ in range(3):
+        batch = random_batch(rng)
+        got, want = float(card.update(batch)), float(cpu.update(batch))
+        assert abs(got - want) <= 1e-4 * max(1.0, abs(want))
+    assert bwd.launches == launches + 3 * per_layer_bwd * cfg.model.num_layers
     for k, v in cpu.model.state_dict().items():
         assert scaled_err(card.model.state_dict()[k].cpu(), v) <= 1e-4, k

@@ -148,9 +148,8 @@ def test_init_params_match_jax_distributions():
 
 def test_unsupported_modes_raise():
     for ov in ({"model.adj_type": "diagonal_deprel"},
-               {"model.adj_type": "attention"},
                {"model.compute_dtype": "bfloat16"},
-               {"model.deprel_factored": False}):
+               {"model.graph_partition": "edges"}):
         _, tcfg = _configs(**ov)
         with pytest.raises(NotImplementedError):
             GCNClassifier(tcfg.model)
@@ -202,7 +201,8 @@ def test_port_imports_nothing_of_jax_or_gcn_tpu():
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, chip_smoke, gcn_tpu_torch.train.evaluator, "
-            "gcn_tpu_torch.convert, gcn_tpu_torch.data.dataset; "
+            "gcn_tpu_torch.convert, gcn_tpu_torch.data.dataset, "
+            "gcn_tpu_torch.ops.sddmm, gcn_tpu_torch.ops.deprel_bilinear; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'gcn_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
