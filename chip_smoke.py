@@ -14,11 +14,13 @@ Phases, one JSON line each:
    deprel bilinear transform, v2 and v1) against its plain PyTorch version
    on the card at the main paths' shapes (the SDDMM also at N = E = 1200,
    where ``attention_impl="auto"`` takes the edge backend): max error and
-   its tolerance, median time by CUDA events (for the edge-list kernels,
-   of tens of microseconds, by a replayed CUDA graph of the call, and also
+   its tolerance, median time by CUDA events (for the edge-list and
+   bilinear kernels by a replayed CUDA graph of the call, and also
    eagerly), the plain version's time, one PyTorch library call's time as
-   a yardstick where one computes the same function, and the kernel's
-   bound at the card's peak rates;
+   a yardstick where one computes the same function (for the bilinear also
+   one SGEMM on its prebuilt [M, D*T] operand), and the kernel's bound at
+   the card's peak rates (3xTF32 for the two kernels that run it, with the
+   f32 FMA bound beside);
 4. slice  — for each path, ``Evaluator`` at full widths (random weights
    from a seeded ``torch.Generator``) over B=50 batches of the in-repo
    TACRED JSON and of synthetic sentences at the N=96 bucket, all through
@@ -60,6 +62,7 @@ machine with no CUDA device, or a directory without the package.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import statistics
@@ -75,6 +78,8 @@ SEED = 0
 B, N_BUCKET = 50, 96          # main-path batch and the 96-token bucket
 SYNTH_BATCHES = 4             # synthetic batches at the N=96 bucket
 PEAK_F32_FLOPS = 67e12        # H100 SXM f32 (no tensor cores), dense
+PEAK_TF32X3_FLOPS = 495e12 / 3  # H100 SXM TF32 tensor cores, dense, three
+                                # products per f32 product (3xTF32)
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 TOL_F32 = 1e-4                # kernel vs plain: f32, other summation order
 TOL_BF16 = 1e-2               # bf16 storage, error over max(1, |ref|): one
@@ -145,10 +150,22 @@ def graph_ms(fn, reps: int = 50) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(n_bytes: float, flops: float) -> tuple[float, str]:
+def bound(n_bytes: float, flops: float, rate: float = PEAK_F32_FLOPS,
+          ops: str = "operations") -> tuple[float, str]:
+    """The least ms for ``n_bytes`` moved and ``flops`` done at ``rate``,
+    and which of the two sets it (``ops`` names the operations)."""
     t_bytes = n_bytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+    t_ops = flops / rate * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else ops)
+
+
+def tf32x3_bound(n_bytes: float, flops: float) -> dict:
+    """The bound keys of a kernel that runs 3xTF32: ``bound_ms`` at the
+    3xTF32 rate and ``bound_f32_ms`` at the f32 FMA rate."""
+    bound_ms, bound_by = bound(n_bytes, flops, PEAK_TF32X3_FLOPS,
+                               "operations (3xTF32)")
+    return {"bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_f32_ms": bound(n_bytes, flops)[0]}
 
 
 def max_err(a, b) -> float:
@@ -631,7 +648,11 @@ def check_spmm(torch, rng, dev, edges) -> list[dict]:
              "torch.bmm of the prebuilt S band with [x1 | x2] [B, N, 2T]",
              pair_err, pair_abs, 4 * 4 * h.numel() + e_bytes, 2 * gather),
         ):
-            bound_ms, bound_by = bound(n_bytes, flops)
+            if "forward" in name:  # the W product runs 3xTF32
+                bounds = tf32x3_bound(n_bytes, flops)
+            else:
+                bounds = dict(zip(("bound_ms", "bound_by"),
+                                  bound(n_bytes, flops)))
             rows.append({
                 "name": name, "route": "cuda",
                 "source": "gcn_tpu_torch/csrc/spmm_fused.cu",
@@ -640,8 +661,7 @@ def check_spmm(torch, rng, dev, edges) -> list[dict]:
                           "H": hd, "valid_edges": valid},
                 "max_abs_err": abs_err, "errs": {"f32": err},
                 "tol": {"f32": TOL_F32}, "ok": err <= TOL_F32,
-                "ms": graph_ms(fn), "plain_ms": graph_ms(plain),
-                "bound_ms": bound_ms, "bound_by": bound_by,
+                "ms": graph_ms(fn), "plain_ms": graph_ms(plain), **bounds,
                 "library_ms": graph_ms(lib), "library": lib_note,
                 "library_band_build_ms": build_ms, "timing": TIMING_GRAPH,
                 "eager_ms": time_ms(fn, 20),
@@ -808,12 +828,18 @@ def check_bilinear(torch, rng, dev) -> tuple[list[dict], int]:
         e = torch.tensor(rng.randn(m, d), dtype=torch.float32, device=dev)
         w = torch.tensor(rng.uniform(-1, 1, (d, t, h)) / np.sqrt(t),
                          dtype=torch.float32, device=dev)
-        # yardstick only (the port never calls it); it may form [M, D, T]
-        # (384 MB at T = 400)
-        library_ms = time_ms(lambda: torch.einsum("md,mt,dth->mh", e, x, w),
-                             10)
+        # yardsticks only (the port never calls them): the einsum, which may
+        # form [M, D, T] (384 MB at T = 400), and one SGEMM of the same
+        # product on its operand z = e ⊗ x [M, D·T], built beforehand and
+        # not timed, as the band rows prebuild their bands
+        library_ms = graph_ms(
+            lambda: torch.einsum("md,mt,dth->mh", e, x, w))
+        z = (e[:, :, None] * x[:, None, :]).reshape(m, d * t)
+        w2 = w.reshape(d * t, h)
+        library_sgemm_ms = graph_ms(lambda: torch.mm(z, w2))
+        del z
         n_bytes = 4 * (x.numel() + e.numel() + w.numel() + m * h)
-        bound_ms, bound_by = bound(n_bytes, 2.0 * m * d * t * h)
+        flops = 2.0 * m * d * t * h
         for version, line in (("v2", 143), ("v1", 57)):
             plain = getattr(mod, f"bilinear_{version}_plain")
             (got, again), counts = counted(lambda: [
@@ -822,6 +848,12 @@ def check_bilinear(torch, rng, dev) -> tuple[list[dict], int]:
             want = plain(x, e, w)
             err, abs_err = scaled_err(got, want), max_err(got, want)
             same = bool(torch.equal(got, again))
+            if version == "v2":  # the 3xTF32 mainloop
+                bounds = tf32x3_bound(n_bytes, flops)
+            else:
+                bounds = dict(zip(("bound_ms", "bound_by"),
+                                  bound(n_bytes, flops)))
+            fn = functools.partial(mod.bilinear_forward, x, e, w, version)
             rows.append({
                 "name": f"deprel_bilinear_{version}_T{t}", "route": "cuda",
                 "source": "gcn_tpu_torch/csrc/deprel_bilinear.cu",
@@ -830,12 +862,14 @@ def check_bilinear(torch, rng, dev) -> tuple[list[dict], int]:
                 "max_abs_err": abs_err, "errs": {"f32": err},
                 "same_bits_twice": same, "tol": {"f32": TOL_F32},
                 "ok": err <= TOL_F32 and same,
-                "ms": time_ms(lambda: mod.bilinear_forward(x, e, w, version),
-                              10),
-                "plain_ms": time_ms(lambda: plain(x, e, w), 5),
-                "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": library_ms,
+                "ms": graph_ms(fn),
+                "plain_ms": graph_ms(functools.partial(plain, x, e, w)),
+                **bounds, "library_ms": library_ms,
                 "library": 'torch.einsum("md,mt,dth->mh", e, x, w)',
+                "library_sgemm_ms": library_sgemm_ms,
+                "library_sgemm": "torch.mm of the prebuilt z = e ⊗ x "
+                                 "[M, D·T] with W [D·T, H], f32",
+                "timing": TIMING_GRAPH, "eager_ms": time_ms(fn, 20),
             })
     return rows, v1_launches
 
@@ -1056,6 +1090,7 @@ KERNEL_GROUPS = (  # device time by category, matched on kernel names
     ("sddmm forward kernel", ("sddmm_fwd_kernel",)),
     ("sddmm backward kernel", ("sddmm_bwd_kernel",)),
     ("deprel bilinear kernels", ("deprel_bilinear_v2_kernel",
+                                 "deprel_bilinear_v2_sum_kernel",
                                  "deprel_bilinear_v1_kernel")),
     ("copies", ("Memcpy", "Memset")),
     ("library matmuls", ("gemm", "cublas", "cutlass", "xmma")),
@@ -1313,6 +1348,8 @@ def main() -> int:
                    "train_step": trains[path]["launches_per_step"][kernel]}
             for path in PATHS}
         line.append({**{k: row[k] for k in keys},
+                     **{k: row[k] for k in ("bound_f32_ms", "library_sgemm_ms")
+                        if k in row},
                      "launches_path": home or "kernel phase",
                      "launches_by_path": by_path})
     emit({"kernels": line})

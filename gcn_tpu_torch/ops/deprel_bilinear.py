@@ -9,7 +9,11 @@ of the non-factored ``full_deprel`` layer (the reference's
 ``traverse_deprel``).  Two kernels compute it, as in JAX, both in
 ``csrc/deprel_bilinear.cu``: v2 (``deprel_bilinear_v2`` and
 ``deprel_bilinear_batched``, what the model runs) as an implicit GEMM over
-K = D·T, and v1 (the public ``deprel_bilinear``) streaming over d.  On a
+K = D·T on the tensor cores in 3xTF32 (``csrc/tf32x3_tile.cuh``, f32-level
+error), summing each output over t chunks, then d, then the d slices it
+splits K into (the slices' partials go through a scratch the wrapper
+allocates), and v1 (the public ``deprel_bilinear``) streaming over d on
+f32 CUDA cores, summing over d, then t.  On a
 CPU tensor each runs its plain version: v2 forms the [M, D·T] operand
 ``e ⊗ x`` and multiplies it with W as [D·T, H]; v1 loops over d.
 
@@ -34,13 +38,12 @@ import torch
 from gcn_tpu_torch.ops._cuda import CudaKernel
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGS = [_P] * 4 + [_I] * 4 + [_P]
-KERNEL_V2 = CudaKernel("deprel_bilinear.cu",
-                       {"deprel_bilinear_v2_f32": _ARGS},
-                       name="deprel_bilinear_v2")
-KERNEL_V1 = CudaKernel("deprel_bilinear.cu",
-                       {"deprel_bilinear_v1_f32": _ARGS},
-                       name="deprel_bilinear_v1")
+KERNEL_V2 = CudaKernel("deprel_bilinear.cu", {
+    "deprel_bilinear_v2_f32": [_P] * 5 + [_I] * 5 + [_P],
+    "deprel_bilinear_v2_slices": [_I] * 3}, name="deprel_bilinear_v2")
+KERNEL_V1 = CudaKernel("deprel_bilinear.cu", {
+    "deprel_bilinear_v1_f32": [_P] * 4 + [_I] * 4 + [_P]},
+    name="deprel_bilinear_v1")
 _KERNELS = {"v2": (KERNEL_V2, "deprel_bilinear_v2_f32"),
             "v1": (KERNEL_V1, "deprel_bilinear_v1_f32")}
 
@@ -90,9 +93,19 @@ def bilinear_forward(x, e, w, version: str = "v2"):
     if out.numel() == 0:
         return out
     with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if version == "v1":
+            kernel.launch(fname, x.data_ptr(), e.data_ptr(), w.data_ptr(),
+                          out.data_ptr(), m, t, d, h, stream)
+            return out
+        # v2 splits K over d into slices whose partials a second kernel of
+        # the same call sums in order
+        slices = kernel.load().deprel_bilinear_v2_slices(m, d, h)
+        part = (torch.empty((slices, m, h), dtype=torch.float32,
+                            device=x.device) if slices > 1 else out)
         kernel.launch(fname, x.data_ptr(), e.data_ptr(), w.data_ptr(),
-                      out.data_ptr(), m, t, d, h,
-                      torch.cuda.current_stream(x.device).cuda_stream)
+                      out.data_ptr(), part.data_ptr(), m, t, d, h, slices,
+                      stream)
     return out
 
 

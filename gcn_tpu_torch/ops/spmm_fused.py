@@ -6,8 +6,10 @@ Counterpart of ``gcn_tpu.ops.pallas.spmm_fused``:
     denom = deg_out + deg_in + incident + 1
 
 On a CUDA tensor ``gcn_spmm_forward`` launches the hand-written kernel in
-``csrc/spmm_fused.cu``, which does the product with W in its own body,
-and ``sym_pair`` (``(S x1, S x2)`` with ``S = A_f + A_fᵀ +
+``csrc/spmm_fused.cu``, which does the product with W in its own body on
+the tensor cores in 3xTF32 (``csrc/tf32x3_tile.cuh``: each operand split
+into two TF32 parts, three products a k-step, f32-level error), and
+``sym_pair`` (``(S x1, S x2)`` with ``S = A_f + A_fᵀ +
 diag(incident + 1)``, the backward's aggregation) its second kernel; on a
 CPU tensor each runs its plain version (the dense band from
 ``build_adjacency``, ``torch.bmm`` and ``torch.matmul``).
@@ -26,7 +28,8 @@ import torch
 
 from gcn_tpu_torch.ops._cuda import CudaKernel
 from gcn_tpu_torch.ops.adjacency import build_adjacency
-from gcn_tpu_torch.ops.band_aggregate import band_denom, check_edges
+from gcn_tpu_torch.ops.band_aggregate import (MAX_SHARED_BYTES, band_denom,
+                                              check_edges)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("spmm_fused.cu", {
@@ -34,7 +37,16 @@ KERNEL = CudaKernel("spmm_fused.cu", {
 SYM_PAIR_KERNEL = CudaKernel("spmm_fused.cu", {
     "spmm_fused_sym_pair_f32": [_P] * 7 + [_I] * 5 + [_P]},
     name="spmm_fused_sym_pair")
-FORWARD_TILE_BYTES = 4 * (32 * 33 + 32 * 68)  # the forward's fixed tiles
+# the forward's shared memory beyond its edge slots (csrc/spmm_fused.cu
+# kFwdTiles): 48 row degrees, (S h) 48 rows x (256 + 4), three W chunks of
+# 32 x (224 + 8)
+FORWARD_TILE_BYTES = 4 * (48 + 48 * 260 + 3 * 32 * 232)
+
+
+def forward_smem_bytes(e: int) -> int:
+    """Shared memory of the forward for E edge slots: the slots' parents
+    and children, 16-byte aligned, then the tiles."""
+    return (8 * e + 15) // 16 * 16 + FORWARD_TILE_BYTES
 
 
 def _sym_band(parent, child, mask, n, dtype):
@@ -58,8 +70,11 @@ def gcn_spmm_forward(parent, child, mask, h, w, b):
     CUDA tensors, the plain version for CPU tensors."""
     if h.device.type == "cpu":
         return gcn_spmm_plain(parent, child, mask, h, w, b)
-    bsz, n, e = check_edges("gcn_spmm_forward", parent, child, mask, (h,),
-                            extra_smem=FORWARD_TILE_BYTES)
+    bsz, n, e = check_edges("gcn_spmm_forward", parent, child, mask, (h,))
+    if forward_smem_bytes(e) > MAX_SHARED_BYTES:
+        raise ValueError(f"gcn_spmm_forward: E={e} edge slots need "
+                         f"{forward_smem_bytes(e)} bytes of shared memory, "
+                         f"more than a block's {MAX_SHARED_BYTES}")
     t = h.shape[2]
     if w.dim() != 2 or w.shape[0] != t or b.shape != (w.shape[1],):
         raise ValueError(f"w must be [{t}, H] and b [H], got "

@@ -367,6 +367,59 @@ def test_spmm_fused_kernels_match_plain(cuda_device, name):
         assert scaled_err(a, want) <= 1e-5
 
 
+def tree_edges(rng, b, n):
+    """[b, n] edge lists of b seeded random trees, lengths in [n/2, n] (one
+    at n), the padded slots masked."""
+    parent = np.zeros((b, n), np.int32)
+    child = np.zeros((b, n), np.int32)
+    mask = np.zeros((b, n), bool)
+    for i in range(b):
+        length = n if i == 0 else int(rng.randint(max(1, n // 2), n + 1))
+        order = rng.permutation(length)
+        for k in range(1, length):     # each node hangs off an earlier one
+            parent[i, k - 1] = order[rng.randint(0, k)]
+            child[i, k - 1] = order[k]
+        mask[i, :length - 1] = True
+    return parent, child, mask
+
+
+# The fused layer's forward on its 48-row, 208-column 3xTF32 tiles, which
+# gather (S h) 128 columns of T at a time: (B, N, T, H, edges).
+SPMM_TILE_CASES = {
+    "gcn_T360": (50, 96, 360, 200, "trees"),   # the paper GCN's layer 1
+    "gcn_T200": (50, 96, 200, 200, "trees"),   # and layer 2, full widths
+    "rows_past_tile": (3, 49, 75, 70, "random"),   # 48 rows + 1
+    "h_below_8": (3, 10, 75, 5, "random"),
+    "t_below_chunk": (3, 10, 20, 70, "random"),    # T < one 32-row W chunk
+    "one_node": (4, 1, 75, 70, "trees"),           # sentences of N = 1
+    "no_valid_edge": (3, 20, 75, 70, "masked"),
+    "h_past_tile": (2, 30, 140, 300, "random"),    # two column tiles
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SPMM_TILE_CASES))
+def test_spmm_fused_forward_on_its_tiles(cuda_device, name):
+    b, n, t, h, kind = SPMM_TILE_CASES[name]
+    rng = np.random.RandomState(sum(map(ord, name)))
+    if kind == "trees":
+        arrays = tree_edges(rng, b, n)
+    else:
+        arrays = edge_case("random", b, n, n)
+        if kind == "masked":
+            arrays[2][:] = False
+    edges = [torch.from_numpy(a).to(cuda_device) for a in arrays]
+    x, w, bias = features(rng, cuda_device, (b, n, t), (t, h), (h,))
+    w = w / np.sqrt(t)
+    launches = spmm_mod.KERNEL.launches
+    got = spmm_mod.gcn_spmm_forward(*edges, x, w, bias)
+    again = spmm_mod.gcn_spmm_forward(*edges, x, w, bias)
+    assert spmm_mod.KERNEL.launches == launches + 2
+    assert torch.equal(got, again)
+    assert scaled_err(got, spmm_mod.gcn_spmm_plain(*edges, x, w, bias)) \
+        <= 1e-5
+
+
 @pytest.mark.cuda
 def test_edge_list_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     (parent, child, mask), b, n = edge_tensors("random", cuda_device)
@@ -385,6 +438,16 @@ def test_edge_list_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         band_mod.pair_aggregate(*edges, torch.zeros(
             1, big, dtype=torch.bool, device=cuda_device),
             torch.zeros(1, big, 1, device=cuda_device))
+    # slots whose lists fit but not beside the fused forward's tiles
+    slots = 12000
+    edges = [torch.zeros(1, slots, dtype=torch.int32, device=cuda_device)] * 2
+    mask = torch.zeros(1, slots, dtype=torch.bool, device=cuda_device)
+    h = torch.zeros(1, 1, 8, device=cuda_device)
+    w, bias = torch.zeros(8, 4, device=cuda_device), torch.zeros(
+        4, device=cuda_device)
+    assert band_mod.lists_bytes(1, slots) <= band_mod.MAX_SHARED_BYTES
+    with pytest.raises(ValueError, match="gcn_spmm_forward.*shared memory"):
+        spmm_mod.gcn_spmm_forward(*edges, mask, h, w, bias)
 
 
 @pytest.mark.cuda
@@ -449,8 +512,17 @@ def test_sddmm_kernels_match_plain(cuda_device, name):
         assert scaled_err(a, w) <= 1e-5
 
 
-BILINEAR_SHAPES = {"ragged": (70, 37, 5, 70),    # M, T, D, H: no tile fits
+# M, T, D, H.  v2 takes 128 x 208 output tiles, 32 rows of W a chunk, and
+# splits D into SMs / (row and column tiles) slices (one d each in the
+# small cases, 1-2 in mixed_slices, 16-17 at the C-GCN's widths, none for
+# D = 1)
+BILINEAR_SHAPES = {"ragged": (70, 37, 5, 70),    # no tile fits
                    "small": (130, 40, 9, 24),
+                   "tiny": (129, 20, 3, 5),      # M = 128 + 1, T < 32, H < 8
+                   "wide_h": (100, 64, 4, 300),  # two column tiles
+                   "one_d": (300, 64, 1, 200),   # one slice: no partials
+                   "mixed_slices": (4000, 37, 7, 70),
+                   "c_gcn_layer0": (4800, 400, 50, 200),
                    "c_gcn_layer1": (4800, 200, 50, 200)}
 
 

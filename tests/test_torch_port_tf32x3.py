@@ -1,0 +1,162 @@
+"""The arithmetic of the 3xTF32 split that kernels 7 and 11 run on the
+tensor cores (``gcn_tpu_torch/csrc/tf32x3_tile.cuh``), emulated in numpy on
+the CPU.
+
+* ``tf32_rna`` is ``cvt.rna.tf32.f32``: the f32 mantissa rounded to 10
+  bits, ties away from zero.
+* ``mma_sum`` is the kernels' accumulation: over K in steps of 8
+  (``mma.sync.m16n8k8``) each product pass adds its 8-term dot product,
+  exact (the products of TF32 parts are exact in f32, their sum is taken
+  in f64), into an f32 accumulator rounded toward zero, as the tensor
+  cores round it; each chunk of 32 (4 steps) goes into a fresh
+  accumulator that one rounded-to-nearest f32 add then folds into the
+  running sum, as ``mma_chunk`` does.  3xTF32 makes three passes a step,
+  the small ones first: a_lo b_hi, a_hi b_lo, a_hi b_hi.  Run without the
+  chunks (one accumulator over all of K, toward zero) the same model gave
+  3.03e-6 at kernel 7's row, where the card gave 2.95e-6 before the
+  kernels took chunks (``chip_smoke.py``, NVIDIA H100 80GB HBM3,
+  700.00 W), and errs more than 2× the f32 product at both rows: the
+  reason for the chunks.
+* Held against an f64 reference, at the chip rows' shapes and scales of
+  K (kernel 11: K = D·T = 20000, a = e·x with e, x ~ N(0, 1) and W ~
+  U(-1, 1)/√T at T = 400; kernel 7: K = T = 360, a = (S h) the sum of
+  three N(0, 1) rows and W ~ U(-1, 1)/√360): the 3xTF32 error is at most
+  2× that of a plain f32 product of the same inputs, and a tenth of the
+  kernel's tolerance (1e-4 and 1e-5 of max(1, |ref|)) or less; one TF32
+  pass (1xTF32) errs more than 10× the f32 product, which is why the
+  kernels do not take it.
+* The plain f32 product is ``fma_sum``: one f32 FMA a term, in k order,
+  the arithmetic of the kernels' first (SIMT) loop and of any f32 dot
+  product on the CUDA cores.  A blocked CPU SGEMM (numpy's ``float32``
+  matmul) sums in short runs and errs 3-8× less than either at these K:
+  the summation order, not the split, sets these errors.
+"""
+
+import numpy as np
+import pytest
+
+# name: (K, tolerance of the kernel against its plain version)
+CASES = {"kernel11_bilinear_v2": (20000, 1e-4),
+         "kernel7_spmm_fused": (360, 1e-5)}
+ROWS, COLS = 16, 8   # one m16n8 output tile
+
+
+def tf32_rna(a):
+    """cvt.rna.tf32.f32: keep 10 of the 23 mantissa bits, rounding to
+    nearest with ties away from zero (on the magnitude, so the sign bit is
+    untouched; a carry moves into the exponent)."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def split(a):
+    hi = tf32_rna(a)
+    return hi, tf32_rna(a - hi)
+
+
+def to_f32_toward_zero(x):
+    """f64 → f32, rounded toward zero."""
+    f = x.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(x)
+    f[over] = np.nextafter(f[over], np.float32(0))
+    return f
+
+
+def mma_sum(passes, chunk=32):
+    """The kernels' sum of a sequence of m16n8k8 steps: for each k-step of
+    8, each (a_part [M, K], b_part [K, N]) pass in order adds its exact
+    8-term dot product to an f32 accumulator rounded toward zero; every
+    ``chunk`` of K (None: never) that accumulator is added into the
+    running f32 sum, rounded to nearest, and starts again from 0."""
+    a0, b0 = passes[0]
+    total = np.zeros((a0.shape[0], b0.shape[1]), np.float32)
+    acc = np.zeros_like(total)
+    for k0 in range(0, a0.shape[1], 8):
+        for a, b in passes:
+            step = (a[:, k0:k0 + 8].astype(np.float64)
+                    @ b[k0:k0 + 8].astype(np.float64))
+            acc = to_f32_toward_zero(acc.astype(np.float64) + step)
+        if chunk and (k0 + 8) % chunk == 0:
+            total, acc = total + acc, np.zeros_like(acc)
+    return total + acc
+
+
+def fma_sum(a, b):
+    """The f32 product with one FMA a term in k order: each exact product
+    added to the f32 accumulator with one rounding."""
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    a64, b64 = a.astype(np.float64), b.astype(np.float64)
+    for k in range(a.shape[1]):
+        acc = (acc + np.outer(a64[:, k], b64[k])).astype(np.float32)
+    return acc
+
+
+def operands(name):
+    """Seeded f32 operands A [16, K] and W [K, 8] at the chip rows' scales."""
+    k, _ = CASES[name]
+    rng = np.random.RandomState(sum(map(ord, name)))
+    if name.startswith("kernel11"):
+        t = 400
+        e = rng.randn(ROWS, k // t).astype(np.float32)
+        x = rng.randn(ROWS, t).astype(np.float32)
+        a = (e[:, :, None] * x[:, None, :]).reshape(ROWS, k)  # f32 products
+    else:
+        t = k
+        a = (rng.randn(3, ROWS, k).astype(np.float32)).sum(0)
+    w = (rng.uniform(-1, 1, (k, COLS)) / np.sqrt(t)).astype(np.float32)
+    return a, w
+
+
+def scaled(got, ref):
+    return float(np.abs(got - ref).max()) / max(1.0, float(np.abs(ref).max()))
+
+
+def errors(name):
+    """Scaled errors against f64 of the f32 product, 3xTF32 (with and
+    without the chunks) and 1xTF32."""
+    a, w = operands(name)
+    ref = a.astype(np.float64) @ w.astype(np.float64)
+    (a_hi, a_lo), (w_hi, w_lo) = split(a), split(w)
+    passes = [(a_lo, w_hi), (a_hi, w_lo), (a_hi, w_hi)]
+    return {"f32": scaled(fma_sum(a, w), ref),
+            "3xtf32": scaled(mma_sum(passes), ref),
+            "3xtf32_one_accumulator": scaled(mma_sum(passes, None), ref),
+            "1xtf32": scaled(mma_sum([(a_hi, w_hi)]), ref)}
+
+
+def test_tf32_rna_rounds_to_nearest_ties_away():
+    one = np.float32(1.0)
+    ulp = np.float32(2.0 ** -10)  # a TF32 ulp at 1
+    cases = {
+        one + ulp * np.float32(0.25): one,             # below half: down
+        one + ulp * np.float32(0.75): one + ulp,       # above half: up
+        one + ulp * np.float32(0.5): one + ulp,        # tie: away from 0
+        -(one + ulp * np.float32(0.5)): -(one + ulp),  # tie, negative
+        np.float32(2.0) - ulp * np.float32(0.25): np.float32(2.0),  # carry
+    }
+    for a, want in cases.items():
+        got = tf32_rna(np.array([a], np.float32))[0]
+        assert got == want, (a, got, want)
+    hi, lo = split(np.random.RandomState(0).randn(1000).astype(np.float32))
+    for part in (hi, lo):  # both parts are TF32 values
+        assert not (part.view(np.uint32) & np.uint32(0x1FFF)).any()
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_3xtf32_keeps_f32_error(name):
+    err = errors(name)
+    assert err["3xtf32"] <= 2 * err["f32"], err
+    assert err["3xtf32"] <= CASES[name][1] / 10, err
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_one_tensor_core_accumulator_drifts(name):
+    err = errors(name)
+    assert err["3xtf32_one_accumulator"] > 2 * err["f32"], err
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_1xtf32_error_is_far_above_f32(name):
+    err = errors(name)
+    assert err["1xtf32"] > 10 * err["f32"], err
