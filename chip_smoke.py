@@ -13,13 +13,14 @@ Phases, one JSON line each:
    layer and its sym-pair backward; the SDDMM and its backward; the
    deprel bilinear transform, v2 and v1) against its plain PyTorch version
    on the card at the main paths' shapes (the SDDMM also at N = E = 1200,
-   where ``attention_impl="auto"`` takes the edge backend): max error and
+   where ``attention_impl="auto"`` takes the edge backend; its backward's
+   list build also against a stable sort, bit for bit): max error and
    its tolerance, median time by CUDA events (for the edge-list and
    bilinear kernels by a replayed CUDA graph of the call, and also
    eagerly), the plain version's time, one PyTorch library call's time as
    a yardstick where one computes the same function (for the bilinear also
    one SGEMM on its prebuilt [M, D*T] operand), and the kernel's bound at
-   the card's peak rates (3xTF32 for the two kernels that run it, with the
+   the card's peak rates (3xTF32 for the three kernels that run it, with the
    f32 FMA bound beside);
 4. slice  — for each path, ``Evaluator`` at full widths (random weights
    from a seeded ``torch.Generator``) over B=50 batches of the in-repo
@@ -750,6 +751,9 @@ def check_sddmm(torch, rng, dev, edges) -> list[dict]:
         want_b = mod.sddmm_backward_plain(*case, g, u, v)
         bwd_err = max(scaled_err(a, w) for a, w in zip(got_b, want_b))
         bwd_abs = max(max_err(a, w) for a, w in zip(got_b, want_b))
+        # the backward's list build alone against a stable sort
+        lists_ok = bool(torch.equal(mod.edge_lists(*case, n),
+                                    mod.edge_lists_plain(*case, n)))
         torch.cuda.synchronize()
         same = {"forward": bool(torch.equal(got, again)),
                 "backward": all(torch.equal(a, w)
@@ -806,7 +810,10 @@ def check_sddmm(torch, rng, dev, edges) -> list[dict]:
                 "same_bits_twice": same[kind],
                 "library_err": lib_err,
                 "tol": {"f32": tol},
-                "ok": err <= tol and same[kind] and lib_err <= tol,
+                **({"lists_equal_plain": lists_ok}
+                   if kind == "backward" else {}),
+                "ok": (err <= tol and same[kind] and lib_err <= tol
+                       and (lists_ok or kind != "backward")),
                 "ms": graph_ms(fn), "plain_ms": graph_ms(plain),
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": graph_ms(lib), "library": lib_note,
@@ -848,11 +855,7 @@ def check_bilinear(torch, rng, dev) -> tuple[list[dict], int]:
             want = plain(x, e, w)
             err, abs_err = scaled_err(got, want), max_err(got, want)
             same = bool(torch.equal(got, again))
-            if version == "v2":  # the 3xTF32 mainloop
-                bounds = tf32x3_bound(n_bytes, flops)
-            else:
-                bounds = dict(zip(("bound_ms", "bound_by"),
-                                  bound(n_bytes, flops)))
+            bounds = tf32x3_bound(n_bytes, flops)  # both on the mainloop
             fn = functools.partial(mod.bilinear_forward, x, e, w, version)
             rows.append({
                 "name": f"deprel_bilinear_{version}_T{t}", "route": "cuda",
@@ -1088,10 +1091,10 @@ KERNEL_GROUPS = (  # device time by category, matched on kernel names
     ("fused GCN layer forward kernel", ("spmm_fused_fwd_kernel",)),
     ("fused GCN layer sym pair kernel", ("spmm_sym_pair_kernel",)),
     ("sddmm forward kernel", ("sddmm_fwd_kernel",)),
-    ("sddmm backward kernel", ("sddmm_bwd_kernel",)),
-    ("deprel bilinear kernels", ("deprel_bilinear_v2_kernel",
-                                 "deprel_bilinear_v2_sum_kernel",
-                                 "deprel_bilinear_v1_kernel")),
+    ("sddmm backward kernels", ("sddmm_lists_kernel",
+                                "sddmm_gather_kernel")),
+    ("deprel bilinear kernels", ("deprel_bilinear_kernel",
+                                 "deprel_bilinear_sum_kernel")),
     ("copies", ("Memcpy", "Memset")),
     ("library matmuls", ("gemm", "cublas", "cutlass", "xmma")),
 )

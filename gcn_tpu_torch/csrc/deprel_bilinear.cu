@@ -22,32 +22,32 @@
 // the sequential grid carries over.  Neither kernel writes the [M, D*T]
 // intermediate.
 //
-// v2 is an implicit GEMM over K = D*T on the 3xTF32 tensor-core mainloop
-// of tf32x3_tile.cuh (f32 error, three TF32 products a k-step): bound at
-// an effective 165 TFLOP/s, 0.233 (0.116) ms, against 0.573 (0.287) ms at
-// the f32 FMA rate that bounds v1.  A block owns 128 rows and all H = 200
-// columns (one 208-wide tile), so A is formed once per (t chunk, d) and
-// not once per column block.  Its k-loop puts t outside d: an x tile of
-// 128 rows x 32 t arrives once (cp.async, a three-deep ring) and serves
-// every d of the block's slice, each warp forming its A fragments on the
-// fly as e[m, d] * x[m, t] (e read from device memory one d ahead) and
-// splitting them in registers; W [D, T, H] is already the [D*T, H]
-// operand, whose 32-row chunk (d, t chunk) streams through a three-stage
-// cp.async ring.  4800 rows make only 38 row tiles for 132 SMs, so K is
-// split over d into S slices (S = SMs / row tiles, 3 here: 114 blocks of
-// 16-17 values of d), each writing an [M, H] partial that a second kernel,
-// launched by the same entry point, sums in slice order.  W (16 MB at
-// T = 400) is read from L2 once per row tile, 0.6 GB a call at 128 rows
-// (1.2 GB at 64, which is why the tile is 128 rows tall).  Each output
-// element sums in a fixed order (t chunk, then d, then the slices), so two
-// calls give the same bits.
-//
-// v1 is d-streamed on the first, SIMT f32 tile loop: a block computes a
-// 64 x 64 output tile, 256 threads with a 4 x 4 register tile each,
-// stepping 16 deep through shared memory; for each d a second register
-// tile accumulates x W[d] and is folded into the output tile scaled by
-// e[:, d], in the order (d, then t).  It serves only the public
-// deprel_bilinear and keeps its loop until it moves onto the mainloop.
+// Both versions are one kernel template, an implicit GEMM over K = D*T on
+// the 3xTF32 tensor-core mainloop of tf32x3_tile.cuh (f32 error, three
+// TF32 products a k-step): bound at an effective 165 TFLOP/s, 0.233
+// (0.116) ms, against 0.573 (0.287) ms at the f32 FMA rate.  They differ
+// only in where e enters:
+//   v2 forms A = e[m, d] * x[m, t] on the fly (e read from device memory
+//      one d ahead) and adds each chunk's product into the sum;
+//   v1 takes A = x[m, t] as it is and folds each chunk's product c of
+//      (t chunk, d) in as acc = e[m, d] * c + acc (one fmaf), the
+//      d-streamed form of the TPU's v1, which spares the per-d forming of
+//      A that is much of v2's work beside the MMAs.
+// A block owns 128 rows and all H = 200 columns (one 208-wide tile), so A
+// is formed once per (t chunk, d) and not once per column block.  The
+// k-loop puts t outside d: an x tile of 128 rows x 32 t arrives once
+// (cp.async, a three-deep ring) and serves every d of the block's slice,
+// each warp reading its A fragments from it and splitting them in
+// registers; W [D, T, H] is already the [D*T, H] operand, whose 32-row
+// chunk (d, t chunk) streams through a three-stage cp.async ring.  4800
+// rows make only 38 row tiles for 132 SMs, so K is split over d into S
+// slices (S = SMs / row tiles, 3 here: 114 blocks of 16-17 values of d),
+// each writing an [M, H] partial that a second kernel, launched by the
+// same entry point, sums in slice order.  W (16 MB at T = 400) is read
+// from L2 once per row tile, 0.6 GB a call at 128 rows (1.2 GB at 64,
+// which is why the tile is 128 rows tall).  Each output element sums in
+// a fixed order (t chunk, then d, then the slices), so two calls give the
+// same bits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,114 +56,27 @@
 
 namespace {
 
-constexpr int kBM = 64;        // output rows per block
-constexpr int kBN = 64;        // output columns per block
-constexpr int kBK = 16;        // depth of one shared-memory step
-constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
-constexpr int kPad = 4;        // keeps the A stores off one bank
-
-template <bool kStreamD>
-__device__ __forceinline__ void bilinear_tile(
-    const float* __restrict__ x, const float* __restrict__ e,
-    const float* __restrict__ w, float* __restrict__ out, int m, int t,
-    int d_dim, int h) {
-  __shared__ __align__(16) float as[kBK][kBM + kPad];  // A tile, k-major
-  __shared__ __align__(16) float bs[kBK][kBN];         // W rows
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  // loader roles: A 64 rows x 16 deep, B 16 deep x 64 columns, 4 each
-  const int a_row = tid / 4, a_k = (tid % 4) * 4;
-  const int b_k = tid / 16, b_col = (tid % 16) * 4;
-  const int gm = m0 + a_row;
-  float acc[4][4] = {};
-  float part[4][4];
-  for (int d = 0; d < d_dim; ++d) {
-    // v2 scales A by e[m, d] as it forms the tile; v1 folds e in below
-    const float ea =
-        (!kStreamD && gm < m) ? e[(size_t)gm * d_dim + d] : 1.0f;
-    if (kStreamD) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) part[i][j] = 0.0f;
-    }
-    const float* wd = w + (size_t)d * t * h;
-    for (int t0 = 0; t0 < t; t0 += kBK) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int tk = t0 + a_k + j;
-        const float xv = (gm < m && tk < t) ? x[(size_t)gm * t + tk] : 0.0f;
-        as[a_k + j][a_row] = kStreamD ? xv : ea * xv;
-      }
-      const int tk = t0 + b_k;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = n0 + b_col + j;
-        bs[b_k][b_col + j] =
-            (tk < t && col < h) ? wd[(size_t)tk * h + col] : 0.0f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < kBK; ++k) {
-        const float4 a = *reinterpret_cast<const float4*>(&as[k][ty * 4]);
-        const float4 b = *reinterpret_cast<const float4*>(&bs[k][tx * 4]);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            if (kStreamD)
-              part[i][j] = fmaf(av[i], bv[j], part[i][j]);
-            else
-              acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-          }
-      }
-      __syncthreads();
-    }
-    if (kStreamD) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = m0 + ty * 4 + i;
-        const float ed = row < m ? e[(size_t)row * d_dim + d] : 0.0f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ed, part[i][j], acc[i][j]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + ty * 4 + i;
-    if (row >= m) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx * 4 + j;
-      if (col < h) out[(size_t)row * h + col] = acc[i][j];
-    }
-  }
-}
-
 using tf32x3::kStages;
 
-// v2: 4 x 2 warps, each 32 rows x 104 columns: 128 x 208 a block
-using V2Tile = tf32x3::Tile<4, 2, 2, 13>;
+// 4 x 2 warps, each 32 rows x 104 columns: 128 x 208 a block
+using BTile = tf32x3::Tile<4, 2, 2, 13>;
 constexpr int kGroup = 7;  // n-tiles per fresh accumulator (registers)
 constexpr int kLdx = tf32x3::kBK + 4;  // x tile row stride: conflict-free
-constexpr int kXFloats = V2Tile::kBM * kLdx;
-constexpr size_t kV2Smem =  // the W ring, then a ring of as many x tiles
-    V2Tile::kRingBytes + sizeof(float) * kStages * kXFloats;
+constexpr int kXFloats = BTile::kBM * kLdx;
+constexpr size_t kSmem =  // the W ring, then a ring of as many x tiles
+    BTile::kRingBytes + sizeof(float) * kStages * kXFloats;
 
-// Block (row tile, column tile, slice s) of v2: rows m0.., columns n0..,
-// d in [s D / S, (s + 1) D / S).  Writes out (S == 1) or the slice's
-// [M, H] partial at out + s M H.
-__global__ void __launch_bounds__(V2Tile::kThreads, 1)
-deprel_bilinear_v2_kernel(const float* __restrict__ x,
-                          const float* __restrict__ e,
-                          const float* __restrict__ w,
-                          float* __restrict__ out, int m, int t, int d_dim,
-                          int h, int slices, bool vec_x, bool vec_w) {
-  using Tl = V2Tile;
+// Block (row tile, column tile, slice s): rows m0.., columns n0.., d in
+// [s D / S, (s + 1) D / S).  Writes out (S == 1) or the slice's [M, H]
+// partial at out + s M H.  kV1: e enters at the fold (v1), else in A (v2).
+template <bool kV1>
+__global__ void __launch_bounds__(BTile::kThreads, 1)
+deprel_bilinear_kernel(const float* __restrict__ x,
+                       const float* __restrict__ e,
+                       const float* __restrict__ w, float* __restrict__ out,
+                       int m, int t, int d_dim, int h, int slices,
+                       bool vec_x, bool vec_w) {
+  using Tl = BTile;
   constexpr int kBK = tf32x3::kBK;
   extern __shared__ __align__(16) float smem_f[];
   float* wring = smem_f;
@@ -224,15 +137,31 @@ deprel_bilinear_v2_kernel(const float* __restrict__ x,
     issue(c + kStages - 1);
     const float* xs = xring + (c / ds % kStages) * kXFloats +
                       (wm * 16 * Tl::kMT + g) * kLdx + q;
-    tf32x3::mma_chunk<Tl::kMT, Tl::kNT, kGroup, Tl::kLdw>(
-        acc, wring + (c % kStages) * Tl::kStageFloats + wn * Tl::kNT * 8,
-        [&](int mt, int ks, float (&a)[4]) {
-          const float* p = xs + mt * 16 * kLdx + ks * 8;
-          a[0] = __fmul_rn(ev[mt][0], p[0]);
-          a[1] = __fmul_rn(ev[mt][1], p[8 * kLdx]);
-          a[2] = __fmul_rn(ev[mt][0], p[4]);
-          a[3] = __fmul_rn(ev[mt][1], p[8 * kLdx + 4]);
-        });
+    const float* ws =
+        wring + (c % kStages) * Tl::kStageFloats + wn * Tl::kNT * 8;
+    if constexpr (kV1) {
+      tf32x3::mma_chunk<Tl::kMT, Tl::kNT, kGroup, Tl::kLdw>(
+          acc, ws,
+          [&](int mt, int ks, float (&a)[4]) {
+            const float* p = xs + mt * 16 * kLdx + ks * 8;
+            a[0] = p[0];
+            a[1] = p[8 * kLdx];
+            a[2] = p[4];
+            a[3] = p[8 * kLdx + 4];
+          },
+          [&](int mt, int i, float sum, float part) {
+            return fmaf(ev[mt][i / 2], part, sum);
+          });
+    } else {
+      tf32x3::mma_chunk<Tl::kMT, Tl::kNT, kGroup, Tl::kLdw>(
+          acc, ws, [&](int mt, int ks, float (&a)[4]) {
+            const float* p = xs + mt * 16 * kLdx + ks * 8;
+            a[0] = __fmul_rn(ev[mt][0], p[0]);
+            a[1] = __fmul_rn(ev[mt][1], p[8 * kLdx]);
+            a[2] = __fmul_rn(ev[mt][0], p[4]);
+            a[3] = __fmul_rn(ev[mt][1], p[8 * kLdx + 4]);
+          });
+    }
 #pragma unroll
     for (int mt = 0; mt < Tl::kMT; ++mt)
 #pragma unroll
@@ -256,10 +185,10 @@ deprel_bilinear_v2_kernel(const float* __restrict__ x,
     }
 }
 
-// out = sum of the v2 slices' partials, in slice order.
-__global__ void deprel_bilinear_v2_sum_kernel(const float* __restrict__ part,
-                                              float* __restrict__ out,
-                                              int slices, size_t count) {
+// out = sum of the slices' partials, in slice order.
+__global__ void deprel_bilinear_sum_kernel(const float* __restrict__ part,
+                                           float* __restrict__ out,
+                                           int slices, size_t count) {
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < count;
        i += (size_t)gridDim.x * blockDim.x) {
     float v = part[i];
@@ -277,63 +206,25 @@ int sm_count() {
   return sms;
 }
 
-__global__ void __launch_bounds__(kThreads)
-deprel_bilinear_v1_kernel(const float* __restrict__ x,
-                          const float* __restrict__ e,
-                          const float* __restrict__ w,
-                          float* __restrict__ out, int m, int t, int d_dim,
-                          int h) {
-  bilinear_tile<true>(x, e, w, out, m, t, d_dim, h);
-}
-
-template <typename K>
-int launch(K kernel, const void* x, const void* e, const void* w, void* out,
-           int m, int t, int d_dim, int h, void* stream) {
-  const long long rows = ((long long)m + kBM - 1) / kBM;
-  const int cols = (h + kBN - 1) / kBN;
-  if (rows > 0x7fffffffLL || cols > 65535) return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)rows, cols);
-  kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(e),
-      static_cast<const float*>(w), static_cast<float*>(out), m, t, d_dim,
-      h);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-extern "C" {
-
-// The number of d slices v2 splits K into for these shapes: enough blocks
-// for one wave on this device's SMs, at most D.  The wrapper allocates
-// [slices, M, H] of scratch when it is above 1.
-int deprel_bilinear_v2_slices(int m, int d_dim, int h) {
-  const long long tiles = ((long long)m + V2Tile::kBM - 1) / V2Tile::kBM *
-                          ((h + V2Tile::kBN - 1) / V2Tile::kBN);
-  const long long fit = tiles > 0 ? sm_count() / tiles : 1;
-  return (int)(fit < 1 ? 1 : (fit > d_dim ? d_dim : fit));
-}
-
-// v2 into out; with slices > 1 the slices' partials go to part
-// [slices, M, H] first.
-int deprel_bilinear_v2_f32(const void* x, const void* e, const void* w,
-                           void* out, void* part, int m, int t, int d_dim,
-                           int h, int slices, void* stream) {
-  const long long rows = ((long long)m + V2Tile::kBM - 1) / V2Tile::kBM;
-  const int cols = (h + V2Tile::kBN - 1) / V2Tile::kBN;
+template <bool kV1>
+int launch(const void* x, const void* e, const void* w, void* out,
+           void* part, int m, int t, int d_dim, int h, int slices,
+           void* stream) {
+  const long long rows = ((long long)m + BTile::kBM - 1) / BTile::kBM;
+  const int cols = (h + BTile::kBN - 1) / BTile::kBN;
   if (rows > 0x7fffffffLL || cols > 65535 || slices < 1 || slices > d_dim ||
       slices > 65535)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      deprel_bilinear_v2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kV2Smem);
+      deprel_bilinear_kernel<kV1>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
   if (err != cudaSuccess) return (int)err;
   const bool vec_x = t % 4 == 0 && (uintptr_t)x % 16 == 0;
   const bool vec_w = h % 4 == 0 && (uintptr_t)w % 16 == 0;
   const cudaStream_t st = (cudaStream_t)stream;
   float* dst = static_cast<float*>(slices > 1 ? part : out);
-  deprel_bilinear_v2_kernel<<<dim3((unsigned)rows, cols, slices),
-                              V2Tile::kThreads, kV2Smem, st>>>(
+  deprel_bilinear_kernel<kV1><<<dim3((unsigned)rows, cols, slices),
+                                BTile::kThreads, kSmem, st>>>(
       static_cast<const float*>(x), static_cast<const float*>(e),
       static_cast<const float*>(w), dst, m, t, d_dim, h, slices, vec_x,
       vec_w);
@@ -343,17 +234,38 @@ int deprel_bilinear_v2_f32(const void* x, const void* e, const void* w,
   const int threads = 256;
   const size_t blocks = (count + threads - 1) / threads;
   const int grid = (int)(blocks < 4096 ? blocks : 4096);
-  deprel_bilinear_v2_sum_kernel<<<grid, threads, 0, st>>>(
+  deprel_bilinear_sum_kernel<<<grid, threads, 0, st>>>(
       static_cast<const float*>(part), static_cast<float*>(out), slices,
       count);
   return (int)cudaGetLastError();
 }
 
+}  // namespace
+
+extern "C" {
+
+// The number of d slices both versions split K into for these shapes:
+// enough blocks for one wave on this device's SMs, at most D.  The
+// wrapper allocates [slices, M, H] of scratch when it is above 1.
+int deprel_bilinear_slices(int m, int d_dim, int h) {
+  const long long tiles = ((long long)m + BTile::kBM - 1) / BTile::kBM *
+                          ((h + BTile::kBN - 1) / BTile::kBN);
+  const long long fit = tiles > 0 ? sm_count() / tiles : 1;
+  return (int)(fit < 1 ? 1 : (fit > d_dim ? d_dim : fit));
+}
+
+// v2 (e in A) and v1 (e at the fold) into out; with slices > 1 the
+// slices' partials go to part [slices, M, H] first.
+int deprel_bilinear_v2_f32(const void* x, const void* e, const void* w,
+                           void* out, void* part, int m, int t, int d_dim,
+                           int h, int slices, void* stream) {
+  return launch<false>(x, e, w, out, part, m, t, d_dim, h, slices, stream);
+}
+
 int deprel_bilinear_v1_f32(const void* x, const void* e, const void* w,
-                           void* out, int m, int t, int d_dim, int h,
-                           void* stream) {
-  return launch(deprel_bilinear_v1_kernel, x, e, w, out, m, t, d_dim, h,
-                stream);
+                           void* out, void* part, int m, int t, int d_dim,
+                           int h, int slices, void* stream) {
+  return launch<true>(x, e, w, out, part, m, t, d_dim, h, slices, stream);
 }
 
 const char* deprel_bilinear_error_string(int code) {

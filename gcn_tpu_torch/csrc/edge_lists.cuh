@@ -1,6 +1,8 @@
 // One sentence's adjacency lists in shared memory, built from its padded
-// edge list: the common first step of the edge-list kernels in
-// band_aggregate.cu, spmm_fused.cu and sddmm.cu.
+// edge list: the first step of the band aggregation kernels
+// (band_aggregate.cu) and of the fused layer's sym pair (spmm_fused.cu).
+// The SDDMM backward builds its lists once per sentence in sddmm.cu, with
+// no rank loop, so the edge ids (kEdgeIds) have no caller left.
 //
 //   parent, child  [E] int32   edge p -> c
 //   mask           [E] uint8   0 = padded slot

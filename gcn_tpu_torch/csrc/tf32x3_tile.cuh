@@ -1,11 +1,13 @@
 // One block-tile GEMM mainloop on the tensor cores in 3xTF32, f32 in and
 // f32 out: the shared core of the fused GCN layer (spmm_fused.cu, which
 // replaces gcn_tpu/ops/pallas/spmm_fused.py:88 _forward -> _kernel) and
-// of the deprel bilinear v2 (deprel_bilinear.cu, which replaces
+// of the deprel bilinear v2 and v1 (deprel_bilinear.cu, which replaces
 // gcn_tpu/ops/pallas/deprel_bilinear.py:143 _core_v2_forward ->
-// _kernel_v2).  Both are an implicit GEMM  out = A W  whose A tile each
-// kernel forms itself (the gathered S h rows; e[m, d] * x[m, t]), and whose
-// W [K, H] rows stream from device memory.
+// _kernel_v2 and :57 _core_forward -> _kernel).  All are an implicit GEMM
+// out = A W  whose A tile each kernel forms itself (the gathered S h rows;
+// e[m, d] * x[m, t] in v2; x[m, t] in v1, which scales each chunk's
+// product by e[m, d] where it is folded), and whose W [K, H] rows stream
+// from device memory.
 //
 // The split.  Each operand value a becomes a_hi = rna_tf32(a) and
 // a_lo = a - a_hi (truncated to TF32 by the MMA), and every k-step issues
@@ -13,13 +15,13 @@
 // first:
 //   c += a_lo b_hi;  c += a_hi b_lo;  c += a_hi b_hi
 // (the a_lo b_lo term, below 2^-22 |a b|, is dropped), and each 32-deep
-// chunk's c is added into the running sum on the CUDA cores (mma_chunk
+// chunk's c is folded into the running sum on the CUDA cores (mma_chunk
 // says why).  The result keeps f32-level error (tests/
 // test_torch_port_tf32x3.py emulates it), so the kernels keep the f32
 // tolerances of their plain versions; plain 1xTF32 would not.  The
 // effective rate is a third of the TF32 peak: 495 / 3 = 165 TFLOP/s on
 // the H100 SXM (700 W), 2.5x the 67 TFLOP/s of the CUDA cores' f32 FMA
-// that the earlier SIMT loop of both kernels was held to.
+// that the earlier SIMT loops of these kernels were held to.
 //
 // Why mma.sync and not wgmma.  mma.sync.m16n8k8 (tf32) takes its A and B
 // fragments from registers, so each kernel forms and splits A in any layout
@@ -31,12 +33,12 @@
 // the per-chunk one below would take the registers that the fragments
 // use here.  mma.sync is the simpler route; it runs these products well
 // below the tensor cores' peak (PERF.md gives the measured rates), so
-// wgmma is the next step for the larger of the two kernels.
+// wgmma is the next step for the bilinear kernels.
 //
 // The pieces:
 //  * Tile<...>: the block's warp grid; each warp owns kMT x kNT fragments
 //    of 16 x 8, so a block covers 16 kMT kWarpsM rows by 8 kNT kWarpsN
-//    columns (both kernels take all H = 200 columns in one tile: 224 wide
+//    columns (the kernels take all H = 200 columns in one tile: 224 wide
 //    in the fused layer, 208 in the bilinear).
 //  * copy_tile: a [rows x cols] tile of a row-major matrix into shared
 //    memory by cp.async, 16 bytes a thread where the rows allow it (4
@@ -46,8 +48,9 @@
 //    as one cp.async group, so the copy of chunk c + kStages - 1 overlaps
 //    the MMAs of chunk c (ring_wait before a chunk is read).
 //  * mma_chunk: one warp's 4 k-steps over a W chunk into a fresh
-//    accumulator, then added into the running one; the kernel passes a
-//    functor that returns its A fragment values (f32), which are split
+//    accumulator, then folded into the running one (added, or by a
+//    functor the kernel passes: v1's e[m, d] * c + acc); the kernel passes
+//    a functor that returns its A fragment values (f32), which are split
 //    here.
 // Every output element sums its k-chunks in one fixed order and there are
 // no float atomics: two calls give the same bits.
@@ -184,14 +187,25 @@ __device__ __forceinline__ void ring_wait() {
 // tests/test_torch_port_tf32x3.py).  So each chunk's 12 products per
 // element go into a fresh accumulator, added into acc by one rounded f32
 // add: the tensor cores' roundings stay relative to a 32-term partial
-// sum.  The chunk's n-tiles
+// sum.  fold(mt, i, acc, c) gives the new running value of accumulator
+// element i of m-tile mt from the old one and the chunk's c: acc + c by
+// default (AddFold); elements 0-1 lie in row g, 2-3 in row g + 8, which
+// lets a fold scale by a per-row factor.  The chunk's n-tiles
 // go kG at a time (a_frag is asked again for each group), which bounds
 // the fresh accumulators' registers; within a group the three passes run
 // over all its fragments in turn, so neighbouring MMAs are independent.
-template <int kMT, int kNT, int kG, int kLdw, class AFrag>
+struct AddFold {
+  __device__ __forceinline__ float operator()(int, int, float acc,
+                                              float c) const {
+    return acc + c;
+  }
+};
+
+template <int kMT, int kNT, int kG, int kLdw, class AFrag,
+          class Fold = AddFold>
 __device__ __forceinline__ void mma_chunk(float (&acc)[kMT][kNT][4],
                                           const float* __restrict__ ws,
-                                          AFrag a_frag) {
+                                          AFrag a_frag, Fold fold = Fold()) {
   const int lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
 #pragma unroll
   for (int n0 = 0; n0 < kNT; n0 += kG) {
@@ -245,7 +259,8 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[kMT][kNT][4],
       for (int j = 0; j < kG; ++j)
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-          if (j < gn) acc[mt][n0 + j][i] += c[mt][j][i];
+          if (j < gn)
+            acc[mt][n0 + j][i] = fold(mt, i, acc[mt][n0 + j][i], c[mt][j][i]);
   }
 }
 

@@ -41,9 +41,11 @@ def lists_bytes(n: int, e: int) -> int:
     return 4 * (4 * e + 4 * n + 2)
 
 
-def check_edges(fname, parent, child, mask, xs, extra_smem: int = 0):
+def check_edges(fname, parent, child, mask, xs, smem=lists_bytes):
     """Device, type, shape and contiguity checks of the edge-list kernels'
-    wrappers; returns (B, N, E).  ``xs`` are the [B, N, *] f32 operands."""
+    wrappers; returns (B, N, E).  ``xs`` are the [B, N, *] f32 operands;
+    ``smem(n, e)`` is the shared memory a block of the kernel takes (by
+    default the adjacency lists')."""
     x = xs[0]
     if x.device.type != "cuda":
         raise ValueError(f"{fname}: unsupported device {x.device}")
@@ -72,10 +74,10 @@ def check_edges(fname, parent, child, mask, xs, extra_smem: int = 0):
             raise ValueError(f"{fname}: operands on different devices")
         if not a.is_contiguous():
             raise ValueError(f"{fname}: operands must be contiguous")
-    if lists_bytes(n, e) + extra_smem > MAX_SHARED_BYTES:
+    if smem(n, e) > MAX_SHARED_BYTES:
         raise ValueError(
             f"{fname}: N={n} nodes and E={e} edge slots need "
-            f"{lists_bytes(n, e) + extra_smem} bytes of shared memory, "
+            f"{smem(n, e)} bytes of shared memory, "
             f"more than a block's {MAX_SHARED_BYTES}")
     return b, n, e
 

@@ -8,12 +8,13 @@ with x [M, T], e [M, D], W [D, T, H] and b [D, H], the per-token transform
 of the non-factored ``full_deprel`` layer (the reference's
 ``traverse_deprel``).  Two kernels compute it, as in JAX, both in
 ``csrc/deprel_bilinear.cu``: v2 (``deprel_bilinear_v2`` and
-``deprel_bilinear_batched``, what the model runs) as an implicit GEMM over
-K = D·T on the tensor cores in 3xTF32 (``csrc/tf32x3_tile.cuh``, f32-level
-error), summing each output over t chunks, then d, then the d slices it
-splits K into (the slices' partials go through a scratch the wrapper
-allocates), and v1 (the public ``deprel_bilinear``) streaming over d on
-f32 CUDA cores, summing over d, then t.  On a
+``deprel_bilinear_batched``, what the model runs) and v1 (the public
+``deprel_bilinear``), both an implicit GEMM over K = D·T on the tensor
+cores in 3xTF32 (``csrc/tf32x3_tile.cuh``, f32-level error), summing each
+output over t chunks, then d, then the d slices they split K into (the
+slices' partials go through a scratch the wrapper allocates).  v2 scales
+its operand by e (``e ⊗ x``); v1 multiplies x itself and scales each
+chunk's product by ``e[:, d]`` as it adds it in, streaming over d.  On a
 CPU tensor each runs its plain version: v2 forms the [M, D·T] operand
 ``e ⊗ x`` and multiplies it with W as [D·T, H]; v1 loops over d.
 
@@ -40,10 +41,10 @@ from gcn_tpu_torch.ops._cuda import CudaKernel
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL_V2 = CudaKernel("deprel_bilinear.cu", {
     "deprel_bilinear_v2_f32": [_P] * 5 + [_I] * 5 + [_P],
-    "deprel_bilinear_v2_slices": [_I] * 3}, name="deprel_bilinear_v2")
+    "deprel_bilinear_slices": [_I] * 3}, name="deprel_bilinear_v2")
 KERNEL_V1 = CudaKernel("deprel_bilinear.cu", {
-    "deprel_bilinear_v1_f32": [_P] * 4 + [_I] * 4 + [_P]},
-    name="deprel_bilinear_v1")
+    "deprel_bilinear_v1_f32": [_P] * 5 + [_I] * 5 + [_P],
+    "deprel_bilinear_slices": [_I] * 3}, name="deprel_bilinear_v1")
 _KERNELS = {"v2": (KERNEL_V2, "deprel_bilinear_v2_f32"),
             "v1": (KERNEL_V1, "deprel_bilinear_v1_f32")}
 
@@ -93,19 +94,14 @@ def bilinear_forward(x, e, w, version: str = "v2"):
     if out.numel() == 0:
         return out
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        if version == "v1":
-            kernel.launch(fname, x.data_ptr(), e.data_ptr(), w.data_ptr(),
-                          out.data_ptr(), m, t, d, h, stream)
-            return out
-        # v2 splits K over d into slices whose partials a second kernel of
+        # K is split over d into slices whose partials a second kernel of
         # the same call sums in order
-        slices = kernel.load().deprel_bilinear_v2_slices(m, d, h)
+        slices = kernel.load().deprel_bilinear_slices(m, d, h)
         part = (torch.empty((slices, m, h), dtype=torch.float32,
                             device=x.device) if slices > 1 else out)
         kernel.launch(fname, x.data_ptr(), e.data_ptr(), w.data_ptr(),
                       out.data_ptr(), part.data_ptr(), m, t, d, h, slices,
-                      stream)
+                      torch.cuda.current_stream(x.device).cuda_stream)
     return out
 
 

@@ -5,9 +5,12 @@ Counterpart of ``gcn_tpu.ops.pallas.sddmm``:
     s[b, e] = mask_e · Σ_h u[b, parent_e, h] · v[b, child_e, h]
 
 On a CUDA tensor ``sddmm_forward`` launches the hand-written kernel in
-``csrc/sddmm.cu`` and ``sddmm_backward`` its second kernel; on a CPU
-tensor each runs its plain version (a gather and a product; a gather, a
-product and a ``scatter_add``).  ``sddmm`` ties them together as a
+``csrc/sddmm.cu`` and ``sddmm_backward`` its two others: one builds each
+sentence's adjacency lists with edge ids once (``edge_lists``, whose
+layout ``edge_lists_plain`` spells out), the other sums each node's
+neighbour rows over them in edge order; on a CPU tensor each runs its
+plain version (a gather and a product; a gather, a product and a
+``scatter_add``).  ``sddmm`` ties them together as a
 ``torch.autograd.Function`` with the contract of JAX's ``_bwd_kernel``:
 ``ḡ = g·mask``, ``du = sel_pᵀ(ḡ ⊙ v[child])``, ``dv = sel_cᵀ(ḡ ⊙
 u[parent])``.  ``edge_softmax`` normalizes scores over each destination's
@@ -32,8 +35,25 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("sddmm.cu", {
     "sddmm_forward_f32": [_P] * 6 + [_I] * 4 + [_P]})
 BACKWARD_KERNEL = CudaKernel("sddmm.cu", {
-    "sddmm_backward_f32": [_P] * 8 + [_I] * 4 + [_P]},
+    "sddmm_backward_f32": [_P] * 9 + [_I] * 4 + [_P]},
     name="sddmm_backward")
+# the backward's list build alone, for its tests
+LISTS_KERNEL = CudaKernel("sddmm.cu", {
+    "sddmm_lists_i32": [_P] * 4 + [_I] * 3 + [_P]}, name="sddmm_lists")
+
+
+def list_ints(n: int, e: int) -> int:
+    """Ints of one sentence's lists (see ``edge_lists_plain``)."""
+    return 2 * (n + 1) + 4 * e
+
+
+def _no_smem(n: int, e: int) -> int:
+    return 0
+
+
+def _build_smem(n: int, e: int) -> int:
+    """Shared memory of the backward's list build: two counts a node."""
+    return 8 * (n + 1) + 128
 
 
 def sddmm_plain(parent, child, mask, u, v):
@@ -44,8 +64,8 @@ def sddmm_plain(parent, child, mask, u, v):
                                           device=s.device))
 
 
-def _check(fname, parent, child, mask, u, v, extra_smem=0):
-    b, n, e = check_edges(fname, parent, child, mask, (u, v), extra_smem)
+def _check(fname, parent, child, mask, u, v, smem):
+    b, n, e = check_edges(fname, parent, child, mask, (u, v), smem)
     if u.shape != v.shape:
         raise ValueError(f"{fname}: u {tuple(u.shape)} and v "
                          f"{tuple(v.shape)} differ")
@@ -58,7 +78,7 @@ def sddmm_forward(parent, child, mask, u, v):
     plain version for CPU tensors."""
     if u.device.type == "cpu":
         return sddmm_plain(parent, child, mask, u, v)
-    b, n, e = _check("sddmm_forward", parent, child, mask, u, v)
+    b, n, e = _check("sddmm_forward", parent, child, mask, u, v, _no_smem)
     out = torch.empty((b, e), dtype=torch.float32, device=u.device)
     if out.numel() == 0:
         return out
@@ -68,6 +88,56 @@ def sddmm_forward(parent, child, mask, u, v):
             mask.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(), b,
             n, e, u.shape[2], torch.cuda.current_stream(u.device).cuda_stream)
     return out
+
+
+def edge_lists_plain(parent, child, mask, n: int):
+    """Plain PyTorch version of ``edge_lists``: int32 [B, 2(n+1) + 4E], per
+    sentence ``start_f [n+1] | start_r [n+1] | ent_f [E, 2] | ent_r [E,
+    2]``.  The counted edges (``valid_edges``) stably sorted by parent
+    give ent_f as (edge, child) pairs, by child ent_r as (edge, parent);
+    node i's entries are ``[start[i], start[i+1])``, so each node's list
+    keeps edge order, and the slots past the counted edges hold -1."""
+    b, e = parent.shape
+    ok = valid_edges(parent, child, mask, n)
+    out = torch.full((b, list_ints(n, e)), -1, dtype=torch.int32,
+                     device=parent.device)
+    for j, (key, other) in enumerate(((parent, child), (child, parent))):
+        k = torch.where(ok, key.long(), n)  # uncounted edges sort last
+        order = torch.argsort(k, dim=1, stable=True)
+        counts = torch.zeros((b, n + 1), dtype=torch.long,
+                             device=parent.device).scatter_add_(
+            1, k, torch.ones_like(k))
+        out[:, j * (n + 1) + 1:(j + 1) * (n + 1)] = \
+            torch.cumsum(counts[:, :n], 1)
+        out[:, j * (n + 1)] = 0
+        ent = torch.stack([order, torch.gather(other.long(), 1, order)], -1)
+        ent[~torch.gather(ok, 1, order)] = -1
+        at = 2 * (n + 1) + 2 * j * e
+        out[:, at:at + 2 * e] = ent.reshape(b, 2 * e)
+    return out
+
+
+def edge_lists(parent, child, mask, n: int):
+    """The backward's adjacency lists with edge ids (layout in
+    ``edge_lists_plain``): its list-build kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    if parent.device.type == "cpu":
+        return edge_lists_plain(parent, child, mask, n)
+    # check_edges reads N from a [B, N, *] operand: an empty one here
+    x = torch.empty((parent.shape[0], n, 0), dtype=torch.float32,
+                    device=parent.device)
+    b, _, e = check_edges("edge_lists", parent, child, mask, (x,),
+                          _build_smem)
+    lists = torch.empty((b, list_ints(n, e)), dtype=torch.int32,
+                        device=parent.device)
+    if lists.numel() == 0:
+        return lists
+    with torch.cuda.device(parent.device):
+        LISTS_KERNEL.launch(
+            "sddmm_lists_i32", parent.data_ptr(), child.data_ptr(),
+            mask.data_ptr(), lists.data_ptr(), b, n, e,
+            torch.cuda.current_stream(parent.device).cuda_stream)
+    return lists
 
 
 def sddmm_backward_plain(parent, child, mask, g, u, v):
@@ -86,9 +156,8 @@ def sddmm_backward(parent, child, mask, g, u, v):
     tensors, the plain version for CPU tensors."""
     if u.device.type == "cpu":
         return sddmm_backward_plain(parent, child, mask, g, u, v)
-    # the lists also name each entry's edge: two more ints per edge slot
     b, n, e = _check("sddmm_backward", parent, child, mask, u, v,
-                     extra_smem=8 * parent.shape[-1])
+                     _build_smem)
     if g.shape != (b, e) or g.dtype != torch.float32 \
             or g.device != u.device or not g.is_contiguous():
         raise ValueError(f"sddmm_backward: g must be a contiguous f32 "
@@ -97,12 +166,14 @@ def sddmm_backward(parent, child, mask, g, u, v):
     du, dv = torch.empty_like(u), torch.empty_like(v)
     if u.numel() == 0:
         return du, dv
+    lists = torch.empty((b, list_ints(n, e)), dtype=torch.int32,
+                        device=u.device)
     with torch.cuda.device(u.device):
         BACKWARD_KERNEL.launch(
             "sddmm_backward_f32", parent.data_ptr(), child.data_ptr(),
             mask.data_ptr(), g.data_ptr(), u.data_ptr(), v.data_ptr(),
-            du.data_ptr(), dv.data_ptr(), b, n, e, u.shape[2],
-            torch.cuda.current_stream(u.device).cuda_stream)
+            du.data_ptr(), dv.data_ptr(), lists.data_ptr(), b, n, e,
+            u.shape[2], torch.cuda.current_stream(u.device).cuda_stream)
     return du, dv
 
 

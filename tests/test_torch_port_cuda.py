@@ -310,12 +310,18 @@ EDGE_SIZES = {"long": (2, 300, 300),      # a sentence past the 128 bucket
 FOREST = {"forest": (50, 1200, 1200), "more_edges": (4, 12, 30)}
 
 
+# one node the parent of every edge: one list spans the whole sentence
+STAR = {"star": (3, 1200, 1200)}
+
+
 def edge_tensors(name, device):
-    """An ``edge_case`` (or a long one of ``EDGE_SIZES`` or ``FOREST``) on
-    ``device``, with its (b, n)."""
-    sizes = {**EDGE_SIZES, **FOREST}
+    """An ``edge_case`` (or a long one of ``EDGE_SIZES``, ``FOREST`` or
+    ``STAR``) on ``device``, with its (b, n)."""
+    sizes = {**EDGE_SIZES, **FOREST, **STAR}
     b, n, e = sizes.get(name, (3, 10, 10))
     arrays = edge_case("random" if name in sizes else name, b, n, e)
+    if name in STAR:
+        arrays[0][:], arrays[2][:] = 7, True
     return [torch.from_numpy(a).to(device) for a in arrays], b, n
 
 
@@ -487,12 +493,25 @@ def test_fused_path_on_card_matches_cpu(cuda_device, preset):
         assert scaled_err(card.model.state_dict()[k].cpu(), v) <= 1e-4, k
 
 
+# the SDDMM's cases and widths: H = 70 takes the backward's 4-byte
+# gather, H = 200 (the attention layer's) its 16-byte one
+SDDMM_CASES = {**{name: 70 for name in EDGE_CASES + list(EDGE_SIZES)
+                  + list(FOREST)},
+               "forest_h200": 200, "star": 200}
+
+
+def sddmm_case(name, device):
+    """An SDDMM case's edges on ``device``, with its (b, n, h)."""
+    edges, b, n = edge_tensors(name.replace("_h200", ""), device)
+    return edges, b, n, SDDMM_CASES[name]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", EDGE_CASES + list(EDGE_SIZES) + list(FOREST))
+@pytest.mark.parametrize("name", list(SDDMM_CASES))
 def test_sddmm_kernels_match_plain(cuda_device, name):
-    edges, b, n = edge_tensors(name, cuda_device)
+    edges, b, n, h = sddmm_case(name, cuda_device)
     rng = np.random.RandomState(7)
-    u, v = features(rng, cuda_device, (b, n, 70), (b, n, 70))
+    u, v = features(rng, cuda_device, (b, n, h), (b, n, h))
     (g,) = features(rng, cuda_device, tuple(edges[0].shape))
     launches = sddmm_mod.KERNEL.launches
     got = sddmm_mod.sddmm_forward(*edges, u, v)
@@ -512,10 +531,22 @@ def test_sddmm_kernels_match_plain(cuda_device, name):
         assert scaled_err(a, w) <= 1e-5
 
 
-# M, T, D, H.  v2 takes 128 x 208 output tiles, 32 rows of W a chunk, and
-# splits D into SMs / (row and column tiles) slices (one d each in the
-# small cases, 1-2 in mixed_slices, 16-17 at the C-GCN's widths, none for
-# D = 1)
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SDDMM_CASES))
+def test_sddmm_edge_lists_match_stable_sort(cuda_device, name):
+    """The backward's list build: starts and (edge, neighbour) entries
+    equal a stable argsort of the counted edges by node, bit for bit."""
+    edges, b, n, _ = sddmm_case(name, cuda_device)
+    launches = sddmm_mod.LISTS_KERNEL.launches
+    got = sddmm_mod.edge_lists(*edges, n)
+    assert sddmm_mod.LISTS_KERNEL.launches == launches + 1
+    assert torch.equal(got, sddmm_mod.edge_lists_plain(*edges, n))
+
+
+# M, T, D, H.  v2 and v1 take 128 x 208 output tiles, 32 rows of W a
+# chunk, and split D into SMs / (row and column tiles) slices (one d each
+# in the small cases, 1-2 in mixed_slices, 16-17 at the C-GCN's widths,
+# none for D = 1)
 BILINEAR_SHAPES = {"ragged": (70, 37, 5, 70),    # no tile fits
                    "small": (130, 40, 9, 24),
                    "tiny": (129, 20, 3, 5),      # M = 128 + 1, T < 32, H < 8
@@ -536,12 +567,22 @@ def test_deprel_bilinear_kernels_match_plain(cuda_device, shape, version):
     w = w / np.sqrt(t)
     kernel = bilinear_mod._KERNELS[version][0]
     launches = kernel.launches
-    got = bilinear_mod.bilinear_forward(x, e, w, version)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        got = bilinear_mod.bilinear_forward(x, e, w, version)
+        torch.cuda.synchronize()
     again = bilinear_mod.bilinear_forward(x, e, w, version)
     assert kernel.launches == launches + 2
     assert torch.equal(got, again)
     plain = getattr(bilinear_mod, f"bilinear_{version}_plain")
     assert scaled_err(got, plain(x, e, w)) <= 1e-4
+    # both versions split K into the same slices, and a call sums their
+    # partials by a second kernel exactly where there is more than one
+    slices = kernel.load().deprel_bilinear_slices(m, d, h)
+    sums = sum(evt.name.find("deprel_bilinear_sum_kernel") >= 0
+               for evt in prof.events()
+               if evt.device_type == torch.autograd.DeviceType.CUDA)
+    assert sums == (slices > 1)
 
 
 @pytest.mark.cuda

@@ -7,6 +7,10 @@ tests/test_sddmm.py runs them).
   through JAX's custom VJP within 1e-4 of each tensor's max |grad|, over
   every ``EDGE_CASES`` case: JAX's one-hot selection scores an edge with
   an end past n 0 and gives it no gradient, as the port does.
+* The backward kernel's adjacency lists (``edge_lists_plain``, the
+  layout its list build writes) hold every counted edge once, in edge
+  order per node, and a gather over them gives JAX's custom-VJP du and
+  dv within 1e-5.
 * ``edge_softmax`` gives JAX's weights within 1e-6, and they sum to 1 over
   each destination's edges; ``spmm_forward`` / ``spmm_reverse`` with a gate
   and edge weights give JAX's within 1e-5.
@@ -60,6 +64,50 @@ def test_sddmm_and_its_gradients_match_jax(case):
     assert_grads_close(torch.autograd.grad(got, (ut, vt),
                                            torch.from_numpy(r)),
                        vjp(jnp.asarray(r)))
+
+
+def gather_over_lists(lists, g, u, v):
+    """The backward kernel's gather in numpy: each node's (edge,
+    neighbour) entries of ``lists`` (``mod.edge_lists_plain``'s layout)
+    scaled by g and summed in list order, du through v, dv through u."""
+    n, e = u.shape[1], g.shape[1]
+    du, dv = np.zeros_like(u), np.zeros_like(v)
+    for b in range(u.shape[0]):
+        for j, (dst, src) in enumerate(((du, v), (dv, u))):
+            start = lists[b, j * (n + 1):(j + 1) * (n + 1)]
+            at = 2 * (n + 1) + 2 * j * e
+            ent = lists[b, at:at + 2 * e].reshape(e, 2)
+            for i in range(n):
+                for edge, nbr in ent[start[i]:start[i + 1]]:
+                    dst[b, i] += g[b, edge] * src[b, nbr]
+    return du, dv
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_edge_lists_carry_the_jax_backward(case):
+    """The backward's adjacency lists (plain version, the layout the list
+    build kernel writes): each node's entries in edge order, the slots past
+    the counted edges -1, and a gather over them gives JAX's custom-VJP
+    du and dv within 1e-5."""
+    parent, child, mask, u, v, rng = inputs(case)
+    g = rng.randn(B, E).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b: jax_sddmm(parent, child, mask, a, b), u, v)
+    lists = mod.edge_lists_plain(*as_torch(parent, child, mask), N).numpy()
+    assert lists.shape == (B, mod.list_ints(N, E))
+    ok = valid_edges(*as_torch(parent, child, mask), N).numpy()
+    for j in range(2):
+        at = 2 * (N + 1) + 2 * j * E
+        edges = lists[:, at:at + 2 * E:2]
+        for b in range(B):
+            kept = edges[b, :ok[b].sum()]
+            assert sorted(kept) == list(np.flatnonzero(ok[b]))
+            assert (edges[b, ok[b].sum():] == -1).all()
+            start = lists[b, j * (N + 1):(j + 1) * (N + 1)]
+            for i in range(N):  # each node's entries in edge order
+                assert (np.diff(edges[b, start[i]:start[i + 1]]) > 0).all()
+    for got, want in zip(gather_over_lists(lists, g, u, v),
+                         vjp(jnp.asarray(g))):
+        np.testing.assert_allclose(got, np.asarray(want), atol=ATOL, rtol=0)
 
 
 @pytest.mark.parametrize("case", EDGE_CASES)

@@ -1,4 +1,4 @@
-"""The arithmetic of the 3xTF32 split that kernels 7 and 11 run on the
+"""The arithmetic of the 3xTF32 split that kernels 7, 11 and 12 run on the
 tensor cores (``gcn_tpu_torch/csrc/tf32x3_tile.cuh``), emulated in numpy on
 the CPU.
 
@@ -17,9 +17,15 @@ the CPU.
   kernels took chunks (``chip_smoke.py``, NVIDIA H100 80GB HBM3,
   700.00 W), and errs more than 2× the f32 product at both rows: the
   reason for the chunks.
+* Kernel 12 (the bilinear v1) multiplies x itself and folds each chunk's
+  c of (t chunk, d) in as ``acc = fmaf(e[m, d], c, acc)``, t chunks outer
+  and d inner (``v1_sum``); its f32 product is the d-streamed loop of its
+  first (SIMT) kernel, ``fmaf(e[m, d], x W_d, acc)`` over d with each
+  x W_d an ``fma_sum``, and "one accumulator" there is one tensor-core
+  accumulator over all of T for each d.
 * Held against an f64 reference, at the chip rows' shapes and scales of
-  K (kernel 11: K = D·T = 20000, a = e·x with e, x ~ N(0, 1) and W ~
-  U(-1, 1)/√T at T = 400; kernel 7: K = T = 360, a = (S h) the sum of
+  K (kernels 11 and 12: K = D·T = 20000, a = e·x with e, x ~ N(0, 1) and
+  W ~ U(-1, 1)/√T at T = 400; kernel 7: K = T = 360, a = (S h) the sum of
   three N(0, 1) rows and W ~ U(-1, 1)/√360): the 3xTF32 error is at most
   2× that of a plain f32 product of the same inputs, and a tenth of the
   kernel's tolerance (1e-4 and 1e-5 of max(1, |ref|)) or less; one TF32
@@ -37,7 +43,9 @@ import pytest
 
 # name: (K, tolerance of the kernel against its plain version)
 CASES = {"kernel11_bilinear_v2": (20000, 1e-4),
+         "kernel12_bilinear_v1": (20000, 1e-4),
          "kernel7_spmm_fused": (360, 1e-5)}
+T_BILINEAR = 400
 ROWS, COLS = 16, 8   # one m16n8 output tile
 
 
@@ -92,20 +100,75 @@ def fma_sum(a, b):
     return acc
 
 
-def operands(name):
-    """Seeded f32 operands A [16, K] and W [K, 8] at the chip rows' scales."""
+def bilinear_operands(name):
+    """Seeded f32 x [16, T], e [16, D] and W [D·T, 8] of the bilinear rows."""
     k, _ = CASES[name]
     rng = np.random.RandomState(sum(map(ord, name)))
+    e = rng.randn(ROWS, k // T_BILINEAR).astype(np.float32)
+    x = rng.randn(ROWS, T_BILINEAR).astype(np.float32)
+    w = (rng.uniform(-1, 1, (k, COLS))
+         / np.sqrt(T_BILINEAR)).astype(np.float32)
+    return x, e, w
+
+
+def operands(name):
+    """Seeded f32 operands A [16, K] and W [K, 8] at the chip rows' scales."""
     if name.startswith("kernel11"):
-        t = 400
-        e = rng.randn(ROWS, k // t).astype(np.float32)
-        x = rng.randn(ROWS, t).astype(np.float32)
-        a = (e[:, :, None] * x[:, None, :]).reshape(ROWS, k)  # f32 products
-    else:
-        t = k
-        a = (rng.randn(3, ROWS, k).astype(np.float32)).sum(0)
-    w = (rng.uniform(-1, 1, (k, COLS)) / np.sqrt(t)).astype(np.float32)
+        x, e, w = bilinear_operands(name)
+        a = (e[:, :, None] * x[:, None, :]).reshape(ROWS, -1)  # f32 products
+        return a, w
+    k, _ = CASES[name]
+    rng = np.random.RandomState(sum(map(ord, name)))
+    a = (rng.randn(3, ROWS, k).astype(np.float32)).sum(0)
+    w = (rng.uniform(-1, 1, (k, COLS)) / np.sqrt(k)).astype(np.float32)
     return a, w
+
+
+def fmaf(s, c, acc):
+    """f32 fmaf(s[:, None], c, acc): the exact product and sum, rounded
+    once to nearest."""
+    return (s.astype(np.float64)[:, None] * c.astype(np.float64)
+            + acc.astype(np.float64)).astype(np.float32)
+
+
+def v1_sum(x, e, w, split_parts, chunk):
+    """Kernel 12's sum of Σ_d e_d (x W_d): per (t chunk of ``chunk``, d),
+    t chunks outer, the chunk's product by ``mma_sum`` from 0 over the
+    passes that ``split_parts(x part, W_d part)`` gives, folded in as
+    ``fmaf(e[:, d], c, acc)``."""
+    t = x.shape[1]
+    acc = np.zeros((ROWS, COLS), np.float32)
+    for t0 in range(0, t, chunk):
+        for d in range(e.shape[1]):
+            c = mma_sum(split_parts(x[:, t0:t0 + chunk],
+                                    w[d * t + t0:d * t + t0 + chunk]),
+                        None)
+            acc = fmaf(e[:, d], c, acc)
+    return acc
+
+
+def three_passes(a, w):
+    (a_hi, a_lo), (w_hi, w_lo) = split(a), split(w)
+    return [(a_lo, w_hi), (a_hi, w_lo), (a_hi, w_hi)]
+
+
+def v1_errors(name):
+    """``errors`` of kernel 12: its fold against its first kernel's."""
+    x, e, w = bilinear_operands(name)
+    t, d_dim = T_BILINEAR, e.shape[1]
+    ref = sum(e[:, d].astype(np.float64)[:, None]
+              * (x.astype(np.float64) @ w[d * t:(d + 1) * t].astype(
+                  np.float64)) for d in range(d_dim))
+    f32 = np.zeros((ROWS, COLS), np.float32)
+    for d in range(d_dim):
+        f32 = fmaf(e[:, d], fma_sum(x, w[d * t:(d + 1) * t]), f32)
+    return {"f32": scaled(f32, ref),
+            "3xtf32": scaled(v1_sum(x, e, w, three_passes, 32), ref),
+            "3xtf32_one_accumulator": scaled(
+                v1_sum(x, e, w, three_passes, t), ref),
+            "1xtf32": scaled(v1_sum(
+                x, e, w, lambda a, b: [(tf32_rna(a), tf32_rna(b))], 32),
+                ref)}
 
 
 def scaled(got, ref):
@@ -115,10 +178,12 @@ def scaled(got, ref):
 def errors(name):
     """Scaled errors against f64 of the f32 product, 3xTF32 (with and
     without the chunks) and 1xTF32."""
+    if name.startswith("kernel12"):
+        return v1_errors(name)
     a, w = operands(name)
     ref = a.astype(np.float64) @ w.astype(np.float64)
-    (a_hi, a_lo), (w_hi, w_lo) = split(a), split(w)
-    passes = [(a_lo, w_hi), (a_hi, w_lo), (a_hi, w_hi)]
+    passes = three_passes(a, w)
+    (a_hi, _), (w_hi, _) = split(a), split(w)
     return {"f32": scaled(fma_sum(a, w), ref),
             "3xtf32": scaled(mma_sum(passes), ref),
             "3xtf32_one_accumulator": scaled(mma_sum(passes, None), ref),
