@@ -15,13 +15,15 @@ Phases, one JSON line each:
    on the card at the main paths' shapes (the SDDMM also at N = E = 1200,
    where ``attention_impl="auto"`` takes the edge backend; its backward's
    list build also against a stable sort, bit for bit): max error and
-   its tolerance, median time by CUDA events (for the edge-list and
+   its tolerance, median time by CUDA events (for the scan, edge-list and
    bilinear kernels by a replayed CUDA graph of the call, and also
    eagerly), the plain version's time, one PyTorch library call's time as
    a yardstick where one computes the same function (for the bilinear also
    one SGEMM on its prebuilt [M, D*T] operand), and the kernel's bound at
    the card's peak rates (3xTF32 for the three kernels that run it, with the
-   f32 FMA bound beside);
+   f32 FMA bound beside); for the scans also their cluster partition and
+   how many of its clusters fit the card at once, and the backward's time
+   by launch (gates, chain, dW);
 4. slice  — for each path, ``Evaluator`` at full widths (random weights
    from a seeded ``torch.Generator``) over B=50 batches of the in-repo
    TACRED JSON and of synthetic sentences at the N=96 bucket, all through
@@ -169,6 +171,19 @@ def tf32x3_bound(n_bytes: float, flops: float) -> dict:
             "bound_f32_ms": bound(n_bytes, flops)[0]}
 
 
+def ptxas_by_function(log: str) -> dict:
+    """Each kernel's ``ptxas -v`` line of registers and spills, keyed by
+    the kernel's mangled name (the build log names it on the line before)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function '" in line:
+            name = line.split("'")[1]
+        elif name and ("registers" in line or "spill" in line):
+            out[name] = (out.get(name, "") + " " + line.split(":", 1)[-1]
+                         .strip()).strip()
+    return out
+
+
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -287,8 +302,15 @@ def check_lstm(torch, rng, dev) -> dict:
     ok = (errs["f32"] <= TOL_F32 and errs["f32_keep"] <= TOL_F32
           and errs["bf16"] <= TOL_BF16)
 
-    ms = time_ms(lambda: mod.lstm_scan_forward(xp, lengths, w_hh), 20)
-    plain_ms = time_ms(lambda: mod.lstm_scan_plain(xp, lengths, w_hh), 5)
+    again = mod.lstm_scan_forward(xp, lengths, w_hh, keep)
+    same = all(torch.equal(a, b) for a, b in
+               zip(mod.lstm_scan_forward(xp, lengths, w_hh, keep), again))
+    ok = ok and same
+
+    fn = functools.partial(mod.lstm_scan_forward, xp, lengths, w_hh)
+    ms = graph_ms(fn)
+    plain_ms = graph_ms(functools.partial(mod.lstm_scan_plain, xp, lengths,
+                                          w_hh), reps=5)
     # yardstick: cuDNN's bidirectional LSTM layer over the packed sequence
     # (it also does the input projection, from the 360-wide embeddings)
     lstm = torch.nn.LSTM(360, h, batch_first=True, bidirectional=True).to(dev)
@@ -301,17 +323,31 @@ def check_lstm(torch, rng, dev) -> dict:
     n_bytes = 4 * (xp.numel() + 2 * t * g * B * h + w_hh.numel() + B)
     flops = 2.0 * g * steps * h * 4 * h
     bound_ms, bound_by = bound(n_bytes, flops)
+    plan = mod.scan_plan(B, h)
     return {
         "name": "lstm_scan_forward", "route": "cuda",
         "source": "gcn_tpu_torch/csrc/lstm_scan.cu",
         "replaces": "gcn_tpu/ops/pallas/lstm_scan.py:128",
         "shape": {"T": t, "G": g, "B": B, "H": h},
-        "max_abs_err": errs["f32"], "errs": errs,
+        "plan": scan_plan_facts(mod, plan, g),
+        "max_abs_err": errs["f32"], "errs": errs, "same_bits_twice": same,
         "tol": {"f32": TOL_F32, "bf16": TOL_BF16}, "ok": ok,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": library_ms,
-        "library": "torch.nn.LSTM (cuDNN) bidirectional, packed, D=360",
+        "ms": ms, "ms_per_step": ms / t, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        "library": "torch.nn.LSTM (cuDNN) bidirectional, packed, D=360 "
+                   "(eager: median of event pairs)",
+        "timing": TIMING_GRAPH, "eager_ms": time_ms(fn, 20),
     }
+
+
+def scan_plan_facts(mod, plan, g: int) -> dict:
+    """A scan plan's shape and how many of its clusters fit the card at
+    once (``cudaOccupancyMaxActiveClusters``) against how many it launches."""
+    return {"cluster": plan.cluster, "rows": plan.rows, "units": plan.units,
+            "rows_per_thread": plan.rows_per_thread, "threads": plan.threads,
+            "smem_bytes": plan.smem_bytes, "resident": plan.resident,
+            "clusters": g * len(plan.row_tiles(B)),
+            "max_active_clusters": mod.max_active_clusters(plan, g)}
 
 
 def band_group_sizes(torch, synth_batch, dev):
@@ -413,8 +449,16 @@ def check_lstm_backward(torch, rng, dev) -> dict:
           and errs["bf16"] <= TOL_BF16)
 
     args = inputs(torch.float32, None)
-    ms = time_ms(lambda: mod.lstm_scan_backward(*args), 20)
-    plain_ms = time_ms(lambda: mod.lstm_scan_backward_plain(*args), 3)
+    first, again = (mod.lstm_scan_backward(*args) for _ in range(2))
+    same = all(torch.equal(a, b) for a, b in zip(first, again))
+    ok = ok and same
+    fn = functools.partial(mod.lstm_scan_backward, *args)
+    ms = graph_ms(fn)
+    plain_ms = graph_ms(functools.partial(mod.lstm_scan_backward_plain, *args),
+                        reps=3)
+    split = device_time(torch, lambda: [fn() for _ in range(5)])
+    split_ms = None if split is None else {
+        k: v / 5 for k, v in split["top_kernels_ms"].items() if "lstm_" in k}
     # yardstick: cuDNN's bidirectional LSTM layer over the packed sequence,
     # forward + backward minus forward (its backward also produces the
     # input projection's gradients)
@@ -437,18 +481,26 @@ def check_lstm_backward(torch, rng, dev) -> dict:
     n_bytes = 4 * (3 * args[0].numel() + 2 * xp.numel() + 2 * w_hh.numel()
                    + B)
     bound_ms, bound_by = bound(n_bytes, flops)
+    plan = mod.scan_plan(B, h, backward=True)
     return {
         "name": "lstm_scan_backward", "route": "cuda",
         "source": "gcn_tpu_torch/csrc/lstm_scan_backward.cu",
         "replaces": "gcn_tpu/ops/pallas/lstm_scan.py:262",
         "shape": {"T": t, "G": g, "B": B, "H": h, "sum_len": steps},
-        "max_abs_err": abs_errs["f32"], "errs": errs,
+        "plan": scan_plan_facts(mod, plan, g),
+        "dw_slices": mod.BACKWARD_KERNEL.load().lstm_scan_backward_dw_slices(
+            g, h),
+        "max_abs_err": abs_errs["f32"], "errs": errs, "same_bits_twice": same,
         "tol": {"f32": TOL_BWD, "bf16": TOL_BF16}, "ok": ok,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": fwd_bwd_ms - fwd_ms,
+        "ms": ms, "ms_per_step": ms / t, "split_ms_profiler": split_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": fwd_bwd_ms - fwd_ms,
         "library": "torch.nn.LSTM (cuDNN) bidirectional, packed, D=360, "
-                   "forward+backward minus forward",
+                   "forward+backward minus forward (eager: median of event "
+                   "pairs)",
         "library_fwd_ms": fwd_ms, "library_fwd_bwd_ms": fwd_bwd_ms,
+        "timing": TIMING_GRAPH, "eager_ms": time_ms(fn, 20),
     }
 
 
@@ -1082,7 +1134,8 @@ def run_slice(torch, dev, real, synth, vocab_size: int, path: str) -> dict:
 # ----------------------------------------------------------------- train
 KERNEL_GROUPS = (  # device time by category, matched on kernel names
     ("scan forward kernel", ("lstm_scan_fwd_kernel",)),
-    ("scan backward kernels", ("lstm_scan_bwd_kernel", "lstm_dw_kernel")),
+    ("scan backward kernels", ("lstm_gates_kernel", "lstm_chain_kernel",
+                               "lstm_dw_kernel")),
     ("grouped matmul forward kernel", ("grouped_matmul_fwd_kernel",)),
     ("grouped matmul backward kernels", ("grouped_matmul_dx_kernel",
                                          "grouped_matmul_ds_kernel")),
@@ -1300,7 +1353,10 @@ def main() -> int:
           "per_source_s": {k: v["seconds"] for k, v in report.items()},
           "ptxas": {k: [l.strip() for l in v["log"].splitlines()
                         if "registers" in l or "spill" in l]
-                    for k, v in report.items()}})
+                    for k, v in report.items()},
+          "ptxas_scan_kernels": {k: ptxas_by_function(report[k]["log"])
+                                 for k in ("lstm_scan", "lstm_scan_backward")
+                                 if k in report}})
 
     rng = np.random.RandomState(SEED)
     vocab = Vocab.load(os.path.join(HERE, "dataset", "vocab", "vocab.pkl"))

@@ -7,335 +7,801 @@
 //   gy      [T, G, B, H] f32  cotangent of the h states, zero at t >= length
 //   xp      [T, G, B, 4H]     the forward's input projections (i, f, g, o)
 //   h, c    [T, G, B, H]      the forward's states, in xp's dtype
-//   w_hh    [G, H, 4H]  and  w_hh_t [G, 4H, H], the same weights transposed
+//   w_hh    [G, H, 4H]
 //   keep    [T, G, B] f32     optional carry factor of step t
 //   lengths [B] int32
 //   dxp     [T, G, B, 4H] f32 gradient of the gate pre-activations
 //   dw_hh   [G, H, 4H] f32    Σ_t Σ_b h_prev[t,b]ᵀ dxp[t,b]
 // Storage is f32 or bf16; all math is f32.  The gates are recomputed from
-// xp + h_prev @ w_hh with the rounded states the forward stored, as the TPU
-// kernel does, instead of saving a [T, G, B, 4H] residual.
+// xp + keep·(h[t-1] @ w_hh) with the states the forward stored, as the TPU
+// kernel does, instead of saving them in the forward.
 //
 // Rows at t >= length froze their carry in the forward, so there their gate
 // gradients are zero and the incoming dh/dc pass through to t-1 unchanged.
 // The carry into step t was keep[t]·state[t-1] (zero at t = 0), so h_prev
 // and c_prev carry that factor, and so does the cotangent sent to t-1.
 //
-// What bounds it on the H100.  Like the forward, the T steps are a serial
-// chain, so one block owns (direction g, kRows batch rows), keeps dh and dc
-// in shared memory for all T steps and needs no grid-wide sync (14 blocks
-// at G=2, B=50).  Each step streams w_hh twice from L2 through the SM (once
-// for the gate recompute, h_prev @ w_hh, once for dh_prev = dgates @ w_hhᵀ
-// from the transposed copy, so that both reads are coalesced), twice the
-// forward's traffic, and does 4·kRows·H·4H FMAs.  Like the forward it is
-// bound by the L2 stream through one SM per block, not by device memory.
+// What bounds it on the H100.  Device memory moves some 0.07 ms of data at
+// the C-GCN's shapes; the 6·ΣL·4H·H FLOPs take 0.01 ms at the f32 rate on
+// all SMs.  What sets the time is the serial chain of T steps, as in the
+// forward (lstm_scan.cu).  So only what is serial stays in the chain, and
+// the rest runs as parallel kernels around it, three launches from one C
+// entry point:
 //
-// dW_hh is not serial in t: it is a per-direction [H × T·B] @ [T·B × 4H]
-// product over the stored states and dxp.  The TPU kernel accumulated it in
-// VMEM across its sequential grid; here the 7 row-blocks of a direction run
-// in parallel, so a second kernel launched after the scan computes it as a
-// tiled reduction in a fixed order (no atomics: two runs give the same
-// bits).  Both launches together are the port of _bwd_kernel and go out
-// from one C entry point.
+//  1. lstm_gates_kernel: the gates xp + keep·(h[t-1] @ w_hh) of every
+//     (t, b) at once, a [T·B, H] by [H, 4H] product per direction into an
+//     f32 scratch [T, G, B, 4H], on the 3xTF32 mainloop (tf32x3_tile.cuh)
+//     with the forward's chunking and epilogue: the same bits as the
+//     forward's gates.
+//  2. lstm_chain_kernel: the chain in the forward's cluster layout
+//     (lstm_cluster.cuh).  Each CTA owns the gate columns of H/C units.  A
+//     step: (a) as owner, once its transaction barrier says every rank's
+//     partials have come, sum the C partial dh_prev of the step after in
+//     rank order; (b) form the gate gradients of its units and rows and
+//     keep dc in registers; (c) form a partial dh_prev over its own 4H/C
+//     columns for all H units from the same resident slice on the tensor
+//     cores (so no transposed copy of w_hh is needed) and st.async each
+//     owner its part; (d) write dxp and load the next step's inputs.  No
+//     float atomics: two runs give the same bits.  Steps at or past the
+//     cluster's longest row have zero gate gradients: they only pass gy
+//     into dh.
+//  3. lstm_dw_kernel: dW_hh = Σ (keep·h_prev)ᵀ dxp, a [H × (T-1)·B] by
+//     [(T-1)·B × 4H] product per direction on the 3xTF32 tensor-core
+//     mainloop (tf32x3_tile.cuh): h_prev rows, keep and dxp rows stream
+//     through the cp.async ring, and the fragment reads transpose h and
+//     scale it by keep.  The depth is split over the S CTAs of a cluster to
+//     fill the SMs; their partial tiles meet in shared memory and are
+//     summed in rank order (fixed), and the kernel writes dW whole.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <stdint.h>
+
+#include "lstm_cluster.cuh"
+#include "tf32x3_tile.cuh"
+
 namespace {
 
-constexpr int kRows = 8;      // batch rows per scan block
-constexpr int kMaxSplit = 8;  // column chunks of the dh_prev product
-constexpr int kTM = 64;       // dW tile: units of h_prev
-constexpr int kTN = 64;       // dW tile: gate columns
-constexpr int kTK = 16;       // dW depth per shared-memory stage: (t, b)
-constexpr int kThreads = 256; // dW block: 16 x 16 threads, 4 x 4 each
+using lstm::Layout;
+using lstm::to_f32;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+// ---------------------------------------------------------------- gates
+// 4 x 2 warps, each 32 rows x 64 gate columns: 128 x 128 a block
+using GTile = tf32x3::Tile<4, 2, 2, 8>;
+constexpr int kGLda = tf32x3::kBK + 4;  // A chunk row stride (ld / 4 odd)
+constexpr int kGPer = tf32x3::kBK * GTile::kBM / GTile::kThreads;  // 16
+constexpr int kGRows = GTile::kThreads / 8;  // A rows a pass of 8 lanes a row
+static_assert(kGPer == 16 && tf32x3::kBK * GTile::kBN / GTile::kThreads == 16,
+              "a thread stages 16 floats of A and of B a chunk");
+// a ring stage: the A chunk [kBM][kGLda] (h rows), the B chunk [kBK][kLdw]
+constexpr int kGStage = GTile::kBM * kGLda + tf32x3::kBK * GTile::kLdw;
+constexpr size_t kGBytes = sizeof(float) * tf32x3::kStages * kGStage;
 
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
+// gates[t, g, b] = xp[t, g, b] + keep[t, g, b] · (h[t-1, g, b] @ w_hh[g])
+// (zero h at t = 0) for every (t, b) of a direction: rows m = t·B + b, a
+// [T·B, H] by [H, 4H] product on the 3xTF32 mainloop, and the epilogue
+// fmaf(keep, sum, xp): the forward's gates bit for bit.  A (h rows) and B
+// (w rows) come through a three-stage cp.async ring (f32 storage; bf16
+// through registers, one chunk ahead).
 template <typename T>
-__global__ void __launch_bounds__(1024)
-lstm_scan_bwd_kernel(const float* __restrict__ gy, const T* __restrict__ xp,
-                     const T* __restrict__ h_st, const T* __restrict__ c_st,
-                     const T* __restrict__ w_hh, const T* __restrict__ w_hh_t,
-                     const float* __restrict__ keep,
-                     const int* __restrict__ lengths, float* __restrict__ dxp,
-                     int t_dim, int g_dim, int b_dim, int hd, int split) {
-  extern __shared__ float4 smem4[];  // float4: 16-byte aligned rows
-  __shared__ int len_s[kRows];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int h4 = 4 * hd;
-  float* hp_s = smem;               // [kRows][hd]  h_prev of this step
-  float* dh_s = hp_s + kRows * hd;  // [kRows][hd]  dh carried to step t
-  float* dc_s = dh_s + kRows * hd;  // [kRows][hd]  dc carried to step t
-  float* g_s = dc_s + kRows * hd;   // [kRows][h4]  gates, then dgates
-  float* p_s = g_s + kRows * h4;    // [split][kRows][hd] partial dh_prev
-
-  const int g = blockIdx.y;
-  const int row0 = blockIdx.x * kRows;
-  const int nrows = min(kRows, b_dim - row0);
+__global__ void __launch_bounds__(GTile::kThreads)
+lstm_gates_kernel(const T* __restrict__ xp, const T* __restrict__ h_st,
+                  const T* __restrict__ w_hh, const float* __restrict__ keep,
+                  float* __restrict__ gates, int t_dim, int g_dim, int b_dim,
+                  int hd) {
+  using Tl = GTile;
+  constexpr int kBK = tf32x3::kBK, kStages = tf32x3::kStages;
+  constexpr bool kAsync = sizeof(T) == sizeof(float);
+  extern __shared__ float4 g_smem4[];
+  float* ring = reinterpret_cast<float*>(g_smem4);  // kStages x kGStage
+  auto a_of = [&](int c) { return ring + (c % kStages) * kGStage; };
+  auto b_of = [&](int c) { return a_of(c) + Tl::kBM * kGLda; };
+  const int g = blockIdx.z;
+  const int n0 = blockIdx.x * Tl::kBN, m0 = blockIdx.y * Tl::kBM;
+  const int h4 = 4 * hd, m_dim = t_dim * b_dim;
   const T* w = w_hh + (size_t)g * hd * h4;
-  const T* wt = w_hh_t + (size_t)g * h4 * hd;
-
-  if (threadIdx.x < kRows)
-    len_s[threadIdx.x] = threadIdx.x < nrows ? lengths[row0 + threadIdx.x] : 0;
-  for (int i = threadIdx.x; i < kRows * hd; i += blockDim.x) {
-    dh_s[i] = 0.0f;
-    dc_s[i] = 0.0f;
-  }
-  // rows past nrows are never written below; they must read as zeros
-  for (int i = threadIdx.x; i < kRows * h4; i += blockDim.x) g_s[i] = 0.0f;
-  __syncthreads();
-
-  for (int t = t_dim - 1; t >= 0; --t) {
-    const size_t step = (size_t)t * g_dim + g;              // [B, .] slab
-    const size_t prev = (size_t)(t > 0 ? t - 1 : 0) * g_dim + g;
-
-    // phase 0: h_prev = keep[t] * h[t-1], zero at t = 0
-    for (int idx = threadIdx.x; idx < kRows * hd; idx += blockDim.x) {
-      const int r = idx / hd;
-      const int j = idx - r * hd;
-      float v = 0.0f;
-      if (t > 0 && r < nrows) {
-        v = to_f32(h_st[(prev * b_dim + row0 + r) * hd + j]);
-        if (keep != nullptr) v *= keep[step * b_dim + row0 + r];
-      }
-      hp_s[idx] = v;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane / 4, qq = lane % 4;
+  const int wm = warp % Tl::kWarpsM, wn = warp / Tl::kWarpsM;
+  const int chunks = (hd + kBK - 1) / kBK;
+  // this thread's A rows: la_r + kGRows·i (i < 4), 4 of k at la_k
+  const int la_r = threadIdx.x / 8, la_k = (threadIdx.x % 8) * 4;
+  const T* a_rows[Tl::kBM / kGRows];  // h[t-1] of each, null at t = 0 or M
+#pragma unroll
+  for (int i = 0; i < Tl::kBM / kGRows; ++i) {
+    const int m = m0 + la_r + kGRows * i;
+    a_rows[i] = nullptr;
+    if (m < m_dim && m >= b_dim) {
+      const int t = m / b_dim, b = m - t * b_dim;
+      a_rows[i] = h_st + (((size_t)(t - 1) * g_dim + g) * b_dim + b) * hd;
     }
-    __syncthreads();
-
-    // phase 1: recompute gates[r, col] = xp[t, g, r, col] + h_prev[r] @ w
-    for (int col = threadIdx.x; col < h4; col += blockDim.x) {
-      float acc[kRows];
+  }
+  const bool vec = hd % 4 == 0;
+  // a valid source for a cp.async that copies nothing (its size is 0)
+  const float* dummy = reinterpret_cast<const float*>(xp);
+  auto issue = [&](int c) {  // f32: chunk c into slot c % kStages
+    if (kAsync && c < chunks) {
+      const int k0 = c * kBK;
+      float* ad = a_of(c);
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-      int k = 0;
-      if ((hd & 3) == 0) {
-        for (; k < hd; k += 4) {
-          const float w0 = to_f32(w[(size_t)(k + 0) * h4 + col]);
-          const float w1 = to_f32(w[(size_t)(k + 1) * h4 + col]);
-          const float w2 = to_f32(w[(size_t)(k + 2) * h4 + col]);
-          const float w3 = to_f32(w[(size_t)(k + 3) * h4 + col]);
+      for (int i = 0; i < Tl::kBM / kGRows; ++i) {
+        const float* row = reinterpret_cast<const float*>(a_rows[i]);
+        float* dst = ad + (la_r + kGRows * i) * kGLda + la_k;
+        const int k = k0 + la_k;
+        if (vec) {
+          const bool ok = row != nullptr && k < hd;
+          tf32x3::cp_async16(dst, ok ? row + k : dummy, ok);
+        } else {
 #pragma unroll
-          for (int r = 0; r < kRows; ++r) {
-            const float4 hv =
-                *reinterpret_cast<const float4*>(hp_s + r * hd + k);
-            acc[r] = fmaf(hv.x, w0, acc[r]);
-            acc[r] = fmaf(hv.y, w1, acc[r]);
-            acc[r] = fmaf(hv.z, w2, acc[r]);
-            acc[r] = fmaf(hv.w, w3, acc[r]);
+          for (int e = 0; e < 4; ++e) {
+            const bool ok = row != nullptr && k + e < hd;
+            tf32x3::cp_async4(dst + e, ok ? row + k + e : dummy,
+                              ok);
           }
         }
       }
-      for (; k < hd; ++k) {
-        const float wv = to_f32(w[(size_t)k * h4 + col]);
+      tf32x3::copy_tile<kBK, Tl::kBN, Tl::kLdw, Tl::kThreads>(
+          b_of(c), reinterpret_cast<const float*>(w) + (size_t)k0 * h4, h4,
+          min(kBK, hd - k0), n0, h4, true);
+    }
+    tf32x3::cp_async_commit();
+  };
+  // bf16: chunk c staged through registers (A then B, 16 floats each)
+  float ra[kGPer], rb[kGPer];
+  const int lb_k = threadIdx.x / 8, lb_n = (threadIdx.x % 8) * 16;
+  auto load = [&](int c) {
+    const int k0 = c * kBK;
 #pragma unroll
-        for (int r = 0; r < kRows; ++r)
-          acc[r] = fmaf(hp_s[r * hd + k], wv, acc[r]);
+    for (int i = 0; i < Tl::kBM / kGRows; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = k0 + la_k + e;
+        ra[4 * i + e] =
+            (a_rows[i] != nullptr && k < hd) ? to_f32(a_rows[i][k]) : 0.0f;
       }
 #pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        if (r < nrows)
-          g_s[r * h4 + col] =
-              to_f32(xp[(step * b_dim + row0 + r) * h4 + col]) + acc[r];
+    for (int i = 0; i < kGPer; ++i) {
+      const int kb = k0 + lb_k, n = n0 + lb_n + i;
+      rb[i] = (kb < hd && n < h4) ? to_f32(w[(size_t)kb * h4 + n]) : 0.0f;
     }
-    __syncthreads();
+  };
+  auto store = [&](int c) {
+    float* ad = a_of(c);
+    float* bd = b_of(c) + lb_k * Tl::kLdw + lb_n;
+#pragma unroll
+    for (int i = 0; i < Tl::kBM / kGRows; ++i)
+      *reinterpret_cast<float4*>(ad + (la_r + kGRows * i) * kGLda + la_k) =
+          make_float4(ra[4 * i], ra[4 * i + 1], ra[4 * i + 2], ra[4 * i + 3]);
+#pragma unroll
+    for (int i = 0; i < kGPer; i += 4)
+      *reinterpret_cast<float4*>(bd + i) =
+          make_float4(rb[i], rb[i + 1], rb[i + 2], rb[i + 3]);
+  };
 
-    // phase 2: gate gradients (written over the gates and out to dxp[t]),
-    // the cell cotangent sent to t-1, and the pass-through of frozen rows
-    for (int idx = threadIdx.x; idx < nrows * hd; idx += blockDim.x) {
-      const int r = idx / hd;
-      const int j = idx - r * hd;
-      float* gr = g_s + r * h4;
-      const float ig = sigmoid(gr[j]);
-      const float fg = sigmoid(gr[hd + j]);
-      const float gg = tanhf(gr[2 * hd + j]);
-      const float og = sigmoid(gr[3 * hd + j]);
-      const size_t o = (step * b_dim + row0 + r) * hd + j;
-      const float kp =
-          keep != nullptr ? keep[step * b_dim + row0 + r] : 1.0f;
-      const float c_new = to_f32(c_st[o]);
-      const float c_prev =
-          t > 0 ? kp * to_f32(c_st[(prev * b_dim + row0 + r) * hd + j])
-                : 0.0f;
-      const float dh_tot = dh_s[idx] + gy[o];
-      const float dc_tot = dc_s[idx];
-      const float tc = tanhf(c_new);
+  float acc[Tl::kMT][Tl::kNT][4];
+#pragma unroll
+  for (int mt = 0; mt < Tl::kMT; ++mt)
+#pragma unroll
+    for (int j = 0; j < Tl::kNT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][j][i] = 0.0f;
+  for (int c = 0; c < kStages - 1; ++c) issue(c);
+  if (!kAsync) {
+    load(0);
+    store(0);
+  }
+  for (int c = 0; c < chunks; ++c) {
+    if (!kAsync && c + 1 < chunks) load(c + 1);
+    tf32x3::ring_wait();  // chunk c has landed
+    issue(c + kStages - 1);
+    const float* as = a_of(c) + (wm * 16 * Tl::kMT + gq) * kGLda + qq;
+    tf32x3::mma_chunk<Tl::kMT, Tl::kNT, 4, Tl::kLdw>(
+        acc, b_of(c) + wn * Tl::kNT * 8,
+        [&](int mt, int ks, float (&a)[4]) {
+          const float* p = as + mt * 16 * kGLda + ks * 8;
+          a[0] = p[0];
+          a[1] = p[8 * kGLda];
+          a[2] = p[4];
+          a[3] = p[8 * kGLda + 4];
+        });
+    if (!kAsync && c + 1 < chunks) store(c + 1);
+  }
+
+#pragma unroll
+  for (int mt = 0; mt < Tl::kMT; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = m0 + wm * 16 * Tl::kMT + mt * 16 + gq + 8 * half;
+      if (m >= m_dim) continue;
+      const int t = m / b_dim, b = m - t * b_dim;
+      const size_t row = ((size_t)t * g_dim + g) * b_dim + b;
+      const float kp = keep != nullptr ? keep[row] : 1.0f;
+#pragma unroll
+      for (int j = 0; j < Tl::kNT; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int n = n0 + wn * Tl::kNT * 8 + j * 8 + 2 * qq + i;
+          if (n < h4)
+            gates[row * h4 + n] =
+                fmaf(kp, acc[mt][j][2 * half + i], to_f32(xp[row * h4 + n]));
+        }
+    }
+}
+
+// ---------------------------------------------------------------- chain
+// (c) of a step: part[r][k] = Σ_c dg_s[r][c] · w[k][c] over this CTA's
+// columns c = 4u + gate, for every row r < nrows and unit k < H, each sent
+// to k's owner by st.async: recv[parity][rank][k - unit0(owner)][r],
+// counted against the owner's barrier bar.  3xTF32 m16n8k8 with the slice
+// as B ("col": B[c][k] = w_s[k][c]), 32 columns a chunk folded in order.
+// A warp takes a 16-row tile by kTiles n-tiles of 8 units and kChunks
+// chunks at once, all their MMAs independent and each A fragment shared.
+template <bool kResident, typename T>
+__device__ __forceinline__ void send_partials(
+    const float* w_s, const T* __restrict__ w, const float* dg_s,
+    uint32_t recv_par, uint32_t bar, const Layout& l, int rank, int u0,
+    int nu, int nrows) {
+  constexpr int kBK = tf32x3::kBK, kTiles = 4, kChunks = 2;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, q = lane % 4;
+  const int mtiles = (nrows + 15) / 16;
+  const int groups = (l.hd + 8 * kTiles - 1) / (8 * kTiles);
+  const int cols = (4 * nu + 7) / 8 * 8;
+  for (int item = warp; item < mtiles * groups; item += blockDim.x / 32) {
+    const int m0 = (item % mtiles) * 16, n0 = (item / mtiles) * 8 * kTiles;
+    const float* a = dg_s + (m0 + g) * l.ldw + q;
+    float acc[kTiles][4];
+#pragma unroll
+    for (int j = 0; j < kTiles; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] = 0.0f;
+    for (int cg0 = 0; cg0 < cols; cg0 += kChunks * kBK) {
+      float c[kChunks][kTiles][4];
+#pragma unroll
+      for (int ch = 0; ch < kChunks; ++ch)
+#pragma unroll
+        for (int j = 0; j < kTiles; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) c[ch][j][i] = 0.0f;
+#pragma unroll
+      for (int ks = 0; ks < kBK / 8; ++ks)
+#pragma unroll
+        for (int ch = 0; ch < kChunks; ++ch) {
+          const int c0 = cg0 + ch * kBK + 8 * ks;
+          if (c0 >= cols) continue;
+          const lstm::Frag af = lstm::split_frag(
+              a[c0], a[8 * l.ldw + c0], a[c0 + 4], a[8 * l.ldw + c0 + 4]);
+#pragma unroll
+          for (int j = 0; j < kTiles; ++j) {
+            const int k = n0 + 8 * j + g;
+            if (n0 + 8 * j >= l.hp) continue;
+            lstm::mma3(c[ch][j], af,
+                       lstm::slice_at<kResident>(w_s, w, l, k, c0 + q, u0,
+                                                 nu),
+                       lstm::slice_at<kResident>(w_s, w, l, k, c0 + q + 4,
+                                                 u0, nu));
+          }
+        }
+#pragma unroll
+      for (int ch = 0; ch < kChunks; ++ch)
+        if (cg0 + ch * kBK < cols)
+#pragma unroll
+          for (int j = 0; j < kTiles; ++j)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[j][i] = acc[j][i] + c[ch][j][i];
+    }
+#pragma unroll
+    for (int j = 0; j < kTiles; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = m0 + g + 8 * (i / 2), k = n0 + 8 * j + 2 * q + i % 2;
+        if (r >= nrows || k >= l.hd) continue;
+        const int own = l.owner(k);
+        const uint32_t dst =
+            recv_par +
+            4u * ((rank * l.units + (k - l.unit0(own))) * l.rows_pad + r);
+        lstm::st_async(lstm::map_rank(dst, own), acc[j][i],
+                       lstm::map_rank(bar, own));
+      }
+  }
+}
+
+template <typename T, int RR, bool kResident>
+__global__ void __launch_bounds__(512)
+lstm_chain_kernel(const float* __restrict__ gy, const T* __restrict__ xp,
+                  const T* __restrict__ h_st, const T* __restrict__ c_st,
+                  const T* __restrict__ w_hh, const float* __restrict__ keep,
+                  const int* __restrict__ lengths,
+                  const float* __restrict__ gates, float* __restrict__ dxp,
+                  int t_dim, int g_dim, int b_dim, Layout lp) {
+  const Layout l = lp;  // in registers: lambdas below take it by reference
+  extern __shared__ float4 smem4[];
+  float* w_s = reinterpret_cast<float*>(smem4);     // [hp][ldw]
+  float* dg_s = w_s + l.slice_floats(kResident);    // [rows_pad][ldw]
+  float* recv = dg_s + l.tile_floats();             // [2][C][units][rows_pad]
+  lstm::cg::cluster_group cluster = lstm::cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int g = blockIdx.z;
+  const int row0 = blockIdx.y * l.rows;
+  const int nrows = min(l.rows, b_dim - row0);
+  const int hd = l.hd, h4 = 4 * hd;
+  const int u0 = l.unit0(rank), nu = l.unit_count(rank);
+  const T* w = w_hh + (size_t)g * hd * h4;
+
+  const lstm::Owned me = lstm::owned(l);
+  const int u = me.u, j = u0 + u;
+  const bool active = u < nu && me.r0 < nrows;
+  bool ok[RR];
+  int len[RR];
+  int longest = 0;
+  for (int r = 0; r < nrows; ++r)
+    longest = max(longest, min(lengths[row0 + r], t_dim));
+#pragma unroll
+  for (int i = 0; i < RR; ++i) {
+    ok[i] = active && me.r0 + 8 * i < nrows;
+    len[i] = ok[i] ? lengths[row0 + me.r0 + 8 * i] : 0;
+  }
+
+  // bars[p]: recv[p] has received every rank's partials for this CTA's
+  // units (C x nu x nrows floats)
+  __shared__ __align__(8) uint64_t bars[2];
+  if (threadIdx.x == 0) {
+    lstm::mbar_init(&bars[0]);
+    lstm::mbar_init(&bars[1]);
+    lstm::mbar_init_fence();
+  }
+  if (kResident) lstm::load_slice(w_s, w, l, u0, nu);
+  // rows and units this CTA does not own must read as zero gradients
+  for (int i = threadIdx.x; i < l.tile_floats(); i += blockDim.x)
+    dg_s[i] = 0.0f;
+  lstm::cluster_sync();  // every CTA has started and set its buffers
+  const uint32_t bytes = 4u * l.cluster * nu * nrows;
+  const uint32_t recv_addr = lstm::smem_u32(recv);
+  const uint32_t bar_addr = lstm::smem_u32(bars);
+  uint32_t parity = 0;  // bit p: the phase of bars[p] to wait for
+
+  float dh[RR], dc[RR];
+#pragma unroll
+  for (int i = 0; i < RR; ++i) dh[i] = dc[i] = 0.0f;
+  // steps at or past the longest row: every row is frozen, gy (zero there
+  // by the contract) passes into dh, the gate gradients are zero
+  for (int t = t_dim - 1; t >= longest; --t) {
+    const size_t step = (size_t)t * g_dim + g;
+#pragma unroll
+    for (int i = 0; i < RR; ++i) {
+      if (!ok[i]) continue;
+      const size_t o = step * b_dim + row0 + me.r0 + 8 * i;
+      dh[i] += gy[o * hd + j];
+      float* out = dxp + o * h4 + j;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) out[q * hd] = 0.0f;
+    }
+  }
+
+  // the step's inputs, loaded ahead of the step
+  float gt[RR][4], kp[RR], c_now[RR], c_before[RR], gyv[RR];
+  auto prepare = [&](int t) {
+    const size_t step = (size_t)t * g_dim + g;
+    const size_t prev = (size_t)(t > 0 ? t - 1 : 0) * g_dim + g;
+#pragma unroll
+    for (int i = 0; i < RR; ++i) {
+      const int r = row0 + me.r0 + 8 * i;
+      const size_t o = step * b_dim + r;
+      kp[i] = (keep != nullptr && ok[i]) ? keep[o] : 1.0f;
+      c_now[i] = ok[i] ? to_f32(c_st[o * hd + j]) : 0.0f;
+      c_before[i] = (ok[i] && t > 0)
+                        ? to_f32(c_st[(prev * b_dim + r) * hd + j])
+                        : 0.0f;
+      gyv[i] = ok[i] ? gy[o * hd + j] : 0.0f;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        gt[i][q] = ok[i] ? gates[o * h4 + q * hd + j] : 0.0f;
+    }
+  };
+
+  float4 dq[RR];        // the step's gate gradients, written late
+  bool was_valid[RR];   // the step after's row state, for the owner's sum
+  float was_kp[RR], was_dh[RR];
+  auto write_dxp = [&](int t) {
+    const size_t step = (size_t)t * g_dim + g;
+#pragma unroll
+    for (int i = 0; i < RR; ++i) {
+      if (!ok[i]) continue;
+      float* out = dxp + (step * b_dim + row0 + me.r0 + 8 * i) * h4 + j;
+      out[0] = dq[i].x;
+      out[hd] = dq[i].y;
+      out[2 * hd] = dq[i].z;
+      out[3 * hd] = dq[i].w;
+    }
+  };
+  // phases (scan_phases.py): 0 the wait for the partials and their sum,
+  // 1 the gate gradients, 2 the partial dh_prev and its sends, 3 the dxp
+  // stores and the next step's loads
+  lstm::PhaseClock phases;
+  phases.start();
+  if (longest > 0) prepare(longest - 1);
+  for (int t = longest - 1; t >= 0; --t) {
+    const int cur = t & 1, nxt = cur ^ 1;
+    if (t > 0 && threadIdx.x == 0) lstm::mbar_expect(&bars[cur], bytes);
+    // (a) dh carried into step t: the partials of step t + 1, rank order
+    if (t + 1 < longest) {
+      lstm::mbar_wait(&bars[nxt], (parity >> nxt) & 1);
+      parity ^= 1u << nxt;
+      const float* in = recv + nxt * l.recv_floats();
+#pragma unroll
+      for (int i = 0; i < RR; ++i) {
+        if (!ok[i]) continue;
+        float s = 0.0f;
+        for (int q = 0; q < l.cluster; ++q)
+          s += in[(q * l.units + u) * l.rows_pad + me.r0 + 8 * i];
+        dh[i] = was_valid[i] ? s * was_kp[i] : was_dh[i];
+      }
+    }
+    phases.mark(0);
+    // (b) the gate gradients of this CTA's units
+#pragma unroll
+    for (int i = 0; i < RR; ++i) {
+      if (!ok[i]) continue;
+      const float ig = lstm::sigmoid(gt[i][0]);
+      const float fg = lstm::sigmoid(gt[i][1]);
+      const float gg = tanhf(gt[i][2]);
+      const float og = lstm::sigmoid(gt[i][3]);
+      const float c_prev = kp[i] * c_before[i];
+      const float dh_tot = dh[i] + gyv[i];
+      const float dc_tot = dc[i];
+      const float tc = tanhf(c_now[i]);
       const float dc_all = dc_tot + dh_tot * og * (1.0f - tc * tc);
       float di = dc_all * gg * ig * (1.0f - ig);
       float df = dc_all * c_prev * fg * (1.0f - fg);
       float dg = dc_all * ig * (1.0f - gg * gg);
       float dov = dh_tot * tc * og * (1.0f - og);
-      if (t < len_s[r]) {
-        dc_s[idx] = dc_all * fg * kp;
+      was_valid[i] = t < len[i];
+      was_kp[i] = kp[i];
+      was_dh[i] = dh_tot;
+      if (was_valid[i]) {
+        dc[i] = dc_all * fg * kp[i];
       } else {
         di = df = dg = dov = 0.0f;
-        dh_s[idx] = dh_tot;
-        dc_s[idx] = dc_tot;
+        dh[i] = dh_tot;  // the frozen row's dh passes through to t - 1
+        dc[i] = dc_tot;
       }
-      gr[j] = di;
-      gr[hd + j] = df;
-      gr[2 * hd + j] = dg;
-      gr[3 * hd + j] = dov;
-      float* out = dxp + (step * b_dim + row0 + r) * h4;
-      out[j] = di;
-      out[hd + j] = df;
-      out[2 * hd + j] = dg;
-      out[3 * hd + j] = dov;
+      dq[i] = make_float4(di, df, dg, dov);
+      *reinterpret_cast<float4*>(dg_s + (me.r0 + 8 * i) * l.ldw + 4 * u) =
+          dq[i];
+    }
+    if (t == 0) {  // nothing is sent to t = -1
+      write_dxp(0);
+      break;
     }
     __syncthreads();
-
-    // phase 3: dgates @ w_hhᵀ in `split` column chunks, one partial each
-    const int chunk = (h4 + split - 1) / split;
-    for (int idx = threadIdx.x; idx < split * hd; idx += blockDim.x) {
-      const int part = idx / hd;
-      const int k = idx - part * hd;
-      const int c0 = part * chunk;
-      const int c1 = min(h4, c0 + chunk);
-      float acc[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-      for (int col = c0; col < c1; ++col) {
-        const float wv = to_f32(wt[(size_t)col * hd + k]);
-#pragma unroll
-        for (int r = 0; r < kRows; ++r)
-          acc[r] = fmaf(g_s[r * h4 + col], wv, acc[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) p_s[(part * kRows + r) * hd + k] = acc[r];
-    }
-    __syncthreads();
-
-    // phase 4: dh sent to t-1 = keep[t] * Σ partials on rows still valid
-    for (int idx = threadIdx.x; idx < nrows * hd; idx += blockDim.x) {
-      const int r = idx / hd;
-      const int j = idx - r * hd;
-      if (t < len_s[r]) {
-        float s = 0.0f;
-        for (int p = 0; p < split; ++p) s += p_s[(p * kRows + r) * hd + j];
-        const float kp =
-            keep != nullptr ? keep[step * b_dim + row0 + r] : 1.0f;
-        dh_s[idx] = s * kp;
-      }
-    }
-    __syncthreads();
+    phases.mark(1);
+    // (c) the partial dh_prev to each owner
+    send_partials<kResident>(w_s, w, dg_s,
+                             recv_addr + 4u * cur * l.recv_floats(),
+                             bar_addr + 8u * cur, l, rank, u0, nu, nrows);
+    phases.mark(2);
+    // (d) the step's dxp out, the next step's inputs in
+    write_dxp(t);
+    prepare(t - 1);
+    __syncthreads();  // (c) has read dg_s before (b) writes it again
+    phases.mark(3);
+    phases.step();
   }
+  phases.flush(8);
+  lstm::cluster_sync();  // no CTA leaves while the cluster still runs
 }
 
+// ---------------------------------------------------------------- dW_hh
+// 2 x 4 warps, each 32 units x 40 gate columns: 64 x 160 a block
+using DwTile = tf32x3::Tile<2, 4, 2, 5>;
+constexpr int kDwLda = tf32x3::padded_ld(DwTile::kBM);  // A chunk row stride
+constexpr int kDwLdr = DwTile::kBN + 4;                 // partial tile stride
+constexpr int kDwAPer = tf32x3::kBK * DwTile::kBM / DwTile::kThreads;
+// a ring stage: the dxp chunk [kBK][kLdw], the A chunk [kBK][kDwLda] (h
+// rows, transposed by the fragment reads) and the chunk's keep [kBK]
+constexpr int kDwStage =
+    DwTile::kStageFloats + tf32x3::kBK * kDwLda + tf32x3::kBK;
+constexpr size_t kDwBytes = sizeof(float) * tf32x3::kStages * kDwStage;
+static_assert(DwTile::kBM * kDwLdr <= tf32x3::kStages * kDwStage,
+              "the partial tile reuses the ring");
+static_assert(tf32x3::kBK * DwTile::kBM % DwTile::kThreads == 0, "A chunk");
+
 // dw[g][k][col] = Σ_{t >= 1} Σ_b keep[t,g,b]·h[t-1,g,b,k] · dxp[t,g,b,col]
-// (the t = 0 term has h_prev = 0).  One block per 64 x 64 output tile of
-// one direction, the (t, b) depth walked in a fixed order.
+// (the t = 0 term has h_prev = 0) over the depth q = (t - 1)·B + b.  Block
+// (rank s, tile, g) of a cluster of S along x sums the 32-deep chunks
+// [s·chunks/S, (s+1)·chunks/S) of the tile; rank s then sums the cluster's
+// S partials of its share of the tile's rows, in rank order.  Each chunk's
+// dxp rows, h rows and keep come through a three-stage cp.async ring (f32
+// storage; bf16 h goes through registers, one chunk ahead), and the
+// fragment reads scale h by keep.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(DwTile::kThreads)
 lstm_dw_kernel(const T* __restrict__ h_st, const float* __restrict__ keep,
                const float* __restrict__ dxp, float* __restrict__ dw,
                int t_dim, int g_dim, int b_dim, int hd) {
-  __shared__ float as[kTK][kTM + 4];  // h_prev tile: as[q][k]
-  __shared__ float bs[kTK][kTN + 4];  // dxp tile:    bs[q][col]
-
+  using Tl = DwTile;
+  constexpr int kBK = tf32x3::kBK, kStages = tf32x3::kStages;
+  constexpr bool kAsync = sizeof(T) == sizeof(float);  // h by cp.async
+  extern __shared__ float4 dw_smem4[];
+  float* ring = reinterpret_cast<float*>(dw_smem4);  // kStages x kDwStage
+  lstm::cg::cluster_group cluster = lstm::cg::this_cluster();
+  const int slices = gridDim.x;  // the cluster spans the grid's x
+  const int rank = (int)cluster.block_rank();
   const int g = blockIdx.z;
-  const int k0 = blockIdx.x * kTM;
-  const int n0 = blockIdx.y * kTN;
   const int h4 = 4 * hd;
-  const int total = (t_dim - 1) * b_dim;
-  const int tx = threadIdx.x % 16;  // output columns tx*4 .. tx*4+3
-  const int ty = threadIdx.x / 16;  // output rows    ty*4 .. ty*4+3
+  const int mtiles = (hd + Tl::kBM - 1) / Tl::kBM;
+  const int m0 = (blockIdx.y % mtiles) * Tl::kBM;
+  const int n0 = (blockIdx.y / mtiles) * Tl::kBN;
+  const int depth = (t_dim - 1) * b_dim;
+  const int chunks = (depth + kBK - 1) / kBK;
+  const int c0 = rank * chunks / slices, c1 = (rank + 1) * chunks / slices;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane / 4, qq = lane % 4;
+  const int wm = warp % Tl::kWarpsM, wn = warp / Tl::kWarpsM;
+  const bool vec_h = hd % 4 == 0;  // 16-byte copies of h rows
+  auto w_of = [&](int c) { return ring + (c % kStages) * kDwStage; };
+  auto a_of = [&](int c) { return w_of(c) + Tl::kStageFloats; };
+  auto kp_of = [&](int c) { return a_of(c) + kBK * kDwLda; };
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  for (int q0 = 0; q0 < total; q0 += kTK) {
-    for (int i = threadIdx.x; i < kTK * kTM; i += kThreads) {
-      const int qq = i / kTM, mm = i % kTM;
-      const int q = q0 + qq, k = k0 + mm;
-      float v = 0.0f;
-      if (q < total && k < hd) {
-        const int t = 1 + q / b_dim, b = q % b_dim;
-        v = to_f32(h_st[(((size_t)(t - 1) * g_dim + g) * b_dim + b) * hd + k]);
-        if (keep != nullptr) v *= keep[((size_t)t * g_dim + g) * b_dim + b];
+  // depth row q is (t, b) = (1 + q / B, q % B); rows r apart from a known
+  // (t, b) step there without a division
+  auto step_rows = [&](int& t, int& b, int r) {
+    for (b += r; b >= b_dim; b -= b_dim) ++t;
+  };
+  // the rows (t, g, b) of depth rows q of chunk c: index into [T, G, B]
+  auto row_at = [&](int t, int b) {
+    return ((size_t)t * g_dim + g) * b_dim + b;
+  };
+  auto issue = [&](int c) {  // chunk c into slot c % kStages
+    if (c < c1) {
+      const int qc = c * kBK;
+      const int tc = 1 + qc / b_dim, bc = qc - (tc - 1) * b_dim;
+      float* wd = w_of(c);
+      constexpr int kVecs = Tl::kBN / 4;
+      for (int i = threadIdx.x; i < kBK * kVecs; i += Tl::kThreads) {
+        const int r = i / kVecs, col = (i % kVecs) * 4;
+        int t = tc, b = bc;
+        step_rows(t, b, r);
+        const bool ok = qc + r < depth && n0 + col < h4;
+        tf32x3::cp_async16(wd + r * Tl::kLdw + col,
+                           ok ? dxp + row_at(t, b) * h4 + n0 + col : dxp, ok);
       }
-      as[qq][mm] = v;
-    }
-    for (int i = threadIdx.x; i < kTK * kTN; i += kThreads) {
-      const int qq = i / kTN, nn = i % kTN;
-      const int q = q0 + qq, col = n0 + nn;
-      float v = 0.0f;
-      if (q < total && col < h4) {
-        const int t = 1 + q / b_dim, b = q % b_dim;
-        v = dxp[(((size_t)t * g_dim + g) * b_dim + b) * h4 + col];
+      if (kAsync) {  // h rows t - 1 (f32), columns m0.. of the tile
+        const float* h = reinterpret_cast<const float*>(h_st);
+        float* ad = a_of(c);
+        const int per_row = vec_h ? Tl::kBM / 4 : Tl::kBM;
+        for (int i = threadIdx.x; i < kBK * per_row; i += Tl::kThreads) {
+          const int r = i / per_row, m = (i % per_row) * (vec_h ? 4 : 1);
+          int t = tc, b = bc;
+          step_rows(t, b, r);
+          const bool ok = qc + r < depth && m0 + m < hd;
+          const float* src = ok ? h + row_at(t - 1, b) * hd + m0 + m : h;
+          if (vec_h)
+            tf32x3::cp_async16(ad + r * kDwLda + m, src, ok);
+          else
+            tf32x3::cp_async4(ad + r * kDwLda + m, src, ok);
+        }
       }
-      bs[qq][nn] = v;
+      if (keep != nullptr && threadIdx.x < kBK) {
+        const int r = threadIdx.x;
+        int t = tc, b = bc;
+        step_rows(t, b, r);
+        const bool ok = qc + r < depth;
+        tf32x3::cp_async4(kp_of(c) + r, ok ? keep + row_at(t, b) : keep, ok);
+      }
     }
-    __syncthreads();
+    tf32x3::cp_async_commit();
+  };
+  // bf16 h: chunk c's A staged through registers into its slot
+  float ra[kDwAPer];
+  auto load_a = [&](int c) {
+    constexpr int kRowStep = Tl::kThreads / Tl::kBM;
+    const int q0 = c * kBK + threadIdx.x / Tl::kBM;
+    const int m = m0 + threadIdx.x % Tl::kBM;
+    int t = 1 + q0 / b_dim, b = q0 - (t - 1) * b_dim;
 #pragma unroll
-    for (int qq = 0; qq < kTK; ++qq) {
-      float a[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = as[qq][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = bs[qq][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
+    for (int i = 0; i < kDwAPer; ++i) {
+      ra[i] = q0 + i * kRowStep < depth && m < hd
+                  ? to_f32(h_st[row_at(t - 1, b) * hd + m])
+                  : 0.0f;
+      step_rows(t, b, kRowStep);
     }
-    __syncthreads();
-  }
+  };
+  auto store_a = [&](int c) {
+    float* ad = a_of(c);
+#pragma unroll
+    for (int i = 0; i < kDwAPer; ++i) {
+      const int e = threadIdx.x + i * Tl::kThreads;
+      ad[(e / Tl::kBM) * kDwLda + e % Tl::kBM] = ra[i];
+    }
+  };
 
+  float acc[Tl::kMT][Tl::kNT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = k0 + ty * 4 + i;
-    if (k >= hd) continue;
+  for (int mt = 0; mt < Tl::kMT; ++mt)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx * 4 + j;
-      if (col < h4) dw[((size_t)g * hd + k) * h4 + col] = acc[i][j];
-    }
+    for (int j = 0; j < Tl::kNT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][j][i] = 0.0f;
+
+  // phases (scan_phases.py): 4 the mainloop, 5 the partial tiles' sum
+  lstm::PhaseClock phases;
+  phases.start();
+  for (int c = c0; c < c0 + kStages - 1; ++c) issue(c);
+  if (!kAsync && c0 < c1) {
+    load_a(c0);
+    store_a(c0);
   }
+  for (int c = c0; c < c1; ++c) {
+    if (!kAsync && c + 1 < c1) load_a(c + 1);
+    tf32x3::ring_wait();  // chunk c has landed (and its A, if staged)
+    issue(c + kStages - 1);
+    const float* as = a_of(c) + qq * kDwLda + wm * 16 * Tl::kMT + gq;
+    const float* kp = kp_of(c) + qq;
+    tf32x3::mma_chunk<Tl::kMT, Tl::kNT, Tl::kNT, Tl::kLdw>(
+        acc, w_of(c) + wn * Tl::kNT * 8,
+        [&](int mt, int ks, float (&a)[4]) {
+          const float* p = as + ks * 8 * kDwLda + mt * 16;
+          a[0] = p[0];
+          a[1] = p[8];
+          a[2] = p[4 * kDwLda];
+          a[3] = p[4 * kDwLda + 8];
+          if (keep != nullptr) {
+            const float k0 = kp[ks * 8], k4 = kp[ks * 8 + 4];
+            a[0] *= k0;
+            a[1] *= k0;
+            a[2] *= k4;
+            a[3] *= k4;
+          }
+        });
+    if (!kAsync && c + 1 < c1) store_a(c + 1);
+  }
+  phases.mark(4);
+  tf32x3::cp_async_wait<0>();
+  __syncthreads();  // the ring is free: it takes the partial tile
+
+  float* part = ring;  // [kBM][kDwLdr]
+#pragma unroll
+  for (int mt = 0; mt < Tl::kMT; ++mt)
+#pragma unroll
+    for (int j = 0; j < Tl::kNT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = wm * 16 * Tl::kMT + mt * 16 + gq + (i / 2) * 8;
+        const int col = wn * Tl::kNT * 8 + j * 8 + 2 * qq + (i % 2);
+        part[r * kDwLdr + col] = acc[mt][j][i];
+      }
+  lstm::cluster_sync();  // every rank's partial tile is in place
+
+  const int r0 = rank * Tl::kBM / slices, r1 = (rank + 1) * Tl::kBM / slices;
+  for (int e = threadIdx.x; e < (r1 - r0) * Tl::kBN; e += Tl::kThreads) {
+    const int r = r0 + e / Tl::kBN, col = e % Tl::kBN;
+    const int k = m0 + r, n = n0 + col;
+    if (k >= hd || n >= h4) continue;
+    float s = 0.0f;
+    for (int q = 0; q < slices; ++q)
+      s += *cluster.map_shared_rank(part + r * kDwLdr + col, q);
+    dw[((size_t)g * hd + k) * h4 + n] = s;
+  }
+  lstm::cluster_sync();  // no rank leaves while another reads its tile
+  phases.mark(5);
+  phases.step(c1 - c0);
+  phases.flush(10);
+}
+
+// ---------------------------------------------------------------- launch
+template <class K, class... Args>
+cudaError_t launch_cluster(K kernel, dim3 grid, int cluster, int threads,
+                           size_t smem, cudaStream_t stream, int* max_clusters,
+                           Args... args) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  if (cluster > 8) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (max_clusters != nullptr)
+    return cudaOccupancyMaxActiveClusters(max_clusters, kernel, &cfg);
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+template <typename T, int RR, bool kRes>
+cudaError_t launch_chain(const void* gy, const void* xp, const void* h_st,
+                         const void* c_st, const void* w_hh, const void* keep,
+                         const void* lengths, const void* gates, void* dxp,
+                         int t_dim, int g_dim, int b_dim, const Layout& l,
+                         int threads, size_t smem, cudaStream_t s,
+                         int* max_clusters) {
+  return launch_cluster(
+      lstm_chain_kernel<T, RR, kRes>,
+      dim3(l.cluster, (b_dim + l.rows - 1) / l.rows, g_dim), l.cluster,
+      threads, smem, s, max_clusters, static_cast<const float*>(gy),
+      static_cast<const T*>(xp), static_cast<const T*>(h_st),
+      static_cast<const T*>(c_st), static_cast<const T*>(w_hh),
+      static_cast<const float*>(keep), static_cast<const int*>(lengths),
+      static_cast<const float*>(gates), static_cast<float*>(dxp), t_dim, g_dim,
+      b_dim, l);
+}
+
+// The clusters of the dW launch: S CTAs split the depth, as many as fill
+// the SMs with one CTA each (1 to 8).
+int dw_slices(int g_dim, int hd) {
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int tiles = g_dim * ((hd + DwTile::kBM - 1) / DwTile::kBM) *
+                    ((4 * hd + DwTile::kBN - 1) / DwTile::kBN);
+  const int s = sms / tiles;
+  return s < 1 ? 1 : (s > 8 ? 8 : s);
 }
 
 template <typename T>
 int launch(const void* gy, const void* xp, const void* h_st, const void* c_st,
-           const void* w_hh, const void* w_hh_t, const void* keep,
-           const void* lengths, void* dxp, void* dw, int t_dim, int g_dim,
-           int b_dim, int hd, void* stream) {
-  const int h4 = 4 * hd;
-  const int padded = ((h4 + 31) / 32) * 32;
-  const int threads = padded < 1024 ? padded : 1024;
-  int split = threads / hd;
-  split = split < 1 ? 1 : (split > kMaxSplit ? kMaxSplit : split);
-  const size_t smem =
-      sizeof(float) * ((size_t)kRows * (3 * hd + h4) + (size_t)split * kRows * hd);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        lstm_scan_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+           const void* w_hh, const void* keep, const void* lengths,
+           void* gates, void* dxp, void* dw, int t_dim, int g_dim, int b_dim,
+           int hd, int cluster, int rows, int rr, int resident,
+           int threads, int smem_bytes, void* stream, int* max_clusters) {
+  const Layout l = lstm::make_layout(hd, cluster, rows, rr, true);
+  if (cluster < 1 || cluster > 16 || cluster > hd || rows < 1 ||
+      threads != l.threads() || threads > 512 ||
+      (size_t)smem_bytes != l.backward_bytes(resident != 0) ||
+      (gates == nullptr && max_clusters == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e;
+  if (max_clusters == nullptr) {
+    e = cudaFuncSetAttribute(lstm_gates_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kGBytes);
+    if (e != cudaSuccess) return (int)e;
+    dim3 grid((4 * hd + GTile::kBN - 1) / GTile::kBN,
+              (t_dim * b_dim + GTile::kBM - 1) / GTile::kBM, g_dim);
+    lstm_gates_kernel<T><<<grid, GTile::kThreads, kGBytes, s>>>(
+        static_cast<const T*>(xp), static_cast<const T*>(h_st),
+        static_cast<const T*>(w_hh), static_cast<const float*>(keep),
+        static_cast<float*>(gates), t_dim, g_dim, b_dim, hd);
+    e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  cudaStream_t s = (cudaStream_t)stream;
-  dim3 grid((b_dim + kRows - 1) / kRows, g_dim);
-  lstm_scan_bwd_kernel<T><<<grid, threads, smem, s>>>(
-      static_cast<const float*>(gy), static_cast<const T*>(xp),
-      static_cast<const T*>(h_st), static_cast<const T*>(c_st),
-      static_cast<const T*>(w_hh), static_cast<const T*>(w_hh_t),
-      static_cast<const float*>(keep), static_cast<const int*>(lengths),
-      static_cast<float*>(dxp), t_dim, g_dim, b_dim, hd, split);
-  cudaError_t e = cudaGetLastError();
+#define LSTM_CHAIN(RR, RES)                                                   \
+  launch_chain<T, RR, RES>(gy, xp, h_st, c_st, w_hh, keep, lengths, gates,    \
+                           dxp, t_dim, g_dim, b_dim, l, threads, smem_bytes,  \
+                           s, max_clusters)
+  if (rr == 1)
+    e = resident ? LSTM_CHAIN(1, true) : LSTM_CHAIN(1, false);
+  else if (rr == 2)
+    e = resident ? LSTM_CHAIN(2, true) : LSTM_CHAIN(2, false);
+  else
+    e = cudaErrorInvalidValue;
+#undef LSTM_CHAIN
+  if (e != cudaSuccess || max_clusters != nullptr) return (int)e;
+  e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  dim3 grid_w((hd + kTM - 1) / kTM, (h4 + kTN - 1) / kTN, g_dim);
-  lstm_dw_kernel<T><<<grid_w, kThreads, 0, s>>>(
-      static_cast<const T*>(h_st), static_cast<const float*>(keep),
-      static_cast<const float*>(dxp), static_cast<float*>(dw), t_dim, g_dim,
-      b_dim, hd);
+  const int slices = dw_slices(g_dim, hd);
+  const int tiles = ((hd + DwTile::kBM - 1) / DwTile::kBM) *
+                    ((4 * hd + DwTile::kBN - 1) / DwTile::kBN);
+  e = launch_cluster(lstm_dw_kernel<T>, dim3(slices, tiles, g_dim), slices,
+                     DwTile::kThreads, kDwBytes, s, nullptr,
+                     static_cast<const T*>(h_st),
+                     static_cast<const float*>(keep),
+                     static_cast<const float*>(dxp), static_cast<float*>(dw),
+                     t_dim, g_dim, b_dim, hd);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -345,22 +811,42 @@ extern "C" {
 
 int lstm_scan_backward_f32(const void* gy, const void* xp, const void* h_st,
                            const void* c_st, const void* w_hh,
-                           const void* w_hh_t, const void* keep,
-                           const void* lengths, void* dxp, void* dw, int t_dim,
-                           int g_dim, int b_dim, int hd, void* stream) {
-  return launch<float>(gy, xp, h_st, c_st, w_hh, w_hh_t, keep, lengths, dxp,
-                       dw, t_dim, g_dim, b_dim, hd, stream);
+                           const void* keep, const void* lengths, void* gates,
+                           void* dxp, void* dw, int t_dim, int g_dim,
+                           int b_dim, int hd, int cluster, int rows, int rr,
+                           int resident, int threads, int smem_bytes,
+                           void* stream) {
+  return launch<float>(gy, xp, h_st, c_st, w_hh, keep, lengths, gates, dxp,
+                       dw, t_dim, g_dim, b_dim, hd, cluster, rows, rr,
+                       resident, threads, smem_bytes, stream, nullptr);
 }
 
 int lstm_scan_backward_bf16(const void* gy, const void* xp, const void* h_st,
                             const void* c_st, const void* w_hh,
-                            const void* w_hh_t, const void* keep,
-                            const void* lengths, void* dxp, void* dw,
-                            int t_dim, int g_dim, int b_dim, int hd,
+                            const void* keep, const void* lengths, void* gates,
+                            void* dxp, void* dw, int t_dim, int g_dim,
+                            int b_dim, int hd, int cluster, int rows, int rr,
+                            int resident, int threads, int smem_bytes,
                             void* stream) {
-  return launch<__nv_bfloat16>(gy, xp, h_st, c_st, w_hh, w_hh_t, keep,
-                               lengths, dxp, dw, t_dim, g_dim, b_dim, hd,
-                               stream);
+  return launch<__nv_bfloat16>(gy, xp, h_st, c_st, w_hh, keep, lengths,
+                               gates, dxp, dw, t_dim, g_dim, b_dim, hd,
+                               cluster, rows, rr, resident, threads,
+                               smem_bytes, stream, nullptr);
+}
+
+// cudaOccupancyMaxActiveClusters of the f32 chain launch of this plan.
+int lstm_scan_backward_max_clusters(int b_dim, int g_dim, int hd, int cluster,
+                                    int rows, int rr, int resident,
+                                    int threads, int smem_bytes, int* out) {
+  return launch<float>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                       nullptr, nullptr, nullptr, nullptr, 1, g_dim, b_dim,
+                       hd, cluster, rows, rr, resident, threads,
+                       smem_bytes, nullptr, out);
+}
+
+// The CTAs of a dW cluster (the depth split) on this device.
+int lstm_scan_backward_dw_slices(int g_dim, int hd) {
+  return dw_slices(g_dim, hd);
 }
 
 const char* lstm_scan_backward_error_string(int code) {

@@ -103,12 +103,17 @@ class CudaKernel:
             self._lib = lib
         return self._lib
 
-    def launch(self, fname: str, *args) -> None:
+    def query(self, fname: str, *args) -> None:
+        """Call an exported function that returns a CUDA error code and
+        launches nothing (an occupancy query); raises on an error."""
         lib = self.load()
         rc = getattr(lib, fname)(*args)
         if rc != 0:
             msg = self._error_string(lib)(rc).decode()
             raise RuntimeError(f"{fname}: CUDA error {rc} ({msg})")
+
+    def launch(self, fname: str, *args) -> None:
+        self.query(fname, *args)
         self.launches += 1
 
 

@@ -196,6 +196,89 @@ def test_lstm_kernel_matches_plain(cuda_device, dtype, with_keep):
         torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=0)
 
 
+# (T, B, H) of the scan cases: the C-GCN's BiLSTM; H not a multiple of the
+# cluster; one row; a ragged last tile; every length below T; every length
+# 1; a slice of w_hh too wide for shared memory (the streaming route)
+LSTM_CASES = {"full": (96, 50, 200), "h30": (20, 19, 30), "b1": (20, 1, 24),
+              "b19": (20, 19, 24), "short": (24, 19, 24),
+              "ones": (12, 19, 24), "streaming": (10, 5, 480)}
+
+
+def lstm_case(name, device, dtype, with_keep):
+    """A scan case of ``LSTM_CASES`` on ``device``: (xp, lengths, w_hh,
+    keep) for the forward, w_hh at the scale of a C-GCN's (U(±1/√H))."""
+    t, b, h = LSTM_CASES[name]
+    rng = np.random.RandomState(sum(map(ord, name)))
+    xp = rng.randn(t, 2, b, 4 * h).astype(np.float32)
+    w_hh = rng.uniform(-1, 1, (2, h, 4 * h)).astype(np.float32) / np.sqrt(h)
+    keep = (rng.rand(t, 2, b) > 0.2).astype(np.float32)
+    lengths = rng.randint(1, t + 1, b).astype(np.int32)
+    lengths[-1] = t
+    if name == "short":
+        lengths = rng.randint(1, t - 4, b).astype(np.int32)
+    elif name == "ones":
+        lengths[:] = 1
+    return (torch.from_numpy(xp).to(device, dtype),
+            torch.from_numpy(lengths).to(device),
+            torch.from_numpy(w_hh).to(device, dtype),
+            torch.from_numpy(keep).to(device) if with_keep else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_keep", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(LSTM_CASES))
+def test_lstm_cluster_kernels_match_plain(cuda_device, name, dtype,
+                                          with_keep):
+    """Both scan kernels against their plain versions (forward 1e-5 abs in
+    f32, 2e-2 in bf16; backward 1e-4 and 1e-2 of max(1, |ref|)), one
+    launch a call, the same bits on a second call; past its length a row
+    keeps keep·state and gets no gate gradient."""
+    xp, lengths, w_hh, keep = lstm_case(name, cuda_device, dtype, with_keep)
+    t, b, h = LSTM_CASES[name]
+    plan = lstm_mod.scan_plan(b, h)
+    assert plan.resident == (name != "streaming")
+    launches = lstm_mod.KERNEL.launches
+    hs, cs = lstm_mod.lstm_scan_forward(xp, lengths, w_hh, keep)
+    again = lstm_mod.lstm_scan_forward(xp, lengths, w_hh, keep)
+    assert lstm_mod.KERNEL.launches == launches + 2
+    want = lstm_mod.lstm_scan_plain(xp, lengths, w_hh, keep)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for a, a2, ref in zip((hs, cs), again, want):
+        assert a.dtype == dtype and torch.equal(a, a2)
+        torch.testing.assert_close(a.float(), ref.float(), atol=tol, rtol=0)
+
+    gy = torch.from_numpy(np.random.RandomState(5).randn(t, 2, b, h).astype(
+        np.float32)).to(cuda_device) * hs.float()
+    tpos = torch.arange(t, device=cuda_device)[:, None, None, None]
+    past = tpos >= lengths[None, None, :, None]
+    gy = torch.where(past, 0.0, gy).contiguous()
+    args = (gy, xp, lengths, w_hh, hs, cs, keep)
+    launches = lstm_mod.BACKWARD_KERNEL.launches
+    got = lstm_mod.lstm_scan_backward(*args)
+    again = lstm_mod.lstm_scan_backward(*args)
+    assert lstm_mod.BACKWARD_KERNEL.launches == launches + 2
+    want = lstm_mod.lstm_scan_backward_plain(*args)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for a, a2, ref in zip(got, again, want):
+        assert a.dtype == torch.float32 and torch.equal(a, a2)
+        assert scaled_err(a, ref) <= tol
+    assert not bool(got[0][past.expand(-1, 2, -1, 4 * h)].any())
+    if keep is None:  # frozen rows repeat their last state
+        last = (lengths.long() - 1).clamp(min=0)
+        frozen = hs.gather(0, last[None, None, :, None].expand(1, 2, b, h))
+        assert torch.equal(torch.where(past, frozen.expand_as(hs), hs), hs)
+
+
+@pytest.mark.cuda
+def test_lstm_plans_fit_the_card(cuda_device):
+    """Every cluster of the C-GCN's scans can be resident at once."""
+    for backward in (False, True):
+        plan = lstm_mod.scan_plan(50, 200, backward=backward)
+        clusters = 2 * len(plan.row_tiles(50))
+        assert lstm_mod.max_active_clusters(plan, 2) >= clusters
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", GMM_CASES)
 def test_grouped_matmul_kernel_matches_plain(cuda_device, name):
@@ -650,3 +733,38 @@ def test_new_paths_on_card_match_cpu(cuda_device, mode):
     assert bwd.launches == launches + 3 * per_layer_bwd * cfg.model.num_layers
     for k, v in cpu.model.state_dict().items():
         assert scaled_err(card.model.state_dict()[k].cpu(), v) <= 1e-4, k
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("b,h", [(50, 200), (19, 24), (19, 30), (1, 24),
+                                 (50, 7), (5, 480), (8, 1000)])
+def test_scan_plan_partitions(b, h, backward):
+    """Every unit in exactly one CTA, every row in exactly one tile, a CTA
+    within 227 KB and 512 threads."""
+    plan = lstm_mod.scan_plan(b, h, backward=backward)
+    units = [u for u0, n in plan.unit_ranges() for u in range(u0, u0 + n)]
+    assert units == list(range(h))
+    assert max(n for _, n in plan.unit_ranges()) == plan.units
+    rows = [r for r0, n in plan.row_tiles(b) for r in range(r0, r0 + n)]
+    assert rows == list(range(b))
+    assert plan.smem_bytes <= lstm_mod.SMEM_LIMIT == 227 * 1024
+    assert plan.threads <= 512 and plan.threads % 32 == 0
+    # a warp for each 8 row slots of 4 units
+    rows_a_warp = 8 * plan.rows_per_thread
+    assert plan.threads // 32 >= (-(-plan.rows // rows_a_warp)
+                                  * -(-plan.units // 4))
+    assert plan.cluster <= min(h, 16)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_scan_plan_keeps_cgcn_weights_resident(backward):
+    """At the C-GCN's widths (B=50, H=200) the slice of w_hh stays in the
+    cluster's shared memory; only a width past it streams."""
+    plan = lstm_mod.scan_plan(50, 200, backward=backward)
+    assert plan.resident and plan.cluster > 1
+    wide = lstm_mod.scan_plan(5, 480, backward=backward)
+    assert not wide.resident
+    # the slice of w_hh at that width would not fit beside the rest
+    _, slice_floats, rest = lstm_mod._layout(
+        480, wide.cluster, wide.rows, wide.rows_per_thread, backward)
+    assert 4 * (slice_floats + rest) > lstm_mod.SMEM_LIMIT

@@ -1,6 +1,6 @@
-"""The arithmetic of the 3xTF32 split that kernels 7, 11 and 12 run on the
-tensor cores (``gcn_tpu_torch/csrc/tf32x3_tile.cuh``), emulated in numpy on
-the CPU.
+"""The arithmetic of the 3xTF32 split that kernels 2 (its dW_hh), 7, 11
+and 12 run on the tensor cores (``gcn_tpu_torch/csrc/tf32x3_tile.cuh``),
+emulated in numpy on the CPU.
 
 * ``tf32_rna`` is ``cvt.rna.tf32.f32``: the f32 mantissa rounded to 10
   bits, ties away from zero.
@@ -31,6 +31,13 @@ the CPU.
   kernel's tolerance (1e-4 and 1e-5 of max(1, |ref|)) or less; one TF32
   pass (1xTF32) errs more than 10× the f32 product, which is why the
   kernels do not take it.
+* Kernel 2's dW_hh (the LSTM scan backward's third launch) runs the
+  mainloop over a depth of K = (T-1)·B = 4750 at the C-GCN's shapes
+  (T = 96, B = 50), A = keep·h_prev with h in (-1, 1) and W the gate
+  gradients dxp (``dw_operands``), the depth split over the ``DW_SLICES``
+  CTAs of a cluster on whole chunks, each slice summed from 0, and the
+  slices' sums added in rank order (``dw_sum``); its f32 product is its
+  first (SIMT) kernel's one FMA a term in depth order.
 * The plain f32 product is ``fma_sum``: one f32 FMA a term, in k order,
   the arithmetic of the kernels' first (SIMT) loop and of any f32 dot
   product on the CUDA cores.  A blocked CPU SGEMM (numpy's ``float32``
@@ -44,7 +51,10 @@ import pytest
 # name: (K, tolerance of the kernel against its plain version)
 CASES = {"kernel11_bilinear_v2": (20000, 1e-4),
          "kernel12_bilinear_v1": (20000, 1e-4),
-         "kernel7_spmm_fused": (360, 1e-5)}
+         "kernel7_spmm_fused": (360, 1e-5),
+         "kernel2_lstm_dw": (95 * 50, 1e-4)}
+DW_SLICES = 3  # kernel 2's dW clusters at the C-GCN's shapes: 132 SMs // 40
+               # output tiles (2 directions x 4 x 5 tiles of 64 x 160)
 T_BILINEAR = 400
 ROWS, COLS = 16, 8   # one m16n8 output tile
 
@@ -124,6 +134,33 @@ def operands(name):
     return a, w
 
 
+def dw_operands(name):
+    """Seeded f32 A = keep·h_prev [16, K] (h in (-1, 1), a tenth of the
+    carries dropped) and W = dxp [K, 8] at the scale of gate gradients."""
+    k, _ = CASES[name]
+    rng = np.random.RandomState(sum(map(ord, name)))
+    keep = (rng.rand(k) > 0.1).astype(np.float32)
+    a = rng.uniform(-1, 1, (ROWS, k)).astype(np.float32) * keep
+    w = (rng.randn(k, COLS) * 0.1).astype(np.float32)
+    return a, w
+
+
+def dw_sum(passes, slices=DW_SLICES, chunk=32):
+    """Kernel 2's dW sum: the depth's chunks of 32 split into ``slices``
+    runs of whole chunks (rank s takes chunks [s·n/S, (s+1)·n/S)), each run
+    an ``mma_sum`` from 0 (``chunk=None``: one accumulator a run), and the
+    runs' sums added in rank order."""
+    k = passes[0][0].shape[1]
+    n = -(-k // 32)
+    total = np.zeros((passes[0][0].shape[0], passes[0][1].shape[1]),
+                     np.float32)
+    for s in range(slices):
+        k0, k1 = s * n // slices * 32, min(k, (s + 1) * n // slices * 32)
+        total = total + mma_sum([(a[:, k0:k1], b[k0:k1]) for a, b in passes],
+                                chunk)
+    return total
+
+
 def fmaf(s, c, acc):
     """f32 fmaf(s[:, None], c, acc): the exact product and sum, rounded
     once to nearest."""
@@ -180,6 +217,15 @@ def errors(name):
     without the chunks) and 1xTF32."""
     if name.startswith("kernel12"):
         return v1_errors(name)
+    if name.startswith("kernel2_"):
+        a, w = dw_operands(name)
+        ref = a.astype(np.float64) @ w.astype(np.float64)
+        (a_hi, _), (w_hi, _) = split(a), split(w)
+        return {"f32": scaled(fma_sum(a, w), ref),
+                "3xtf32": scaled(dw_sum(three_passes(a, w)), ref),
+                "3xtf32_one_accumulator": scaled(
+                    dw_sum(three_passes(a, w), chunk=None), ref),
+                "1xtf32": scaled(dw_sum([(a_hi, w_hi)]), ref)}
     a, w = operands(name)
     ref = a.astype(np.float64) @ w.astype(np.float64)
     passes = three_passes(a, w)
