@@ -15,15 +15,16 @@ Phases, one JSON line each:
    on the card at the main paths' shapes (the SDDMM also at N = E = 1200,
    where ``attention_impl="auto"`` takes the edge backend; its backward's
    list build also against a stable sort, bit for bit): max error and
-   its tolerance, median time by CUDA events (for the scan, edge-list and
-   bilinear kernels by a replayed CUDA graph of the call, and also
-   eagerly), the plain version's time, one PyTorch library call's time as
-   a yardstick where one computes the same function (for the bilinear also
-   one SGEMM on its prebuilt [M, D*T] operand), and the kernel's bound at
-   the card's peak rates (3xTF32 for the three kernels that run it, with the
-   f32 FMA bound beside); for the scans also their cluster partition and
-   how many of its clusters fit the card at once, and the backward's time
-   by launch (gates, chain, dW);
+   its tolerance, the same bits on a second call (scan, grouped matmul,
+   SDDMM, bilinear), time by a replayed CUDA graph of the call (and also
+   eagerly), the plain version's time, one PyTorch library call's time
+   as a yardstick where one computes the same function (for the bilinear
+   also one SGEMM on its prebuilt [M, D*T] operand), and the kernel's
+   bound at the card's peak rates (3xTF32 for the kernels that run it,
+   with the f32 FMA bound beside); for the scans also their cluster
+   partition and how many of its clusters fit the card at once, and the
+   backward's time by launch (gates, chain, dW; for the grouped matmul's,
+   dx, dS and the partials' sum);
 4. slice  — for each path, ``Evaluator`` at full widths (random weights
    from a seeded ``torch.Generator``) over B=50 batches of the in-repo
    TACRED JSON and of synthetic sentences at the N=96 bucket, all through
@@ -363,6 +364,13 @@ def band_group_sizes(torch, synth_batch, dev):
     return make_group_plan(torch.cat([ids_f, ids_r]), r).group_sizes.to(dev)
 
 
+TIMING_GMM = ("ms: one CUDA graph of the call replayed 50 times, L2 warm; "
+              "plain_ms, eager_ms and library_ms: median of one event pair "
+              "around each eager call, the wrapper included (the plain "
+              "version and torch._grouped_mm read the group sizes or "
+              "offsets on the host, so no graph captures them)")
+
+
 def check_gmm(torch, rng, dev, gs) -> list[dict]:
     from gcn_tpu_torch.ops import grouped_matmul as mod
 
@@ -374,38 +382,41 @@ def check_gmm(torch, rng, dev, gs) -> list[dict]:
                          device=dev)
         s = torch.tensor(rng.randn(r, t, h) / np.sqrt(t), dtype=torch.float32,
                          device=dev)
-        err = max_err(mod.grouped_matmul(x, s, gs),
-                      mod.grouped_matmul_plain(x, s, gs))
+        got = mod.grouped_matmul(x, s, gs)
+        err = max_err(got, mod.grouped_matmul_plain(x, s, gs))
+        same = bool(torch.equal(got, mod.grouped_matmul(x, s, gs)))
         err_bf16 = scaled_err(mod.grouped_matmul(x.bfloat16(), s.bfloat16(), gs),
                            mod.grouped_matmul_plain(x.bfloat16(),
                                                     s.bfloat16(), gs))
         torch.cuda.synchronize()
-        ms = time_ms(lambda: mod.grouped_matmul(x, s, gs), 20)
+        fn = functools.partial(mod.grouped_matmul, x, s, gs)
         plain_ms = time_ms(lambda: mod.grouped_matmul_plain(x, s, gs), 10)
         # yardstick only (the port never calls it); absent or refusing f32
         # in some PyTorch builds, and then not measured
         offs = torch.cumsum(gs, 0, dtype=torch.int32)
         grouped_mm = getattr(torch, "_grouped_mm", None)
-        library_ms = None
+        library_ms, library_note = None, "torch._grouped_mm is absent"
         if grouped_mm is not None:
             try:
                 library_ms = time_ms(lambda: grouped_mm(x, s, offs=offs), 20)
+                library_note = "torch._grouped_mm f32 (eager)"
             except RuntimeError as e:
-                print(f"torch._grouped_mm f32: {e}", file=sys.stderr)
+                library_note = f"not measured: {str(e)[:200]}"
         used = int((gs > 0).sum())
         n_bytes = 4 * (x.numel() + used * t * h + m * h + r)
-        bound_ms, bound_by = bound(n_bytes, 2.0 * m * t * h)
         out.append({
             "name": f"grouped_matmul_forward_T{t}", "route": "cuda",
             "source": "gcn_tpu_torch/csrc/grouped_matmul.cu",
             "replaces": "gcn_tpu/ops/pallas/grouped_matmul.py:153",
             "shape": {"M": m, "T": t, "H": h, "R": r, "groups_used": used},
             "max_abs_err": err, "errs": {"f32": err, "bf16": err_bf16},
+            "same_bits_twice": same,
             "tol": {"f32": TOL_F32, "bf16": TOL_BF16},
-            "ok": err <= TOL_F32 and err_bf16 <= TOL_BF16,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms,
-            "library": "torch._grouped_mm f32",
+            "ok": err <= TOL_F32 and err_bf16 <= TOL_BF16 and same,
+            "ms": graph_ms(fn), "plain_ms": plain_ms,
+            **tf32x3_bound(n_bytes, 2.0 * m * t * h),
+            "library_ms": library_ms, "library": library_note,
+            "timing": TIMING_GMM, "eager_ms": time_ms(fn, 20),
         })
     return out
 
@@ -525,12 +536,18 @@ def check_gmm_backward(torch, rng, dev, gs) -> list[dict]:
             errs[name] = max(scaled_err(a, b) for a, b in zip(got, want))
             if name == "f32":
                 abs_err = max(max_err(a, b) for a, b in zip(got, want))
+                again = mod.grouped_matmul_backward(*args)
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
             if bool(got[1][gs == 0].any()):
                 fail("grouped_matmul_backward: dS of an empty group")
         torch.cuda.synchronize()
-        ms = time_ms(lambda: mod.grouped_matmul_backward(x, g, s, gs), 20)
+        fn = functools.partial(mod.grouped_matmul_backward, x, g, s, gs)
         plain_ms = time_ms(
             lambda: mod.grouped_matmul_backward_plain(x, g, s, gs), 10)
+        split = device_time(torch, lambda: [fn() for _ in range(5)])
+        split_ms = None if split is None else {
+            k: v / 5 for k, v in split["top_kernels_ms"].items()
+            if "grouped_matmul" in k}
         # yardstick only (the port never calls it): torch._grouped_mm's
         # autograd backward, forward+backward minus forward, where it runs
         # in f32
@@ -542,27 +559,34 @@ def check_gmm_backward(torch, rng, dev, gs) -> list[dict]:
             sr = s.clone().requires_grad_()
             try:
                 fwd_ms = time_ms(lambda: grouped_mm(xr, sr, offs=offs), 20)
-                fwd_bwd_ms = time_ms(lambda: torch.autograd.grad(
-                    grouped_mm(xr, sr, offs=offs), [xr, sr], g), 20)
+                fwd_bwd_ms = time_ms(
+                    lambda: torch.autograd.grad(
+                        grouped_mm(xr, sr, offs=offs), [xr, sr], g), 20)
                 library_ms = fwd_bwd_ms - fwd_ms
                 library_note = ("torch._grouped_mm f32 autograd, "
-                                "forward+backward minus forward")
+                                "forward+backward minus forward (eager)")
             except (RuntimeError, NotImplementedError) as e:
                 library_note = f"not measured: {str(e)[:200]}"
         used = int((gs > 0).sum())
-        n_bytes = 4 * (2 * x.numel() + g.numel() + 2 * used * t * h + r)
-        bound_ms, bound_by = bound(n_bytes, 4.0 * m * t * h)
+        # x, g and the used groups' S in; dx and every group's dS out (the
+        # dS partials are scratch of this design, not of the function, and
+        # stand apart in shape)
+        n_bytes = 4 * (x.numel() + g.numel() + used * t * h + m * t
+                       + r * t * h + r)
+        slots = mod.BACKWARD_KERNEL.load().grouped_matmul_backward_partials(m)
         out.append({
             "name": f"grouped_matmul_backward_T{t}", "route": "cuda",
             "source": "gcn_tpu_torch/csrc/grouped_matmul_backward.cu",
             "replaces": "gcn_tpu/ops/pallas/grouped_matmul.py:208",
-            "shape": {"M": m, "T": t, "H": h, "R": r, "groups_used": used},
-            "max_abs_err": abs_err, "errs": errs,
+            "shape": {"M": m, "T": t, "H": h, "R": r, "groups_used": used,
+                      "partial_scratch_bytes": 4 * slots * t * h},
+            "max_abs_err": abs_err, "errs": errs, "same_bits_twice": same,
             "tol": {"f32": TOL_BWD, "bf16": TOL_BF16},
-            "ok": errs["f32"] <= TOL_BWD and errs["bf16"] <= TOL_BF16,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms,
-            "library": library_note,
+            "ok": errs["f32"] <= TOL_BWD and errs["bf16"] <= TOL_BF16 and same,
+            "ms": graph_ms(fn), "split_ms_profiler": split_ms,
+            "plain_ms": plain_ms, **tf32x3_bound(n_bytes, 4.0 * m * t * h),
+            "library_ms": library_ms, "library": library_note,
+            "timing": TIMING_GMM, "eager_ms": time_ms(fn, 20),
         })
     return out
 
@@ -1137,8 +1161,9 @@ KERNEL_GROUPS = (  # device time by category, matched on kernel names
     ("scan backward kernels", ("lstm_gates_kernel", "lstm_chain_kernel",
                                "lstm_dw_kernel")),
     ("grouped matmul forward kernel", ("grouped_matmul_fwd_kernel",)),
-    ("grouped matmul backward kernels", ("grouped_matmul_dx_kernel",
-                                         "grouped_matmul_ds_kernel")),
+    ("grouped matmul backward dx kernel", ("grouped_matmul_dx_kernel",)),
+    ("grouped matmul backward dS kernels", ("grouped_matmul_ds_kernel",
+                                            "grouped_matmul_ds_sum_kernel")),
     ("band aggregate forward kernel", ("band_aggregate_fwd_kernel",)),
     ("band aggregate pair kernel", ("band_pair_kernel",)),
     ("fused GCN layer forward kernel", ("spmm_fused_fwd_kernel",)),

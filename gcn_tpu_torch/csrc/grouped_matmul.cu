@@ -12,121 +12,54 @@
 // Storage is f32 or bf16.
 //
 // What bounds it on the H100.  At the main path's shapes (M = 9600 stacked
-// band rows, T = 400 or 200, H = 200, R = 87) it does 2*M*T*H FLOPs and
-// moves M*T + R*T*H + M*H values once, so it is bounded by f32 FMA issue
-// rate (CUDA cores; no tensor cores in this first version), not by memory.
-// The TPU kernel walked a scalar-prefetched list of (row tile, group)
-// visits on a sequential grid, revisiting one output block in VMEM.  Here
-// every block owns one output tile of kTM rows by kTN columns, loads the
-// group ends itself (no scalar prefetch) and walks the groups that
-// intersect its rows; each visit is an f32 register-tiled product over
-// shared-memory tiles of x and s[g] in which the rows outside the group
-// read as zero, so visits add into disjoint rows of one accumulator and
-// the tile is stored once.  A tile that spans k groups pays k products.
-// wgmma / mma.sync tensor-core tiles are the next step.
+// band rows, T = 400 or 200, H = 200, R = 87) it does 2 M T H = 1.5 (0.77)
+// GFLOP and moves x, the used groups' S and y once, 49 (28) MB: on the
+// 3xTF32 tensor-core mainloop (165 TFLOP/s effective) the bytes bound it,
+// 0.015 (0.008) ms, where the CUDA cores' f32 FMA rate would set 0.023
+// (0.011).  The TPU kernel walked a scalar-prefetched list of (row tile,
+// group) visits on a sequential grid, revisiting one output block in
+// VMEM; a row tile that met k groups took k masked products.  Here the
+// list is cut per group (grouped_tiles.cuh): each CTA owns 128 rows of one
+// group by all 208 columns, so no product is masked and each output row
+// is stored once.  Each group's rows start a tile, so at the main path's
+// group sizes (80 groups of 44-97 rows, two padding groups of about 2070)
+// the 9600 rows make 114 tiles of 128 rows: one wave on 132 SMs, where
+// 196 tiles of 64 rows put two on 64 SMs (the same longest SM) and read
+// S[g] from L2 twice as often (and were slower, two CTAs an SM at 128
+// registers).  A warp whose 32 rows are past the group's end issues no
+// MMA.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "grouped_tiles.cuh"
+
 namespace {
 
-constexpr int kTM = 64;       // rows per block
-constexpr int kTN = 64;       // columns per block
-constexpr int kTK = 16;       // depth per shared-memory stage
-constexpr int kThreads = 256; // 16 x 16 threads, 4 x 4 outputs each
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(gmm::Tl::kThreads, gmm::kMinBlocks)
 grouped_matmul_fwd_kernel(const T* __restrict__ x, const T* __restrict__ s,
                           const int* __restrict__ group_ends,
-                          T* __restrict__ y, int m, int t, int h, int r) {
-  __shared__ float xs[kTK][kTM + 4];  // x tile, transposed: xs[k][row]
-  __shared__ float ss[kTK][kTN + 4];  // s[g] tile: ss[k][col]
-
-  const int m0 = blockIdx.x * kTM;
-  const int n0 = blockIdx.y * kTN;
-  const int m1 = min(m0 + kTM, m);
-  const int tx = threadIdx.x % 16;  // output columns tx*4 .. tx*4+3
-  const int ty = threadIdx.x / 16;  // output rows    ty*4 .. ty*4+3
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  int start = 0;
-  for (int g = 0; g < r; ++g) {
-    const int end_g = group_ends[g];
-    const int end = (g == r - 1) ? max(end_g, m) : end_g;
-    const int lo = max(start, m0);
-    const int hi = min(end, m1);
-    start = end_g;
-    if (lo >= hi) continue;  // same for every thread of the block
-    const T* sg = s + (size_t)g * t * h;
-    for (int k0 = 0; k0 < t; k0 += kTK) {
-      for (int i = threadIdx.x; i < kTM * kTK; i += kThreads) {
-        const int rr = i / kTK, kk = i % kTK;
-        const int row = m0 + rr, col = k0 + kk;
-        xs[kk][rr] = (row >= lo && row < hi && col < t)
-                         ? to_f32(x[(size_t)row * t + col])
-                         : 0.0f;
-      }
-      for (int i = threadIdx.x; i < kTK * kTN; i += kThreads) {
-        const int kk = i / kTN, nn = i % kTN;
-        const int kr = k0 + kk, col = n0 + nn;
-        ss[kk][nn] =
-            (kr < t && col < h) ? to_f32(sg[(size_t)kr * h + col]) : 0.0f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kTK; ++kk) {
-        float a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = xs[kk][ty * 4 + i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = ss[kk][tx * 4 + j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + ty * 4 + i;
-    if (row >= m) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx * 4 + j;
-      if (col < h) y[(size_t)row * h + col] = from_f32<T>(acc[i][j]);
-    }
-  }
+                          T* __restrict__ y, int m, int t, int h, int r,
+                          bool vec_x, bool vec_s) {
+  gmm::tile_product<gmm::kFwd, T>(x, s, group_ends, y, nullptr, m, t, h, r,
+                                  vec_x, vec_s);
 }
 
 template <typename T>
 int launch(const void* x, const void* s, const void* group_ends, void* y,
            int m, int t, int h, int r, void* stream) {
-  dim3 grid((m + kTM - 1) / kTM, (h + kTN - 1) / kTN);
-  grouped_matmul_fwd_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  const auto kernel = grouped_matmul_fwd_kernel<T>;
+  constexpr size_t kSmem = gmm::Geo<gmm::kFwd>::kSmem;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(gmm::tile_bound(m, r),
+                  (h + gmm::Tl::kBN - 1) / gmm::Tl::kBN);
+  kernel<<<grid, gmm::Tl::kThreads, kSmem, (cudaStream_t)stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(s),
-      static_cast<const int*>(group_ends), static_cast<T*>(y), m, t, h, r);
+      static_cast<const int*>(group_ends), static_cast<T*>(y), m, t, h, r,
+      gmm::vec_ok<T>(x, t), gmm::vec_ok<T>(s, h));
   return (int)cudaGetLastError();
 }
 

@@ -1,13 +1,16 @@
 // One block-tile GEMM mainloop on the tensor cores in 3xTF32, f32 in and
 // f32 out: the shared core of the fused GCN layer (spmm_fused.cu, which
-// replaces gcn_tpu/ops/pallas/spmm_fused.py:88 _forward -> _kernel) and
-// of the deprel bilinear v2 and v1 (deprel_bilinear.cu, which replaces
+// replaces gcn_tpu/ops/pallas/spmm_fused.py:88 _forward -> _kernel), of
+// the deprel bilinear v2 and v1 (deprel_bilinear.cu, which replaces
 // gcn_tpu/ops/pallas/deprel_bilinear.py:143 _core_v2_forward ->
-// _kernel_v2 and :57 _core_forward -> _kernel).  All are an implicit GEMM
-// out = A W  whose A tile each kernel forms itself (the gathered S h rows;
-// e[m, d] * x[m, t] in v2; x[m, t] in v1, which scales each chunk's
-// product by e[m, d] where it is folded), and whose W [K, H] rows stream
-// from device memory.
+// _kernel_v2 and :57 _core_forward -> _kernel), of the scan backward's
+// dW_hh (lstm_scan_backward.cu) and of the grouped matmul's three
+// products (grouped_tiles.cuh, for gcn_tpu/ops/pallas/grouped_matmul.py:
+// 153 and :208).  All are an implicit GEMM out = A W  whose A tile each
+// kernel forms itself (the gathered S h rows; e[m, d] * x[m, t] in v2;
+// x[m, t] in v1, which scales each chunk's product by e[m, d] where it is
+// folded; x read transposed in the grouped dS), and whose W [K, H] rows
+// stream from device memory (the grouped dx reads S[g] transposed).
 //
 // The split.  Each operand value a becomes a_hi = rna_tf32(a) and
 // a_lo = a - a_hi (truncated to TF32 by the MMA), and every k-step issues
@@ -194,6 +197,13 @@ __device__ __forceinline__ void ring_wait() {
 // go kG at a time (a_frag is asked again for each group), which bounds
 // the fresh accumulators' registers; within a group the three passes run
 // over all its fragments in turn, so neighbouring MMAs are independent.
+//
+// mma_chunk_ab takes B's fragments from a functor too: b_frag(j, ks, b)
+// writes the f32 values B[q][g] and B[q + 4][g] of n-tile j at k-step ks
+// (rows within the k-step, column within the n-tile), so a kernel can
+// keep B's chunk transposed in shared memory (the grouped matmul's dx
+// reads S[g] rows as columns).  mma_chunk is mma_chunk_ab with B the
+// row-major W chunk at ws.
 struct AddFold {
   __device__ __forceinline__ float operator()(int, int, float acc,
                                               float c) const {
@@ -201,12 +211,11 @@ struct AddFold {
   }
 };
 
-template <int kMT, int kNT, int kG, int kLdw, class AFrag,
+template <int kMT, int kNT, int kG, class AFrag, class BFrag,
           class Fold = AddFold>
-__device__ __forceinline__ void mma_chunk(float (&acc)[kMT][kNT][4],
-                                          const float* __restrict__ ws,
-                                          AFrag a_frag, Fold fold = Fold()) {
-  const int lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
+__device__ __forceinline__ void mma_chunk_ab(float (&acc)[kMT][kNT][4],
+                                             AFrag a_frag, BFrag b_frag,
+                                             Fold fold = Fold()) {
 #pragma unroll
   for (int n0 = 0; n0 < kNT; n0 += kG) {
     constexpr int kLast = kNT % kG == 0 ? kG : kNT % kG;
@@ -228,13 +237,14 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[kMT][kNT][4],
 #pragma unroll
         for (int i = 0; i < 4; ++i) split(a[i], ahi[mt][i], alo[mt][i]);
       }
-      const float* w0 = ws + (ks * 8 + q) * kLdw + n0 * 8 + g;
       uint32_t bhi[kG][2], blo[kG][2];
 #pragma unroll
       for (int j = 0; j < kG; ++j) {
         if (j >= gn) break;
-        split(w0[j * 8], bhi[j][0], blo[j][0]);
-        split(w0[4 * kLdw + j * 8], bhi[j][1], blo[j][1]);
+        float b[2];
+        b_frag(n0 + j, ks, b);
+        split(b[0], bhi[j][0], blo[j][0]);
+        split(b[1], bhi[j][1], blo[j][1]);
       }
       // the small products first, each pass over the whole group
 #pragma unroll
@@ -262,6 +272,22 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[kMT][kNT][4],
           if (j < gn)
             acc[mt][n0 + j][i] = fold(mt, i, acc[mt][n0 + j][i], c[mt][j][i]);
   }
+}
+
+template <int kMT, int kNT, int kG, int kLdw, class AFrag,
+          class Fold = AddFold>
+__device__ __forceinline__ void mma_chunk(float (&acc)[kMT][kNT][4],
+                                          const float* __restrict__ ws,
+                                          AFrag a_frag, Fold fold = Fold()) {
+  const int lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
+  mma_chunk_ab<kMT, kNT, kG>(
+      acc, a_frag,
+      [&](int j, int ks, float (&b)[2]) {
+        const float* w0 = ws + (ks * 8 + q) * kLdw + j * 8 + g;
+        b[0] = w0[0];
+        b[1] = w0[4 * kLdw];
+      },
+      fold);
 }
 
 }  // namespace tf32x3

@@ -27,9 +27,10 @@ KERNEL = CudaKernel("grouped_matmul.cu", {
 _SYMBOL = {torch.float32: "grouped_matmul_forward_f32",
            torch.bfloat16: "grouped_matmul_forward_bf16"}
 BACKWARD_KERNEL = CudaKernel("grouped_matmul_backward.cu", {
-    name: [_P] * 6 + [_I] * 4 + [_P]
-    for name in ("grouped_matmul_backward_f32",
-                 "grouped_matmul_backward_bf16")
+    **{name: [_P] * 7 + [_I] * 4 + [_P]
+       for name in ("grouped_matmul_backward_f32",
+                    "grouped_matmul_backward_bf16")},
+    "grouped_matmul_backward_partials": [_I],
 })
 _BACKWARD_SYMBOL = {torch.float32: "grouped_matmul_backward_f32",
                     torch.bfloat16: "grouped_matmul_backward_bf16"}
@@ -124,15 +125,18 @@ def grouped_matmul_backward(x, g, s, group_sizes):
         return grouped_matmul_backward_plain(x, g, s, group_sizes)
     m, t, r, h = _check("grouped_matmul_backward", x, s, group_sizes, g)
     dx = torch.empty((m, t), dtype=x.dtype, device=x.device)
-    ds = torch.zeros((r, t, h), dtype=torch.float32, device=x.device)
+    ds = torch.empty((r, t, h), dtype=torch.float32, device=x.device)
     if dx.numel() == 0 or ds.numel() == 0:
-        return dx.zero_(), ds
+        return dx.zero_(), ds.zero_()
     group_ends = torch.cumsum(group_sizes, 0, dtype=torch.int32)
+    # a group of more than 256 rows sums its dS from per-chunk partials
+    slots = BACKWARD_KERNEL.load().grouped_matmul_backward_partials(m)
+    part = torch.empty((slots, t, h), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         BACKWARD_KERNEL.launch(
             _BACKWARD_SYMBOL[x.dtype], x.data_ptr(), g.data_ptr(),
             s.data_ptr(), group_ends.data_ptr(), dx.data_ptr(),
-            ds.data_ptr(), m, t, h, r,
+            ds.data_ptr(), part.data_ptr(), m, t, h, r,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     return dx, ds

@@ -40,7 +40,12 @@ from gcn_tpu_torch.train.trainer import Trainer
 
 GMM_CASES = ["random", "empty_groups", "one_group", "straddle_tile",
              "rows_past_sum"]
-JAX_TILE_M = 128  # the Pallas kernel's row tile (the CUDA kernel's is 64)
+# the card's cases add the shapes of the CUDA kernels' work lists: groups
+# of many dS chunks beside small and empty ones, and the C-GCN's widths
+GMM_CARD_CASES = GMM_CASES + ["padding_heavy", "path_widths_T400",
+                              "path_widths_T200"]
+JAX_TILE_M = 128  # the Pallas kernel's row tile (the CUDA kernel's too)
+GMM_DS_CHUNK = 256  # rows a dS chunk of the CUDA kernel at most
 EDGE_CASES = ["random", "duplicates", "self_edge", "all_masked", "isolated",
               "out_of_range"]
 
@@ -55,9 +60,26 @@ def lstm_inputs(rng, t=12, g=2, b=6, h=8):
 
 
 def gmm_case(name):
+    """(x [M, T], s [R, T, H] f32, group_sizes [R] int32) of a case of
+    ``GMM_CARD_CASES``: ``padding_heavy`` has two groups of many dS chunks
+    (one a whole number of them), 60 groups of 1-100 rows, empty groups and
+    a last group with rows past the sum, at odd T and H; ``path_widths_T*``
+    the C-GCN layer's widths at a quarter of its rows, two padding groups
+    beside 80 groups of 5-30 rows."""
     rng = np.random.RandomState(sum(map(ord, name)))
     t, h = 24, 20
-    if name == "random":
+    past = 0  # rows past the sum, in the last group
+    if name == "padding_heavy":  # T, H and T·H odd: the unaligned copies
+        t, h, past = 45, 37, 40
+        small = rng.randint(1, 101, 60)
+        gs = np.concatenate([[0], small[:30], [5 * GMM_DS_CHUNK + 17, 0],
+                             small[30:], [3 * GMM_DS_CHUNK, 0, 0, 30]])
+    elif name.startswith("path_widths"):
+        t, h = int(name[len("path_widths_T"):]), 200
+        small = rng.randint(5, 31, 80)
+        gs = np.concatenate([[0, 0], small[:40], [520, 0], small[40:],
+                             [0, 520]])
+    elif name == "random":
         r, m = 9, 300
         gs = np.bincount(np.sort(rng.randint(0, r, m)), minlength=r)
     elif name == "empty_groups":
@@ -67,10 +89,14 @@ def gmm_case(name):
     elif name == "straddle_tile":
         gs = np.array([JAX_TILE_M - 3, 7, JAX_TILE_M + 5, 1])
     elif name == "rows_past_sum":
-        gs = np.array([40, 0, 30, 0])
-    m = 100 if name == "rows_past_sum" else int(gs.sum())  # 30 rows past
-    x = rng.randn(m, t).astype(np.float32)
-    s = rng.randn(gs.shape[0], t, h).astype(np.float32)
+        gs, past = np.array([40, 0, 30, 0]), 30
+    m = int(gs.sum()) + past
+    if name.startswith("path_widths"):  # the chip smoke's scales
+        x = rng.uniform(-1, 1, (m, t)).astype(np.float32)
+        s = (rng.randn(gs.shape[0], t, h) / np.sqrt(t)).astype(np.float32)
+    else:
+        x = rng.randn(m, t).astype(np.float32)
+        s = rng.randn(gs.shape[0], t, h).astype(np.float32)
     return x, s, gs.astype(np.int32)
 
 
@@ -198,10 +224,13 @@ def test_lstm_kernel_matches_plain(cuda_device, dtype, with_keep):
 
 # (T, B, H) of the scan cases: the C-GCN's BiLSTM; H not a multiple of the
 # cluster; one row; a ragged last tile; every length below T; every length
-# 1; a slice of w_hh too wide for shared memory (the streaming route)
+# 1; a slice of w_hh too wide for shared memory (the streaming route); rows
+# of length 0, the Batcher's padding rows, filling the second 16-row tile
+# (whose clusters take no step) and scattered in the others
 LSTM_CASES = {"full": (96, 50, 200), "h30": (20, 19, 30), "b1": (20, 1, 24),
               "b19": (20, 19, 24), "short": (24, 19, 24),
-              "ones": (12, 19, 24), "streaming": (10, 5, 480)}
+              "ones": (12, 19, 24), "streaming": (10, 5, 480),
+              "zeros": (20, 40, 24)}
 
 
 def lstm_case(name, device, dtype, with_keep):
@@ -218,6 +247,9 @@ def lstm_case(name, device, dtype, with_keep):
         lengths = rng.randint(1, t - 4, b).astype(np.int32)
     elif name == "ones":
         lengths[:] = 1
+    elif name == "zeros":
+        lengths[16:32] = 0
+        lengths[[0, 5, 33, 38]] = 0
     return (torch.from_numpy(xp).to(device, dtype),
             torch.from_numpy(lengths).to(device),
             torch.from_numpy(w_hh).to(device, dtype),
@@ -280,12 +312,14 @@ def test_lstm_plans_fit_the_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", GMM_CASES)
+@pytest.mark.parametrize("name", GMM_CARD_CASES)
 def test_grouped_matmul_kernel_matches_plain(cuda_device, name):
     x, s, gs = (torch.from_numpy(a).to(cuda_device) for a in gmm_case(name))
     launches = gmm_mod.KERNEL.launches
     got = gmm_mod.grouped_matmul(x, s, gs)
-    assert gmm_mod.KERNEL.launches == launches + 1
+    again = gmm_mod.grouped_matmul(x, s, gs)
+    assert gmm_mod.KERNEL.launches == launches + 2
+    assert torch.equal(got, again)
     torch.testing.assert_close(got, gmm_mod.grouped_matmul_plain(x, s, gs),
                                atol=1e-4, rtol=1e-5)
     got16 = gmm_mod.grouped_matmul(x.bfloat16(), s.bfloat16(), gs)
@@ -345,7 +379,7 @@ def test_lstm_backward_kernel_matches_plain(cuda_device, dtype, with_keep):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", GMM_CASES)
+@pytest.mark.parametrize("name", GMM_CARD_CASES)
 def test_grouped_matmul_backward_kernel_matches_plain(cuda_device, name):
     x, s, gs = (torch.from_numpy(a).to(cuda_device) for a in gmm_case(name))
     g = torch.from_numpy(np.random.RandomState(3).randn(
@@ -354,7 +388,9 @@ def test_grouped_matmul_backward_kernel_matches_plain(cuda_device, name):
         args = (x.to(dtype), g.to(dtype), s.to(dtype), gs)
         launches = gmm_mod.BACKWARD_KERNEL.launches
         dx, ds = gmm_mod.grouped_matmul_backward(*args)
-        assert gmm_mod.BACKWARD_KERNEL.launches == launches + 1
+        again = gmm_mod.grouped_matmul_backward(*args)
+        assert gmm_mod.BACKWARD_KERNEL.launches == launches + 2
+        assert torch.equal(dx, again[0]) and torch.equal(ds, again[1])
         want_dx, want_ds = gmm_mod.grouped_matmul_backward_plain(*args)
         assert dx.dtype == dtype and ds.dtype == torch.float32
         assert scaled_err(dx, want_dx) <= tol

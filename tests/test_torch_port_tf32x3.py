@@ -1,5 +1,5 @@
-"""The arithmetic of the 3xTF32 split that kernels 2 (its dW_hh), 7, 11
-and 12 run on the tensor cores (``gcn_tpu_torch/csrc/tf32x3_tile.cuh``),
+"""The arithmetic of the 3xTF32 split that kernels 2 (its dW_hh), 3, 4, 7,
+11 and 12 run on the tensor cores (``gcn_tpu_torch/csrc/tf32x3_tile.cuh``),
 emulated in numpy on the CPU.
 
 * ``tf32_rna`` is ``cvt.rna.tf32.f32``: the f32 mantissa rounded to 10
@@ -38,6 +38,14 @@ emulated in numpy on the CPU.
   CTAs of a cluster on whole chunks, each slice summed from 0, and the
   slices' sums added in rank order (``dw_sum``); its f32 product is its
   first (SIMT) kernel's one FMA a term in depth order.
+* Kernels 3 and 4, the grouped matmul (``csrc/grouped_tiles.cuh``), at
+  the C-GCN layer's T = 400: the forward over K = T with x ~ U(-1, 1) and
+  S ~ N(0, 1)/√T; the backward's dx over K = H = 200 with g ~ N(0, 0.1)
+  and S[g]ᵀ; its dS over K = the 2068 rows of a padding group of the
+  chip smoke's batch, A = xᵀ and W = g, cut into chunks of
+  ``GMM_DS_CHUNK`` rows, each an ``mma_sum`` from 0, the chunks' sums
+  added in chunk order (``runs_sum``).  Their f32 products are their first
+  (SIMT) kernels': one FMA a term in k order.
 * The plain f32 product is ``fma_sum``: one f32 FMA a term, in k order,
   the arithmetic of the kernels' first (SIMT) loop and of any f32 dot
   product on the CUDA cores.  A blocked CPU SGEMM (numpy's ``float32``
@@ -52,10 +60,15 @@ import pytest
 CASES = {"kernel11_bilinear_v2": (20000, 1e-4),
          "kernel12_bilinear_v1": (20000, 1e-4),
          "kernel7_spmm_fused": (360, 1e-5),
-         "kernel2_lstm_dw": (95 * 50, 1e-4)}
+         "kernel2_lstm_dw": (95 * 50, 1e-4),
+         "kernel3_gmm_forward": (400, 1e-4),
+         "kernel4_gmm_dx": (200, 1e-4),
+         "kernel4_gmm_ds": (2068, 1e-4)}
 DW_SLICES = 3  # kernel 2's dW clusters at the C-GCN's shapes: 132 SMs // 40
                # output tiles (2 directions x 4 x 5 tiles of 64 x 160)
 T_BILINEAR = 400
+T_GMM = 400          # the grouped matmul's T (first GCN layer)
+GMM_DS_CHUNK = 256   # rows a dS chunk of kernel 4 at most
 ROWS, COLS = 16, 8   # one m16n8 output tile
 
 
@@ -145,6 +158,35 @@ def dw_operands(name):
     return a, w
 
 
+def gmm_operands(name):
+    """Seeded f32 A [16, K] and W [K, 8] of a grouped matmul case: x and
+    S (forward), g and S[g]ᵀ (dx), xᵀ and g (dS), at the chip rows'
+    scales."""
+    k, _ = CASES[name]
+    rng = np.random.RandomState(sum(map(ord, name)))
+    x = rng.uniform(-1, 1, (ROWS, k))
+    if name == "kernel3_gmm_forward":
+        a, w = x, rng.randn(k, COLS) / np.sqrt(T_GMM)
+    elif name == "kernel4_gmm_dx":
+        a, w = rng.randn(ROWS, k) * 0.1, rng.randn(k, COLS) / np.sqrt(T_GMM)
+    else:
+        a, w = x, rng.randn(k, COLS) * 0.1
+    return a.astype(np.float32), w.astype(np.float32)
+
+
+def runs_sum(passes, rows, chunk=32):
+    """Kernel 4's dS sum: K cut into runs of ``rows``, each an ``mma_sum``
+    from 0 (``chunk=None``: one accumulator a run), the runs' sums added
+    in order."""
+    k = passes[0][0].shape[1]
+    total = np.zeros((passes[0][0].shape[0], passes[0][1].shape[1]),
+                     np.float32)
+    for k0 in range(0, k, rows):
+        total = total + mma_sum([(a[:, k0:k0 + rows], b[k0:k0 + rows])
+                                 for a, b in passes], chunk)
+    return total
+
+
 def dw_sum(passes, slices=DW_SLICES, chunk=32):
     """Kernel 2's dW sum: the depth's chunks of 32 split into ``slices``
     runs of whole chunks (rank s takes chunks [s·n/S, (s+1)·n/S)), each run
@@ -226,14 +268,20 @@ def errors(name):
                 "3xtf32_one_accumulator": scaled(
                     dw_sum(three_passes(a, w), chunk=None), ref),
                 "1xtf32": scaled(dw_sum([(a_hi, w_hi)]), ref)}
-    a, w = operands(name)
+    if name.startswith(("kernel3_", "kernel4_")):
+        a, w = gmm_operands(name)
+        run = GMM_DS_CHUNK if name == "kernel4_gmm_ds" else a.shape[1]
+    else:
+        a, w = operands(name)
+        run = a.shape[1]
     ref = a.astype(np.float64) @ w.astype(np.float64)
     passes = three_passes(a, w)
     (a_hi, _), (w_hi, _) = split(a), split(w)
     return {"f32": scaled(fma_sum(a, w), ref),
-            "3xtf32": scaled(mma_sum(passes), ref),
-            "3xtf32_one_accumulator": scaled(mma_sum(passes, None), ref),
-            "1xtf32": scaled(mma_sum([(a_hi, w_hi)]), ref)}
+            "3xtf32": scaled(runs_sum(passes, run), ref),
+            "3xtf32_one_accumulator": scaled(runs_sum(passes, run, None),
+                                             ref),
+            "1xtf32": scaled(runs_sum([(a_hi, w_hi)], run), ref)}
 
 
 def test_tf32_rna_rounds_to_nearest_ties_away():
