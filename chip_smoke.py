@@ -16,15 +16,17 @@ Phases, one JSON line each:
    where ``attention_impl="auto"`` takes the edge backend; its backward's
    list build also against a stable sort, bit for bit): max error and
    its tolerance, the same bits on a second call (scan, grouped matmul,
-   SDDMM, bilinear), time by a replayed CUDA graph of the call (and also
-   eagerly), the plain version's time, one PyTorch library call's time
-   as a yardstick where one computes the same function (for the bilinear
-   also one SGEMM on its prebuilt [M, D*T] operand), and the kernel's
+   SDDMM, bilinear), time by a replayed CUDA graph of 20 calls (and by
+   one of a single call, and eagerly), the plain version's time, one
+   PyTorch library call's time as a yardstick where one computes the
+   same function (for the bilinear also one SGEMM on its prebuilt
+   [M, D*T] operand), and the kernel's
    bound at the card's peak rates (3xTF32 for the kernels that run it,
    with the f32 FMA bound beside); for the scans also their cluster
    partition and how many of its clusters fit the card at once, and the
    backward's time by launch (gates, chain, dW; for the grouped matmul's,
-   dx, dS and the partials' sum);
+   dx, dS and the partials' sum); then the floor of the graph timings
+   (a one-element add, timed both ways);
 4. slice  — for each path, ``Evaluator`` at full widths (random weights
    from a seeded ``torch.Generator``) over B=50 batches of the in-repo
    TACRED JSON and of synthetic sentences at the N=96 bucket, all through
@@ -125,12 +127,20 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def graph_ms(fn, reps: int = 50) -> float:
-    """Milliseconds per call of ``fn`` on the device alone: the call
-    captured once in a CUDA graph and replayed ``reps`` times between one
-    pair of events, so no Python or launch overhead sits between the
-    kernels.  For kernels of tens of microseconds, where one event pair
-    around an eager call (``time_ms``) also times the host's wrapper."""
+GRAPH_CALLS = 20  # calls of fn in one CUDA graph: one replay then lasts
+                  # well past the host's cost of a replay
+
+
+def graph_ms(fn, reps: int = 10, calls: int = GRAPH_CALLS) -> float:
+    """Milliseconds per call of ``fn`` on the device alone: ``calls`` calls
+    captured in one CUDA graph and the graph replayed ``reps`` times
+    between one pair of events, so no Python or launch overhead sits
+    between the kernels; the time over ``calls * reps``.  For kernels of
+    tens of microseconds, where one event pair around an eager call
+    (``time_ms``) also times the host's wrapper.  A graph of one call
+    replayed from Python (``calls=1``) reads no less than the host's cost
+    of a replay, a few microseconds, whatever the kernel: the
+    ``timing_floor`` line times that floor both ways."""
     import torch
 
     side = torch.cuda.Stream()
@@ -141,7 +151,8 @@ def graph_ms(fn, reps: int = 50) -> float:
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
+        for _ in range(calls):
+            fn()
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -151,7 +162,31 @@ def graph_ms(fn, reps: int = 50) -> float:
         graph.replay()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / (reps * calls)
+
+
+def kernel_ms(fn) -> dict:
+    """A kernel row's times: ``ms`` by the ``graph_ms`` of ``GRAPH_CALLS``
+    calls, ``ms_one_call_graph`` by a graph of one call replayed 50 times
+    (the floor-bound way, kept beside it), ``eager_ms`` by ``time_ms``."""
+    return {"ms": graph_ms(fn),
+            "ms_one_call_graph": graph_ms(fn, reps=50, calls=1),
+            "eager_ms": time_ms(fn, 20)}
+
+
+def timing_floor(torch, dev) -> dict:
+    """The floor under each graph timing: a one-element in-place add, by a
+    graph of one call and by the graph of ``GRAPH_CALLS`` calls."""
+    x = torch.zeros(1, device=dev)
+
+    def fn():
+        x.add_(1.0)
+
+    return {"phase": "timing_floor",
+            "op": "x.add_(1.0), x one f32 element on the card",
+            "ms": graph_ms(fn),
+            "ms_one_call_graph": graph_ms(fn, reps=50, calls=1),
+            "graph_calls": GRAPH_CALLS}
 
 
 def bound(n_bytes: float, flops: float, rate: float = PEAK_F32_FLOPS,
@@ -309,7 +344,7 @@ def check_lstm(torch, rng, dev) -> dict:
     ok = ok and same
 
     fn = functools.partial(mod.lstm_scan_forward, xp, lengths, w_hh)
-    ms = graph_ms(fn)
+    times = kernel_ms(fn)
     plain_ms = graph_ms(functools.partial(mod.lstm_scan_plain, xp, lengths,
                                           w_hh), reps=5)
     # yardstick: cuDNN's bidirectional LSTM layer over the packed sequence
@@ -333,11 +368,11 @@ def check_lstm(torch, rng, dev) -> dict:
         "plan": scan_plan_facts(mod, plan, g),
         "max_abs_err": errs["f32"], "errs": errs, "same_bits_twice": same,
         "tol": {"f32": TOL_F32, "bf16": TOL_BF16}, "ok": ok,
-        "ms": ms, "ms_per_step": ms / t, "plain_ms": plain_ms,
+        **times, "ms_per_step": times["ms"] / t, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
         "library": "torch.nn.LSTM (cuDNN) bidirectional, packed, D=360 "
                    "(eager: median of event pairs)",
-        "timing": TIMING_GRAPH, "eager_ms": time_ms(fn, 20),
+        "timing": TIMING_GRAPH,
     }
 
 
@@ -364,11 +399,13 @@ def band_group_sizes(torch, synth_batch, dev):
     return make_group_plan(torch.cat([ids_f, ids_r]), r).group_sizes.to(dev)
 
 
-TIMING_GMM = ("ms: one CUDA graph of the call replayed 50 times, L2 warm; "
-              "plain_ms, eager_ms and library_ms: median of one event pair "
-              "around each eager call, the wrapper included (the plain "
-              "version and torch._grouped_mm read the group sizes or "
-              "offsets on the host, so no graph captures them)")
+TIMING_GMM = ("ms: 20 calls in one CUDA graph, replayed 10 times, per "
+              "call, L2 warm; ms_one_call_graph: one call in a graph "
+              "replayed 50 times; plain_ms, eager_ms and library_ms: median "
+              "of one event pair around each eager call, the wrapper "
+              "included (the plain version and torch._grouped_mm read the "
+              "group sizes or offsets on the host, so no graph captures "
+              "them)")
 
 
 def check_gmm(torch, rng, dev, gs) -> list[dict]:
@@ -413,10 +450,10 @@ def check_gmm(torch, rng, dev, gs) -> list[dict]:
             "same_bits_twice": same,
             "tol": {"f32": TOL_F32, "bf16": TOL_BF16},
             "ok": err <= TOL_F32 and err_bf16 <= TOL_BF16 and same,
-            "ms": graph_ms(fn), "plain_ms": plain_ms,
+            **kernel_ms(fn), "plain_ms": plain_ms,
             **tf32x3_bound(n_bytes, 2.0 * m * t * h),
             "library_ms": library_ms, "library": library_note,
-            "timing": TIMING_GMM, "eager_ms": time_ms(fn, 20),
+            "timing": TIMING_GMM,
         })
     return out
 
@@ -464,7 +501,7 @@ def check_lstm_backward(torch, rng, dev) -> dict:
     same = all(torch.equal(a, b) for a, b in zip(first, again))
     ok = ok and same
     fn = functools.partial(mod.lstm_scan_backward, *args)
-    ms = graph_ms(fn)
+    times = kernel_ms(fn)
     plain_ms = graph_ms(functools.partial(mod.lstm_scan_backward_plain, *args),
                         reps=3)
     split = device_time(torch, lambda: [fn() for _ in range(5)])
@@ -503,7 +540,8 @@ def check_lstm_backward(torch, rng, dev) -> dict:
             g, h),
         "max_abs_err": abs_errs["f32"], "errs": errs, "same_bits_twice": same,
         "tol": {"f32": TOL_BWD, "bf16": TOL_BF16}, "ok": ok,
-        "ms": ms, "ms_per_step": ms / t, "split_ms_profiler": split_ms,
+        **times, "ms_per_step": times["ms"] / t,
+        "split_ms_profiler": split_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": fwd_bwd_ms - fwd_ms,
@@ -511,7 +549,7 @@ def check_lstm_backward(torch, rng, dev) -> dict:
                    "forward+backward minus forward (eager: median of event "
                    "pairs)",
         "library_fwd_ms": fwd_ms, "library_fwd_bwd_ms": fwd_bwd_ms,
-        "timing": TIMING_GRAPH, "eager_ms": time_ms(fn, 20),
+        "timing": TIMING_GRAPH,
     }
 
 
@@ -583,10 +621,10 @@ def check_gmm_backward(torch, rng, dev, gs) -> list[dict]:
             "max_abs_err": abs_err, "errs": errs, "same_bits_twice": same,
             "tol": {"f32": TOL_BWD, "bf16": TOL_BF16},
             "ok": errs["f32"] <= TOL_BWD and errs["bf16"] <= TOL_BF16 and same,
-            "ms": graph_ms(fn), "split_ms_profiler": split_ms,
+            **kernel_ms(fn), "split_ms_profiler": split_ms,
             "plain_ms": plain_ms, **tf32x3_bound(n_bytes, 4.0 * m * t * h),
             "library_ms": library_ms, "library": library_note,
-            "timing": TIMING_GMM, "eager_ms": time_ms(fn, 20),
+            "timing": TIMING_GMM,
         })
     return out
 
@@ -608,9 +646,12 @@ def edge_facts(torch, edges, n: int) -> tuple[int, int]:
     return n_bytes, int(valid_edges(*edges, n).sum())
 
 
-TIMING_GRAPH = ("ms, plain_ms, library_ms: one CUDA graph of the call "
-                "replayed 50 times, L2 warm; eager_ms: median of one event "
-                "pair around each of 20 eager calls, the wrapper included")
+TIMING_GRAPH = ("ms, plain_ms, library_ms: 20 calls in one CUDA graph, "
+                "replayed 10 times, per call, L2 warm; ms_one_call_graph: "
+                "one call in a graph replayed 50 times, no less than the "
+                "host's cost of a replay (the timing_floor line); eager_ms: "
+                "median of one event pair around each of 20 eager calls, "
+                "the wrapper included")
 
 
 def check_band(torch, rng, dev, edges) -> list[dict]:
@@ -669,11 +710,10 @@ def check_band(torch, rng, dev, edges) -> list[dict]:
             "max_abs_err": abs_err,
             "errs": fwd_errs if name.endswith("forward") else {"f32": err},
             "tol": {"f32": TOL_F32}, "ok": err <= TOL_F32,
-            "ms": graph_ms(fn), "plain_ms": graph_ms(plain),
+            **kernel_ms(fn), "plain_ms": graph_ms(plain),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": graph_ms(lib), "library": lib_note,
             "library_band_build_ms": build_ms, "timing": TIMING_GRAPH,
-            "eager_ms": time_ms(fn, 20),
         })
     return rows
 
@@ -738,10 +778,9 @@ def check_spmm(torch, rng, dev, edges) -> list[dict]:
                           "H": hd, "valid_edges": valid},
                 "max_abs_err": abs_err, "errs": {"f32": err},
                 "tol": {"f32": TOL_F32}, "ok": err <= TOL_F32,
-                "ms": graph_ms(fn), "plain_ms": graph_ms(plain), **bounds,
+                **kernel_ms(fn), "plain_ms": graph_ms(plain), **bounds,
                 "library_ms": graph_ms(lib), "library": lib_note,
                 "library_band_build_ms": build_ms, "timing": TIMING_GRAPH,
-                "eager_ms": time_ms(fn, 20),
             })
     return rows
 
@@ -890,10 +929,10 @@ def check_sddmm(torch, rng, dev, edges) -> list[dict]:
                    if kind == "backward" else {}),
                 "ok": (err <= tol and same[kind] and lib_err <= tol
                        and (lists_ok or kind != "backward")),
-                "ms": graph_ms(fn), "plain_ms": graph_ms(plain),
+                **kernel_ms(fn), "plain_ms": graph_ms(plain),
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": graph_ms(lib), "library": lib_note,
-                "timing": TIMING_GRAPH, "eager_ms": time_ms(fn, 20),
+                "timing": TIMING_GRAPH,
             })
     return rows
 
@@ -941,14 +980,14 @@ def check_bilinear(torch, rng, dev) -> tuple[list[dict], int]:
                 "max_abs_err": abs_err, "errs": {"f32": err},
                 "same_bits_twice": same, "tol": {"f32": TOL_F32},
                 "ok": err <= TOL_F32 and same,
-                "ms": graph_ms(fn),
+                **kernel_ms(fn),
                 "plain_ms": graph_ms(functools.partial(plain, x, e, w)),
                 **bounds, "library_ms": library_ms,
                 "library": 'torch.einsum("md,mt,dth->mh", e, x, w)',
                 "library_sgemm_ms": library_sgemm_ms,
                 "library_sgemm": "torch.mm of the prebuilt z = e ⊗ x "
                                  "[M, D·T] with W [D·T, H], f32",
-                "timing": TIMING_GRAPH, "eager_ms": time_ms(fn, 20),
+                "timing": TIMING_GRAPH,
             })
     return rows, v1_launches
 
@@ -1405,6 +1444,7 @@ def main() -> int:
     rows += bilinear_rows
     for row in rows:
         emit({"phase": "kernel", **row})
+    emit(timing_floor(torch, dev))
     emit({"phase": "kernels_done", "at_s": time.perf_counter() - t_start})
     bad = [r["name"] for r in rows if not r["ok"]]
     if bad:

@@ -1,8 +1,8 @@
 // One sentence's adjacency lists in shared memory, built from its padded
-// edge list: the first step of the band aggregation kernels
-// (band_aggregate.cu) and of the fused layer's sym pair (spmm_fused.cu).
-// The SDDMM backward builds its lists once per sentence in sddmm.cu, with
-// no rank loop, so the edge ids (kEdgeIds) have no caller left.
+// edge list: the first step of the band aggregation's pair kernel
+// (band_aggregate.cu).  The forward kernels gather by warp ballots over
+// the edge slots instead (edge_gather.cuh), and the SDDMM backward builds
+// its lists once per sentence in sddmm.cu.
 //
 //   parent, child  [E] int32   edge p -> c
 //   mask           [E] uint8   0 = padded slot
@@ -21,24 +21,19 @@
 
 namespace edge_lists {
 
-constexpr size_t kMaxSmem = 232448;  // a block's shared memory on the H100
-
 struct Lists {
   const int* start_f;  // [n + 1] node i's forward list: edges with parent i
   const int* nbr_f;    //         their children, in edge order
   const int* start_r;  // [n + 1] node i's reverse list: edges with child i
   const int* nbr_r;    //         their parents, in edge order
-  const int* edge_f;   // with kEdgeIds: the edge of each entry of nbr_f
-  const int* edge_r;   //                and of nbr_r (else null)
 };
 
 // Dynamic shared memory that build_lists takes.
-inline size_t lists_bytes(int n, int e, bool edge_ids = false) {
-  return sizeof(int) * ((edge_ids ? 6 : 4) * (size_t)e + 4 * (size_t)n + 2);
+inline size_t lists_bytes(int n, int e) {
+  return sizeof(int) * (4 * (size_t)e + 4 * (size_t)n + 2);
 }
 
 // Every thread of the block calls it; it ends with a barrier.
-template <bool kEdgeIds = false>
 __device__ inline Lists build_lists(const int* __restrict__ parent,
                                     const int* __restrict__ child,
                                     const unsigned char* __restrict__ mask,
@@ -51,8 +46,6 @@ __device__ inline Lists build_lists(const int* __restrict__ parent,
   int* start_r = start_f + n + 1;
   int* nbr_f = start_r + n + 1;  // [e]
   int* nbr_r = nbr_f + e;        // [e]
-  int* edge_f = nbr_r + e;       // [e], with kEdgeIds only
-  int* edge_r = edge_f + e;      // [e], with kEdgeIds only
   for (int i = threadIdx.x; i < e; i += blockDim.x) {
     const int p = parent[i], c = child[i];
     const bool ok = mask[i] != 0 && p >= 0 && p < n && c >= 0 && c < n;
@@ -92,25 +85,9 @@ __device__ inline Lists build_lists(const int* __restrict__ parent,
     }
     nbr_f[start_f[p] + rank_f] = c;
     nbr_r[start_r[c] + rank_r] = p;
-    if (kEdgeIds) {
-      edge_f[start_f[p] + rank_f] = i;
-      edge_r[start_r[c] + rank_r] = i;
-    }
   }
   __syncthreads();
-  return Lists{start_f, nbr_f, start_r, nbr_r, kEdgeIds ? edge_f : nullptr,
-               kEdgeIds ? edge_r : nullptr};
-}
-
-// A launch's `dynamic` bytes beside the kernel's `fixed` static tiles:
-// above the default 48 KB it needs the kernel's opt-in.
-template <typename K>
-cudaError_t set_smem(K kernel, size_t dynamic, size_t fixed) {
-  if (dynamic + fixed > kMaxSmem) return cudaErrorInvalidValue;
-  if (dynamic + fixed <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)dynamic);
+  return Lists{start_f, nbr_f, start_r, nbr_r};
 }
 
 }  // namespace edge_lists

@@ -26,37 +26,50 @@
 // kernel built the N x N bands in VMEM with one-hot MXU contractions and
 // multiplied them densely; on the card rows gather their neighbours in a
 // fixed order instead: the same bits on every run, with no float atomics.
-// The sym pair's blocks build the sentence's adjacency lists in shared
-// memory (edge_lists.cuh: each list keeps edge order).
+// Both kernels load the sentence's edge slots into shared memory and find
+// each row's neighbours by warp ballots over them (edge_gather.cuh), with
+// no list build: its serial scan and rank loop were the longest part of a
+// block's start.
 //
 // The forward does the W product in its own body.  A block owns 48 rows
 // of one sentence and all H columns (one 224-wide tile for H <= 224;
 // wider H takes more column blocks), so each (S h) element is gathered
-// once: 100 blocks of 12 warps at B = 50, N = 96, for 132 SMs.  It loads
-// the sentence's edge slots into shared memory and finds each row's
-// neighbours by warp ballots over them (gather_rows), which needs none of
-// the list build's serial scan and rank loop, the longest part of a
-// block's start here, where one block runs on each SM.  It gathers (S h)
-// 256 columns of T at a time into shared memory, every row's next
-// neighbour load in flight together, and runs the 3xTF32 mainloop over
-// them with W streaming through a three-stage cp.async ring of 32-row
-// chunks.  The epilogue adds 2b, divides by denom (the ballots' counts)
-// and applies the ReLU.  T, H and N need not be multiples of a tile (360
-// and 200 at the main path's layers): the ragged edges read as zero.
+// once: 100 blocks of 12 warps at B = 50, N = 96, for 132 SMs.  It
+// gathers (S h) 256 columns of T at a time into shared memory, every
+// row's next neighbour load in flight together, and runs the 3xTF32
+// mainloop over them with W streaming through a three-stage cp.async ring
+// of 32-row chunks.  The epilogue adds 2b, divides by denom (the ballots'
+// counts) and applies the ReLU.  T, H and N need not be multiples of a
+// tile (360 and 200 at the main path's layers): the ragged edges read as
+// zero.
+//
+// The sym pair's block owns 8 rows of one sentence, one a warp, and a
+// warp covers a whole row of x1 or of x2, up to 384 columns (128 kV, kV =
+// 1-3 chosen from T1 and T2; wider takes more column blocks): x1's tiles
+// and x2's lie along the grid, 1200 blocks at B = 50, N = 96.  A lane
+// covers 4 columns of each 128 by 16-byte loads, with several neighbour
+// rows in flight.  That timed faster than both operands in one warp, which
+// shares the ballots but holds twice the registers, and than two or four
+// rows a warp in lockstep.
 
 #include <cuda_runtime.h>
 
 #include <stdint.h>
 
-#include "edge_lists.cuh"
+#include "edge_gather.cuh"
 #include "tf32x3_tile.cuh"
 
 namespace {
 
-using edge_lists::Lists;
-using edge_lists::build_lists;
-using edge_lists::lists_bytes;
-using edge_lists::set_smem;
+using edge_gather::add4;
+using edge_gather::edges_bytes;
+using edge_gather::gather_row;
+using edge_gather::gather_rows;
+using edge_gather::load4;
+using edge_gather::load_edges;
+using edge_gather::set_smem;
+using edge_gather::store4;
+using edge_gather::zero4;
 using tf32x3::kStages;
 
 // forward: 3 x 4 warps, each 16 rows x 56 columns: 48 x 224 a block
@@ -67,53 +80,18 @@ constexpr size_t kFwdTiles =  // the forward's degrees and tiles
     sizeof(int) * FwdTile::kBM + sizeof(float) * FwdTile::kBM * kLda +
     FwdTile::kRingBytes;
 static_assert(kAK % tf32x3::kBK == 0, "a gather covers whole W chunks");
-constexpr int kThreads = 256;              // sym pair
-constexpr int kCols = 64;                  // sym pair: columns per block
-constexpr int kRowLanes = kThreads / kCols;
-
-// (S x)[i, k] for one row i of a sentence whose rows start at x, width t.
-__device__ __forceinline__ float sym_row(const Lists& L,
-                                         const float* __restrict__ x, int i,
-                                         int k, int t) {
-  const int f0 = L.start_f[i], f1 = L.start_f[i + 1];
-  const int r0 = L.start_r[i], r1 = L.start_r[i + 1];
-  float v = 0.0f;
-  for (int q = f0; q < f1; ++q) v += x[(size_t)L.nbr_f[q] * t + k];
-  for (int q = r0; q < r1; ++q) v += x[(size_t)L.nbr_r[q] * t + k];
-  const float diag = ((f1 - f0) + (r1 - r0) > 0 ? 1.0f : 0.0f) + 1.0f;
-  return v + diag * x[(size_t)i * t + k];
-}
-
-// The forward finds each row's neighbours by warp ballots over the
-// sentence's edge slots in shared memory (ep, ec: an edge's parent and
-// child, -1 for a slot that does not count), 32 slots a step: the set
-// bits of ballot(ep[q] == i) are row i's forward neighbours in edge order,
-// those of ballot(ec[q] == i) its reverse ones, the order the adjacency
-// lists of edge_lists.cuh keep, with no block-wide list build.
-
-// Loads the block's edge slots into ep, ec [e]; ends with a barrier.
-__device__ __forceinline__ void load_edges(
-    const int* __restrict__ parent, const int* __restrict__ child,
-    const unsigned char* __restrict__ mask, int n, int e, int* ep, int* ec) {
-  for (int q = threadIdx.x; q < e; q += blockDim.x) {
-    const int p = parent[q], c = child[q];
-    const bool ok = mask[q] != 0 && p >= 0 && p < n && c >= 0 && c < n;
-    ep[q] = ok ? p : -1;
-    ec[q] = ok ? c : -1;
-  }
-  __syncthreads();
-}
+constexpr int kPairThreads = 256;  // sym pair: 8 warps, a row each
+constexpr int kPairRows = kPairThreads / 32;
 
 // (S h) rows m0.. (kBM of them) and columns k0..k0 + kAK of one sentence
 // (rows start at hb, width t) into a_s [kBM][kLda], zero past n and t; the
 // first call (k0 = 0) also writes each row's degree to deg [kBM].
 // Warp w takes rows w, w + kWarps, ...; lane l the columns 4l..4l + 3 of
-// each 128 (16-byte loads with kVec: t a multiple of 4, hb aligned).  The
-// rows' loads go out together, one neighbour of every row at a time, so a
-// step costs one load latency and not one per row; each row sums in
-// sym_row's order (forward neighbours, reverse ones, then diag * self).
+// each 128 (16-byte loads with kVec: t a multiple of 4, hb aligned).  Each
+// row sums its forward neighbours, its reverse ones (edge_gather.cuh),
+// then diag * self.
 template <bool kVec>
-__device__ __forceinline__ void gather_rows(const int* __restrict__ ep,
+__device__ __forceinline__ void gather_tile(const int* __restrict__ ep,
                                             const int* __restrict__ ec,
                                             int* __restrict__ deg,
                                             const float* __restrict__ hb,
@@ -124,66 +102,25 @@ __device__ __forceinline__ void gather_rows(const int* __restrict__ ep,
   constexpr int kV = kAK / 128;  // 4-column groups a lane takes in a row
   static_assert(kAK % 128 == 0 && FwdTile::kBM % kWarps == 0, "gather");
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int kc = lane * 4;
-  auto load = [&](int row, int u) {
-    const int k = k0 + kc + 128 * u;
-    const float* p = hb + (size_t)row * t + k;
-    if (kVec)
-      return k < t ? *reinterpret_cast<const float4*>(p)
-                   : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    return make_float4(k < t ? p[0] : 0.0f, k + 1 < t ? p[1] : 0.0f,
-                       k + 2 < t ? p[2] : 0.0f, k + 3 < t ? p[3] : 0.0f);
-  };
-  auto add = [](float4& v, const float4& u) {
-    v.x += u.x;
-    v.y += u.y;
-    v.z += u.z;
-    v.w += u.w;
-  };
+  const int kc = k0 + lane * 4;
   int row[kRows], nd[kRows];
   float4 v[kRows][kV], self[kRows][kV];
 #pragma unroll
   for (int j = 0; j < kRows; ++j) {
     const int i = m0 + warp + j * kWarps;
-    row[j] = i < n ? i : -2;  // matches no slot (-1 marks a dropped one)
+    row[j] = i < n ? i : -2;
     nd[j] = 0;
 #pragma unroll
     for (int u = 0; u < kV; ++u) {
-      v[j][u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      self[j][u] = i < n ? load(i, u) : v[j][u];
+      v[j][u] = zero4();
+      self[j][u] = i < n ? load4<kVec>(hb, i, kc + 128 * u, t) : zero4();
     }
   }
-  // forward neighbours (slots whose parent is the row, their children),
-  // then reverse ones (slots whose child is the row, their parents)
-#pragma unroll
-  for (int dir = 0; dir < 2; ++dir) {
-    const int* key = dir == 0 ? ep : ec;
-    const int* nbr = dir == 0 ? ec : ep;
-    for (int q0 = 0; q0 < e; q0 += 32) {
-      const int kq = q0 + lane < e ? key[q0 + lane] : -1;
-      unsigned bits[kRows];
-      unsigned any = 0;
-#pragma unroll
-      for (int j = 0; j < kRows; ++j) {
-        bits[j] = __ballot_sync(0xffffffffu, kq == row[j]);
-        nd[j] += __popc(bits[j]);
-        any |= bits[j];
-      }
-      while (any) {
-        any = 0;
-#pragma unroll
-        for (int j = 0; j < kRows; ++j) {
-          if (bits[j]) {
-            const int nb = nbr[q0 + __ffs(bits[j]) - 1];
-#pragma unroll
-            for (int u = 0; u < kV; ++u) add(v[j][u], load(nb, u));
-            bits[j] &= bits[j] - 1;
-            any |= bits[j];
-          }
-        }
-      }
-    }
-  }
+  gather_rows(ep, ec, e, row,
+              [&](int, int r, int u) {
+                return load4<kVec>(hb, r, kc + 128 * u, t);
+              },
+              v, nd);
 #pragma unroll
   for (int j = 0; j < kRows; ++j) {
     const int r = warp + j * kWarps;
@@ -193,9 +130,9 @@ __device__ __forceinline__ void gather_rows(const int* __restrict__ ep,
     for (int u = 0; u < kV; ++u) {
       const float4 sf = self[j][u];
       float4 out = v[j][u];
-      add(out, make_float4(diag * sf.x, diag * sf.y, diag * sf.z,
-                           diag * sf.w));
-      *reinterpret_cast<float4*>(a_s + r * kLda + kc + 128 * u) = out;
+      add4(out, make_float4(diag * sf.x, diag * sf.y, diag * sf.z,
+                            diag * sf.w));
+      *reinterpret_cast<float4*>(a_s + r * kLda + lane * 4 + 128 * u) = out;
     }
   }
 }
@@ -248,10 +185,10 @@ spmm_fused_fwd_kernel(const int* __restrict__ parent,
     if (kk == 0) {
       __syncthreads();  // every warp is done with the previous gather
       if (vec_h)
-        gather_rows<true>(ep, ec, deg, hb, a_s, m0, n, e, t,
+        gather_tile<true>(ep, ec, deg, hb, a_s, m0, n, e, t,
                           c * tf32x3::kBK);
       else
-        gather_rows<false>(ep, ec, deg, hb, a_s, m0, n, e, t,
+        gather_tile<false>(ep, ec, deg, hb, a_s, m0, n, e, t,
                            c * tf32x3::kBK);
     }
     tf32x3::ring_wait();  // also publishes the gather
@@ -288,28 +225,52 @@ spmm_fused_fwd_kernel(const int* __restrict__ parent,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// (S x) rows blockIdx.y * kPairRows.. of sentence blockIdx.x, one a warp,
+// 128 kV columns from column tile blockIdx.z: x1's tiles first, then
+// x2's.  A row sums its forward neighbours, its reverse ones
+// (edge_gather.cuh), then diag * self, diag = [deg > 0] + 1.
+template <int kV, bool kVec>
+__global__ void __launch_bounds__(kPairThreads)
 spmm_sym_pair_kernel(const int* __restrict__ parent,
                      const int* __restrict__ child,
                      const unsigned char* __restrict__ mask,
                      const float* __restrict__ x1,
                      const float* __restrict__ x2, float* __restrict__ o1,
-                     float* __restrict__ o2, int n, int e, int t1, int t2) {
-  extern __shared__ int smem[];
+                     float* __restrict__ o2, int n, int e, int t1, int t2,
+                     int tiles1) {
+  extern __shared__ int pair_smem[];
+  int* ep = pair_smem;
+  int* ec = ep + e;
   const int b = blockIdx.x;
-  const Lists L = build_lists(parent + (size_t)b * e, child + (size_t)b * e,
-                              mask + (size_t)b * e, n, e, smem);
-  // column tiles of x1 first, then of x2
-  const int tiles1 = (t1 + kCols - 1) / kCols;
-  const bool first = (int)blockIdx.y < tiles1;
+  load_edges(parent + (size_t)b * e, child + (size_t)b * e,
+             mask + (size_t)b * e, n, e, ep, ec);
+  const int i = blockIdx.y * kPairRows + threadIdx.x / 32;
+  if (i >= n) return;  // the whole warp; no barrier follows
+  const bool first = (int)blockIdx.z < tiles1;
   const int t = first ? t1 : t2;
-  const int col = (first ? blockIdx.y : blockIdx.y - tiles1) * kCols +
-                  threadIdx.x % kCols;
-  if (col >= t) return;  // no barrier follows
   const float* x = (first ? x1 : x2) + (size_t)b * n * t;
   float* o = (first ? o1 : o2) + (size_t)b * n * t;
-  for (int i = threadIdx.x / kCols; i < n; i += kRowLanes)
-    o[(size_t)i * t + col] = sym_row(L, x, i, col, t);
+  const int kc = (first ? blockIdx.z : blockIdx.z - tiles1) * 128 * kV +
+                 threadIdx.x % 32 * 4;
+  auto src = [&](int, int r, int u) {
+    return load4<kVec>(x, r, kc + 128 * u, t);
+  };
+  float4 v[kV], self[kV];
+#pragma unroll
+  for (int u = 0; u < kV; ++u) {
+    v[u] = zero4();
+    self[u] = src(0, i, u);
+  }
+  const int deg = gather_row(ep, ec, e, i, src, v);
+  const float diag = (deg > 0 ? 1.0f : 0.0f) + 1.0f;
+#pragma unroll
+  for (int u = 0; u < kV; ++u) {
+    const float4 sf = self[u];
+    float4 out = v[u];
+    add4(out, make_float4(diag * sf.x, diag * sf.y, diag * sf.z,
+                          diag * sf.w));
+    store4<kVec>(o, i, kc + 128 * u, t, out);
+  }
 }
 
 }  // namespace
@@ -320,7 +281,7 @@ int spmm_fused_forward_f32(const void* parent, const void* child,
                            const void* mask, const void* h, const void* w,
                            const void* bias, void* out, int b, int n, int e,
                            int t, int hdim, void* stream) {
-  const size_t tiles_at = (8 * (size_t)e + 15) / 16 * 16;  // after ep, ec
+  const size_t tiles_at = edges_bytes(e);  // the tiles follow ep, ec
   const size_t smem = tiles_at + kFwdTiles;
   cudaError_t err = set_smem(spmm_fused_fwd_kernel, smem, 0);
   if (err != cudaSuccess) return (int)err;
@@ -341,16 +302,34 @@ int spmm_fused_sym_pair_f32(const void* parent, const void* child,
                             const void* mask, const void* x1, const void* x2,
                             void* o1, void* o2, int b, int n, int e, int t1,
                             int t2, void* stream) {
-  const size_t smem = lists_bytes(n, e);
-  cudaError_t err = set_smem(spmm_sym_pair_kernel, smem, 0);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(b, (t1 + kCols - 1) / kCols + (t2 + kCols - 1) / kCols);
-  spmm_sym_pair_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      static_cast<const int*>(parent), static_cast<const int*>(child),
-      static_cast<const unsigned char*>(mask), static_cast<const float*>(x1),
-      static_cast<const float*>(x2), static_cast<float*>(o1),
-      static_cast<float*>(o2), n, e, t1, t2);
-  return (int)cudaGetLastError();
+  const bool vec = t1 % 4 == 0 && t2 % 4 == 0 && (uintptr_t)x1 % 16 == 0 &&
+                   (uintptr_t)x2 % 16 == 0 && (uintptr_t)o1 % 16 == 0 &&
+                   (uintptr_t)o2 % 16 == 0;
+  // 128 kV columns a tile, kV = 1-3 so that one tile covers up to 384
+  const int groups = ((t1 > t2 ? t1 : t2) + 127) / 128;
+  const int kv = groups <= 1 ? 1 : groups == 2 ? 2 : 3;
+  const int tiles1 = (t1 + 128 * kv - 1) / (128 * kv);
+  const int tiles2 = (t2 + 128 * kv - 1) / (128 * kv);
+  const dim3 grid(b, (n + kPairRows - 1) / kPairRows, tiles1 + tiles2);
+  const size_t smem = edges_bytes(e);
+  auto launch = [&](auto kernel) {
+    cudaError_t err = set_smem(kernel, smem, 0);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<grid, kPairThreads, smem, (cudaStream_t)stream>>>(
+        static_cast<const int*>(parent), static_cast<const int*>(child),
+        static_cast<const unsigned char*>(mask),
+        static_cast<const float*>(x1), static_cast<const float*>(x2),
+        static_cast<float*>(o1), static_cast<float*>(o2), n, e, t1, t2,
+        tiles1);
+    return (int)cudaGetLastError();
+  };
+  if (vec)
+    return kv == 1   ? launch(spmm_sym_pair_kernel<1, true>)
+           : kv == 2 ? launch(spmm_sym_pair_kernel<2, true>)
+                     : launch(spmm_sym_pair_kernel<3, true>);
+  return kv == 1   ? launch(spmm_sym_pair_kernel<1, false>)
+         : kv == 2 ? launch(spmm_sym_pair_kernel<2, false>)
+                   : launch(spmm_sym_pair_kernel<3, false>);
 }
 
 const char* spmm_fused_error_string(int code) {

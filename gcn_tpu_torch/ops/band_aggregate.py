@@ -7,8 +7,10 @@ Counterpart of ``gcn_tpu.ops.pallas.band_aggregate``:
 
 the shape of the full_deprel layer on the fused path.  On a CUDA tensor
 ``band_aggregate_forward`` launches the hand-written kernel in
-``csrc/band_aggregate.cu`` and ``pair_aggregate`` (``(A_fᵀ x, A_f x)``,
-the backward's aggregation) its second kernel; on a CPU tensor each runs
+``csrc/band_aggregate.cu``, which finds each row's neighbours by warp
+ballots over the edge slots (``csrc/edge_gather.cuh``), and
+``pair_aggregate`` (``(A_fᵀ x, A_f x)``, the backward's aggregation) its
+second kernel, on adjacency lists; on a CPU tensor each runs
 its plain version, which builds the dense band with ``build_adjacency``
 and multiplies with ``torch.bmm``.  ``fused_band_aggregate`` ties them
 together as a ``torch.autograd.Function`` whose backward follows the JAX
@@ -37,8 +39,16 @@ MAX_SHARED_BYTES = 232448  # a block's shared memory on the H100
 
 
 def lists_bytes(n: int, e: int) -> int:
-    """Shared memory the kernels' adjacency lists take for one sentence."""
+    """Shared memory the pair kernel's adjacency lists take for one
+    sentence (``csrc/edge_lists.cuh``)."""
     return 4 * (4 * e + 4 * n + 2)
+
+
+def edges_bytes(n: int, e: int) -> int:
+    """Shared memory of one sentence's edge slots, a parent and a child
+    each, 16-byte aligned: what the ballot-gather kernels take
+    (``csrc/edge_gather.cuh``)."""
+    return (8 * e + 15) // 16 * 16
 
 
 def check_edges(fname, parent, child, mask, xs, smem=lists_bytes):
@@ -105,7 +115,7 @@ def band_aggregate_forward(parent, child, mask, x_f, x_r, x_s,
     if x_f.device.type == "cpu":
         return band_aggregate_plain(parent, child, mask, x_f, x_r, x_s, relu)
     b, n, e = check_edges("band_aggregate_forward", parent, child, mask,
-                          (x_f, x_r, x_s))
+                          (x_f, x_r, x_s), edges_bytes)
     if x_r.shape != x_f.shape or x_s.shape != x_f.shape:
         raise ValueError("x_f, x_r and x_s must have one shape")
     out = torch.empty_like(x_f)

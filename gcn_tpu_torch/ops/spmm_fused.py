@@ -10,9 +10,11 @@ On a CUDA tensor ``gcn_spmm_forward`` launches the hand-written kernel in
 the tensor cores in 3xTF32 (``csrc/tf32x3_tile.cuh``: each operand split
 into two TF32 parts, three products a k-step, f32-level error), and
 ``sym_pair`` (``(S x1, S x2)`` with ``S = A_f + A_fᵀ +
-diag(incident + 1)``, the backward's aggregation) its second kernel; on a
-CPU tensor each runs its plain version (the dense band from
-``build_adjacency``, ``torch.bmm`` and ``torch.matmul``).
+diag(incident + 1)``, the backward's aggregation) its second kernel; both
+find each row's neighbours by warp ballots over the edge slots
+(``csrc/edge_gather.cuh``).  On a CPU tensor each runs its plain version
+(the dense band from ``build_adjacency``, ``torch.bmm`` and
+``torch.matmul``).
 ``fused_gcn_spmm`` ties them together as a ``torch.autograd.Function``
 whose backward follows the JAX package's custom VJP: ``gs = g·relu′ /
 denom``, ``db = 2Σgs``, ``gw = gs Wᵀ``, ``(dh, Sh) = sym_pair(gw, h)``,
@@ -29,7 +31,7 @@ import torch
 from gcn_tpu_torch.ops._cuda import CudaKernel
 from gcn_tpu_torch.ops.adjacency import build_adjacency
 from gcn_tpu_torch.ops.band_aggregate import (MAX_SHARED_BYTES, band_denom,
-                                              check_edges)
+                                              check_edges, edges_bytes)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("spmm_fused.cu", {
@@ -46,7 +48,7 @@ FORWARD_TILE_BYTES = 4 * (48 + 48 * 260 + 3 * 32 * 232)
 def forward_smem_bytes(e: int) -> int:
     """Shared memory of the forward for E edge slots: the slots' parents
     and children, 16-byte aligned, then the tiles."""
-    return (8 * e + 15) // 16 * 16 + FORWARD_TILE_BYTES
+    return edges_bytes(0, e) + FORWARD_TILE_BYTES
 
 
 def _sym_band(parent, child, mask, n, dtype):
@@ -108,7 +110,8 @@ def sym_pair(parent, child, mask, x1, x2):
     the plain version for CPU tensors."""
     if x1.device.type == "cpu":
         return sym_pair_plain(parent, child, mask, x1, x2)
-    bsz, n, e = check_edges("sym_pair", parent, child, mask, (x1, x2))
+    bsz, n, e = check_edges("sym_pair", parent, child, mask, (x1, x2),
+                            edges_bytes)
     o1, o2 = torch.empty_like(x1), torch.empty_like(x2)
     t1, t2 = x1.shape[2], x2.shape[2]
     if bsz * n == 0 or t1 + t2 == 0:

@@ -9,6 +9,11 @@ runs them).
   1e-4 of each tensor's max |grad|.
 * ``node_degrees``, ``band_denom`` and ``build_adjacency`` (with
   ``Adjacency.combined``) equal JAX's.
+* The ballot gather of the CUDA kernels (``csrc/edge_gather.cuh``),
+  emulated in numpy, walks each row's neighbours in the order and with
+  the counts of ``sddmm.edge_lists_plain``'s stable sort, and its counts
+  are ``node_degrees``: the claim behind the kernels' same bits on every
+  run and their denominators (also on a multigraph of 70 slots).
 * Every test runs over ``EDGE_CASES``: duplicated edges, self-edges, an
   all-masked sentence, isolated nodes, and edges with a parent, a child or
   both at or past n, which are dropped as the JAX kernels and JAX's
@@ -34,6 +39,7 @@ from gcn_tpu.ops.pallas.band_aggregate import \
 from gcn_tpu.ops.spmm import node_degrees as jax_node_degrees
 from gcn_tpu_torch.ops import band_aggregate as mod
 from gcn_tpu_torch.ops.adjacency import build_adjacency
+from gcn_tpu_torch.ops.sddmm import edge_lists_plain
 from gcn_tpu_torch.ops.spmm import node_degrees
 from tests.test_torch_port_cuda import EDGE_CASES, edge_case
 from tests.test_torch_port_cuda import one_torch_thread  # noqa: F401
@@ -145,3 +151,57 @@ def test_build_adjacency_matches_jax(case):
     if case == "out_of_range":
         assert float(got.forward.sum()) == float(
             (mask & (parent < N) & (child < N)).sum())
+
+
+def ballot_walk(parent, child, mask, n):
+    """The neighbour walk of ``csrc/edge_gather.cuh``'s ``gather_rows`` for
+    one sentence's edge slots, in numpy: per row i, the (direction, edge,
+    neighbour) it visits and the popcounts it sums.  The slots that do not
+    count read -1 (``load_edges``); each 32-slot step takes the ballot of
+    key == i over its lanes and visits the set bits from low to high
+    (``__ffs``), the forward direction (key = parent) before the reverse
+    one (key = child)."""
+    e = parent.shape[0]
+    ok = mask & (parent >= 0) & (parent < n) & (child >= 0) & (child < n)
+    ep, ec = np.where(ok, parent, -1), np.where(ok, child, -1)
+    walks = []
+    for i in range(n):
+        visits, deg = [], 0
+        for direction, (key, nbr) in enumerate(((ep, ec), (ec, ep))):
+            for q0 in range(0, e, 32):
+                bits = 0
+                for lane in range(32):
+                    q = q0 + lane
+                    bits |= int(q < e and key[q] == i) << lane
+                deg += bin(bits).count("1")
+                while bits:
+                    lane = (bits & -bits).bit_length() - 1
+                    visits.append((direction, q0 + lane, int(nbr[q0 + lane])))
+                    bits &= bits - 1
+        walks.append((visits, deg))
+    return walks
+
+
+@pytest.mark.parametrize("case", EDGE_CASES + ["multigraph"])
+def test_ballot_walk_keeps_the_lists_order(case):
+    """Per row, the ballot walk visits the entries of ``edge_lists_plain``
+    (forward, then reverse, each a stable sort by node) in their order, and
+    its counts are ``node_degrees``' deg_out + deg_in."""
+    if case == "multigraph":  # 70 slots over 12 nodes: three ballot steps
+        n = 12
+        parent, child, mask = edge_case("duplicates", B, n, 70)
+    else:
+        n = N
+        parent, child, mask, _ = band_inputs(case)
+    lists = edge_lists_plain(*as_torch(parent, child, mask), n).numpy()
+    deg_out, deg_in, _ = node_degrees(*as_torch(parent, child, mask), n)
+    e = parent.shape[1]
+    for s in range(parent.shape[0]):
+        starts = lists[s, :2 * (n + 1)].reshape(2, n + 1)
+        ents = lists[s, 2 * (n + 1):].reshape(2, e, 2)
+        walks = ballot_walk(parent[s], child[s], mask[s], n)
+        for i, (visits, deg) in enumerate(walks):
+            want = [(d, int(edge), int(nbr)) for d in range(2)
+                    for edge, nbr in ents[d, starts[d, i]:starts[d, i + 1]]]
+            assert visits == want, (s, i)
+            assert deg == int(deg_out[s, i] + deg_in[s, i]), (s, i)

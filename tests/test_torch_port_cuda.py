@@ -431,12 +431,14 @@ FOREST = {"forest": (50, 1200, 1200), "more_edges": (4, 12, 30)}
 
 # one node the parent of every edge: one list spans the whole sentence
 STAR = {"star": (3, 1200, 1200)}
+# edge slots above 48 KB of shared memory for the ballot-gather kernels
+SLOTS = {"slots_past_48kb": (2, 300, 7000)}
 
 
 def edge_tensors(name, device):
-    """An ``edge_case`` (or a long one of ``EDGE_SIZES``, ``FOREST`` or
-    ``STAR``) on ``device``, with its (b, n)."""
-    sizes = {**EDGE_SIZES, **FOREST, **STAR}
+    """An ``edge_case`` (or a long one of ``EDGE_SIZES``, ``FOREST``,
+    ``STAR`` or ``SLOTS``) on ``device``, with its (b, n)."""
+    sizes = {**EDGE_SIZES, **FOREST, **STAR, **SLOTS}
     b, n, e = sizes.get(name, (3, 10, 10))
     arrays = edge_case("random" if name in sizes else name, b, n, e)
     if name in STAR:
@@ -449,11 +451,19 @@ def features(rng, device, *shapes):
             for s in shapes]
 
 
+# the edge-list kernels' card cases: the CPU tests' cases, the long ones,
+# one row whose neighbours span many 32-slot ballot steps (star), E =
+# 1200 at B = 50 (forest) and 7000 slots over 300 nodes
+EDGE_CARD_CASES = (EDGE_CASES + list(EDGE_SIZES) + ["star", "forest"]
+                   + list(SLOTS))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", EDGE_CASES + list(EDGE_SIZES))
-def test_band_aggregate_kernels_match_plain(cuda_device, name):
+@pytest.mark.parametrize("h", [70, 200])  # 4-byte loads; the C-GCN's width
+@pytest.mark.parametrize("name", EDGE_CARD_CASES)
+def test_band_aggregate_kernels_match_plain(cuda_device, name, h):
     edges, b, n = edge_tensors(name, cuda_device)
-    xs = features(np.random.RandomState(5), cuda_device, *[(b, n, 70)] * 3)
+    xs = features(np.random.RandomState(5), cuda_device, *[(b, n, h)] * 3)
     for relu in (True, False):
         launches = band_mod.KERNEL.launches
         got = band_mod.band_aggregate_forward(*edges, *xs, relu)
@@ -469,14 +479,21 @@ def test_band_aggregate_kernels_match_plain(cuda_device, name):
         assert scaled_err(a, w) <= 1e-5
 
 
+# (T1, T2): ragged widths on 4-byte loads, and the paper GCN's two layers
+# (the sym pair's operands are both T wide there), on 16-byte loads
+SPMM_WIDTHS = {"t75x40": (75, 40), "t360": (360, 360), "t200": (200, 200)}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", EDGE_CASES + list(EDGE_SIZES))
-def test_spmm_fused_kernels_match_plain(cuda_device, name):
+@pytest.mark.parametrize("widths", list(SPMM_WIDTHS))
+@pytest.mark.parametrize("name", EDGE_CARD_CASES)
+def test_spmm_fused_kernels_match_plain(cuda_device, name, widths):
     edges, b, n = edge_tensors(name, cuda_device)
+    t1, t2 = SPMM_WIDTHS[widths]
     rng = np.random.RandomState(6)
-    h, x2 = features(rng, cuda_device, (b, n, 75), (b, n, 40))
-    w, bias = features(rng, cuda_device, (75, 70), (70,))
-    w = w / np.sqrt(75)
+    h, x2 = features(rng, cuda_device, (b, n, t1), (b, n, t2))
+    w, bias = features(rng, cuda_device, (t1, 70), (70,))
+    w = w / np.sqrt(t1)
     launches = spmm_mod.KERNEL.launches
     got = spmm_mod.gcn_spmm_forward(*edges, h, w, bias)
     again = spmm_mod.gcn_spmm_forward(*edges, h, w, bias)
@@ -486,9 +503,12 @@ def test_spmm_fused_kernels_match_plain(cuda_device, name):
         <= 1e-5
     launches = spmm_mod.SYM_PAIR_KERNEL.launches
     got = spmm_mod.sym_pair(*edges, h, x2)
-    assert spmm_mod.SYM_PAIR_KERNEL.launches == launches + 1
-    for a, want in zip(got, spmm_mod.sym_pair_plain(*edges, h, x2)):
+    again = spmm_mod.sym_pair(*edges, h, x2)
+    assert spmm_mod.SYM_PAIR_KERNEL.launches == launches + 2
+    for a, a2, want in zip(got, again,
+                           spmm_mod.sym_pair_plain(*edges, h, x2)):
         assert a.shape == want.shape
+        assert torch.equal(a, a2)  # no float atomics
         assert scaled_err(a, want) <= 1e-5
 
 
