@@ -1,6 +1,7 @@
 // Neighbour-row sums straight from one sentence's padded edge list, found
 // by warp ballots: the gather of the fused GCN layer and its sym pair
-// (spmm_fused.cu) and of the band aggregation forward (band_aggregate.cu).
+// (spmm_fused.cu) and of the band aggregation and its pair
+// (band_aggregate.cu).
 //
 //   parent, child  [E] int32   edge p -> c
 //   mask           [E] uint8   0 = padded slot
@@ -24,7 +25,8 @@
 //
 // A lane covers 4 columns of each 128 (kV groups: 128 kV columns a warp),
 // by 16-byte non-coherent loads where the operand allows.  A warp walks one
-// row (gather_row: several of its neighbour loads in flight at once) or
+// row (gather_row: several of its neighbour loads in flight at once;
+// gather_pair: the same walk with the two directions summed apart) or
 // several in lockstep (gather_rows: one load of every row at a time).
 
 #pragma once
@@ -136,6 +138,39 @@ __device__ __forceinline__ int gather_row(const int* __restrict__ ep,
     }
   }
   return nd;
+}
+
+// gather_row's walk with the two directions summed apart: the forward
+// neighbours (the row's children) into vf, the reverse ones (its parents)
+// into vr, each in edge order.  A copy of the walk, not a walk shared
+// with gather_row: one walk per direction called twice changed
+// gather_row's register allocation (the band forward lost its spill, the
+// sym pair's kV = 3 instance gained one and ran 9 % slower).
+template <int kV, typename Src>
+__device__ __forceinline__ void gather_pair(const int* __restrict__ ep,
+                                            const int* __restrict__ ec, int e,
+                                            int row, Src&& src,
+                                            float4 (&vf)[kV],
+                                            float4 (&vr)[kV]) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int dir = 0; dir < 2; ++dir) {
+    const int* key = dir == 0 ? ep : ec;
+    const int* nbr = dir == 0 ? ec : ep;
+    float4(&v)[kV] = dir == 0 ? vf : vr;
+    for (int q0 = 0; q0 < e; q0 += 32) {
+      const int kq = q0 + lane < e ? key[q0 + lane] : -1;
+      unsigned bits = __ballot_sync(0xffffffffu, kq == row);
+      const int cnt = __popc(bits);
+#pragma unroll 4
+      for (int m = 0; m < cnt; ++m) {
+        const int nb = nbr[q0 + __ffs(bits) - 1];
+        bits &= bits - 1;
+#pragma unroll
+        for (int u = 0; u < kV; ++u) add4(v[u], src(dir, nb, u));
+      }
+    }
+  }
 }
 
 // gather_row for kRows rows of a warp at once (row[j], -2 for none: it

@@ -18,16 +18,27 @@
 // one-hot selection gives it an empty row, so it scores 0 there too).
 //
 // What bounds it on the H100.  At the attention layer's shapes (B = 50,
-// N = E = 96, H = 200) the forward does 2 E H flops against the 2 N H
-// rows it reads, the backward 4 E H against 4 N H values moved: both are
-// memory bound (about 7.7 MB and 15 MB, a few microseconds at 3.35 TB/s;
-// at N = E = 1200, where attention_impl="auto" takes this backend, the
-// backward moves about 154 MB, 0.046 ms).  The TPU kernels select rows
-// with one-hot [E, N] MXU contractions, which suits a 128 x 128 matrix
-// unit; on the card that is N times the work of a gather.  So the forward
-// gives each edge one warp, whose lanes read 32 neighbouring columns of
-// the two rows at a time (coalesced) and reduce by shuffles in a fixed
-// order.
+// N = E = 96, H = 200) the forward does 2 E H flops against the rows it
+// reads, the backward 4 E H against the rows it reads and du, dv: both
+// are memory bound.  The forward reads only the rows its counted edges
+// touch (about 1.2 MB at the path's 1055 edges, a fraction of a microsecond
+// at 3.35 TB/s, below a graph replay's few microseconds; at N = E = 1200
+// about 58 MB, 0.017 ms); the backward also writes du and dv (at N = E =
+// 1200, where attention_impl="auto" takes this backend, about 154 MB,
+// 0.046 ms).  The TPU kernels select rows with one-hot [E, N] MXU
+// contractions, which suits a 128 x 128 matrix unit; on the card that is
+// N times the work of a gather.
+//
+// The forward gives each edge kLanes = 16 lanes, two edges a warp (timed
+// faster than a whole warp or a quarter of one an edge).  A lane covers
+// columns 4 (lane + kLanes g) .. +3 for g < kV, kV fixed at compile time
+// from H (kV = 4 at H = 200), by 16-byte loads where H % 4 == 0 and u, v
+// are aligned.  It issues every load of both rows before its first
+// product, so one edge's loads go out together behind its index loads.
+// The lane sums its products in a fixed order (group by group, x y z w,
+// one fmaf each), then the edge's lanes add by xor shuffles from
+// kLanes / 2 down to 1: every run gives the same bits.  A slot that does
+// not count loads no row and stores 0.
 //
 // The backward is a per-node sum over the node's own edges, in two
 // kernels launched by one entry point:
@@ -52,36 +63,67 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "edge_gather.cuh"
+
 namespace {
 
-constexpr int kWarps = 8;           // forward: edges per block
+using edge_gather::load4;
+
+constexpr int kWarps = 8;           // forward: warps a block
+constexpr int kLanes = 16;          // forward: lanes an edge
+constexpr int kMaxV = 4;            // forward: column groups a lane at most
 constexpr int kBuildThreads = 512;  // backward: list build, one sentence
 constexpr int kSteps = 8;           // placement steps of 32 edges per load
 constexpr int kGatherWarps = 8;     // backward: row jobs per block
 constexpr unsigned kAll = 0xffffffffu;
 constexpr size_t kMaxSmem = 232448;  // a block's shared memory on the H100
 
+// Edge (blockIdx.x kWarps 32 + threadIdx.x) / kLanes.  An H above
+// 4 kLanes kMaxV columns takes further rounds of kV groups.
+template <int kV, bool kVec>
 __global__ void __launch_bounds__(kWarps * 32)
 sddmm_fwd_kernel(const int* __restrict__ parent,
                  const int* __restrict__ child,
                  const unsigned char* __restrict__ mask,
                  const float* __restrict__ u, const float* __restrict__ v,
                  float* __restrict__ out, int b_sz, int n, int e, int h) {
-  const int lane = threadIdx.x % 32;
-  const long long edge = (long long)blockIdx.x * kWarps + threadIdx.x / 32;
-  if (edge >= (long long)b_sz * e) return;  // no barrier follows
-  const int b = (int)(edge / e);
-  const int p = parent[edge], c = child[edge];
-  const bool ok = mask[edge] != 0 && p >= 0 && p < n && c >= 0 && c < n;
+  const int lane = threadIdx.x % kLanes;
+  const long long edge =
+      ((long long)blockIdx.x * kWarps * 32 + threadIdx.x) / kLanes;
+  const bool in = edge < (long long)b_sz * e;  // a warp may straddle the end
+  bool ok = false;
+  const float* up = u;
+  const float* vc = v;
+  if (in) {
+    const int b = (int)(edge / e);
+    const int p = parent[edge], c = child[edge];
+    ok = mask[edge] != 0 && p >= 0 && p < n && c >= 0 && c < n;
+    up += ((size_t)b * n + p) * h;
+    vc += ((size_t)b * n + c) * h;
+  }
   float acc = 0.0f;
   if (ok) {
-    const float* up = u + ((size_t)b * n + p) * h;
-    const float* vc = v + ((size_t)b * n + c) * h;
-    for (int k = lane; k < h; k += 32) acc += up[k] * vc[k];
+    for (int k0 = 0; k0 < h; k0 += 4 * kLanes * kV) {
+      float4 a[kV], w[kV];
+#pragma unroll
+      for (int g = 0; g < kV; ++g) {
+        const int k = k0 + 4 * (lane + kLanes * g);
+        a[g] = load4<kVec>(up, 0, k, h);
+        w[g] = load4<kVec>(vc, 0, k, h);
+      }
+#pragma unroll
+      for (int g = 0; g < kV; ++g) {
+        acc = fmaf(a[g].x, w[g].x, acc);
+        acc = fmaf(a[g].y, w[g].y, acc);
+        acc = fmaf(a[g].z, w[g].z, acc);
+        acc = fmaf(a[g].w, w[g].w, acc);
+      }
+    }
   }
-  for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1)
     acc += __shfl_xor_sync(kAll, acc, off);
-  if (lane == 0) out[edge] = acc;
+  if (in && lane == 0) out[edge] = acc;
 }
 
 // One sentence's lists in the scratch, in ints:
@@ -281,14 +323,31 @@ int sddmm_forward_f32(const void* parent, const void* child,
                       const void* mask, const void* u, const void* v,
                       void* out, int b, int n, int e, int h, void* stream) {
   const long long edges = (long long)b * e;
-  const long long blocks = (edges + kWarps - 1) / kWarps;
+  constexpr int kEdges = kWarps * 32 / kLanes;  // a block's
+  const long long blocks = (edges + kEdges - 1) / kEdges;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  sddmm_fwd_kernel<<<(unsigned)blocks, kWarps * 32, 0,
-                     (cudaStream_t)stream>>>(
-      static_cast<const int*>(parent), static_cast<const int*>(child),
-      static_cast<const unsigned char*>(mask), static_cast<const float*>(u),
-      static_cast<const float*>(v), static_cast<float*>(out), b, n, e, h);
-  return (int)cudaGetLastError();
+  const bool vec =
+      h % 4 == 0 && (uintptr_t)u % 16 == 0 && (uintptr_t)v % 16 == 0;
+  const int groups = (h + 4 * kLanes - 1) / (4 * kLanes);
+  const int kv = groups < kMaxV ? groups : kMaxV;
+  auto run = [&](auto kernel) {
+    kernel<<<(unsigned)blocks, kWarps * 32, 0, (cudaStream_t)stream>>>(
+        static_cast<const int*>(parent), static_cast<const int*>(child),
+        static_cast<const unsigned char*>(mask),
+        static_cast<const float*>(u), static_cast<const float*>(v),
+        static_cast<float*>(out), b, n, e, h);
+    return (int)cudaGetLastError();
+  };
+  static_assert(kMaxV == 4, "one instance per kV below");
+  if (vec)
+    return kv <= 1   ? run(sddmm_fwd_kernel<1, true>)
+           : kv == 2 ? run(sddmm_fwd_kernel<2, true>)
+           : kv == 3 ? run(sddmm_fwd_kernel<3, true>)
+                     : run(sddmm_fwd_kernel<4, true>);
+  return kv <= 1   ? run(sddmm_fwd_kernel<1, false>)
+         : kv == 2 ? run(sddmm_fwd_kernel<2, false>)
+         : kv == 3 ? run(sddmm_fwd_kernel<3, false>)
+                   : run(sddmm_fwd_kernel<4, false>);
 }
 
 // The lists alone, into lists [B, list_ints(N, E)] (the scratch that

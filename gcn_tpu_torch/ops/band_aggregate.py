@@ -7,12 +7,12 @@ Counterpart of ``gcn_tpu.ops.pallas.band_aggregate``:
 
 the shape of the full_deprel layer on the fused path.  On a CUDA tensor
 ``band_aggregate_forward`` launches the hand-written kernel in
-``csrc/band_aggregate.cu``, which finds each row's neighbours by warp
-ballots over the edge slots (``csrc/edge_gather.cuh``), and
-``pair_aggregate`` (``(A_fᵀ x, A_f x)``, the backward's aggregation) its
-second kernel, on adjacency lists; on a CPU tensor each runs
-its plain version, which builds the dense band with ``build_adjacency``
-and multiplies with ``torch.bmm``.  ``fused_band_aggregate`` ties them
+``csrc/band_aggregate.cu`` and ``pair_aggregate`` (``(A_fᵀ x, A_f x)``,
+the backward's aggregation) its second kernel; both find each row's
+neighbours by warp ballots over the edge slots
+(``csrc/edge_gather.cuh``).  On a CPU tensor each runs its plain version,
+which builds the dense band with ``build_adjacency`` and multiplies with
+``torch.bmm``.  ``fused_band_aggregate`` ties them
 together as a ``torch.autograd.Function`` whose backward follows the JAX
 package's custom VJP: ``gs = g·act′/denom``, ``(dx_f, dx_r) =
 pair_aggregate(gs)``, ``dx_s = gs``.  It saves the edge lists and the
@@ -38,12 +38,6 @@ PAIR_KERNEL = CudaKernel("band_aggregate.cu", {
 MAX_SHARED_BYTES = 232448  # a block's shared memory on the H100
 
 
-def lists_bytes(n: int, e: int) -> int:
-    """Shared memory the pair kernel's adjacency lists take for one
-    sentence (``csrc/edge_lists.cuh``)."""
-    return 4 * (4 * e + 4 * n + 2)
-
-
 def edges_bytes(n: int, e: int) -> int:
     """Shared memory of one sentence's edge slots, a parent and a child
     each, 16-byte aligned: what the ballot-gather kernels take
@@ -51,11 +45,10 @@ def edges_bytes(n: int, e: int) -> int:
     return (8 * e + 15) // 16 * 16
 
 
-def check_edges(fname, parent, child, mask, xs, smem=lists_bytes):
+def check_edges(fname, parent, child, mask, xs, smem):
     """Device, type, shape and contiguity checks of the edge-list kernels'
     wrappers; returns (B, N, E).  ``xs`` are the [B, N, *] f32 operands;
-    ``smem(n, e)`` is the shared memory a block of the kernel takes (by
-    default the adjacency lists')."""
+    ``smem(n, e)`` is the shared memory a block of the kernel takes."""
     x = xs[0]
     if x.device.type != "cuda":
         raise ValueError(f"{fname}: unsupported device {x.device}")
@@ -142,7 +135,8 @@ def pair_aggregate(parent, child, mask, x):
     tensors, the plain version for CPU tensors."""
     if x.device.type == "cpu":
         return pair_aggregate_plain(parent, child, mask, x)
-    b, n, e = check_edges("pair_aggregate", parent, child, mask, (x,))
+    b, n, e = check_edges("pair_aggregate", parent, child, mask, (x,),
+                          edges_bytes)
     out_t, out_f = torch.empty_like(x), torch.empty_like(x)
     if x.numel() == 0:
         return out_t, out_f

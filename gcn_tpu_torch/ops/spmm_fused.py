@@ -30,8 +30,8 @@ import torch
 
 from gcn_tpu_torch.ops._cuda import CudaKernel
 from gcn_tpu_torch.ops.adjacency import build_adjacency
-from gcn_tpu_torch.ops.band_aggregate import (MAX_SHARED_BYTES, band_denom,
-                                              check_edges, edges_bytes)
+from gcn_tpu_torch.ops.band_aggregate import (band_denom, check_edges,
+                                              edges_bytes)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("spmm_fused.cu", {
@@ -45,10 +45,10 @@ SYM_PAIR_KERNEL = CudaKernel("spmm_fused.cu", {
 FORWARD_TILE_BYTES = 4 * (48 + 48 * 260 + 3 * 32 * 232)
 
 
-def forward_smem_bytes(e: int) -> int:
+def forward_smem_bytes(n: int, e: int) -> int:
     """Shared memory of the forward for E edge slots: the slots' parents
     and children, 16-byte aligned, then the tiles."""
-    return edges_bytes(0, e) + FORWARD_TILE_BYTES
+    return edges_bytes(n, e) + FORWARD_TILE_BYTES
 
 
 def _sym_band(parent, child, mask, n, dtype):
@@ -72,11 +72,8 @@ def gcn_spmm_forward(parent, child, mask, h, w, b):
     CUDA tensors, the plain version for CPU tensors."""
     if h.device.type == "cpu":
         return gcn_spmm_plain(parent, child, mask, h, w, b)
-    bsz, n, e = check_edges("gcn_spmm_forward", parent, child, mask, (h,))
-    if forward_smem_bytes(e) > MAX_SHARED_BYTES:
-        raise ValueError(f"gcn_spmm_forward: E={e} edge slots need "
-                         f"{forward_smem_bytes(e)} bytes of shared memory, "
-                         f"more than a block's {MAX_SHARED_BYTES}")
+    bsz, n, e = check_edges("gcn_spmm_forward", parent, child, mask, (h,),
+                            forward_smem_bytes)
     t = h.shape[2]
     if w.dim() != 2 or w.shape[0] != t or b.shape != (w.shape[1],):
         raise ValueError(f"w must be [{t}, H] and b [H], got "

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""The edge-list gather kernels timed at and past the main path's sizes.
+"""The edge-list kernels timed at and past the main path's sizes.
 
     python3 gcn_tpu_torch/tools/edge_timing.py [--tree DIR]
 
 Times kernel 5 (``band_aggregate_forward``), kernel 6 (``pair_aggregate``),
-kernel 7 (``gcn_spmm_forward``, W [T, 200]) and kernel 8 (``sym_pair``)
-over the edges of ``chip_smoke.py``'s kernel rows (``path``: its first
-synthetic batch, B=50, N=E=96) and the card tests' large edge cases
+kernel 7 (``gcn_spmm_forward``, W [T, 200]), kernel 8 (``sym_pair``) and
+kernel 9 (``sddmm_forward``, u and v [B, N, 200]) over the edges of
+``chip_smoke.py``'s kernel rows (``path``: its first synthetic batch,
+B=50, N=E=96) and the card tests' large edge cases
 (``tests/test_torch_port_cuda.py``): ``long`` (B=2, N=E=300),
 ``past_48kb`` (B=2, N=E=3000), ``star`` (B=3, N=E=1200, one node the
 parent of every edge) and ``forest`` (B=50, N=E=1200, random trees), at
@@ -79,6 +80,7 @@ def main() -> int:
     from gcn_tpu_torch.config import cgcn_preset
     from gcn_tpu_torch.data.vocab import Vocab
     from gcn_tpu_torch.ops import band_aggregate as band
+    from gcn_tpu_torch.ops import sddmm
     from gcn_tpu_torch.ops import spmm_fused as spmm
 
     dev = torch.device("cuda", 0)
@@ -105,6 +107,8 @@ def main() -> int:
                 lambda: spmm.gcn_spmm_forward(*e, x[3 + i], w, bias))
             ms[f"spmm_fused_sym_pair_T{t}"] = clock.graph_ms(
                 lambda: spmm.sym_pair(*e, x[3 + i], x[5 + i]))
+        ms["sddmm_forward"] = clock.graph_ms(
+            lambda: sddmm.sddmm_forward(*e, x[0], x[1]))
         print(json.dumps({"case": name, "B": b, "N": n,
                           "E": e[0].shape[1], "H": H,
                           "tree": os.path.abspath(args.tree), "ms": ms}),

@@ -13,7 +13,10 @@ runs them).
   emulated in numpy, walks each row's neighbours in the order and with
   the counts of ``sddmm.edge_lists_plain``'s stable sort, and its counts
   are ``node_degrees``: the claim behind the kernels' same bits on every
-  run and their denominators (also on a multigraph of 70 slots).
+  run and their denominators (also on a multigraph of 70 slots).  The
+  pair kernel's sums, the walk's visits split by direction and added in
+  f32 in their order, equal the sums in the lists' order bit for bit and
+  JAX's ``pair_aggregate`` within 1e-5.
 * Every test runs over ``EDGE_CASES``: duplicated edges, self-edges, an
   all-masked sentence, isolated nodes, and edges with a parent, a child or
   both at or past n, which are dropped as the JAX kernels and JAX's
@@ -154,9 +157,10 @@ def test_build_adjacency_matches_jax(case):
 
 
 def ballot_walk(parent, child, mask, n):
-    """The neighbour walk of ``csrc/edge_gather.cuh``'s ``gather_rows`` for
-    one sentence's edge slots, in numpy: per row i, the (direction, edge,
-    neighbour) it visits and the popcounts it sums.  The slots that do not
+    """The neighbour walk of ``csrc/edge_gather.cuh``'s ``gather_row`` (and
+    ``gather_pair``, the same walk) for one sentence's edge slots, in
+    numpy: per row i, the (direction, edge, neighbour) it visits and the
+    popcounts it sums.  The slots that do not
     count read -1 (``load_edges``); each 32-slot step takes the ballot of
     key == i over its lanes and visits the set bits from low to high
     (``__ffs``), the forward direction (key = parent) before the reverse
@@ -205,3 +209,44 @@ def test_ballot_walk_keeps_the_lists_order(case):
                     for edge, nbr in ents[d, starts[d, i]:starts[d, i + 1]]]
             assert visits == want, (s, i)
             assert deg == int(deg_out[s, i] + deg_in[s, i]), (s, i)
+
+
+def walk_inputs(case):
+    """(parent, child, mask, x, n) of a walk test: a case of
+    ``band_inputs``, or 70 slots of doubled edges over 12 nodes (three
+    ballot steps a direction)."""
+    if case != "multigraph":
+        parent, child, mask, xs = band_inputs(case)
+        return parent, child, mask, xs[0], N
+    n = 12
+    parent, child, mask = edge_case("duplicates", B, n, 70)
+    x = np.random.RandomState(70).randn(B, n, H).astype(np.float32)
+    return parent, child, mask, x, n
+
+
+@pytest.mark.parametrize("case", EDGE_CASES + ["multigraph"])
+def test_pair_walk_sums_each_direction_in_list_order(case):
+    """The pair kernel's sums as it takes them: per row, the ballot walk's
+    forward visits (the row's children) added in f32 in walk order give
+    (A_f x)[i], its reverse visits (its parents) (A_fᵀ x)[i], each from a
+    zero.  They equal the same sums in ``edge_lists_plain``'s order bit for
+    bit, and JAX's ``pair_aggregate`` within 1e-5."""
+    parent, child, mask, x, n = walk_inputs(case)
+    lists = edge_lists_plain(*as_torch(parent, child, mask), n).numpy()
+    e = parent.shape[1]
+    walked = np.zeros((2,) + x.shape, np.float32)  # out_t, out_f
+    listed = np.zeros_like(walked)
+    for s in range(parent.shape[0]):
+        starts = lists[s, :2 * (n + 1)].reshape(2, n + 1)
+        ents = lists[s, 2 * (n + 1):].reshape(2, e, 2)
+        for i, (visits, _) in enumerate(
+                ballot_walk(parent[s], child[s], mask[s], n)):
+            for direction, _, nbr in visits:  # forward into out_f
+                walked[1 - direction, s, i] += x[s, nbr]
+            for d in range(2):
+                for _, nbr in ents[d, starts[d, i]:starts[d, i + 1]]:
+                    listed[1 - d, s, i] += x[s, nbr]
+    np.testing.assert_array_equal(walked.view(np.uint32),
+                                  listed.view(np.uint32))
+    for got, want in zip(walked, jax_pair_aggregate(parent, child, mask, x)):
+        np.testing.assert_allclose(got, np.asarray(want), atol=ATOL, rtol=0)

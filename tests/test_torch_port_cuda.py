@@ -474,8 +474,11 @@ def test_band_aggregate_kernels_match_plain(cuda_device, name, h):
         assert scaled_err(got, want) <= 1e-5
     launches = band_mod.PAIR_KERNEL.launches
     got = band_mod.pair_aggregate(*edges, xs[0])
-    assert band_mod.PAIR_KERNEL.launches == launches + 1
-    for a, w in zip(got, band_mod.pair_aggregate_plain(*edges, xs[0])):
+    again = band_mod.pair_aggregate(*edges, xs[0])
+    assert band_mod.PAIR_KERNEL.launches == launches + 2
+    for a, a2, w in zip(got, again,
+                        band_mod.pair_aggregate_plain(*edges, xs[0])):
+        assert torch.equal(a, a2)  # no float atomics
         assert scaled_err(a, w) <= 1e-5
 
 
@@ -577,20 +580,21 @@ def test_edge_list_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
                                 .transpose(1, 2))
     with pytest.raises(TypeError):
         spmm_mod.sym_pair(parent, child, mask, x.double(), x.double())
-    big = 15000
+    big = 30000  # edge slots past a block's 232448 bytes at 8 bytes each
     edges = [torch.zeros(1, big, dtype=torch.int32, device=cuda_device)] * 2
+    assert band_mod.edges_bytes(big, big) > band_mod.MAX_SHARED_BYTES
     with pytest.raises(ValueError, match="shared memory"):
         band_mod.pair_aggregate(*edges, torch.zeros(
             1, big, dtype=torch.bool, device=cuda_device),
             torch.zeros(1, big, 1, device=cuda_device))
-    # slots whose lists fit but not beside the fused forward's tiles
+    # slots that fit alone but not beside the fused forward's tiles
     slots = 12000
     edges = [torch.zeros(1, slots, dtype=torch.int32, device=cuda_device)] * 2
     mask = torch.zeros(1, slots, dtype=torch.bool, device=cuda_device)
     h = torch.zeros(1, 1, 8, device=cuda_device)
     w, bias = torch.zeros(8, 4, device=cuda_device), torch.zeros(
         4, device=cuda_device)
-    assert band_mod.lists_bytes(1, slots) <= band_mod.MAX_SHARED_BYTES
+    assert band_mod.edges_bytes(1, slots) <= band_mod.MAX_SHARED_BYTES
     with pytest.raises(ValueError, match="gcn_spmm_forward.*shared memory"):
         spmm_mod.gcn_spmm_forward(*edges, mask, h, w, bias)
 

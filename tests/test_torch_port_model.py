@@ -229,12 +229,12 @@ def test_library_name_covers_every_included_header(tmp_path, monkeypatch):
                 header = line.split('"')[1]
                 assert header.endswith(".cuh"), (src.name, header)
                 assert (_cuda.CSRC / header).exists(), (src.name, header)
-    for f in ("band_aggregate.cu", "edge_lists.cuh"):
+    for f in ("band_aggregate.cu", "edge_gather.cuh"):
         (tmp_path / f).write_bytes((_cuda.CSRC / f).read_bytes())
     monkeypatch.setattr(_cuda, "CSRC", tmp_path)
     kernel = _cuda.CudaKernel("band_aggregate.cu", {})
     before = kernel.lib_path()
-    with open(tmp_path / "edge_lists.cuh", "a") as f:
+    with open(tmp_path / "edge_gather.cuh", "a") as f:
         f.write("// edited\n")
     assert kernel.lib_path() != before
 
