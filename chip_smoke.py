@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's C-GCN, paper-GCN and attention paths on one NVIDIA GPU.
+"""Drive the port's C-GCN, paper-GCN, attention, diagonal_deprel, BERT-input
+and SemEval paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -29,8 +30,10 @@ Phases, one JSON line each:
    (a one-element add, timed both ways);
 4. slice  — for each path, ``Evaluator`` at full widths (random weights
    from a seeded ``torch.Generator``) over B=50 batches of the in-repo
-   TACRED JSON and of synthetic sentences at the N=96 bucket, all through
-   the port's own loader.  The same forward with the plain versions on the
+   TACRED JSON and of synthetic sentences at the N=96 bucket (``cgcn_bert``:
+   the same sentences as seeded [L, 1024] float rows; ``cgcn_semeval``: the
+   in-repo SemEval JSON and synthetic SemEval sentences), all through the
+   port's own loader.  The same forward with the plain versions on the
    card (``PLAIN``: for the edge-list layers the dense bands from
    ``build_adjacency`` and ``bmm``, which the fused layers' plain versions
    compute; for the attention edge backend the dense one; for the
@@ -56,9 +59,14 @@ dense bands), ``cgcn_fused`` (the same with ``use_pallas=True``: the band
 aggregation kernels), ``gcn_fused`` (``gcn_preset`` with
 ``use_pallas=True``: the paper's GCN on the fused layer kernels),
 ``cgcn_attn`` (``cgcn_preset`` with ``adj_type="attention"`` and
-``attention_impl="edge"``: the SDDMM kernels) and ``cgcn_bilinear``
+``attention_impl="edge"``: the SDDMM kernels), ``cgcn_bilinear``
 (``cgcn_preset`` with ``deprel_factored=False`` and ``use_pallas=True``:
-the bilinear v2 kernel feeding the band aggregation).
+the bilinear v2 kernel feeding the band aggregation), ``cdiag_fused``
+(``cgcn_preset`` with ``adj_type="diagonal_deprel"`` and
+``use_pallas=True``: the BiLSTM, the preprocessor, then the band
+aggregation on the deprel gates), ``cgcn_bert`` (``cgcn_preset`` on
+precomputed 1024-wide word vectors, no word table) and ``cgcn_semeval``
+(``cgcn_preset`` on SemEval: no NER, 10 classes).
 
 Then one line with every kernel's numbers, the ``nvidia-smi`` name and
 power limit, and the last line ``{"ok": true, "device": {...}}``.  Any
@@ -239,14 +247,18 @@ def row_err(a, b) -> float:
 
 
 # ------------------------------------------------------------------ data
-def synthetic_records(rng, count: int, n_max: int, deprel_freq) -> list:
-    """TACRED-shaped JSON records: lengths uniform in [10, n_max] (one at
-    n_max), random trees, deprels drawn from the in-repo corpus."""
-    from gcn_tpu_torch import constants as C
+def synthetic_records(rng, count: int, n_max: int, deprel_freq,
+                      dataset: str = "tacred") -> list:
+    """JSON records shaped as ``dataset``'s (TACRED: with NER tags;
+    SemEval: none, its POS tags and labels): lengths uniform in [10, n_max]
+    (one at n_max), random trees, deprels drawn from the in-repo corpus."""
+    from gcn_tpu_torch import constants
+    from gcn_tpu_torch.data.dataset import constants_for
 
+    C = constants_for(dataset)
     words = [f"w{i}" for i in range(200)]
     pos_tags = [t for t in C.POS_TO_ID if not t.startswith("<")]
-    ner_tags = [t for t in C.NER_TO_ID if not t.startswith("<")]
+    ner_tags = [t for t in constants.NER_TO_ID if not t.startswith("<")]
     names, probs = zip(*deprel_freq.items())
     probs = np.asarray(probs, np.float64) / sum(probs)
     labels = list(C.LABEL_TO_ID)
@@ -259,13 +271,17 @@ def synthetic_records(rng, count: int, n_max: int, deprel_freq) -> list:
             head[order[k]] = order[rng.randint(0, k)] + 1
         ss = int(rng.randint(0, L // 2 - 1))
         os_ = int(rng.randint(L // 2, L - 1))
-        recs.append({
+        rec = {
             "id": f"synth{i}",
             "token": [words[j] for j in rng.randint(0, len(words), L)],
             "stanford_pos": [pos_tags[j]
                              for j in rng.randint(0, len(pos_tags), L)],
-            "stanford_ner": [ner_tags[j]
-                             for j in rng.randint(0, len(ner_tags), L)],
+        }
+        if dataset == "tacred":
+            rec["stanford_ner"] = [ner_tags[j] for j in
+                                   rng.randint(0, len(ner_tags), L)]
+        recs.append({
+            **rec,
             "stanford_deprel": [names[j]
                                 for j in rng.choice(len(names), L, p=probs)],
             "stanford_head": [int(h) for h in head],
@@ -277,37 +293,57 @@ def synthetic_records(rng, count: int, n_max: int, deprel_freq) -> list:
     return recs
 
 
-def load_batches(cfg, vocab, rng):
+def load_batches(cfg, vocab, rng, bert_rng=None):
     """B=50 batches through the port's loader: evaluation batches of the
-    in-repo TACRED splits and of synthetic sentences at the N=96 bucket,
-    and training batches (shuffled, word dropout) of the in-repo train split
-    and of the same synthetic sentences."""
+    in-repo splits of ``cfg.model.dataset`` and of synthetic sentences at
+    the N=96 bucket (drawn from ``rng``), and training batches (shuffled,
+    the preset's word dropout) of the in-repo train split and of the same
+    synthetic sentences.  With ``bert_rng`` each sentence's words are
+    ``[L, emb_dim]`` float rows drawn from it (an id → rows dict a file,
+    ``bert_embeddings``: the in-repo splits number their ids alike);
+    returns the vocabulary's size last."""
     from gcn_tpu_torch.data.dataset import Batcher, RelationDataset
 
-    data_dir = os.path.join(HERE, "dataset", "tacred")
-    real, freq = [], {}
+    dataset = cfg.model.dataset
+    data_dir = os.path.join(HERE, "dataset", dataset)
+    splits = {}
     for split in ("train", "dev", "test"):
         path = os.path.join(data_dir, f"{split}.json")
-        with open(path) as f:
-            for rec in json.load(f):
-                for d in rec["stanford_deprel"]:
-                    freq[d] = freq.get(d, 0) + 1
-        ds = RelationDataset(path, cfg, vocab)
+        if os.path.exists(path):
+            with open(path) as f:
+                splits[path] = json.load(f)
+    freq = {}
+    for recs in splits.values():
+        for rec in recs:
+            for d in rec["stanford_deprel"]:
+                freq[d] = freq.get(d, 0) + 1
+    synth_recs = synthetic_records(rng, B * SYNTH_BATCHES, N_BUCKET, freq,
+                                   dataset)
+
+    def rows(recs):
+        if bert_rng is None:
+            return None
+        return {d["id"]: bert_rng.randn(len(d["token"]), cfg.model.emb_dim)
+                .astype(np.float32) for d in recs}
+
+    real = []
+    for path, recs in splits.items():
+        ds = RelationDataset(path, cfg, vocab, bert_embeddings=rows(recs))
         real.extend(Batcher(ds, B, evaluation=True))
-        if split == "train":
+        if path.endswith("train.json"):
             real_train = list(Batcher(ds, B, seed=SEED))
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "synthetic.json")
         with open(path, "w") as f:
-            json.dump(synthetic_records(rng, B * SYNTH_BATCHES, N_BUCKET,
-                                        freq), f)
-        ds = RelationDataset(path, cfg, vocab)
+            json.dump(synth_recs, f)
+        ds = RelationDataset(path, cfg, vocab,
+                             bert_embeddings=rows(synth_recs))
         synth = list(Batcher(ds, B, evaluation=True))
         synth_train = list(Batcher(ds, B, seed=SEED))
     for batch in synth + synth_train:
-        if batch["words"].shape != (B, N_BUCKET):
+        if batch["words"].shape[:2] != (B, N_BUCKET):
             fail(f"synthetic batch shape {batch['words'].shape}")
-    return real, synth, real_train, synth_train
+    return real, synth, real_train, synth_train, vocab.size
 
 
 # --------------------------------------------------------------- kernels
@@ -1007,7 +1043,21 @@ PATHS = {
                                   "model.attention_impl": "edge"}),
     "cgcn_bilinear": ("cgcn_preset", {"model.deprel_factored": False,
                                       "model.use_pallas": True}),
+    "cdiag_fused": ("cgcn_preset", {"model.adj_type": "diagonal_deprel",
+                                    "model.use_pallas": True}),
+    # 1024: BERT-large's width, which gcn_tpu's run_training sets
+    "cgcn_bert": ("cgcn_preset", {"model.use_bert_embeddings": True,
+                                  "model.emb_dim": 1024}),
+    # as train_cgcn_semeval.sh sets it
+    "cgcn_semeval": ("cgcn_preset", {"model.dataset": "semeval",
+                                     "model.num_class": 10,
+                                     "train.word_dropout": 0.0}),
 }
+# the inputs each path reads (``load_batches``): the in-repo TACRED and
+# synthetic N=96 sentences by word ids, the same sentences as seeded
+# [L, 1024] float rows, or the in-repo SemEval and synthetic SemEval
+# sentences
+INPUTS = {"cgcn_bert": "bert", "cgcn_semeval": "semeval"}
 # Each kernel's launches per evaluation forward and per train step (the
 # step's forward included) on each path, at 2 GCN layers: the scans once,
 # the grouped matmul once a layer (both bands stacked), an edge-list
@@ -1030,18 +1080,25 @@ EXPECTED = {
                       {"lstm_scan_forward": 1, "deprel_bilinear_v2": 4,
                        "band_aggregate_forward": 2, "lstm_scan_backward": 1,
                        "band_aggregate_pair": 2}),
+    "cdiag_fused": ({"lstm_scan_forward": 1, "band_aggregate_forward": 2},
+                    {"lstm_scan_forward": 1, "band_aggregate_forward": 2,
+                     "lstm_scan_backward": 1, "band_aggregate_pair": 2}),
+    "cgcn_bert": (_CGCN, {**_CGCN, **_CGCN_BWD}),
+    "cgcn_semeval": (_CGCN, {**_CGCN, **_CGCN_BWD}),
 }
 # Each path's card-side reference, the plain versions: the scan's and the
 # grouped matmul's; for the edge-list layers the dense bands
 # (``build_adjacency`` + ``bmm``, what their plain versions compute); for
 # the attention edge backend the dense backend; for the non-factored
-# bilinear on the fused path the einsum on the dense bands.
+# bilinear on the fused path the einsum on the dense bands; for the fused
+# diagonal_deprel layers the dense bands' two ``bmm``.
 _PLAIN = {"model.rnn_impl": "scan", "model.deprel_factored": "ragged",
           "model.use_pallas": False}
 PLAIN = {
     "cgcn": _PLAIN, "cgcn_fused": _PLAIN, "gcn_fused": _PLAIN,
     "cgcn_attn": {"model.rnn_impl": "scan", "model.attention_impl": "dense"},
     "cgcn_bilinear": {"model.rnn_impl": "scan", "model.use_pallas": False},
+    "cdiag_fused": _PLAIN, "cgcn_bert": _PLAIN, "cgcn_semeval": _PLAIN,
 }
 # a path whose logits must also equal another path's on the same weights:
 # the non-factored full_deprel against the factored one (both exact)
@@ -1427,10 +1484,10 @@ def main() -> int:
     vocab = Vocab.load(os.path.join(HERE, "dataset", "vocab", "vocab.pkl"))
     from gcn_tpu_torch.config import cgcn_preset
 
-    # cgcn_preset and gcn_preset prune alike (prune_k 1), so both paths
-    # read the same batches
-    real, synth, real_train, synth_train = load_batches(cgcn_preset(), vocab,
-                                                        rng)
+    # cgcn_preset and gcn_preset prune alike (prune_k 1), so the TACRED
+    # paths read the same batches
+    inputs = {"tacred": load_batches(cgcn_preset(), vocab, rng)}
+    real, synth, real_train, synth_train, _ = inputs["tacred"]
     gs = band_group_sizes(torch, synth[0], dev)
     edges = edge_lists(torch, synth[0], dev)
     # in row order from one generator, so no row's inputs depend on the
@@ -1451,12 +1508,25 @@ def main() -> int:
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
 
+    # the other inputs from generators of their own: the BERT path's
+    # sentences are the TACRED paths' (the same seed draws the synthetic
+    # ones), their float rows drawn apart
+    inputs["bert"] = load_batches(path_config("cgcn_bert"), vocab,
+                                  np.random.RandomState(SEED),
+                                  bert_rng=np.random.RandomState(SEED + 1))
+    inputs["semeval"] = load_batches(
+        path_config("cgcn_semeval"),
+        Vocab.load(os.path.join(HERE, "dataset", "vocab_semeval",
+                                "vocab.pkl")),
+        np.random.RandomState(SEED + 2))
     slices, trains = {}, {}
     for path in PATHS:
-        slices[path] = run_slice(torch, dev, real, synth, vocab.size, path)
+        real, synth, real_train, synth_train, vocab_size = inputs[
+            INPUTS.get(path, "tacred")]
+        slices[path] = run_slice(torch, dev, real, synth, vocab_size, path)
         emit({**slices[path], "at_s": time.perf_counter() - t_start})
         trains[path] = run_train(torch, dev, real_train, synth_train,
-                                 vocab.size, path)
+                                 vocab_size, path)
         emit({**trains[path], "at_s": time.perf_counter() - t_start})
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

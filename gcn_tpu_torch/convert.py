@@ -1,12 +1,14 @@
 """Carry a flax parameter tree across to the port's ``state_dict`` and back.
 
 ``gcn_tpu.models.gcn.GCNClassifier.init`` gives ``{'params': {...}}`` with
-nested dicts (``rnn``, ``mlp0``, ``classifier``); the port's modules use
-the same names and layouts, so the mapping is a flatten with ``.`` as the
-separator::
+nested dicts (``rnn``, ``preprocessor``, ``mlp0``, ``classifier``); the
+port's modules use the same names and layouts, so the mapping is a flatten
+with ``.`` as the separator::
 
-    word_emb, pos_emb, ner_emb, deprel_emb
+    word_emb (absent with use_bert_embeddings), pos_emb,
+    ner_emb (TACRED only), deprel_emb ([85, hidden] for diagonal_deprel)
     rnn/l{i}_{fwd,bwd}_{w_ih,w_hh,b_ih,b_hh}   → rnn.l{i}_...
+    preprocessor/{kernel,bias}          (diagonal_deprel)
     gcn_deprel_w{l}, gcn_deprel_b{l}    (gcn_deprel_w, gcn_deprel_b when
                                         deprel_shared_w is set)
     gcn_w{l}_kernel, gcn_w{l}_bias      (regular and attention modes)

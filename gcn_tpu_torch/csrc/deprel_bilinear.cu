@@ -185,6 +185,10 @@ deprel_bilinear_kernel(const float* __restrict__ x,
     }
 }
 
+// Launches of deprel_bilinear_sum_kernel this library has made, read by
+// deprel_bilinear_sum_launches().
+int g_sum_launches = 0;
+
 // out = sum of the slices' partials, in slice order.
 __global__ void deprel_bilinear_sum_kernel(const float* __restrict__ part,
                                            float* __restrict__ out,
@@ -237,7 +241,9 @@ int launch(const void* x, const void* e, const void* w, void* out,
   deprel_bilinear_sum_kernel<<<grid, threads, 0, st>>>(
       static_cast<const float*>(part), static_cast<float*>(out), slices,
       count);
-  return (int)cudaGetLastError();
+  err = cudaGetLastError();
+  if (err == cudaSuccess) ++g_sum_launches;
+  return (int)err;
 }
 
 }  // namespace
@@ -253,6 +259,10 @@ int deprel_bilinear_slices(int m, int d_dim, int h) {
   const long long fit = tiles > 0 ? sm_count() / tiles : 1;
   return (int)(fit < 1 ? 1 : (fit > d_dim ? d_dim : fit));
 }
+
+// How many slice sums the launchers below have launched, both versions
+// together: a call launches one exactly where it splits K into slices.
+int deprel_bilinear_sum_launches() { return g_sum_launches; }
 
 // v2 (e in A) and v1 (e at the fold) into out; with slices > 1 the
 // slices' partials go to part [slices, M, H] first.

@@ -1,9 +1,12 @@
-"""TACRED loading and static-shape batching.
+"""TACRED / SemEval loading and static-shape batching.
 
 Counterpart of ``gcn_tpu.data.dataset`` (``RelationDataset`` and the
 unpacked ``Batcher``), giving the same numpy batch dicts:
 
-* JSON → id arrays once at load (entity anonymization, position sequences),
+* JSON → id arrays once at load (entity anonymization for TACRED, position
+  sequences), through the dataset's own tag and label tables
+  (``constants_for``); with ``bert_embeddings`` each sentence's words are
+  its float ``[L, D]`` rows instead of ids,
 * dependency trees pruned once per example by ``graph.prune`` in
   Python/numpy (the port never loads the native graph builder),
 * batches padded to the smallest length bucket ≥ their longest sentence,
@@ -13,9 +16,9 @@ Training batches follow the JAX ``Batcher`` bit for bit: one
 ``random.Random(seed)`` shuffle at construction, an optional stable sort by
 length bucket, fixed chunks every epoch, and word→UNK dropout re-drawn at
 every materialization from one ``np.random.RandomState(seed)`` in the same
-call order (never re-dropping an UNK).  Evaluation batches keep file order
-and drop no words.  Cross-sentence packing and BERT inputs are not ported
-yet.
+call order (never re-dropping an UNK; float words are never dropped).
+Evaluation batches keep file order and drop no words.  Only TACRED
+batches carry ``ner``.  Cross-sentence packing is not ported yet.
 """
 
 from __future__ import annotations
@@ -23,11 +26,11 @@ from __future__ import annotations
 import json
 import random
 from dataclasses import dataclass
-from typing import Iterator
+from typing import Iterator, Optional
 
 import numpy as np
 
-from gcn_tpu_torch import constants
+from gcn_tpu_torch import constants, constants_semeval
 from gcn_tpu_torch.config import Config
 from gcn_tpu_torch.data.vocab import Vocab, map_to_ids
 from gcn_tpu_torch.graph.prune import PrunedGraph, prune_graph
@@ -43,14 +46,19 @@ def get_positions(start_idx: int, end_idx: int, length: int) -> list[int]:
     )
 
 
+def constants_for(dataset: str):
+    """The tag and label tables of ``dataset`` ("tacred" or "semeval")."""
+    return constants if dataset == "tacred" else constants_semeval
+
+
 @dataclass
 class Example:
-    words: np.ndarray     # [L] int32 token ids
-    pos: np.ndarray       # [L] int32
-    ner: np.ndarray       # [L] int32
-    deprel: np.ndarray    # [L] int32
-    subj_pos: np.ndarray  # [L] int32
-    obj_pos: np.ndarray   # [L] int32
+    words: np.ndarray          # [L] int32 token ids, or [L, D] f32 (BERT)
+    pos: np.ndarray            # [L] int32
+    ner: Optional[np.ndarray]  # [L] int32 (TACRED only)
+    deprel: np.ndarray         # [L] int32
+    subj_pos: np.ndarray       # [L] int32
+    obj_pos: np.ndarray        # [L] int32
     relation: int
     graph: PrunedGraph
 
@@ -60,35 +68,45 @@ class Example:
 
 
 class RelationDataset:
-    """Load and preprocess a TACRED JSON file, pruning every tree once."""
+    """Load and preprocess a TACRED or SemEval JSON file, pruning every
+    tree once.  ``bert_embeddings`` maps each example's ``id`` to its
+    ``[L, D]`` float rows, which then stand in for the word ids."""
 
-    def __init__(self, filename: str, cfg: Config, vocab: Vocab):
-        if cfg.model.dataset != "tacred" or cfg.model.use_bert_embeddings:
-            raise NotImplementedError(
-                "the port loads TACRED with word ids only")
+    def __init__(self, filename: str, cfg: Config, vocab: Vocab,
+                 bert_embeddings: Optional[dict] = None):
         self.cfg = cfg
         self.vocab = vocab
-        self.label2id = constants.LABEL_TO_ID
+        self.dataset = cfg.model.dataset
+        self.C = constants_for(self.dataset)
+        self.bert_embeddings = bert_embeddings
+        self.label2id = self.C.LABEL_TO_ID
         self.id2label = {v: k for k, v in self.label2id.items()}
         with open(filename) as f:
             self.examples = [self._preprocess(d) for d in json.load(f)]
 
     def _preprocess(self, d: dict) -> Example:
+        C = self.C
         tokens = list(d["token"])
         if self.cfg.train.lower:
             tokens = [t.lower() for t in tokens]
         ss, se = d["subj_start"], d["subj_end"]
         os_, oe = d["obj_start"], d["obj_end"]
-        tokens[ss : se + 1] = ["SUBJ-" + d["subj_type"]] * (se - ss + 1)
-        tokens[os_ : oe + 1] = ["OBJ-" + d["obj_type"]] * (oe - os_ + 1)
-        words = np.asarray(self.vocab.map(tokens), dtype=np.int32)
-        pos = np.asarray(map_to_ids(d["stanford_pos"], constants.POS_TO_ID),
+        if self.dataset == "tacred":
+            tokens[ss : se + 1] = ["SUBJ-" + d["subj_type"]] * (se - ss + 1)
+            tokens[os_ : oe + 1] = ["OBJ-" + d["obj_type"]] * (oe - os_ + 1)
+        if self.bert_embeddings is not None:
+            words = np.asarray(self.bert_embeddings[d["id"]],
+                               dtype=np.float32)
+        else:
+            words = np.asarray(self.vocab.map(tokens), dtype=np.int32)
+        pos = np.asarray(map_to_ids(d["stanford_pos"], C.POS_TO_ID),
                          dtype=np.int32)
-        ner = np.asarray(map_to_ids(d["stanford_ner"], constants.NER_TO_ID),
-                         dtype=np.int32)
+        ner = None
+        if self.dataset == "tacred":
+            ner = np.asarray(map_to_ids(d["stanford_ner"],
+                                        constants.NER_TO_ID), dtype=np.int32)
         deprel = np.asarray(
-            map_to_ids(d["stanford_deprel"], constants.DEPREL_TO_ID),
-            dtype=np.int32)
+            map_to_ids(d["stanford_deprel"], C.DEPREL_TO_ID), dtype=np.int32)
         head = np.asarray([int(x) for x in d["stanford_head"]],
                           dtype=np.int32)
         if not (head == 0).any():
@@ -159,8 +177,13 @@ class Batcher:
         pad_b = self.batch_size if self.pad_batches else len(exs)
         n = self._bucket_len(max(e.length for e in exs))
         e_cap = n  # a tree over n tokens has < n edges
+        use_bert = exs[0].words.ndim == 2
 
-        words = np.full((pad_b, n), constants.PAD_ID, dtype=np.int32)
+        if use_bert:  # float [L, D] rows, zero-padded
+            words = np.zeros((pad_b, n, exs[0].words.shape[1]),
+                             dtype=np.float32)
+        else:
+            words = np.full((pad_b, n), constants.PAD_ID, dtype=np.int32)
         pos = np.zeros((pad_b, n), dtype=np.int32)
         ner = np.zeros((pad_b, n), dtype=np.int32)
         deprel = np.zeros((pad_b, n), dtype=np.int32)
@@ -179,14 +202,15 @@ class Batcher:
         for b, ex in enumerate(exs):
             L = ex.length
             w = ex.words
-            if word_do > 0:
+            if word_do > 0 and not use_bert:
                 # UNK substitution, never re-dropping an existing UNK
                 drop = (self.rng.random_sample(L) < word_do) & (
                     w != constants.UNK_ID)
                 w = np.where(drop, constants.UNK_ID, w)
             words[b, :L] = w
             pos[b, :L] = ex.pos
-            ner[b, :L] = ex.ner
+            if ex.ner is not None:
+                ner[b, :L] = ex.ner
             deprel[b, :L] = ex.deprel
             subj_mask[b, :L] = ex.subj_pos == 0
             obj_mask[b, :L] = ex.obj_pos == 0
@@ -201,7 +225,7 @@ class Batcher:
             edge_deprel[b, :ne] = g.edge_deprel
             edge_mask[b, :ne] = True
 
-        return {
+        batch = {
             "words": words,
             "pad_mask": pad_mask,
             "pos": pos,
@@ -215,5 +239,7 @@ class Batcher:
             "edge_child": edge_child,
             "edge_deprel": edge_deprel,
             "edge_mask": edge_mask,
-            "ner": ner,
         }
+        if self.ds.dataset == "tacred":
+            batch["ner"] = ner
+        return batch

@@ -1,10 +1,14 @@
 """The C-GCN and the paper's GCN relation classifier.
 
-Counterpart of ``gcn_tpu.models.gcn.GCNClassifier`` for three modes:
+Counterpart of ``gcn_tpu.models.gcn.GCNClassifier`` for its four modes:
 ``full_deprel`` (``cgcn_preset``: embeddings → BiLSTM → full_deprel GCN
 layers → pooling → MLP → logits), ``regular`` (``gcn_preset``, with or
-without the BiLSTM) and ``attention`` (edge-attention aggregation),
-differentiable end to end.  full_deprel runs factored (the grouped
+without the BiLSTM), ``attention`` (edge-attention aggregation) and
+``diagonal_deprel`` (element-wise deprel gates after a ``preprocessor``
+dense layer), differentiable end to end, on TACRED or SemEval, with word
+ids or precomputed float word vectors (``use_bert_embeddings``: the
+batch's ``words`` is [B, N, D] and the model has no word table).
+full_deprel runs factored (the grouped
 matmul, ``deprel_factored`` "auto"/"ragged"/"pallas"/True) or not
 (``deprel_factored=False``: the per-token bilinear transform, an einsum on
 the dense bands, the ``deprel_bilinear`` kernel on the fused path).  With
@@ -17,17 +21,17 @@ from ``attention_impl`` instead: dense masked-softmax bands, or edge lists
 (``sddmm`` → ``edge_softmax`` → weighted SpMM), ``"auto"`` by the size of
 the [B, N, N] score buffer.  ``deterministic=False`` applies the JAX
 model's stochastic points in its order, each drawn from the caller's
-``torch.Generator``: embedding dropout, input dropout, the BiLSTM's
-inter-layer dropout, rnn dropout, then per GCN layer edge dropout and
-deprel forgetting on the forward band, the same on the reverse band, and
-gcn dropout between layers.  Unpacked batches, f32.  Other modes raise
-``NotImplementedError``.
+``torch.Generator``: embedding dropout (word ids only), input dropout, the
+BiLSTM's inter-layer dropout, rnn dropout, then per GCN layer edge dropout
+and deprel forgetting on the forward band, the same on the reverse band
+(full_deprel only), and gcn dropout between layers.  Unpacked batches,
+f32.  Other settings raise ``NotImplementedError``.
 
 Parameters keep the flax names and layouts (``word_emb``,
 ``rnn.l0_fwd_w_ih [D, 4H]``, ``gcn_deprel_w0 [D, T, H]``,
-``gcn_w0_kernel [T, H]``, ``attn_q0 [T, H]``, ``mlp0.kernel [in, out]``,
-...), so ``convert.params_from_jax`` carries a flax tree across name for
-name.
+``gcn_w0_kernel [T, H]``, ``attn_q0 [T, H]``, ``preprocessor.kernel
+[T, H]``, ``mlp0.kernel [in, out]``, ...), so ``convert.params_from_jax``
+carries a flax tree across name for name.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from torch import nn
 
 from gcn_tpu_torch import constants
 from gcn_tpu_torch.config import ModelConfig
+from gcn_tpu_torch.data.dataset import constants_for
 from gcn_tpu_torch.ops.adjacency import build_adjacency
 from gcn_tpu_torch.ops.band_aggregate import fused_band_aggregate
 from gcn_tpu_torch.ops.deprel_bilinear import deprel_bilinear_batched
@@ -50,6 +55,7 @@ from gcn_tpu_torch.ops.dropout import (
 )
 from gcn_tpu_torch.ops.gcn_layers import (
     compose_relation_transforms,
+    diagonal_deprel_layer,
     full_deprel_layer,
     grouped_bilinear,
     make_group_plan,
@@ -88,9 +94,8 @@ def _check_supported(cfg: ModelConfig) -> None:
     resolve_attention_impl(cfg.attention_impl, 0, 0)
     unsupported = {
         "adj_type": cfg.adj_type not in ("regular", "full_deprel",
-                                         "attention"),
-        "dataset": cfg.dataset != "tacred",
-        "use_bert_embeddings": cfg.use_bert_embeddings,
+                                         "attention", "diagonal_deprel"),
+        "dataset": cfg.dataset not in ("tacred", "semeval"),
         "compute_dtype": cfg.compute_dtype != "float32",
         "use_pallas": cfg.use_pallas not in (True, False, "auto"),
         "graph_partition": cfg.graph_partition != "none",
@@ -98,8 +103,8 @@ def _check_supported(cfg: ModelConfig) -> None:
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
-            f"the port runs the regular, full_deprel and attention modes; "
-            f"unsupported settings: {', '.join(bad)}")
+            f"the port runs f32 on one device; unsupported settings: "
+            f"{', '.join(bad)}")
 
 
 class TorchDense(nn.Module):
@@ -152,33 +157,42 @@ class GCNClassifier(nn.Module):
 
     ``unused_params`` names the parameters that no forward reaches (the
     one-wide deprel table of the regular and attention modes, kept for
-    flax's tree): their gradient is zero, as under ``jax.grad``."""
+    flax's tree): their gradient is zero, as under ``jax.grad``.  With
+    ``use_bert_embeddings`` there is no ``word_emb``; ``ner_emb`` exists
+    for TACRED only."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         _check_supported(cfg)
         self.cfg = cfg
-        self.word_emb = nn.Parameter(torch.empty(cfg.vocab_size, cfg.emb_dim))
+        if not cfg.use_bert_embeddings:
+            self.word_emb = nn.Parameter(
+                torch.empty(cfg.vocab_size, cfg.emb_dim))
         if cfg.pos_dim > 0:
-            self.pos_emb = nn.Parameter(
-                torch.empty(len(constants.POS_TO_ID), cfg.pos_dim))
-        if cfg.ner_dim > 0:
+            # SemEval's table has a 48th tag ("pad"), as in JAX
+            n_pos = len(constants_for(cfg.dataset).POS_TO_ID)
+            self.pos_emb = nn.Parameter(torch.empty(n_pos, cfg.pos_dim))
+        if cfg.ner_dim > 0 and cfg.dataset == "tacred":
             self.ner_emb = nn.Parameter(
                 torch.empty(len(constants.NER_TO_ID), cfg.ner_dim))
-        in_dim = cfg.emb_dim + cfg.pos_dim + cfg.ner_dim
         if cfg.rnn:
-            self.rnn = BiLSTM(in_dim, cfg.rnn_hidden, cfg.rnn_layers,
+            self.rnn = BiLSTM(cfg.input_dim, cfg.rnn_hidden, cfg.rnn_layers,
                               impl=cfg.rnn_impl,
                               dropout_rate=cfg.rnn_dropout)
-        t0 = 2 * cfg.rnn_hidden if cfg.rnn else in_dim
-        # the regular and attention modes' table is a one-wide dummy, as in
-        # JAX
+        t0 = cfg.gcn_input_dim
+        diagonal = cfg.adj_type == "diagonal_deprel"
         full = cfg.adj_type == "full_deprel"
-        d = cfg.deprel_emb_dim if full else 1
+        if diagonal:
+            self.preprocessor = TorchDense(t0, cfg.hidden_dim)
+        # the regular and attention modes' table is a one-wide dummy, as in
+        # JAX; diagonal_deprel's rows are its gates, hidden_dim wide
+        d = (cfg.deprel_emb_dim if full
+             else cfg.hidden_dim if diagonal else 1)
         self.deprel_emb = nn.Parameter(
             torch.empty(len(constants.DEPREL_TO_ID), d))
-        self.unused_params = frozenset(() if full else {"deprel_emb"})
-        if not full:
+        self.unused_params = frozenset(
+            () if full or diagonal else {"deprel_emb"})
+        if cfg.adj_type in ("regular", "attention"):
             for l in range(cfg.num_layers):
                 t_l = t0 if l == 0 else cfg.hidden_dim
                 names = ["gcn_w{}_kernel", "gcn_w{}_bias"]
@@ -189,7 +203,7 @@ class GCNClassifier(nn.Module):
                              else (t_l, cfg.hidden_dim))
                     self.register_parameter(
                         name.format(l), nn.Parameter(torch.empty(shape)))
-        elif cfg.deprel_shared_w:
+        elif full and cfg.deprel_shared_w:
             # the reference's one W for every layer
             if cfg.num_layers > 1 and t0 != cfg.hidden_dim:
                 raise ValueError(
@@ -198,7 +212,7 @@ class GCNClassifier(nn.Module):
             self.gcn_deprel_w = nn.Parameter(
                 torch.empty(d, t0, cfg.hidden_dim))
             self.gcn_deprel_b = nn.Parameter(torch.empty(d, cfg.hidden_dim))
-        else:
+        elif full:
             for l in range(cfg.num_layers):
                 t_l = t0 if l == 0 else cfg.hidden_dim
                 self.register_parameter(
@@ -255,6 +269,9 @@ class GCNClassifier(nn.Module):
         if not deterministic and generator is None:
             raise ValueError("a stochastic forward needs a generator")
         words = batch["words"]
+        if cfg.use_bert_embeddings and words.dim() != 3:
+            raise ValueError("use_bert_embeddings needs float words "
+                             f"[B, N, D], got {tuple(words.shape)}")
         n = words.shape[1]
         fused = self.use_fused(deterministic)
         attn_impl = None
@@ -273,17 +290,23 @@ class GCNClassifier(nn.Module):
                                   batch["edge_mask"], n)
             pool_exclude = adj.pool_mask
 
-        # embeddings (padding_idx=0 semantics for words)
-        word_vecs = self.word_emb[words]
-        mult = embedding_dropout_mask(words, cfg.vocab_size, cfg.emb_dropout,
-                                      deterministic, generator)
-        if mult is not None:
-            word_vecs = word_vecs * mult
-        word_vecs = word_vecs.masked_fill((words == 0)[..., None], 0.0)
+        if cfg.use_bert_embeddings:
+            # precomputed word vectors go in as they are: no table, no
+            # embedding dropout, no padding-row zeroing
+            word_vecs = words.float()
+        else:
+            # embeddings (padding_idx=0 semantics for words)
+            word_vecs = self.word_emb[words]
+            mult = embedding_dropout_mask(words, cfg.vocab_size,
+                                          cfg.emb_dropout, deterministic,
+                                          generator)
+            if mult is not None:
+                word_vecs = word_vecs * mult
+            word_vecs = word_vecs.masked_fill((words == 0)[..., None], 0.0)
         embs = [word_vecs]
         if cfg.pos_dim > 0:
             embs.append(self.pos_emb[batch["pos"]])
-        if cfg.ner_dim > 0:
+        if cfg.ner_dim > 0 and cfg.dataset == "tacred":
             embs.append(self.ner_emb[batch["ner"]])
         h = torch.cat(embs, dim=2)
         h = dropout(h, cfg.input_dropout, deterministic, generator)
@@ -292,6 +315,9 @@ class GCNClassifier(nn.Module):
             h = dropout(h, cfg.rnn_dropout, deterministic, generator)
 
         deprel = batch["deprel"]
+        if cfg.adj_type == "diagonal_deprel":
+            h = self.preprocessor(h)
+            e_fwd, e_rev, e_self = self._diagonal_gates(deprel)
         plans: dict = {}
         for l in range(cfg.num_layers):
             if cfg.adj_type == "regular":
@@ -307,6 +333,16 @@ class GCNClassifier(nn.Module):
                     h, l, adj, None if attn_impl == "dense" else edges)
                 # the self connection is unnormalized, and no denominator
                 h = torch.relu(agg + hw + b)
+            elif cfg.adj_type == "diagonal_deprel":
+                if fused:
+                    # the kernel applies the denominator and the ReLU; the
+                    # self gate's broadcast is materialized for it, and
+                    # autograd sums its gradient back to the table's row
+                    h = fused_band_aggregate(*edges, e_fwd * h, e_rev * h,
+                                             e_self * h)
+                else:
+                    h = torch.relu(diagonal_deprel_layer(
+                        h, adj.forward, e_fwd, e_rev, e_self) / adj.denom)
             elif fused:
                 x_f, x_r, x_s = self._full_deprel_components(
                     h, deprel, l, plans, deterministic, generator)
@@ -374,6 +410,30 @@ class GCNClassifier(nn.Module):
             agg = band if agg is None else agg + band
         return agg
 
+    # ----------------------------------------------------- diagonal_deprel
+    def _diagonal_gates(self, deprel):
+        """(e_fwd [B, N, H], e_rev [B, N, H], e_self [H]): the forward gate
+        at each token's deprel id, zero at id 0 (padding); the reverse gate
+        at the token's own id + 42 (the reference indexes the reverse band
+        by the message sender's id), not zeroed, so padding reads row 42;
+        the self-loop row.  The same for every layer, as JAX reads them."""
+        table = self.deprel_emb
+        e_fwd = self._table_rows(table, deprel).masked_fill(
+            (deprel == 0)[..., None], 0.0)
+        e_rev = self._table_rows(table,
+                                 deprel + constants.DEPREL_FORWARD_BOUND)
+        return e_fwd, e_rev, table[constants.SELF_LOOP_INDEX]
+
+    @staticmethod
+    def _table_rows(table, ids):
+        """``table[ids]`` for ids [B, N] → [B, N, D] as a one-hot matmul
+        (JAX gathers): its backward is one ``onehotᵀ @ g`` product, where
+        PyTorch's index backward serialises on repeated rows (89 rows for
+        the 4800 tokens of a band: 6.3 ms of the non-factored C-GCN's train
+        step on an H100 at B=50, N=96)."""
+        onehot = torch.nn.functional.one_hot(ids.long(), table.shape[0])
+        return onehot.to(table.dtype) @ table
+
     # --------------------------------------------------------- full_deprel
     def _relation_table(self):
         """The relation table + an all-ones row (forgotten relations and
@@ -384,14 +444,8 @@ class GCNClassifier(nn.Module):
                           table.new_zeros((1, d))], dim=0)
 
     def _relation_rows(self, ids):
-        """The relation table's rows for ids [B, N] → [B, N, D], as a
-        one-hot matmul (JAX gathers): its backward is one ``onehotᵀ @ g``
-        product, where PyTorch's index backward serialises on repeated
-        rows (89 rows for the 4800 tokens of a band: 6.3 ms of the
-        non-factored C-GCN's train step on an H100 at B=50, N=96)."""
-        table = self._relation_table()
-        onehot = torch.nn.functional.one_hot(ids.long(), table.shape[0])
-        return onehot.to(table.dtype) @ table
+        """The relation table's rows for ids [B, N] → [B, N, D]."""
+        return self._table_rows(self._relation_table(), ids)
 
     def _factored_tables(self, w, b):
         """The relation table's rows composed with W and b."""
@@ -535,11 +589,12 @@ def init_params(model: GCNClassifier, generator: torch.Generator) -> None:
     def normal(p):
         p.copy_(torch.randn(p.shape, generator=generator))
 
-    uniform(model.word_emb, 1.0)
-    model.word_emb[constants.PAD_ID] = 0.0
+    if not cfg.use_bert_embeddings:
+        uniform(model.word_emb, 1.0)
+        model.word_emb[constants.PAD_ID] = 0.0
     if cfg.pos_dim > 0:
         normal(model.pos_emb)
-    if cfg.ner_dim > 0:
+    if cfg.ner_dim > 0 and cfg.dataset == "tacred":
         normal(model.ner_emb)
     if cfg.rnn:
         for p in model.rnn.parameters():
@@ -555,13 +610,15 @@ def init_params(model: GCNClassifier, generator: torch.Generator) -> None:
             if cfg.adj_type == "attention":
                 uniform(getattr(model, f"attn_q{l}"), bound)
                 uniform(getattr(model, f"attn_k{l}"), bound)
-    else:
+    elif cfg.adj_type == "full_deprel":
         for l in range(1 if cfg.deprel_shared_w else cfg.num_layers):
             w, b = model.deprel_weights(l)
             bound = 1.0 / math.sqrt(w.shape[1])
             uniform(w, bound)
             uniform(b, bound)
     dense = [getattr(model, f"mlp{i}") for i in range(cfg.mlp_layers)]
+    if cfg.adj_type == "diagonal_deprel":
+        dense.append(model.preprocessor)
     for layer in dense + [model.classifier]:
         bound = 1.0 / math.sqrt(layer.kernel.shape[0])
         uniform(layer.kernel, bound)

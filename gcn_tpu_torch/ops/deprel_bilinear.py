@@ -39,12 +39,16 @@ import torch
 from gcn_tpu_torch.ops._cuda import CudaKernel
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# deprel_bilinear_sum_launches() counts the slice sums that either
+# version's launcher launched (one a call that splits K into slices)
 KERNEL_V2 = CudaKernel("deprel_bilinear.cu", {
     "deprel_bilinear_v2_f32": [_P] * 5 + [_I] * 5 + [_P],
-    "deprel_bilinear_slices": [_I] * 3}, name="deprel_bilinear_v2")
+    "deprel_bilinear_slices": [_I] * 3,
+    "deprel_bilinear_sum_launches": []}, name="deprel_bilinear_v2")
 KERNEL_V1 = CudaKernel("deprel_bilinear.cu", {
     "deprel_bilinear_v1_f32": [_P] * 5 + [_I] * 5 + [_P],
-    "deprel_bilinear_slices": [_I] * 3}, name="deprel_bilinear_v1")
+    "deprel_bilinear_slices": [_I] * 3,
+    "deprel_bilinear_sum_launches": []}, name="deprel_bilinear_v1")
 _KERNELS = {"v2": (KERNEL_V2, "deprel_bilinear_v2_f32"),
             "v1": (KERNEL_V1, "deprel_bilinear_v1_f32")}
 

@@ -1,14 +1,17 @@
-"""Dense GCN layer operators: the regular mode and full_deprel.
+"""Dense GCN layer operators: the regular, diagonal_deprel and full_deprel
+modes.
 
-Counterpart of ``regular_layer``, ``bilinear_traverse``,
-``full_deprel_layer`` and the factored path of ``gcn_tpu.ops.gcn_layers``.
+Counterpart of ``regular_layer``, ``diagonal_deprel_layer``,
+``bilinear_traverse``, ``full_deprel_layer`` and the factored path of
+``gcn_tpu.ops.gcn_layers``.
 ``regular_layer`` is ``((A+I)h)W + 2b`` on a prebuilt combined band, plain
-``torch.matmul`` as JAX leaves it to XLA; ``full_deprel_layer`` is the
-non-factored layer (``deprel_factored=False``) on the dense bands, its
-per-token transform one 3-operand ``einsum`` (``bilinear_traverse``).
-The
-per-token bilinear transform ``out[m] = Σ_d e[m,d]·(h[m] @ W[d] + b[d])``
-with ``e = table[ids]`` is linear in ``e``, so it equals
+``torch.matmul`` as JAX leaves it to XLA; ``diagonal_deprel_layer`` gates
+h element-wise before two ``bmm`` on the forward band;
+``full_deprel_layer`` is the non-factored layer (``deprel_factored=False``)
+on the dense bands, its per-token transform one 3-operand ``einsum``
+(``bilinear_traverse``).  The per-token bilinear transform
+``out[m] = Σ_d e[m,d]·(h[m] @ W[d] + b[d])`` with ``e = table[ids]`` is
+linear in ``e``, so it equals
 ``h[m] @ S[ids[m]] + bias[ids[m]]`` with the composed per-relation
 matrices ``S[r] = Σ_d table[r,d]·W[d]``: sort the tokens by relation, one
 grouped matmul, un-sort.  Every step is differentiable: the grouped
@@ -36,6 +39,17 @@ def regular_layer(h, adj_combined, w, b, no_adj: bool = False):
     keeps the true degrees)."""
     ax = h if no_adj else adj_combined @ h + h
     return ax @ w + 2.0 * b
+
+
+def diagonal_deprel_layer(h, adj_forward, e_fwd, e_rev, e_self):
+    """Element-wise deprel gating ``A_f (e_fwd ⊙ h) + A_fᵀ (e_rev ⊙ h) +
+    e_self ⊙ h`` for h, e_fwd, e_rev [B, N, H], the forward band [B, N, N]
+    and e_self [H]: two ``bmm`` on the band, as JAX leaves it to XLA.  The
+    reverse gate is indexed by the message sender's own deprel id (+42),
+    so the caller builds ``e_rev`` from the token ids, not the edges'."""
+    fwd = torch.bmm(adj_forward, e_fwd * h)
+    rev = torch.bmm(adj_forward.transpose(1, 2), e_rev * h)
+    return fwd + rev + e_self * h
 
 
 def compose_relation_transforms(table, w, b):

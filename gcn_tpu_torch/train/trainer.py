@@ -56,7 +56,8 @@ class Trainer:
     default; ``device="cpu"`` runs the kernels' plain versions).
     ``state_dict`` (e.g. ``convert.params_from_jax`` of a flax tree)
     replaces the seeded initialization; ``emb_matrix`` replaces the word
-    table."""
+    table (a model on precomputed word vectors has none, and refuses
+    it)."""
 
     def __init__(self, cfg: Config, state_dict: Optional[dict] = None,
                  emb_matrix: Optional[np.ndarray] = None,
@@ -70,6 +71,9 @@ class Trainer:
         else:
             model.load_state_dict(state_dict)
         if emb_matrix is not None:
+            if cfg.model.use_bert_embeddings:
+                raise ValueError("use_bert_embeddings: the model has no "
+                                 "word table for emb_matrix to replace")
             emb = torch.as_tensor(np.asarray(emb_matrix), dtype=torch.float32)
             if emb.shape != model.word_emb.shape:
                 raise ValueError(f"embedding matrix {tuple(emb.shape)} vs "

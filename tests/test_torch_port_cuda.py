@@ -709,11 +709,12 @@ def test_deprel_bilinear_kernels_match_plain(cuda_device, shape, version):
     x, e, w = features(rng, cuda_device, (m, t), (m, d), (d, t, h))
     w = w / np.sqrt(t)
     kernel = bilinear_mod._KERNELS[version][0]
+    lib = kernel.load()
     launches = kernel.launches
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        got = bilinear_mod.bilinear_forward(x, e, w, version)
-        torch.cuda.synchronize()
+    sums = lib.deprel_bilinear_sum_launches()
+    got = bilinear_mod.bilinear_forward(x, e, w, version)
+    # the slice sums the launcher launched in that call, by its own count
+    sums = lib.deprel_bilinear_sum_launches() - sums
     again = bilinear_mod.bilinear_forward(x, e, w, version)
     assert kernel.launches == launches + 2
     assert torch.equal(got, again)
@@ -721,10 +722,7 @@ def test_deprel_bilinear_kernels_match_plain(cuda_device, shape, version):
     assert scaled_err(got, plain(x, e, w)) <= 1e-4
     # both versions split K into the same slices, and a call sums their
     # partials by a second kernel exactly where there is more than one
-    slices = kernel.load().deprel_bilinear_slices(m, d, h)
-    sums = sum(evt.name.find("deprel_bilinear_sum_kernel") >= 0
-               for evt in prof.events()
-               if evt.device_type == torch.autograd.DeviceType.CUDA)
+    slices = lib.deprel_bilinear_slices(m, d, h)
     assert sums == (slices > 1)
 
 
@@ -792,6 +790,48 @@ def test_new_paths_on_card_match_cpu(cuda_device, mode):
         assert abs(got - want) <= 1e-4 * max(1.0, abs(want))
     assert bwd.launches == launches + 3 * per_layer_bwd * cfg.model.num_layers
     for k, v in cpu.model.state_dict().items():
+        assert scaled_err(card.model.state_dict()[k].cpu(), v) <= 1e-4, k
+
+
+@pytest.mark.cuda
+def test_diagonal_fused_on_card_matches_dense_and_cpu(cuda_device):
+    """The fused diagonal_deprel path (the band aggregation forward and its
+    pair backward, on gates no other path gives them), dropout off: the
+    evaluation forward against the dense bands on the card and the CPU,
+    and three train steps against the CPU, within 1e-4 of max(1, |ref|);
+    both kernels counted, one call a layer."""
+    extra = {"model.adj_type": "diagonal_deprel", "model.input_dropout": 0.0,
+             "model.rnn_dropout": 0.0, "model.gcn_dropout": 0.0}
+    cfg = small_cfg(**extra, **{"model.use_pallas": True})
+    dense_cfg = small_cfg(**extra, **{"model.use_pallas": False})
+    layers = cfg.model.num_layers
+    model = GCNClassifier(cfg.model)
+    init_params(model, torch.Generator().manual_seed(0))
+    state = model.state_dict()
+    batch = random_batch(np.random.RandomState(0))
+    launches = band_mod.KERNEL.launches
+    with torch.no_grad():
+        got, _ = Evaluator(cfg, state, device=cuda_device).model(
+            batch_to_device(batch, cuda_device))
+        assert band_mod.KERNEL.launches == launches + layers
+        dense, _ = Evaluator(dense_cfg, state, device=cuda_device).model(
+            batch_to_device(batch, cuda_device))
+        cpu, _ = Evaluator(cfg, state, device="cpu").model(
+            batch_to_device(batch, torch.device("cpu")))
+    assert band_mod.KERNEL.launches == launches + layers
+    assert scaled_err(got, dense) <= 1e-4
+    assert scaled_err(got.cpu(), cpu) <= 1e-4
+    card = Trainer(cfg, state, device=cuda_device)
+    on_cpu = Trainer(cfg, state, device="cpu")
+    launches = (band_mod.KERNEL.launches, band_mod.PAIR_KERNEL.launches)
+    rng = np.random.RandomState(1)
+    for _ in range(3):
+        batch = random_batch(rng)
+        got, want = float(card.update(batch)), float(on_cpu.update(batch))
+        assert abs(got - want) <= 1e-4 * max(1.0, abs(want))
+    assert (band_mod.KERNEL.launches, band_mod.PAIR_KERNEL.launches) == (
+        launches[0] + 3 * layers, launches[1] + 3 * layers)
+    for k, v in on_cpu.model.state_dict().items():
         assert scaled_err(card.model.state_dict()[k].cpu(), v) <= 1e-4, k
 
 

@@ -28,13 +28,14 @@ import torch
 
 from gcn_tpu import config as jax_config
 from gcn_tpu import constants as jax_constants
+from gcn_tpu import constants_semeval as jax_constants_semeval
 from gcn_tpu.data.dataset import Batcher as JaxBatcher
 from gcn_tpu.data.dataset import RelationDataset as JaxDataset
 from gcn_tpu.data.vocab import Vocab as JaxVocab
 from gcn_tpu.models.gcn import GCNClassifier as JaxGCN
 from gcn_tpu.train import scorer as jax_scorer
 from gcn_tpu.train.trainer import Trainer
-from gcn_tpu_torch import config, constants
+from gcn_tpu_torch import config, constants, constants_semeval
 from gcn_tpu_torch.convert import params_from_jax
 from gcn_tpu_torch.data.dataset import Batcher, RelationDataset
 from gcn_tpu_torch.data.vocab import Vocab
@@ -147,9 +148,9 @@ def test_init_params_match_jax_distributions():
 
 
 def test_unsupported_modes_raise():
-    for ov in ({"model.adj_type": "diagonal_deprel"},
-               {"model.compute_dtype": "bfloat16"},
-               {"model.graph_partition": "edges"}):
+    for ov in ({"model.compute_dtype": "bfloat16"},
+               {"model.graph_partition": "edges"},
+               {"model.graph_partition": "halo"}):
         _, tcfg = _configs(**ov)
         with pytest.raises(NotImplementedError):
             GCNClassifier(tcfg.model)
@@ -163,6 +164,16 @@ def test_copied_modules_match_originals():
         assert getattr(constants, name) == getattr(jax_constants, name)
     assert constants.DEPREL_FORWARD_BOUND == 42
     assert constants.SELF_LOOP_INDEX == 84
+    for name in ("DEPREL_TO_ID", "POS_TO_ID", "NER_TO_ID", "LABEL_TO_ID",
+                 "ID_TO_LABEL", "SUBJ_NER_TO_ID", "OBJ_NER_TO_ID",
+                 "VOCAB_PREFIX", "NEGATIVE_LABEL", "NUM_DEPREL", "NUM_POS",
+                 "NUM_CLASS", "PAD_ID", "UNK_ID", "PAD_TOKEN", "UNK_TOKEN",
+                 "EMB_INIT_RANGE", "INFINITY_NUMBER"):
+        assert getattr(constants_semeval, name) == getattr(
+            jax_constants_semeval, name), name
+    assert constants_semeval.POS_TO_ID["pad"] == 47
+    assert len(constants_semeval.DEPREL_TO_ID) == 42
+    assert constants_semeval.NEGATIVE_LABEL == "Other"
     rng = np.random.RandomState(0)
     labels = list(constants.LABEL_TO_ID)
     gold = [labels[i] for i in rng.randint(0, 5, 200)]

@@ -6,8 +6,10 @@
   ``use_pallas`` off, on and auto, with the BiLSTM, with ``no_adj``, and
   ``cgcn_preset`` on the fused path (directed, past ``deprel_max_depth``,
   without the self loop).  JAX runs its Pallas kernels in interpret mode.
-* The torch-reference goldens ``model_*.npz`` on the fused path, with
-  tests/test_model_parity.py's tolerance (atol 2e-5, rtol 1e-4).
+* The torch-reference goldens ``model_*.npz`` of the regular and
+  full_deprel modes on the fused path (``no_adj`` takes the dense path)
+  and on the dense bands, with tests/test_model_parity.py's tolerance
+  (atol 2e-5, rtol 1e-4).
 * ``Trainer.update`` follows JAX's trainer for 5 steps of ``gcn_preset``
   (dropout off) as tests/test_torch_port_train.py holds the C-GCN, and the
   goldens ``train_regular.npz`` / ``train_regular_l2.npz`` replay with
@@ -102,23 +104,44 @@ def test_forward_matches_jax(variant):
                                rtol=0)
 
 
-@pytest.mark.parametrize("case", ["regular_nornn", "regular_rnn", "full_rnn",
-                                  "full_rnn_directed", "full_rnn_depth0"])
-def test_fused_path_matches_reference_goldens(case):
+GOLDENS = ["regular_nornn", "regular_rnn", "full_rnn", "full_rnn_directed",
+           "full_rnn_depth0", "regular_rnn2l", "regular_avg", "regular_sum",
+           "l1_regular", "l3_regular", "regular_noadj"]
+
+
+def _golden_outputs(case, use_pallas):
+    """(golden, logits, pooled) of the golden's model in the port."""
     z = load_golden(f"model_{case}.npz")
     opt = json.loads(bytes(z["opt"]).decode())
     jcfg = golden_to_cfg(opt)
-    jcfg.use_pallas = True
+    jcfg.use_pallas = use_pallas
     state = {k[len("state."):]: v for k, v in z.items()
              if k.startswith("state.")}
     model = GCNClassifier(config.ModelConfig(**dataclasses.asdict(jcfg)))
     model.load_state_dict(params_from_jax(torch_state_to_params(state,
                                                                 jcfg)))
-    assert model.use_fused(deterministic=True)
+    # no_adj takes the dense path whatever use_pallas says, as in JAX
+    assert model.use_fused(deterministic=True) == (use_pallas
+                                                   and not jcfg.no_adj)
     batch = batch_to_device(golden_to_batch(z, opt["prune_k"]),
                             torch.device("cpu"))
     with torch.no_grad():
         logits, pooled = model(batch)
+    return z, logits, pooled
+
+
+@pytest.mark.parametrize("case", GOLDENS)
+def test_fused_path_matches_reference_goldens(case):
+    z, logits, pooled = _golden_outputs(case, True)
+    np.testing.assert_allclose(pooled.numpy(), z["out.pooled"], atol=2e-5,
+                               rtol=1e-4)
+    np.testing.assert_allclose(logits.numpy(), z["out.logits"], atol=2e-5,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("case", GOLDENS)
+def test_dense_path_matches_reference_goldens(case):
+    z, logits, pooled = _golden_outputs(case, False)
     np.testing.assert_allclose(pooled.numpy(), z["out.pooled"], atol=2e-5,
                                rtol=1e-4)
     np.testing.assert_allclose(logits.numpy(), z["out.logits"], atol=2e-5,
