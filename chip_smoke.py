@@ -54,6 +54,26 @@ Phases, one JSON line each:
    sentences/s, the device's busy time by kernel and the device memory
    one step adds are measured at N=96.
 
+6. cli    — the run's entry points at ``train_cgcn.sh``'s flags
+   (``cgcn_preset`` at its widths, sgd 0.3, B=50) on the committed
+   2400/1200/1200-sentence data of ``.campaign_r5/flagship/seed11``:
+   ``gcn_tpu_torch.scripts.train`` in process for 3 epochs, its launches
+   exactly ``EXPECTED["cgcn"]`` per step and per evaluation batch, its
+   run directory complete and its train loss falling; one epoch with
+   dropout off on the card and with ``--cpu``, ``logs.txt``'s train and
+   dev loss within 1e-4 relative; the same run as 2 epochs, then
+   ``--resume`` to
+   3, its ``best_model`` and ``checkpoint_epoch_3`` within 1e-6 of each
+   tensor's max |value| of the whole run's; the eval CLI as a subprocess
+   on the run (the test F1, dev loss and dev F1 that ``logs.txt``
+   recorded at the best epoch)
+   and on copies of gcn_tpu's committed seed-11 and seed-17 checkpoints
+   at B=100 (dev F1 0.612559 and 0.717025; the card's dev probabilities
+   and the CLI's dev loss within 1e-4 of the CPU's; a label unlike the
+   CPU's only where it is the CPU's second at a top-two gap under 1e-4).
+   Epoch walls,
+   sustained examples/s and the eval CLI's sentences/s.
+
 The paths: ``cgcn`` (``cgcn_preset``: BiLSTM, factored full_deprel on
 dense bands), ``cgcn_fused`` (the same with ``use_pallas=True``: the band
 aggregation kernels), ``gcn_fused`` (``gcn_preset`` with
@@ -76,9 +96,12 @@ machine with no CUDA device, or a directory without the package.
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1427,6 +1450,279 @@ def run_train(torch, dev, real_train, synth_train, vocab_size,
     }
 
 
+# ------------------------------------------------------------------ cli
+FLAGSHIP = os.path.join(HERE, ".campaign_r5", "flagship")
+# train_cgcn.sh's flags (its --num_epoch apart)
+CGCN_SH = ["--seed", "0", "--prune_k", "1", "--lr", "0.3", "--rnn_hidden",
+           "200", "--pooling", "max", "--mlp_layers", "2", "--pooling_l2",
+           "0.003", "--word_dropout", "0.04", "--emb_dropout", "0.0",
+           "--deprel_emb_dim", "50", "--adj_type", "full_deprel",
+           "--batch_size", "50"]
+CLI_EPOCHS = 3
+TOL_RESUME = 1e-6             # resumed vs whole run, of each tensor's max
+SEED_DEV_F1 = {11: 0.612559, 17: 0.717025}  # gcn_tpu's checkpoints, port
+NO_DROPOUT = ["--input_dropout", "0", "--gcn_dropout", "0", "--rnn_dropout",
+              "0", "--deprel_dropout", "0"]  # the card's and the CPU's
+                                             # generators differ
+NEAR_TIE = 1e-4               # a row may flip only where its top two CPU
+                              # probabilities lie this close
+
+
+def logged_rows(run_dir: str) -> tuple[list[str], list[list[str]]]:
+    """(logs.txt's lines, its epoch rows split at tabs)."""
+    with open(os.path.join(run_dir, "logs.txt")) as f:
+        lines = f.read().splitlines()
+    return lines, [ln.split("\t") for ln in lines[1:]
+                   if not ln.startswith("new best")]
+
+
+def run_eval_cli(run_dir: str, *args: str) -> dict:
+    """``python -m gcn_tpu_torch.scripts.eval`` on the card; its JSON line.
+    A non-zero exit fails the run."""
+    out = subprocess.run(
+        [sys.executable, "-m", "gcn_tpu_torch.scripts.eval", run_dir, *args],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        fail(f"eval CLI on {run_dir} exited {out.returncode}: "
+             f"{out.stderr[-2000:]}")
+    lines = out.stdout.splitlines()
+    return json.loads(lines[lines.index("Evaluation ended.") - 1])
+
+
+def split_sizes(data_dir: str, batch: int) -> tuple[int, int]:
+    """(train steps, evaluation batches) of one epoch of the driver:
+    train, train-eval, dev and test at ``batch`` rows."""
+    n = {}
+    for split in ("train", "dev", "test"):
+        with open(os.path.join(data_dir, f"{split}.json")) as f:
+            n[split] = -(-len(json.load(f)) // batch)
+    return n["train"], n["train"] + n["dev"] + n["test"]
+
+
+def dev_probs(run_dir: str, data_dir: str) -> tuple[list, dict]:
+    """(gold labels, {device: (probabilities, loss)}) of a run directory's
+    best model on dev, in process on the CPU and on the card, over the
+    eval CLI's batches."""
+    from gcn_tpu_torch.config import Config
+    from gcn_tpu_torch.convert import params_from_jax
+    from gcn_tpu_torch.data.dataset import Batcher, RelationDataset
+    from gcn_tpu_torch.data.vocab import Vocab
+    from gcn_tpu_torch.train.checkpoint import load_checkpoint
+    from gcn_tpu_torch.train.evaluator import Evaluator
+
+    cfg = Config.load(os.path.join(run_dir, "config.json"))
+    params, _, _ = load_checkpoint(os.path.join(run_dir, "best_model"),
+                                   load_opt_state=False)
+    ds = RelationDataset(os.path.join(data_dir, "dev.json"), cfg,
+                         Vocab.load(os.path.join(run_dir, "vocab.pkl")),
+                         evaluation=True)
+    batcher = Batcher(ds, cfg.train.eval_batch_size or cfg.train.batch_size,
+                      evaluation=True)
+    out = {}
+    for device in ("cpu", "cuda"):
+        ev = Evaluator(cfg, params_from_jax(params), device=device)
+        _, probs, loss = ev.evaluate(batcher)
+        out[device] = (np.asarray(probs), loss)
+    return batcher.gold(), out
+
+
+def check_seed_checkpoint(tmp: str, seed: int) -> dict:
+    """The eval CLI on the card on a copy of gcn_tpu's committed run, its
+    dev F1 against the target.  At these shapes (B=100, H=32, D=64) the
+    card's probabilities are held to the CPU's, and the CLI's loss to the
+    CPU's; a row whose label differs from the CPU's must have taken the
+    CPU's second label at a near-tie there."""
+    from gcn_tpu_torch import constants
+    from gcn_tpu_torch.train.scorer import score
+
+    src = os.path.join(FLAGSHIP, f"seed{seed}", "gcn_tpu_full_deprel_models",
+                       "cmp")
+    data_dir = os.path.join(FLAGSHIP, f"seed{seed}", "data")
+    run = os.path.join(tmp, f"seed{seed}")
+    os.makedirs(run)
+    for name in ("config.json", "vocab.pkl"):
+        shutil.copy(os.path.join(src, name), run)
+    shutil.copytree(os.path.join(src, "best_model"),
+                    os.path.join(run, "best_model"))
+    pred_file = os.path.join(tmp, f"seed{seed}_dev.txt")
+    out = run_eval_cli(run, "--data_dir", data_dir, "--dataset", "dev",
+                       "--out", pred_file)
+    with open(pred_file) as f:
+        card = f.read().split()
+    gold, evals = dev_probs(run, data_dir)
+    (probs, cpu_loss), (card_probs, card_loss) = evals["cpu"], evals["cuda"]
+    probs_err = float(np.abs(card_probs - probs).max())
+    loss_err = max(abs(out["loss"] - cpu_loss), abs(card_loss - cpu_loss)
+                   ) / max(1.0, abs(cpu_loss))
+    if probs_err > TOL_SLICE or loss_err > TOL_SLICE:
+        fail(f"seed {seed}: card against CPU at B=100: dev probabilities "
+             f"{probs_err}, loss {loss_err} (CLI {out['loss']}, in process "
+             f"{card_loss}, CPU {cpu_loss}); tolerance {TOL_SLICE}")
+    id2label = {v: k for k, v in constants.LABEL_TO_ID.items()}
+    cpu = [id2label[i] for i in probs.argmax(1)]
+    top2 = np.argsort(probs, axis=1)[:, -2:]
+    flipped = [i for i, (a, b) in enumerate(zip(card, cpu)) if a != b]
+    ties = [i for i in flipped
+            if card[i] == id2label[top2[i, 0]]
+            and probs[i, top2[i, 1]] - probs[i, top2[i, 0]] < NEAR_TIE]
+    cpu_f1 = score(gold, cpu, out=io.StringIO())[2]
+    if round(cpu_f1, 6) != SEED_DEV_F1[seed]:
+        fail(f"seed {seed}: CPU dev F1 {cpu_f1}, not {SEED_DEV_F1[seed]}")
+    # the card's F1 may then differ from the target through near-ties only
+    if len(ties) < len(flipped):
+        fail(f"seed {seed}: {len(flipped) - len(ties)} rows differ from the "
+             f"CPU's labels other than by its second label at a near-tie")
+    return {"dev_f1": out["f1"], "target": SEED_DEV_F1[seed],
+            "cpu_dev_f1": cpu_f1, "rows_unlike_cpu": len(flipped),
+            "probs_max_abs_err": probs_err, "loss_rel_err": loss_err,
+            "dev_loss": {"cli": out["loss"], "card": card_loss,
+                         "cpu": cpu_loss}, "tol": TOL_SLICE,
+            "sentences_per_s": out["sentences_per_s"],
+            "eval_seconds": out["seconds"], "batch_size": out["batch_size"]}
+
+
+def run_cli(torch) -> dict:
+    """The cli phase (module docstring, 6); fails on any miss."""
+    from gcn_tpu_torch.convert import params_from_jax
+    from gcn_tpu_torch.scripts import train
+    from gcn_tpu_torch.train.checkpoint import load_checkpoint
+
+    data_dir = os.path.join(FLAGSHIP, "seed11", "data")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    log = os.path.join(tmp, "train_stdout.txt")
+    try:
+        base = [*CGCN_SH, "--data_dir", data_dir, "--vocab_dir",
+                os.path.join(FLAGSHIP, "seed11", "vocab"),
+                "--model_save_dir", tmp]
+
+        def train_cli(*args):
+            with open(log, "a") as f, contextlib.redirect_stdout(f):
+                return train.main([*base, *args])
+
+        # 1. the whole run, counted
+        t0 = time.perf_counter()
+        result, launches = counted(lambda: train_cli(
+            "--id", "whole", "--num_epoch", str(CLI_EPOCHS)))
+        whole_s = time.perf_counter() - t0
+        steps, evals = split_sizes(data_dir, 50)
+        per_forward, per_step = EXPECTED["cgcn"]
+        for name, count in launches.items():
+            want = CLI_EPOCHS * (steps * per_step.get(name, 0)
+                                 + evals * per_forward.get(name, 0))
+            if count != want:
+                fail(f"cli: kernel {name} launched {count} times over "
+                     f"{CLI_EPOCHS} epochs, not {want}")
+        run = result["run_dir"]
+        for name in ("config.json", "vocab.pkl", "logs.txt",
+                     "deprel_embs.pkl", "dev_confusion_matrix.pkl",
+                     "test_confusion_matrix.pkl", "dev_incorrect_data.json",
+                     "test_incorrect_data.json"):
+            if not os.path.isfile(os.path.join(run, name)):
+                fail(f"cli: the run directory has no {name}")
+        for ck in ("best_model", f"checkpoint_epoch_{CLI_EPOCHS}"):
+            for name in ("params.msgpack", "opt_state.msgpack", "meta.json"):
+                if not os.path.isfile(os.path.join(run, ck, name)):
+                    fail(f"cli: the run directory has no {ck}/{name}")
+        lines, rows = logged_rows(run)
+        if len(rows) != CLI_EPOCHS:
+            fail(f"cli: logs.txt has {len(rows)} epoch lines: {lines}")
+        train_losses = [float(r[1]) for r in rows]
+        if not train_losses[-1] < train_losses[0]:
+            fail(f"cli: the train loss did not fall over {CLI_EPOCHS} "
+                 f"epochs: {train_losses}")
+
+        # 1b. dropout off (word dropout, drawn on the host, stays), one
+        # epoch on the card against one with --cpu: logs.txt's train and
+        # dev loss
+        nodrop_s = {}
+        for where in ("card", "cpu"):
+            t0 = time.perf_counter()
+            train_cli("--id", f"nodrop_{where}", "--num_epoch", "1",
+                      *NO_DROPOUT, *(["--cpu"] if where == "cpu" else []))
+            nodrop_s[where] = time.perf_counter() - t0
+        (card_row,), (cpu_row,) = (logged_rows(os.path.join(
+            tmp, f"nodrop_{w}"))[1] for w in ("card", "cpu"))
+        epoch1_err = max(abs(float(card_row[c]) - float(cpu_row[c]))
+                         / abs(float(cpu_row[c])) for c in (1, 2))
+        if epoch1_err > TOL_TRAIN:
+            fail(f"cli: epoch 1 without dropout, card {card_row} against "
+                 f"--cpu {cpu_row}: {epoch1_err} relative")
+
+        # 2. 2 epochs, then --resume to 3
+        train_cli("--id", "split", "--num_epoch", "2")
+        train_cli("--id", "split", "--num_epoch", str(CLI_EPOCHS), "--resume")
+        resume_err, same_bits = 0.0, True
+        for ck in ("best_model", f"checkpoint_epoch_{CLI_EPOCHS}"):
+            want = params_from_jax(load_checkpoint(os.path.join(run, ck))[0])
+            got = params_from_jax(load_checkpoint(os.path.join(
+                tmp, "split", ck))[0])
+            for k, v in want.items():
+                err = float((got[k] - v).abs().max()) / max(
+                    float(v.abs().max()), 1e-30)
+                resume_err = max(resume_err, err)
+                same_bits &= torch.equal(got[k], v)
+        if resume_err > TOL_RESUME:
+            fail(f"cli: the resumed run is {resume_err} of a tensor's max "
+                 f"from the whole run")
+        print(f"cli: resumed run, the same bits as the whole run: "
+              f"{same_bits}", flush=True)
+
+        # 3. the eval CLI on the run: the test F1 and the dev loss that
+        # logs.txt recorded at the best epoch
+        on_run = run_eval_cli(run, "--dataset", "test")
+        best = [ln for ln in lines if ln.startswith("new best")][-1]
+        logged = float(best.split("\t")[-1])
+        if (on_run["f1"] != result["test_at_best_dev"]["f1"]
+                or round(on_run["f1"] * 100, 2) != logged):
+            fail(f"cli: eval CLI test F1 {on_run['f1']}, logs.txt {logged}, "
+                 f"run {result['test_at_best_dev']['f1']}")
+        best_epoch = best.split(":")[0].split()[-1]
+        logged_dev = next(r for r in rows if r[0] == best_epoch)
+        on_dev = run_eval_cli(run, "--dataset", "dev")
+        if (f"{on_dev['loss']:.6f}" != logged_dev[2]
+                or f"{on_dev['f1']:.4f}" != logged_dev[3]):
+            fail(f"cli: eval CLI dev loss {on_dev['loss']} and F1 "
+                 f"{on_dev['f1']}, logs.txt at epoch {best_epoch}: "
+                 f"{logged_dev}")
+
+        # 4. the eval CLI on gcn_tpu's checkpoints
+        seeds = {seed: check_seed_checkpoint(tmp, seed)
+                 for seed in sorted(SEED_DEV_F1)}
+        for seed, r in seeds.items():
+            print(f"cli: seed {seed} dev F1 {r['dev_f1']:.6f}, "
+                  f"{r['sentences_per_s']:.1f} sentences/s", flush=True)
+    except BaseException:
+        if os.path.exists(log):
+            with open(log) as f:
+                sys.stderr.write(f.read()[-4000:])
+        raise
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {
+        "phase": "cli", "flags": "train_cgcn.sh", "epochs": CLI_EPOCHS,
+        "train_steps_per_epoch": steps, "eval_batches_per_epoch": evals,
+        "whole_run_s": whole_s,
+        "epoch_wall_s": [w for w, _ in result["epochs_timed"]],
+        "sustained_examples_per_s": [x for _, x in result["epochs_timed"]],
+        "launches": launches,
+        "train_loss_sums": train_losses,
+        "epoch1_no_dropout": {"card": card_row[1:3], "cpu": cpu_row[1:3],
+                              "max_rel_err": epoch1_err, "tol": TOL_TRAIN,
+                              "run_s": nodrop_s},
+        "resume": {"max_err": resume_err, "tol": TOL_RESUME,
+                   "same_bits": same_bits},
+        "best_dev_f1": result["best_dev"]["f1"],
+        "test_f1_at_best": result["test_at_best_dev"]["f1"],
+        "eval_cli_on_run": {"test_f1": on_run["f1"], "dev_f1": on_dev["f1"],
+                            "dev_loss": on_dev["loss"],
+                            "best_epoch": int(best_epoch),
+                            "sentences_per_s": {
+                                "test": on_run["sentences_per_s"],
+                                "dev": on_dev["sentences_per_s"]}},
+        "eval_cli_on_gcn_tpu": seeds,
+    }
+
+
 # the path whose train run gives each kernel's "launches" in the kernels
 # line: the one that brought the kernel in; v1 is on no path, and its
 # launches are those of the kernel phase
@@ -1528,6 +1824,8 @@ def main() -> int:
         trains[path] = run_train(torch, dev, real_train, synth_train,
                                  vocab_size, path)
         emit({**trains[path], "at_s": time.perf_counter() - t_start})
+    cli = run_cli(torch)
+    emit({**cli, "nvidia_smi": smi, "at_s": time.perf_counter() - t_start})
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -1546,7 +1844,8 @@ def main() -> int:
                      **{k: row[k] for k in ("bound_f32_ms", "library_sgemm_ms")
                         if k in row},
                      "launches_path": home or "kernel phase",
-                     "launches_by_path": by_path})
+                     "launches_by_path": by_path,
+                     "launches_cli": cli["launches"][kernel]})
     emit({"kernels": line})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -50,12 +50,19 @@ def params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
 
 def params_to_jax(state_dict: Mapping) -> dict:
     """The inverse of ``params_from_jax``: a ``{'params': {...}}`` tree of
-    f32 numpy arrays, nested at each ``.`` of the ``state_dict`` names."""
+    f32 numpy arrays, nested at each ``.`` of the ``state_dict`` names,
+    each level's keys sorted as JAX's pytrees hold them."""
     tree: dict = {}
-    for name, value in state_dict.items():
+    for name in sorted(state_dict):
         *path, leaf = name.split(".")
         node = tree
         for key in path:
             node = node.setdefault(key, {})
-        node[leaf] = value.detach().to("cpu", torch.float32).numpy().copy()
-    return {"params": tree}
+        node[leaf] = state_dict[name].detach().to(
+            "cpu", torch.float32).numpy().copy()
+
+    def ordered(node):
+        return {k: ordered(v) if isinstance(v, dict) else v
+                for k, v in sorted(node.items())}
+
+    return {"params": ordered(tree)}

@@ -17,8 +17,12 @@ Training batches follow the JAX ``Batcher`` bit for bit: one
 length bucket, fixed chunks every epoch, and word→UNK dropout re-drawn at
 every materialization from one ``np.random.RandomState(seed)`` in the same
 call order (never re-dropping an UNK; float words are never dropped).
-Evaluation batches keep file order and drop no words.  Only TACRED
-batches carry ``ner``.  Cross-sentence packing is not ported yet.
+``Batcher.advance`` makes those draws for batches a resumed run skips.
+Evaluation batches keep file order, drop no words, and are built once and
+replayed every epoch; a dataset loaded with ``evaluation=True`` drops no
+words in any batcher.  ``RelationDataset.raw_data`` keeps the JSON records
+(the misclassified-example dumps).  Only TACRED batches carry ``ner``.
+Cross-sentence packing is not ported yet.
 """
 
 from __future__ import annotations
@@ -70,19 +74,23 @@ class Example:
 class RelationDataset:
     """Load and preprocess a TACRED or SemEval JSON file, pruning every
     tree once.  ``bert_embeddings`` maps each example's ``id`` to its
-    ``[L, D]`` float rows, which then stand in for the word ids."""
+    ``[L, D]`` float rows, which then stand in for the word ids;
+    ``evaluation=True`` turns word dropout off."""
 
     def __init__(self, filename: str, cfg: Config, vocab: Vocab,
+                 evaluation: bool = False,
                  bert_embeddings: Optional[dict] = None):
         self.cfg = cfg
         self.vocab = vocab
+        self.evaluation = evaluation
         self.dataset = cfg.model.dataset
         self.C = constants_for(self.dataset)
         self.bert_embeddings = bert_embeddings
         self.label2id = self.C.LABEL_TO_ID
         self.id2label = {v: k for k, v in self.label2id.items()}
         with open(filename) as f:
-            self.examples = [self._preprocess(d) for d in json.load(f)]
+            self.raw_data = json.load(f)
+        self.examples = [self._preprocess(d) for d in self.raw_data]
 
     def _preprocess(self, d: dict) -> Example:
         C = self.C
@@ -154,6 +162,7 @@ class Batcher:
         self.chunks = [
             order[i : i + batch_size] for i in range(0, len(order), batch_size)
         ]
+        self._cache: Optional[list] = None
 
     def gold(self) -> list[str]:
         """Gold labels in iteration order."""
@@ -163,8 +172,36 @@ class Batcher:
         return len(self.chunks)
 
     def __iter__(self) -> Iterator[dict[str, np.ndarray]]:
-        for chunk in self.chunks:
-            yield self.materialize(chunk)
+        if not self.evaluation:  # word dropout is drawn anew every epoch
+            for chunk in self.chunks:
+                yield self.materialize(chunk)
+        elif self._cache is not None:
+            yield from self._cache
+        else:
+            cache = []
+            for chunk in self.chunks:
+                batch = self.materialize(chunk)
+                cache.append(batch)
+                yield batch
+            self._cache = cache
+
+    def word_dropout(self) -> float:
+        """The word→UNK rate of this batcher's batches."""
+        if self.evaluation or self.ds.evaluation:
+            return 0.0
+        return self.ds.cfg.train.word_dropout
+
+    def advance(self, batches: int) -> None:
+        """Draw the word dropout of the next ``batches`` batches (epochs
+        wrap round the chunks) without building them, as a resumed run
+        skips them, so the batches after them are an uninterrupted run's."""
+        if self.word_dropout() <= 0:
+            return
+        for i in range(batches):
+            for j in self.chunks[i % len(self.chunks)]:
+                ex = self.ds.examples[j]
+                if ex.words.ndim == 1:
+                    self.rng.random_sample(ex.length)
 
     def _bucket_len(self, max_len: int) -> int:
         for b in self.length_buckets:
@@ -198,7 +235,7 @@ class Batcher:
         edge_deprel = np.zeros((pad_b, e_cap), dtype=np.int32)
         edge_mask = np.zeros((pad_b, e_cap), dtype=bool)
 
-        word_do = 0.0 if self.evaluation else self.ds.cfg.train.word_dropout
+        word_do = self.word_dropout()
         for b, ex in enumerate(exs):
             L = ex.length
             w = ex.words

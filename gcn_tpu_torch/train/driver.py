@@ -1,0 +1,388 @@
+"""Epoch-loop driver shared by the TACRED and SemEval CLIs (counterpart of
+``gcn_tpu.train.driver``, one process on one device).
+
+The same training policy and run directory as gcn_tpu's: per-epoch
+train/dev/test evaluation with the official scorer; best-model tracking on
+dev F1, or on train F1 where there is no dev split (SemEval); per-epoch
+checkpoints with ``save_epoch`` retention plus the newest
+``keep_latest_checkpoints``; ``save_steps`` step checkpoints that
+``--resume`` continues mid-epoch; plateau decay of the rate for
+sgd/adagrad/adadelta; ``logs.txt``, ``config.json``, ``vocab.pkl``,
+``deprel_embs.pkl`` (a pickled numpy array), and at each new best the
+confusion matrices and misclassified examples.  Checkpoints are
+gcn_tpu's format, so either package resumes or evaluates the other's run.
+
+A resumed run is the uninterrupted one: the step counter seeds the
+dropout streams (``Trainer.load``), the train batcher draws the word
+dropout of the batches before the resume point (``Batcher.advance``), and
+the checkpoint's meta carries the selection history that the plateau
+decay reads and, in a step checkpoint, the losses of the epoch's batches
+before it.  The epoch's losses are summed on the device and fetched once.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import pickle
+import time
+from datetime import datetime
+from shutil import rmtree
+
+import numpy as np
+import torch
+
+from gcn_tpu_torch.config import Config
+from gcn_tpu_torch.data.dataset import Batcher, RelationDataset, constants_for
+from gcn_tpu_torch.data.vocab import Vocab
+from gcn_tpu_torch.train import checkpoint as ckpt
+from gcn_tpu_torch.train import scorer
+from gcn_tpu_torch.train.logger import FileLogger, ensure_dir, print_config
+from gcn_tpu_torch.train.profiling import ThroughputMeter, trace
+from gcn_tpu_torch.train.trainer import Trainer
+
+
+def load_word_embeddings(cfg: Config, vocab: Vocab):
+    if cfg.model.use_bert_embeddings:
+        return None
+    emb_file = os.path.join(cfg.data.vocab_dir, "embedding.npy")
+    if not os.path.exists(emb_file):
+        print(f"[warn] no embedding matrix at {emb_file}; using random init")
+        return None
+    emb = np.load(emb_file)
+    if emb.shape != (vocab.size, cfg.model.emb_dim):
+        raise ValueError(f"embedding matrix {emb.shape} vs vocab "
+                         f"{vocab.size} x emb_dim {cfg.model.emb_dim}")
+    return emb
+
+
+def find_latest_checkpoint(run_dir: str) -> str | None:
+    """Most recent checkpoint in a run directory (step checkpoints beat
+    their epoch's checkpoint by global step), else best_model."""
+    if not os.path.isdir(run_dir):
+        return None
+    best_key, best_name = None, None
+    for name in os.listdir(run_dir):
+        for prefix, kind in (("checkpoint_epoch_", 0),
+                             ("checkpoint_step_", 1)):
+            if not name.startswith(prefix) or name.endswith(".tmp"):
+                continue
+            try:
+                num = int(name.rsplit("_", 1)[1])
+            except ValueError:
+                continue
+            try:
+                with open(os.path.join(run_dir, name, "meta.json")) as f:
+                    meta = json.load(f).get("meta", {})
+            except OSError:
+                continue
+            step = int(meta.get("global_step") or 0)
+            epoch = int(meta.get("epoch") or num)
+            key = (step, epoch, kind)
+            if best_key is None or key > best_key:
+                best_key, best_name = key, name
+    if best_name:
+        return os.path.join(run_dir, best_name)
+    best = os.path.join(run_dir, "best_model")
+    return best if os.path.isdir(best) else None
+
+
+def prune_checkpoints(run_dir: str, epoch: int, save_epoch: int,
+                      keep_latest: int = 1) -> None:
+    """Reference retention (keep ``save_epoch`` multiples) plus the newest
+    ``keep_latest`` epoch checkpoints; a finished epoch supersedes its
+    step checkpoints."""
+    epochs = []
+    for name in os.listdir(run_dir):
+        if name.startswith("checkpoint_epoch_") and not name.endswith(".tmp"):
+            try:
+                epochs.append(int(name.rsplit("_", 1)[1]))
+            except ValueError:
+                continue
+    keep = set(sorted(epochs)[-max(keep_latest, 0):]) if keep_latest else set()
+    for e in epochs:
+        if e % save_epoch != 0 and e not in keep:
+            rmtree(os.path.join(run_dir, f"checkpoint_epoch_{e}"))
+    for name in list(os.listdir(run_dir)):
+        if name.startswith("checkpoint_step_") and not name.endswith(".tmp"):
+            rmtree(os.path.join(run_dir, name))
+
+
+def write_artifacts(art_dir: str, split: str, labels, batcher, ds,
+                    confusion_file: str = "") -> None:
+    """``{split}_confusion_matrix.pkl`` and ``{split}_incorrect_data.json``
+    (the raw records of the misclassified examples)."""
+    gold = np.array(batcher.gold())
+    pred = np.array(labels)
+    cm = scorer.compute_confusion_matrices(gold, pred)
+    with open(confusion_file or os.path.join(
+            art_dir, f"{split}_confusion_matrix.pkl"), "wb") as f:
+        pickle.dump(cm, f)
+    wrong = [ds.raw_data[batcher.order[i]] for i in np.nonzero(pred != gold)[0]]
+    with open(os.path.join(art_dir, f"{split}_incorrect_data.json"), "w") as f:
+        json.dump(wrong, f)
+
+
+def run_training(
+    cfg: Config,
+    bert_embeddings: dict | None = None,
+    load_from: str | None = None,
+    profile_dir: str | None = None,
+    resume: bool = False,
+    device="cuda",
+) -> dict:
+    """Train ``cfg`` for ``cfg.train.num_epoch`` epochs into
+    ``<model_save_dir>/<id>``; returns the best dev (or train) metrics, the
+    test metrics at that epoch, the run directory and each epoch's
+    ``(wall s, sustained examples/s)``."""
+    C = constants_for(cfg.model.dataset)
+    np.random.seed(cfg.train.seed)
+
+    vocab = Vocab.load(os.path.join(cfg.data.vocab_dir, "vocab.pkl"))
+    cfg.model.vocab_size = vocab.size
+    cfg.model.num_class = len(C.LABEL_TO_ID)
+    emb_matrix = load_word_embeddings(cfg, vocab)
+    if cfg.model.use_bert_embeddings:
+        cfg.model.emb_dim = 1024  # reference train.py:143-144
+
+    data_dir = cfg.data.data_dir
+    print(f"Loading data from {data_dir} with batch size "
+          f"{cfg.train.batch_size}...")
+    train_ds = RelationDataset(
+        os.path.join(data_dir, cfg.data.train_file), cfg, vocab,
+        bert_embeddings=bert_embeddings,
+    )
+    dev_path = os.path.join(data_dir, cfg.data.dev_file)
+    dev_ds = (
+        RelationDataset(dev_path, cfg, vocab, evaluation=True,
+                        bert_embeddings=bert_embeddings)
+        if os.path.exists(dev_path)
+        else None
+    )
+    test_ds = RelationDataset(
+        os.path.join(data_dir, cfg.data.test_file), cfg, vocab,
+        evaluation=True, bert_embeddings=bert_embeddings,
+    )
+
+    bs = cfg.train.batch_size
+    ebs = cfg.train.eval_batch_size or bs
+    train_batcher = Batcher(train_ds, bs, seed=cfg.train.seed,
+                            group_by_length=cfg.data.group_by_length)
+    train_eval_batcher = Batcher(train_ds, ebs, evaluation=True)
+    dev_batcher = Batcher(dev_ds, ebs, evaluation=True) if dev_ds else None
+    test_batcher = Batcher(test_ds, ebs, evaluation=True)
+
+    model_id = cfg.id if len(cfg.id) > 1 else "0" + cfg.id
+    run_dir = os.path.join(cfg.model_save_dir, model_id)
+    ensure_dir(run_dir)
+    cfg.save(os.path.join(run_dir, "config.json"))
+    vocab.save(os.path.join(run_dir, "vocab.pkl"))
+    file_logger = FileLogger(
+        os.path.join(run_dir, cfg.log),
+        header="# epoch\ttrain_loss\tdev_loss\tdev_score\tbest_dev_score",
+        append=resume,
+    )
+    print_config(cfg.to_dict())
+
+    trainer = Trainer(cfg, emb_matrix=emb_matrix, device=device)
+    start_epoch = 1
+    skip_batches = 0
+    resumed: dict = {}
+    if resume:
+        # the newest checkpoint in the run dir: params, optimizer state,
+        # rate, step counter, epoch, best metrics; a step checkpoint
+        # (save_steps > 0) resumes mid-epoch, its applied batches skipped
+        latest = find_latest_checkpoint(run_dir)
+        if latest:
+            resumed = trainer.load(latest)
+            if resumed.get("step_in_epoch") is not None:
+                start_epoch = max(int(resumed.get("epoch") or 1), 1)
+                skip_batches = int(resumed["step_in_epoch"])
+            else:
+                start_epoch = int(resumed.get("epoch") or 0) + 1
+            # the word dropout of the batches before the resume point
+            train_batcher.advance((start_epoch - 1) * len(train_batcher)
+                                  + skip_batches)
+            print(f"Resumed from {latest}; continuing at epoch "
+                  f"{start_epoch}"
+                  + (f" batch {skip_batches}" if skip_batches else ""))
+        else:
+            print(f"No checkpoint found in {run_dir}; starting fresh")
+    if load_from:
+        # warm start (reference train.py:186-195), optimizer state too
+        meta = trainer.load(load_from)
+        print(f"Loaded pretrained model from {load_from} "
+              f"(epoch {meta.get('epoch')})")
+    id2label = {v: k for k, v in C.LABEL_TO_ID.items()}
+    neg = cfg.train.scorer_negative_label or C.NEGATIVE_LABEL
+
+    selection_history: list[float] = list(
+        resumed.get("selection_history") or [])
+    best_metrics = resumed.get("best_metrics") or {
+        "f1": -np.inf, "precision": -np.inf, "recall": -np.inf}
+    test_at_best = resumed.get("test_at_best") or dict(best_metrics)
+    current_lr = trainer.current_lr
+    global_step = trainer.global_step
+    max_steps = len(train_batcher) * cfg.train.num_epoch
+    fmt = ("{}: step {}/{} (epoch {}/{}), loss = {:.6f} "
+           "({:.3f} sec/batch), lr: {:.6f}")
+    epochs_timed = []
+
+    def run_eval(batcher):
+        preds, _, loss = trainer.evaluate(batcher)
+        labels = [id2label[p] for p in preds]
+        p, r, f1 = scorer.score(batcher.gold(), labels, negative_label=neg)
+        return labels, loss, {"f1": f1, "precision": p, "recall": r}
+
+    def run_meta():  # copies: an async save writes them later
+        return {"best_metrics": dict(best_metrics),
+                "test_at_best": dict(test_at_best),
+                "selection_history": list(selection_history)}
+
+    meter = ThroughputMeter(device=trainer.device)
+    profiled = False
+
+    for epoch in range(start_epoch, cfg.train.num_epoch + 1):
+        # device scalars, summed and fetched once; after a mid-epoch resume
+        # the losses of the batches before it lead
+        epoch_losses = [torch.tensor(x, dtype=torch.float32,
+                                     device=trainer.device)
+                        for x in (resumed.get("epoch_losses") or [])
+                        if epoch == start_epoch]
+        meter.start()
+        # after a mid-epoch resume, the batches from the resume point on
+        first = skip_batches if epoch == start_epoch else 0
+        batches = (map(train_batcher.materialize,
+                       train_batcher.chunks[first:])
+                   if first else train_batcher)
+        for i, batch in enumerate(batches, start=first):
+            start = time.time()
+            global_step += 1
+            if profile_dir and not profiled and global_step == 3:
+                with trace(profile_dir):  # a warm step
+                    loss = trainer.update(batch)
+                profiled = True
+                print(f"profiler trace written to {profile_dir}")
+            else:
+                loss = trainer.update(batch)
+            epoch_losses.append(loss)
+            meter.step(int(batch["edge_mask"].sum()),
+                       int(batch["example_mask"].sum()))
+            if global_step % cfg.train.log_step == 0:
+                print(fmt.format(
+                    datetime.now(), global_step, max_steps, epoch,
+                    cfg.train.num_epoch, float(loss), time.time() - start,
+                    current_lr,
+                ) + f" [{meter.summary()}]")
+            if (cfg.train.save_steps
+                    and global_step % cfg.train.save_steps == 0):
+                # the parameters before any pending accumulation: the
+                # resume replays those batches (Trainer.save)
+                step_dir = os.path.join(
+                    run_dir, f"checkpoint_step_{global_step}")
+                applied = i + 1 - trainer.pending_batches
+                trainer.save(step_dir, epoch=epoch, extra_meta={
+                    **run_meta(), "step_in_epoch": applied,
+                    "epoch_losses": (torch.stack(
+                        epoch_losses[:applied]).tolist() if applied else []),
+                })
+                ckpt.wait_for_async_saves()
+                for name in os.listdir(run_dir):
+                    if (name.startswith("checkpoint_step_")
+                            and not name.endswith(".tmp")
+                            and name != f"checkpoint_step_{global_step}"):
+                        rmtree(os.path.join(run_dir, name))
+        trainer.flush_gradients()
+        train_loss = (float(torch.stack(epoch_losses).sum())
+                      if epoch_losses else 0.0)
+        eps, xps, wall = meter.sustained()
+        if epoch_losses:
+            epochs_timed.append((wall, xps))
+            print(f"epoch {epoch} sustained: {eps:,.0f} edges/s, "
+                  f"{xps:,.1f} ex/s over {wall:.2f}s wall")
+
+        # deprel embedding snapshot (reference train.py:239-241)
+        with open(os.path.join(run_dir, "deprel_embs.pkl"), "wb") as f:
+            pickle.dump(trainer.model.deprel_emb.detach().cpu().numpy(), f)
+
+        print("Evaluating on train set...")
+        train_labels, train_eval_loss, train_m = run_eval(train_eval_batcher)
+        print(f"epoch {epoch}: train_loss = {train_loss:.6f}, "
+              f"train_eval_loss = {train_eval_loss:.6f}, "
+              f"train_f1 = {train_m['f1']:.4f}")
+
+        if dev_batcher is not None:
+            print("Evaluating on dev set...")
+            dev_labels, dev_loss, dev_m = run_eval(dev_batcher)
+            print(f"epoch {epoch}: dev_loss = {dev_loss:.6f}, "
+                  f"dev_f1 = {dev_m['f1']:.4f}")
+        else:
+            # SemEval: select on train F1 (train_semeval.py:256-262)
+            dev_labels, dev_loss, dev_m = train_labels, train_eval_loss, train_m
+
+        selection_score = dev_m["f1"]
+        file_logger.log(
+            f"{epoch}\t{train_loss:.6f}\t{dev_loss:.6f}\t"
+            f"{selection_score:.4f}\t"
+            f"{max([selection_score] + selection_history):.4f}"
+        )
+
+        print("Evaluating on test set...")
+        test_labels, _, test_m = run_eval(test_batcher)
+
+        if dev_m["f1"] > best_metrics["f1"]:
+            best_metrics = dev_m
+            test_at_best = test_m
+            trainer.save(os.path.join(run_dir, "best_model"), epoch=epoch,
+                         extra_meta=run_meta())
+            print("new best model saved.")
+            file_logger.log(
+                "new best model saved at epoch {}: {:.2f}\t{:.2f}\t{:.2f}"
+                .format(epoch, test_m["precision"] * 100,
+                        test_m["recall"] * 100, test_m["f1"] * 100)
+            )
+            # confusion matrices + misclassified dumps, into the run dir
+            # unless --test_save_dir / --test_confusion_save_file redirect
+            art_dir = run_dir
+            if cfg.test_save_dir:
+                art_dir = os.path.join(cfg.test_save_dir, cfg.id)
+                os.makedirs(art_dir, exist_ok=True)
+            write_artifacts(art_dir, "test", test_labels, test_batcher,
+                            test_ds, cfg.test_confusion_save_file)
+            if dev_batcher is not None:
+                write_artifacts(art_dir, "dev", dev_labels, dev_batcher,
+                                dev_ds)
+
+        print("Best Dev Metrics | F1: {} | Precision: {} | Recall: {}".format(
+            best_metrics["f1"], best_metrics["precision"],
+            best_metrics["recall"]))
+        print("Test Metrics at Best Dev | F1: {} | Precision: {} | "
+              "Recall: {}".format(test_at_best["f1"],
+                                  test_at_best["precision"],
+                                  test_at_best["recall"]))
+
+        # plateau decay of the rate (train.py:340-343)
+        if (
+            len(selection_history) > cfg.train.decay_epoch
+            and selection_score <= selection_history[-1]
+            and cfg.train.optim in ("sgd", "adagrad", "adadelta")
+        ):
+            current_lr *= cfg.train.lr_decay
+            trainer.update_lr(current_lr)
+        selection_history.append(selection_score)
+
+        # epoch checkpoint + retention (train.py:329-337)
+        trainer.save(os.path.join(run_dir, f"checkpoint_epoch_{epoch}"),
+                     epoch=epoch, extra_meta=run_meta())
+        ckpt.wait_for_async_saves()
+        prune_checkpoints(run_dir, epoch, cfg.train.save_epoch,
+                          keep_latest=cfg.train.keep_latest_checkpoints)
+        print("")
+
+    print(f"Training ended with {cfg.train.num_epoch} epochs.")
+    return {
+        "best_dev": best_metrics,
+        "test_at_best_dev": test_at_best,
+        "run_dir": run_dir,
+        "epochs_timed": epochs_timed,
+    }

@@ -17,11 +17,21 @@ Counterpart of ``gcn_tpu.train.optim``: ``build_optimizer`` chains
 elsewhere, adagrad starts its accumulator at 0), so every rule is written
 here over plain tensors.  The learning rate is a plain attribute that
 ``set_learning_rate`` changes in place; the rules read it at each step.
+
+``state_tree`` and ``load_state_tree`` carry the state across as optax
+holds it for gcn_tpu's ``build_optimizer``: ``inject_hyperparams`` around
+``chain(freeze, clip, core)``, so that a checkpoint of either package
+resumes in the other.  The one step count stands for optax's three
+(``inject_hyperparams``' ``count``, adam's and adamax's ``count``,
+adagrad's ``step``), which advance together.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from gcn_tpu_torch.convert import params_from_jax, params_to_jax
 
 CORES = ("sgd", "adagrad", "myadagrad", "adam", "adamax", "adadelta")
 _FIXED_LR = {"adam": 1e-3, "adamax": 2e-3}
@@ -117,6 +127,74 @@ class Optimizer:
                 u = delta * -self.learning_rate
             out[k] = u
         return out
+
+    def _core_layout(self) -> tuple[dict, str | None]:
+        """optax's tree of the core (``inner_state."2"``) with each state
+        tensor's key where its ``{"params": ...}`` tree goes, and the key of
+        the core's step count (None where it keeps none)."""
+        if self.name == "sgd":
+            return {"0": {}, "1": {}}, None
+        if self.name in ("adagrad", "myadagrad"):  # AdagradState(step, accum)
+            return {"0": {"step": None, "accum": "accum"}, "1": {}}, "step"
+        if self.name in ("adam", "adamax"):
+            return {"0": {"count": None, "mu": "mu", "nu": "nu"},
+                    "1": {}}, "count"
+        return {"0": {}, "1": {"e_g": "e_g", "e_x": "e_x"}, "2": {}}, None
+
+    def state_tree(self) -> dict:
+        """The state as an optax tree of numpy arrays (see the module's
+        docstring); keys in optax's order."""
+        layout, _ = self._core_layout()
+        count = np.asarray(self.count, np.int32)
+
+        def fill(node):
+            return {k: fill(v) if isinstance(v, dict)
+                    else count if v is None
+                    else params_to_jax({n: st[v]
+                                        for n, st in self.state.items()})
+                    for k, v in node.items()}
+
+        return {"count": count,
+                "hyperparams": {"learning_rate": np.asarray(
+                    self.learning_rate, np.float32)},
+                "hyperparams_states": {},
+                "inner_state": {"0": {}, "1": {}, "2": fill(layout)}}
+
+    def load_state_tree(self, tree: dict,
+                        params: dict[str, torch.Tensor]) -> None:
+        """Take the state from an optax tree of ``state_tree``'s layout,
+        each tensor onto its parameter's device and dtype."""
+        layout, count_key = self._core_layout()
+        core = tree["inner_state"]["2"]
+        state: dict[str, dict[str, torch.Tensor]] = {}
+
+        def take(node, have, path):
+            if set(node) != set(have):
+                raise ValueError(
+                    f"{self.name} state at {path or 'inner_state/2'}: keys "
+                    f"{sorted(have)}, expected {sorted(node)}")
+            for k, v in node.items():
+                if isinstance(v, dict):
+                    take(v, have[k], f"{path}/{k}")
+                elif v is not None:
+                    flat = params_from_jax(have[k])
+                    if set(flat) != set(params):
+                        raise ValueError(f"{self.name} state {v}: parameters "
+                                         f"{sorted(set(flat) ^ set(params))} "
+                                         f"differ")
+                    for n, t in flat.items():
+                        if t.shape != params[n].shape:
+                            raise ValueError(f"{self.name} state {v} of {n}: "
+                                             f"{tuple(t.shape)}, expected "
+                                             f"{tuple(params[n].shape)}")
+                        state.setdefault(n, {})[v] = t.to(params[n].device,
+                                                          params[n].dtype)
+
+        take(layout, core, "")
+        count_at = core["0"][count_key] if count_key else tree["count"]
+        self.count = int(count_at)
+        self.learning_rate = float(tree["hyperparams"]["learning_rate"])
+        self.state = state
 
     @torch.no_grad()
     def step(self, params: dict[str, torch.Tensor],

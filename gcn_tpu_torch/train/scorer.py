@@ -1,5 +1,6 @@
 """Official scoring: micro P/R/F1 over string labels, excluding the
-negative relation (a copy of ``gcn_tpu.train.scorer``).
+negative relation, confusion counts and a scoring CLI (a copy of
+``gcn_tpu.train.scorer``).
 
 Same math as the reference's TACRED scorer (``utils/scorer.py:20-96``):
 pairs where both gold and prediction are the negative label are ignored;
@@ -78,3 +79,38 @@ def score(
     print(f"       F1 (micro): {f1_micro:.3%}", file=out)
     return prec_micro, recall_micro, f1_micro
 
+
+def compute_confusion_matrices(ground_truth, predictions) -> dict:
+    """Dict-of-dicts confusion counts (reference ``utils/scorer.py:98-106``)."""
+    cm: dict = {}
+    for gold, pred in zip(ground_truth, predictions):
+        cm.setdefault(gold, {}).setdefault(pred, 0)
+        cm[gold][pred] += 1
+    return cm
+
+
+def main(argv=None):
+    """CLI: score a prediction file against a gold file
+    (reference ``utils/scorer.py:108-120``)."""
+    import argparse
+
+    p = argparse.ArgumentParser(description="Score predictions vs gold.")
+    p.add_argument("gold_file")
+    p.add_argument("pred_file")
+    p.add_argument("--negative_label", default=NO_RELATION)
+    args = p.parse_args(argv)
+    with open(args.gold_file) as f:
+        key = [line.rstrip("\n") for line in f]
+    with open(args.pred_file) as f:
+        pred = [line.rstrip("\n") for line in f]
+    if len(key) != len(pred):
+        print(
+            f"Gold and prediction must have same length: {len(key)} vs "
+            f"{len(pred)}"
+        )
+        raise SystemExit(1)
+    score(key, pred, verbose=True, negative_label=args.negative_label)
+
+
+if __name__ == "__main__":
+    main()

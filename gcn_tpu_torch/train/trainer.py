@@ -14,7 +14,12 @@ Counterpart of the training half of ``gcn_tpu.train.trainer.Trainer``:
   ``(seed, s)``, as JAX folds the step into its key, so a run restarted at
   step s draws the same masks;
 * ``predict_batch`` and ``evaluate`` run the ``Evaluator`` code on the same
-  module.
+  module;
+* ``save`` and ``load`` write and read checkpoints in gcn_tpu's format
+  (``train.checkpoint``), so a run of either package resumes in the other.
+  A checkpoint holds the parameters before any pending accumulated
+  gradients: its ``global_step`` counts only the batches applied, so a
+  resumed run replays the pending ones with the same dropout streams.
 
 ``update`` returns the loss as a device tensor and does not synchronise.
 """
@@ -28,7 +33,9 @@ import torch
 import torch.nn.functional as F
 
 from gcn_tpu_torch.config import Config
+from gcn_tpu_torch.convert import params_from_jax, params_to_jax
 from gcn_tpu_torch.models.gcn import GCNClassifier, init_params
+from gcn_tpu_torch.train import checkpoint as ckpt
 from gcn_tpu_torch.train.evaluator import (
     Evaluator,
     batch_to_device,
@@ -146,6 +153,11 @@ class Trainer:
             self.flush_gradients()
         return loss
 
+    @property
+    def pending_batches(self) -> int:
+        """Batches whose gradients are accumulated but not yet applied."""
+        return self._accum_count
+
     def flush_gradients(self) -> None:
         """Apply any pending accumulated gradients."""
         if self._accum is None or self._accum_count == 0:
@@ -167,3 +179,41 @@ class Trainer:
         """(preds, probs, avg_loss) over the batches, as
         ``Evaluator.evaluate``."""
         return self._evaluator.evaluate(batches)
+
+    def save(self, directory: str, epoch: Optional[int] = None,
+             extra_meta: Optional[dict] = None) -> None:
+        """Write a checkpoint: meta ``epoch``, ``global_step`` (batches
+        applied to the parameters), ``current_lr`` and ``extra_meta``."""
+        meta = {"epoch": epoch,
+                "global_step": self.global_step - self.pending_batches,
+                "current_lr": self.current_lr}
+        if extra_meta:
+            meta.update(extra_meta)
+        ckpt.save_checkpoint(
+            directory,
+            params_to_jax(self.model.state_dict()),
+            self.opt.state_tree(),
+            config=self.cfg.to_dict(),
+            meta=meta,
+            async_save=self.cfg.train.async_save,
+        )
+
+    def load(self, directory: str, load_opt_state: bool = True) -> dict:
+        """Restore parameters, optimizer state, the rate and the step
+        counter from a checkpoint of either package; returns its meta."""
+        ckpt.wait_for_async_saves()
+        params, opt_state, blob = ckpt.load_checkpoint(directory,
+                                                       load_opt_state)
+        self.model.load_state_dict(params_from_jax(params))
+        if opt_state is not None:
+            self.opt.load_state_tree(opt_state, self.params)
+        self._accum = None
+        self._accum_count = 0
+        meta = blob.get("meta", {})
+        if meta.get("current_lr") is not None:
+            self.update_lr(float(meta["current_lr"]))
+        # step s's dropout stream is seeded from (seed, s): the counter
+        # carries on where the checkpoint's run stopped
+        if meta.get("global_step") is not None:
+            self.global_step = int(meta["global_step"])
+        return meta

@@ -422,6 +422,29 @@ def test_trainer_on_card_matches_cpu(cuda_device):
         assert scaled_err(card.model.state_dict()[k].cpu(), v) <= 1e-4, k
 
 
+@pytest.mark.cuda
+def test_trainer_checkpoint_on_card_loads_on_cpu(cuda_device, tmp_path):
+    """Two adam steps on the card, saved; a CPU trainer loads the same
+    bits (parameters, adam's moments, count, step, rate), and so does a
+    second trainer on the card."""
+    cfg = small_cfg(**{"train.optim": "adam"})
+    card = Trainer(cfg, device=cuda_device)
+    rng = np.random.RandomState(2)
+    for _ in range(2):
+        card.update(random_batch(rng))
+    card.save(str(tmp_path / "ckpt"), epoch=1)
+    for device in ("cpu", cuda_device):
+        back = Trainer(cfg, rng_seed=5, device=device)
+        meta = back.load(str(tmp_path / "ckpt"))
+        for k, v in card.model.state_dict().items():
+            assert torch.equal(back.model.state_dict()[k].cpu(), v.cpu()), k
+        for k, st in card.opt.state.items():
+            for key, v in st.items():
+                assert torch.equal(back.opt.state[k][key].cpu(), v.cpu())
+        assert (back.global_step, back.opt.count, meta["epoch"],
+                back.current_lr) == (2, 2, 1, cfg.train.lr)
+
+
 EDGE_SIZES = {"long": (2, 300, 300),      # a sentence past the 128 bucket
               "past_48kb": (2, 3000, 3000)}  # lists above 48 KB of smem
 # the attention edge backend's regime (auto takes it from N = 1159 at

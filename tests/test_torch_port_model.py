@@ -192,7 +192,7 @@ def _port_sources():
 
 
 def test_port_imports_nothing_of_jax_or_gcn_tpu():
-    banned = ("jax", "flax", "optax", "gcn_tpu")
+    banned = ("jax", "flax", "optax", "msgpack", "gcn_tpu")
     bad = []
     for path in _port_sources():
         with open(path) as f:
@@ -213,9 +213,13 @@ def test_port_imports_nothing_of_jax_or_gcn_tpu():
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, chip_smoke, gcn_tpu_torch.train.evaluator, "
             "gcn_tpu_torch.convert, gcn_tpu_torch.data.dataset, "
-            "gcn_tpu_torch.ops.sddmm, gcn_tpu_torch.ops.deprel_bilinear; "
+            "gcn_tpu_torch.ops.sddmm, gcn_tpu_torch.ops.deprel_bilinear, "
+            "gcn_tpu_torch.train.driver, gcn_tpu_torch.scripts.train, "
+            "gcn_tpu_torch.scripts.train_semeval, "
+            "gcn_tpu_torch.scripts.eval, "
+            "gcn_tpu_torch.scripts.prepare_vocab; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'optax', 'gcn_tpu')))")
+            "('jax', 'flax', 'optax', 'msgpack', 'gcn_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                          capture_output=True, text=True).stdout
     assert out.strip() == "[]"
