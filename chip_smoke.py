@@ -42,7 +42,9 @@ Phases, one JSON line each:
    ``cgcn_bilinear`` the factored ``cgcn`` on the same weights.  Every
    kernel's count is read: each kernel must have launched exactly as often
    per forward as ``EXPECTED`` says, which is 0 for a kernel off the
-   path;
+   path.  The forwards replay CUDA graphs (a graph's launches count at
+   each replay; the eager call before a capture is not counted); the
+   sentences/s are read through graphs and eagerly (``eager_dispatch``);
 5. train  — for each path, ``Trainer.update`` at the same widths (sgd 0.3,
    clip 5, pooling_l2 0.003, the preset's dropouts) over the training
    batches of the in-repo train split and of the synthetic sentences.
@@ -50,18 +52,36 @@ Phases, one JSON line each:
    ``EXPECTED`` says (0 off the path); a trainer on the plain versions on
    the card, from the same weights and seed, must follow it for 3 steps;
    with dropout off one step on the card must match one on the CPU; the
-   loss on one fixed batch must fall over 20 steps; and ms per step,
-   sentences/s, the device's busy time by kernel and the device memory
-   one step adds are measured at N=96.
-
-6. cli    — the run's entry points at ``train_cgcn.sh``'s flags
+   loss on one fixed batch must fall over 20 steps; 3 steps through
+   graphs must give the eager steps' losses and parameters in bits (on
+   ``NONDETERMINISTIC``'s path, whose eager steps differ run to run,
+   within 1e-6 of each tensor's max |value|); and
+   ms per step (graphs and eager), sentences/s, the device's busy time by
+   kernel, the memory the graphs reserve and the device memory one eager
+   step adds are measured at N=96;
+6. dispatch — on ``cgcn`` at B=50 over the four synthetic N=96 batches
+   (twice) and the real bucket-48 one: 8 steps at ``steps_per_dispatch``
+   1 and 4 and a 7-batch ``update_chunk`` (pieces 4 + 2 + 1) give the
+   eager steps' bits; ``evaluate`` through graphs with the window and in
+   chunks of 4 gives the eager one's predictions, probabilities and loss;
+   a run after ``Trainer.warmup`` gives the unwarmed run's bits and the
+   warm-up leaves the trainer as it was; a packed batch crosses in one
+   copy; a trainer on ``deprel_factored="ragged"`` (which a graph cannot
+   hold) takes steps and a chunk and evaluates, eagerly, capturing
+   nothing; a capture that cannot succeed raises (in a process of its
+   own).
+   Host ms a step eager against graphs at spd 1, 4 and 8 with the busy
+   time and idle share, evaluation sentences/s eager and synced against
+   graphs, copies and bytes a step packed and unpacked, and the warm-up's
+   graphs, seconds and pool MiB;
+7. cli    — the run's entry points at ``train_cgcn.sh``'s flags
    (``cgcn_preset`` at its widths, sgd 0.3, B=50) on the committed
    2400/1200/1200-sentence data of ``.campaign_r5/flagship/seed11``:
    ``gcn_tpu_torch.scripts.train`` in process for 3 epochs, its launches
    exactly ``EXPECTED["cgcn"]`` per step and per evaluation batch, its
    run directory complete and its train loss falling; one epoch with
-   dropout off on the card and with ``--cpu``, ``logs.txt``'s train and
-   dev loss within 1e-4 relative; the same run as 2 epochs, then
+   dropout off on the card and with ``--cpu`` (on ``CPU_THREADS``
+   threads), ``logs.txt``'s train and dev loss within 1e-4 relative; the same run as 2 epochs, then
    ``--resume`` to
    3, its ``best_model`` and ``checkpoint_epoch_3`` within 1e-6 of each
    tensor's max |value| of the whole run's; the eval CLI as a subprocess
@@ -71,8 +91,9 @@ Phases, one JSON line each:
    at B=100 (dev F1 0.612559 and 0.717025; the card's dev probabilities
    and the CLI's dev loss within 1e-4 of the CPU's; a label unlike the
    CPU's only where it is the CPU's second at a top-two gap under 1e-4).
-   Epoch walls,
-   sustained examples/s and the eval CLI's sentences/s.
+   The whole run again at ``--steps_per_dispatch 4 --warmup_compile
+   true``: its ``logs.txt`` and ``best_model`` the spd=1 run's bits.
+   Epoch walls, sustained examples/s and the eval CLI's sentences/s.
 
 The paths: ``cgcn`` (``cgcn_preset``: BiLSTM, factored full_deprel on
 dense bands), ``cgcn_fused`` (the same with ``use_pallas=True``: the band
@@ -1154,6 +1175,14 @@ def path_config(path: str, **extra):
     return getattr(config, preset)(**{**overrides, **extra})
 
 
+def eager_dispatch():
+    """The port's ``eager_dispatch()``: the card runs its steps and
+    forwards eagerly inside it."""
+    from gcn_tpu_torch.train.dispatch import eager_dispatch as eager
+
+    return eager()
+
+
 def counted(fn):
     """Run ``fn`` with every kernel's count set to 0 just before; returns
     (its result, every count just after)."""
@@ -1265,6 +1294,10 @@ def run_slice(torch, dev, real, synth, vocab_size: int, path: str) -> dict:
             best = min(best, time.perf_counter() - t)
         return n / best
 
+    def eager_rate(batches):
+        with eager_dispatch():
+            return rate(batches)
+
     return {
         "phase": "slice", "path": path, "sentences": n_sent,
         "batches": {"real": len(real), "synthetic_n96": len(synth)},
@@ -1276,6 +1309,8 @@ def run_slice(torch, dev, real, synth, vocab_size: int, path: str) -> dict:
         "tol": TOL_SLICE, "loss": loss, "f1_random_weights": f1,
         "sentences_per_s_real": rate(real),
         "sentences_per_s_n96": rate(synth),
+        "sentences_per_s_real_eager": eager_rate(real),
+        "sentences_per_s_n96_eager": eager_rate(synth),
     }
 
 
@@ -1341,6 +1376,65 @@ def params_err(a, b) -> float:
                / max(1.0, float(sb[k].abs().max())) for k in sb)
 
 
+def epoch_walls(torch, epoch, reps: int = 3) -> list[float]:
+    """Host seconds of ``reps`` calls of ``epoch``, each ending in a
+    synchronisation of the card."""
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        epoch()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    return walls
+
+
+def same_bits(torch, got: list, want: list, a, b) -> dict:
+    """Losses and every parameter of trainers ``a`` and ``b``: equal in
+    bits, and the largest difference over each tensor's max |value|."""
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    equal = [float(x) for x in got] == [float(x) for x in want] and all(
+        torch.equal(sa[k], sb[k]) for k in sb)
+    err = max(float((sa[k] - sb[k]).abs().max())
+              / max(float(sb[k].abs().max()), 1e-30) for k in sb)
+    loss_err = max(abs(float(x) - float(y)) / max(abs(float(y)), 1e-30)
+                   for x, y in zip(got, want))
+    return {"same_bits": equal, "max_err": max(err, loss_err)}
+
+
+# The paths whose eager steps differ from run to run, so that graphs
+# cannot equal them in bits: the attention edge backend sums with
+# ``scatter_add``, which adds with float atomics on the card
+# (``ops/spmm.py`` ``scatter_rows``, ``ops/sddmm.py`` ``edge_softmax``).
+# Their graphs are held within TOL_NONDETERMINISTIC of each tensor's max
+# |value|; every other path in bits.
+NONDETERMINISTIC = {"cgcn_attn"}
+TOL_NONDETERMINISTIC = 1e-6
+
+
+def graphs_against_eager(torch, cfg, state, dev, batches, path) -> dict:
+    """Steps through graphs against the same steps run eagerly on the card
+    (``eager_dispatch``), from one state: losses and parameters must be
+    equal in bits, or on a path of ``NONDETERMINISTIC`` within
+    ``TOL_NONDETERMINISTIC``.  Two eager runs are compared too, and the
+    reading printed."""
+    from gcn_tpu_torch.train.trainer import Trainer
+
+    g, e, e2 = (Trainer(cfg, state, device=dev) for _ in range(3))
+    got = [g.update(b) for b in batches]
+    with eager_dispatch():
+        want = [e.update(b) for b in batches]
+        again = [e2.update(b) for b in batches]
+    out = {"steps": len(batches), **same_bits(torch, got, want, g, e),
+           "eager_against_eager": same_bits(torch, again, want, e2, e)}
+    out["held_in"] = ("tolerance" if path in NONDETERMINISTIC else "bits")
+    if not (out["max_err"] <= TOL_NONDETERMINISTIC
+            if path in NONDETERMINISTIC else out["same_bits"]):
+        fail(f"{path}: {len(batches)} steps through graphs differ from the "
+             f"eager steps: {out}")
+    return out
+
+
 def run_train(torch, dev, real_train, synth_train, vocab_size,
               path: str) -> dict:
     from gcn_tpu_torch.models.gcn import GCNClassifier, init_params
@@ -1361,23 +1455,33 @@ def run_train(torch, dev, real_train, synth_train, vocab_size,
     batches = real_train + synth_train
     tr = Trainer(cfg, state, device=dev)
 
-    # the main path, counted
+    # the main path, counted: a graph captured per batch shape, then
+    # replayed (the launches of the capture's eager warm-up count apart)
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
     t0 = time.perf_counter()
     losses, launches = counted(lambda: [tr.update(b) for b in batches])
     first_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    graph_mib = (torch.cuda.memory_reserved() - reserved) / 2**20
     per_step = check_launches(path, "train step", launches,
                               EXPECTED[path][1], len(batches))
     losses = [float(l) for l in losses]
     if not all(np.isfinite(losses)):
         fail(f"{path}: non-finite training loss: {losses}")
+    dispatch = graphs_against_eager(torch, cfg, state, dev, batches[:3],
+                                    path)
 
     # kernels against the plain versions on the card: same weights, seed
-    # and batches, so the same dropout masks
+    # and batches, so the same dropout masks (the references run eagerly;
+    # the plain grouped matmul would anyway: a graph cannot hold it)
     a = Trainer(cfg, state, device=dev)
     p = Trainer(plain_cfg, state, device=dev)
     loss_err = 0.0
     for b in batches[:3]:
-        la, lp = float(a.update(b)), float(p.update(b))
+        la = float(a.update(b))
+        with eager_dispatch():
+            lp = float(p.update(b))
         loss_err = max(loss_err, abs(la - lp) / abs(lp))
     param_err = params_err(a, p)
     # dropout off: one step on the card against one on the CPU
@@ -1404,22 +1508,19 @@ def run_train(torch, dev, real_train, synth_train, vocab_size,
             tr.update(b)
 
     epoch()
-    walls = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        epoch()
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t)
+    walls = epoch_walls(torch, epoch)
+    with eager_dispatch():
+        eager_walls = epoch_walls(torch, epoch)
     span_ms = time_ms(epoch, 3, warmup=0)
     busy = device_time(torch, epoch)
-    # device memory one step adds above what is allocated before it
+    # device memory one eager step adds above what is allocated before it
     # (activations, saved tensors, gradients): the fused paths keep no
-    # [B, N, N] band
+    # [B, N, N] band.  A graph holds its own in its pool (graph_mib).
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
-    tr.update(synth_train[0])
+    with eager_dispatch():
+        tr.update(synth_train[0])
     torch.cuda.synchronize()
     peak_mib = (torch.cuda.max_memory_allocated() - before) / 2**20
     steps = len(synth_train)
@@ -1437,9 +1538,13 @@ def run_train(torch, dev, real_train, synth_train, vocab_size,
         "tol": TOL_TRAIN, "fixed_batch_losses": fall,
         "ms_per_step_n96": wall / steps * 1e3,
         "walls_s": walls,
+        "ms_per_step_n96_eager": min(eager_walls) / steps * 1e3,
+        "walls_s_eager": eager_walls,
+        "graphs_against_eager": dispatch,
+        "graph_memory_mib": graph_mib,
         "sentences_per_s_n96": n_sent / wall,
         "device_span_ms_per_step_n96": span_ms / steps,
-        "step_peak_mib_n96": peak_mib,
+        "step_peak_mib_n96_eager": peak_mib,
         "device_busy_ms_per_step_n96": (
             None if busy is None else busy["busy_ms"] / steps),
         "device_time_per_step_n96": None if busy is None else {
@@ -1447,6 +1552,219 @@ def run_train(torch, dev, real_train, synth_train, vocab_size,
                                busy["by_category_ms"].items()},
             "top_kernels_ms": {k: v / steps for k, v in
                                busy["top_kernels_ms"].items()}},
+    }
+
+
+# -------------------------------------------------------------- dispatch
+FAIL_CAPTURE = """
+import sys
+sys.path.insert(0, {here!r})
+import numpy as np
+import torch
+from gcn_tpu_torch.config import cgcn_preset
+from gcn_tpu_torch.models.gcn import GCNClassifier
+from gcn_tpu_torch.train.trainer import Trainer
+GCNClassifier.capturable = property(lambda self: True)
+batch = {{k: np.asarray(v) for k, v in np.load({batch!r}).items()}}
+cfg = cgcn_preset(**{{"model.vocab_size": {vocab}, "train.batch_size": 50,
+                     "model.deprel_factored": "ragged"}})
+tr = Trainer(cfg, device="cuda")
+try:
+    tr.update(batch)
+except RuntimeError as e:
+    print("raised:", str(e).splitlines()[0][:200])
+else:
+    print("no error")
+"""
+
+
+def capture_fails(tmp: str, batch: dict, vocab_size: int) -> str:
+    """A trainer on the plain grouped matmul (it reads the group sizes on
+    the host, which a capture cannot do) whose model is made to claim that
+    a graph can hold it, in a process of its own: its first step must
+    raise.  Returns the error's first line."""
+    path = os.path.join(tmp, "batch.npz")
+    np.savez(path, **batch)
+    out = subprocess.run(
+        [sys.executable, "-c", FAIL_CAPTURE.format(
+            here=HERE, batch=path, vocab=vocab_size)],
+        cwd=HERE, capture_output=True, text=True, timeout=300)
+    said = [ln for ln in out.stdout.splitlines() if ln.startswith("raised:")]
+    if not said:
+        fail(f"dispatch: a capture that cannot succeed did not raise: "
+             f"{out.stdout[-1000:]} {out.stderr[-2000:]}")
+    return said[0]
+
+
+def run_dispatch(torch, dev, real, synth, real_train, synth_train,
+                 vocab_size) -> dict:
+    """The dispatch phase (module docstring, 6) on ``cgcn``; fails on any
+    miss."""
+    from gcn_tpu_torch.models.gcn import GCNClassifier, init_params
+    from gcn_tpu_torch.train.trainer import Trainer
+
+    base = {"model.vocab_size": vocab_size, "train.batch_size": B,
+            "train.effective_batch_size": B}
+
+    def cfg_of(**extra):
+        return path_config("cgcn", **base, **extra)
+
+    model = GCNClassifier(cfg_of().model)
+    init_params(model, torch.Generator().manual_seed(SEED))
+    state = model.state_dict()
+
+    def trainer(**extra):
+        return Trainer(cfg_of(**extra), state, device=dev)
+
+    eight = synth_train * 2  # 8 steps at N=96
+    # the reference: 8 eager steps, the losses and parameters after 7 and 8
+    eager = trainer()
+    with eager_dispatch():
+        want = [eager.update(b) for b in eight[:7]]
+        after7 = {k: v.clone() for k, v in eager.model.state_dict().items()}
+        want.append(eager.update(eight[7]))
+    gates = {}
+    runs = {"spd1": trainer(), "spd4": trainer(**{
+        "train.steps_per_dispatch": 4})}
+    got = {"spd1": [runs["spd1"].update(b) for b in eight],
+           "spd4": runs["spd4"].update_chunk(eight)}
+    for name in ("spd1", "spd4"):
+        gates[f"8_steps_{name}"] = same_bits(torch, got[name], want,
+                                             runs[name], eager)
+    seven = trainer(**{"train.steps_per_dispatch": 4})
+    got7 = seven.update_chunk(eight[:7])
+    pieces = sorted((k[2] for k in seven.graphs), reverse=True)
+    s7 = seven.model.state_dict()
+    gates["7_steps_4_2_1"] = {
+        "pieces": pieces,
+        "same_bits": [float(x) for x in got7] == [float(x) for x in
+                                                  want[:7]]
+        and all(torch.equal(s7[k], after7[k]) for k in after7)}
+    if pieces != [4, 2, 1]:
+        fail(f"dispatch: a 7-batch update_chunk went out as {pieces}")
+
+    # evaluation: eager and synced, through graphs with the window, and in
+    # chunks of 4; preds, probs and the average loss
+    eval_batches = real + synth
+    with eager_dispatch():
+        ev_want = eager.evaluate(eval_batches)
+    ev_runs = {"window": runs["spd1"], "chunks_of_4": runs["spd4"]}
+    for name, tr in ev_runs.items():
+        got_ev = tr.evaluate(eval_batches)
+        gates[f"evaluate_{name}"] = {"same_bits": got_ev == ev_want}
+
+    # warm-up: every graph of the shapes captured first; then the spd=4
+    # run and its evaluation give the unwarmed run's bits
+    warm = trainer(**{"train.steps_per_dispatch": 4})
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    stats = warm.warmup([real_train[0], synth_train[0]],
+                        eval_batches=[real[0], synth[0]])
+    torch.cuda.empty_cache()
+    pool_mib = (torch.cuda.memory_reserved() - reserved) / 2**20
+    if warm.global_step != 0 or int(warm.opt.count) != 0 or any(
+            not torch.equal(v, state[k].to(dev))
+            for k, v in warm.model.state_dict().items()):
+        fail("dispatch: warm-up changed the trainer's state")
+    got_w = warm.update_chunk(eight)
+    gates["warmed_run"] = same_bits(torch, got_w, got["spd4"], warm,
+                                    runs["spd4"])
+    gates["warmed_run"]["evaluate_same_bits"] = (
+        warm.evaluate(eval_batches) == ev_want)
+    for name, g in gates.items():
+        if not (g["same_bits"] and g.get("evaluate_same_bits", True)):
+            fail(f"dispatch: {name} differs from the eager run: {g}")
+
+    # a model that a graph cannot hold (deprel_factored ragged: the plain
+    # grouped matmul reads the group sizes on the host) trains, in steps
+    # and a chunk, and evaluates on the card through the same entry
+    # points, eagerly: nothing captured, its losses within TOL_TRAIN of
+    # the kernels' eager steps
+    ragged = trainer(**{"model.deprel_factored": "ragged",
+                        "train.steps_per_dispatch": 4})
+    got_r = [ragged.update(b) for b in eight[:2]] + ragged.update_chunk(
+        eight[2:6])
+    preds_r, _, loss_r = ragged.evaluate(eval_batches)
+    ragged_err = max(abs(float(x) - float(y)) / abs(float(y))
+                     for x, y in zip(got_r, want))
+    ragged_gate = {"steps": len(got_r), "loss_rel_err": ragged_err,
+                   "graphs": len(ragged.graphs)
+                   + len(ragged._evaluator.graphs),
+                   "eval_loss": loss_r, "tol": TOL_TRAIN}
+    if (ragged_gate["graphs"] or ragged_err > TOL_TRAIN
+            or not np.isfinite(loss_r) or len(preds_r) != sum(
+                int(b["example_mask"].sum()) for b in eval_batches)):
+        fail(f"dispatch: the ragged trainer on the card: {ragged_gate}")
+
+    # copies: one per packed dispatch, counted where they start
+    copies = {}
+    for name, extra in (("compact", {}),
+                        ("int32", {"train.pack_format": "int32"}),
+                        ("unpacked", {"train.pack_transfers": False})):
+        tr = trainer(**extra)
+        tr.update(eight[0])  # capture first
+        tr.staging.copies = tr.staging.bytes = 0
+        for b in eight:
+            tr.update(b)
+        copies[name] = {"copies_per_step": tr.staging.copies / len(eight),
+                        "bytes_per_step": tr.staging.bytes / len(eight)}
+    if copies["compact"]["copies_per_step"] != 1:
+        fail(f"dispatch: {copies['compact']} copies a packed batch")
+    chunk = runs["spd4"].staging
+    chunk.copies = 0
+    runs["spd4"].update_chunk(eight)
+    copies["compact_spd4"] = {"copies_per_step": chunk.copies / len(eight)}
+    if chunk.copies != 2:
+        fail(f"dispatch: 8 steps at spd 4 made {chunk.copies} copies")
+
+    # host wall a step at N=96: eager against graphs at spd 1, 4 and 8,
+    # each beside the device's busy time (profiler) and idle share
+    runs["spd8"] = trainer(**{"train.steps_per_dispatch": 8})
+    runs["spd8"].update_chunk(eight)  # capture first
+    modes = {"eager": lambda: [eager.update(b) for b in eight],
+             "graphs_spd1": lambda: [runs["spd1"].update(b) for b in eight],
+             "graphs_spd4": lambda: runs["spd4"].update_chunk(eight),
+             "graphs_spd8": lambda: runs["spd8"].update_chunk(eight)}
+    walls = {}
+    for name, fn in modes.items():
+        ctx = eager_dispatch() if name == "eager" else contextlib.nullcontext()
+        with ctx:
+            fn()
+            w = epoch_walls(torch, fn)
+            busy = device_time(torch, fn)
+        ms = min(w) / len(eight) * 1e3
+        busy_ms = None if busy is None else busy["busy_ms"] / len(eight)
+        walls[name] = {"ms_per_step": ms, "walls_s": w,
+                       "busy_ms_per_step": busy_ms,
+                       "idle_share": None if busy_ms is None
+                       else 1 - busy_ms / ms}
+
+    # evaluation sentences/s: eager and synced, graphs with the window,
+    # graphs in chunks of 4
+    n_sent = sum(int(b["example_mask"].sum()) for b in eval_batches)
+    rates = {}
+    for name, tr, ctx in (
+            ("eager_synced", eager, eager_dispatch),
+            ("graphs_window", runs["spd1"], contextlib.nullcontext),
+            ("graphs_chunks_of_4", runs["spd4"], contextlib.nullcontext)):
+        with ctx():
+            w = epoch_walls(torch, lambda: tr.evaluate(eval_batches))
+        rates[name] = n_sent / min(w)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dispatch_")
+    try:
+        raised = capture_fails(tmp, real_train[0], vocab_size)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {
+        "phase": "dispatch", "path": "cgcn",
+        "batches": {"train_n96": len(eight), "eval": len(eval_batches)},
+        "gates": gates, "copies": copies,
+        "host_ms_per_step_n96": walls,
+        "eval_sentences_per_s": rates,
+        "warmup": {"programs": stats["programs"],
+                   "seconds": stats["seconds"], "pool_mib": pool_mib},
+        "failed_capture": raised, "ragged_eager": ragged_gate,
     }
 
 
@@ -1464,6 +1782,8 @@ SEED_DEV_F1 = {11: 0.612559, 17: 0.717025}  # gcn_tpu's checkpoints, port
 NO_DROPOUT = ["--input_dropout", "0", "--gcn_dropout", "0", "--rnn_dropout",
               "0", "--deprel_dropout", "0"]  # the card's and the CPU's
                                              # generators differ
+CPU_THREADS = 8  # the --cpu epoch's threads: its sums split by thread
+                 # count, so a host of another size would move its bits
 NEAR_TIE = 1e-4               # a row may flip only where its top two CPU
                               # probabilities lie this close
 
@@ -1582,7 +1902,7 @@ def check_seed_checkpoint(tmp: str, seed: int) -> dict:
 
 
 def run_cli(torch) -> dict:
-    """The cli phase (module docstring, 6); fails on any miss."""
+    """The cli phase (module docstring, 7); fails on any miss."""
     from gcn_tpu_torch.convert import params_from_jax
     from gcn_tpu_torch.scripts import train
     from gcn_tpu_torch.train.checkpoint import load_checkpoint
@@ -1635,10 +1955,15 @@ def run_cli(torch) -> dict:
         # epoch on the card against one with --cpu: logs.txt's train and
         # dev loss
         nodrop_s = {}
+        threads = torch.get_num_threads()
         for where in ("card", "cpu"):
+            torch.set_num_threads(CPU_THREADS if where == "cpu" else threads)
             t0 = time.perf_counter()
-            train_cli("--id", f"nodrop_{where}", "--num_epoch", "1",
-                      *NO_DROPOUT, *(["--cpu"] if where == "cpu" else []))
+            try:
+                train_cli("--id", f"nodrop_{where}", "--num_epoch", "1",
+                          *NO_DROPOUT, *(["--cpu"] if where == "cpu" else []))
+            finally:
+                torch.set_num_threads(threads)
             nodrop_s[where] = time.perf_counter() - t0
         (card_row,), (cpu_row,) = (logged_rows(os.path.join(
             tmp, f"nodrop_{w}"))[1] for w in ("card", "cpu"))
@@ -1666,6 +1991,26 @@ def run_cli(torch) -> dict:
                  f"from the whole run")
         print(f"cli: resumed run, the same bits as the whole run: "
               f"{same_bits}", flush=True)
+
+        # 2b. the same run at --steps_per_dispatch 4 with its graphs
+        # captured first: logs.txt and best_model the spd=1 run's bits
+        spd4 = train_cli("--id", "spd4", "--num_epoch", str(CLI_EPOCHS),
+                         "--steps_per_dispatch", "4",
+                         "--warmup_compile", "true")
+        spd4_same = logged_rows(spd4["run_dir"])[0] == lines
+        want = params_from_jax(load_checkpoint(os.path.join(
+            run, "best_model"))[0])
+        got = params_from_jax(load_checkpoint(os.path.join(
+            spd4["run_dir"], "best_model"))[0])
+        spd4_same &= all(torch.equal(got[k], v) for k, v in want.items())
+        if not spd4_same:
+            fail("cli: the --steps_per_dispatch 4 run's logs.txt or "
+                 "best_model differs from the spd=1 run's")
+        spd4_eval = run_eval_cli(spd4["run_dir"], "--dataset", "test")
+        print(f"cli: spd 4 run, the spd=1 run's bits; epoch walls "
+              f"{[round(w, 3) for w, _ in spd4['epochs_timed']]} s; eval "
+              f"CLI {spd4_eval['sentences_per_s']:.1f} sentences/s",
+              flush=True)
 
         # 3. the eval CLI on the run: the test F1 and the dev loss that
         # logs.txt recorded at the best epoch
@@ -1708,9 +2053,20 @@ def run_cli(torch) -> dict:
         "train_loss_sums": train_losses,
         "epoch1_no_dropout": {"card": card_row[1:3], "cpu": cpu_row[1:3],
                               "max_rel_err": epoch1_err, "tol": TOL_TRAIN,
-                              "run_s": nodrop_s},
+                              "run_s": nodrop_s,
+                              "cpu_threads": CPU_THREADS,
+                              "host_cpus": os.cpu_count()},
         "resume": {"max_err": resume_err, "tol": TOL_RESUME,
                    "same_bits": same_bits},
+        "spd4_warmed": {"same_bits_as_spd1": spd4_same,
+                        "epoch_wall_s": [w for w, _ in
+                                         spd4["epochs_timed"]],
+                        "sustained_examples_per_s": [
+                            x for _, x in spd4["epochs_timed"]],
+                        "eval_cli_test_sentences_per_s":
+                            spd4_eval["sentences_per_s"],
+                        "eval_cli_graphs_captured":
+                            spd4_eval["graphs_captured"]},
         "best_dev_f1": result["best_dev"]["f1"],
         "test_f1_at_best": result["test_at_best_dev"]["f1"],
         "eval_cli_on_run": {"test_f1": on_run["f1"], "dev_f1": on_dev["f1"],
@@ -1718,7 +2074,8 @@ def run_cli(torch) -> dict:
                             "best_epoch": int(best_epoch),
                             "sentences_per_s": {
                                 "test": on_run["sentences_per_s"],
-                                "dev": on_dev["sentences_per_s"]}},
+                                "dev": on_dev["sentences_per_s"]},
+                            "graphs_captured": on_run["graphs_captured"]},
         "eval_cli_on_gcn_tpu": seeds,
     }
 
@@ -1824,6 +2181,10 @@ def main() -> int:
         trains[path] = run_train(torch, dev, real_train, synth_train,
                                  vocab_size, path)
         emit({**trains[path], "at_s": time.perf_counter() - t_start})
+    real, synth, real_train, synth_train, vocab_size = inputs["tacred"]
+    emit({**run_dispatch(torch, dev, real, synth, real_train, synth_train,
+                         vocab_size), "nvidia_smi": smi,
+          "at_s": time.perf_counter() - t_start})
     cli = run_cli(torch)
     emit({**cli, "nvidia_smi": smi, "at_s": time.perf_counter() - t_start})
     keys = ("name", "route", "source", "replaces", "launches",

@@ -17,7 +17,8 @@ Training batches follow the JAX ``Batcher`` bit for bit: one
 length bucket, fixed chunks every epoch, and word→UNK dropout re-drawn at
 every materialization from one ``np.random.RandomState(seed)`` in the same
 call order (never re-dropping an UNK; float words are never dropped).
-``Batcher.advance`` makes those draws for batches a resumed run skips.
+``Batcher.advance`` makes those draws for batches a resumed run skips;
+``Batcher.warmup_batches`` gives one batch a shape without touching them.
 Evaluation batches keep file order, drop no words, and are built once and
 replayed every epoch; a dataset loaded with ``evaluation=True`` drops no
 words in any batcher.  ``RelationDataset.raw_data`` keeps the JSON records
@@ -202,6 +203,28 @@ class Batcher:
                 ex = self.ds.examples[j]
                 if ex.words.ndim == 1:
                     self.rng.random_sample(ex.length)
+
+    def warmup_batches(self) -> list[dict]:
+        """One representative batch per distinct (rows, bucket) shape, for
+        ``Trainer.warmup``.  Built with a throwaway ``RandomState``: the
+        word-dropout stream (``self.rng``) is left as it was, and an
+        evaluation batcher's cache is not filled."""
+        reps: list[dict] = []
+        seen: set = set()
+        saved_rng = self.rng
+        try:
+            self.rng = np.random.RandomState(0)
+            for chunk in self.chunks:
+                n = self._bucket_len(
+                    max(self.ds.examples[i].length for i in chunk))
+                pad_b = self.batch_size if self.pad_batches else len(chunk)
+                if (pad_b, n) in seen:
+                    continue
+                seen.add((pad_b, n))
+                reps.append(self.materialize(chunk))
+        finally:
+            self.rng = saved_rng
+        return reps
 
     def _bucket_len(self, max_len: int) -> int:
         for b in self.length_buckets:

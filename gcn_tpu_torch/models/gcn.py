@@ -39,6 +39,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from gcn_tpu_torch import constants
@@ -88,6 +89,17 @@ def resolve_attention_impl(impl: str, b: int, n: int) -> str:
     if impl == "auto":
         return "dense" if b * n * n * 4 <= ATTN_DENSE_BYTE_BUDGET else "edge"
     return impl
+
+
+def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``, by the lookup whose backward sums repeated rows in
+    the same order every run on the device it runs on: on the card the
+    index's (it sorts the ids), on the CPU ``embedding``'s (the index's
+    adds them from several threads there, and ``embedding``'s on the card
+    differs from run to run)."""
+    if ids.device.type == "cpu":
+        return F.embedding(ids, table)
+    return table[ids]
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -246,6 +258,15 @@ class GCNClassifier(nn.Module):
     def _bilinear_impl(self) -> str:
         return "ragged" if self.cfg.deprel_factored == "ragged" else "auto"
 
+    @property
+    def capturable(self) -> bool:
+        """Whether a CUDA graph can hold this model's forward and step:
+        not where a full_deprel layer runs the plain grouped matmul
+        (``deprel_factored="ragged"``), which reads the group sizes on the
+        host."""
+        return not (self.cfg.adj_type == "full_deprel" and self._use_factored()
+                    and self._bilinear_impl() == "ragged")
+
     def use_fused(self, deterministic: bool) -> bool:
         """Whether this forward takes the fused edge-list path, as JAX
         resolves it: ``use_pallas`` on ("auto" is off), and for the
@@ -296,7 +317,7 @@ class GCNClassifier(nn.Module):
             word_vecs = words.float()
         else:
             # embeddings (padding_idx=0 semantics for words)
-            word_vecs = self.word_emb[words]
+            word_vecs = lookup(self.word_emb, words)
             mult = embedding_dropout_mask(words, cfg.vocab_size,
                                           cfg.emb_dropout, deterministic,
                                           generator)
@@ -305,9 +326,9 @@ class GCNClassifier(nn.Module):
             word_vecs = word_vecs.masked_fill((words == 0)[..., None], 0.0)
         embs = [word_vecs]
         if cfg.pos_dim > 0:
-            embs.append(self.pos_emb[batch["pos"]])
+            embs.append(lookup(self.pos_emb, batch["pos"]))
         if cfg.ner_dim > 0 and cfg.dataset == "tacred":
-            embs.append(self.ner_emb[batch["ner"]])
+            embs.append(lookup(self.ner_emb, batch["ner"]))
         h = torch.cat(embs, dim=2)
         h = dropout(h, cfg.input_dropout, deterministic, generator)
         if cfg.rnn:

@@ -10,10 +10,15 @@ interrupted build leaves no lock and no half-written library.
 
 Nothing here runs at import time; the first launch of a kernel builds it,
 and ``build_all`` builds several at once (one ``nvcc`` each, in parallel).
+
+Launch counts survive CUDA graphs: a replay makes no Python call, so the
+launches made while a graph is captured are tallied (``tally_launches``)
+and added again at each replay (``count_replay``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -30,6 +35,10 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 NVCC_TIMEOUT_S = 600
+# the open tallies, innermost last: a launch counts in the innermost one
+# instead of ``CudaKernel.launches``.  Module-wide, not per thread:
+# autograd runs a captured step's backward kernels on a thread of its own.
+_TALLIES: list[dict] = []
 
 
 def _nvcc() -> str:
@@ -52,8 +61,9 @@ class CudaKernel:
 
     ``functions`` maps each exported name to its ctypes argument types;
     every exported launcher returns the ``cudaGetLastError()`` code.
-    ``launches`` counts successful launches and is reset by callers that
-    want to know whether a path went through the kernel.  Several entries
+    ``launches`` counts successful launches, replays of captured launches
+    included, and is reset by callers that want to know whether a path
+    went through the kernel.  Several entries
     may share one source (``name`` tells them apart); they share its
     library and count their launches apart.
     """
@@ -114,7 +124,30 @@ class CudaKernel:
 
     def launch(self, fname: str, *args) -> None:
         self.query(fname, *args)
-        self.launches += 1
+        if _TALLIES:
+            tally = _TALLIES[-1]
+            tally[self] = tally.get(self, 0) + 1
+        else:
+            self.launches += 1
+
+
+@contextlib.contextmanager
+def tally_launches():
+    """Count the launches made inside the block in a dict of its own
+    (kernel → launches) instead of the kernels' ``launches``."""
+    tally: dict = {}
+    _TALLIES.append(tally)
+    try:
+        yield tally
+    finally:
+        _TALLIES.remove(tally)
+
+
+def count_replay(tally: dict) -> None:
+    """Add a captured graph's launches to the kernels' counts: one
+    replay launched them all again."""
+    for kernel, n in tally.items():
+        kernel.launches += n
 
 
 def build_all(kernels: list[CudaKernel]) -> dict[str, dict]:

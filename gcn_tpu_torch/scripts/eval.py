@@ -98,6 +98,7 @@ def main(argv=None) -> dict:
               "f1": f1, "loss": loss, "sentences": len(labels),
               "batch_size": batcher.batch_size, "seconds": seconds,
               "sentences_per_s": len(labels) / seconds,
+              "graphs_captured": len(evaluator.graphs),
               "device": str(device)}
     print(json.dumps(result))
     print("Evaluation ended.")

@@ -12,8 +12,11 @@ scripts with the same arguments, and ``args_to_config`` fills the same
 * ``check_supported``: flags that change what is computed and that the
   port lacks raise ``NotImplementedError`` naming their ``ROADMAP.md``
   item (``UNSUPPORTED``).
-* ``dispatch_only_line``: flags that only tune JAX's dispatch are stored
-  in ``config.json`` and named in one printed line (``DISPATCH_ONLY``).
+* ``dispatch_only_line``: flags that only tune JAX itself are stored in
+  ``config.json`` and named in one printed line (``DISPATCH_ONLY``).
+  ``--pack_transfers``, ``--pack_format``, ``--steps_per_dispatch`` and
+  ``--warmup_compile`` act on the card's dispatch (``train.transfer``,
+  ``train.dispatch``).
 """
 
 from __future__ import annotations
@@ -34,10 +37,8 @@ UNSUPPORTED = {
                         "row-sparse embedding gradients: ROADMAP.md §1 "
                         "item 6"),
 }
-# flags that tune only how JAX dispatches work to the TPU
-DISPATCH_ONLY = ("pack_transfers", "pack_format", "steps_per_dispatch",
-                 "warmup_compile", "prng_impl", "compilation_cache_dir",
-                 "debug_nans")
+# flags that tune only JAX: its PRNG, its compilation cache, its NaN checks
+DISPATCH_ONLY = ("prng_impl", "compilation_cache_dir", "debug_nans")
 
 
 def _pallas_mode(v: str):
@@ -190,17 +191,20 @@ def build_parser(dataset: str) -> argparse.ArgumentParser:
                         "(= on) | ragged (the plain grouped matmul) | "
                         "pallas (the CUDA grouped-matmul kernels).")
     p.add_argument("--pack_transfers", type=str2bool, default=True,
-                   help="gcn_tpu: one packed host->device buffer a batch. "
-                        "Stored only.")
+                   help="One packed host->device buffer a batch, copied "
+                        "once from pinned memory (batches of word ids).")
     p.add_argument("--pack_format", choices=["compact", "int32"],
                    default="compact",
-                   help="gcn_tpu: the packed buffer's layout. Stored only.")
+                   help="The packed buffer's layout: compact (each field "
+                        "at its width; int32 for a batch whose values do "
+                        "not fit) or int32.")
     p.add_argument("--steps_per_dispatch", type=int, default=1,
-                   help="gcn_tpu: k batches a dispatch. Stored only.")
+                   help="k same-shape batches a dispatch: one CUDA graph "
+                        "of k steps (or k evaluation forwards) on the card.")
     p.add_argument("--warmup_compile", type=str, default="auto",
                    choices=["auto", "true", "false"],
-                   help="gcn_tpu: compile the run's programs before epoch "
-                        "1. Stored only.")
+                   help="Capture the run's CUDA graphs before epoch 1 "
+                        "(auto = when --steps_per_dispatch > 1).")
     p.add_argument("--sparse_emb_grad", type=str, default="auto",
                    choices=["auto", "true", "false"],
                    help="Row-sparse word-embedding updates: true is not "
@@ -334,5 +338,5 @@ def check_supported(args: argparse.Namespace) -> None:
 def dispatch_only_line() -> str:
     """The line naming the flags the port stores but does not act on."""
     return ("gcn_tpu_torch: stored in config.json, not acted on (they tune "
-            "JAX's dispatch): "
+            "JAX): "
             + ", ".join(f"--{f}" for f in DISPATCH_ONLY))

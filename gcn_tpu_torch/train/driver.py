@@ -18,6 +18,13 @@ dropout of the batches before the resume point (``Batcher.advance``), and
 the checkpoint's meta carries the selection history that the plateau
 decay reads and, in a step checkpoint, the losses of the epoch's batches
 before it.  The epoch's losses are summed on the device and fetched once.
+
+Dispatch, as gcn_tpu's driver: with ``steps_per_dispatch`` k > 1 (fused
+steps, packed batches) the train batches go to ``Trainer.update_chunk``
+k at a time, a chunk flushed at a change of bucket and cut at
+``save_steps`` boundaries, and each step's bookkeeping replayed from the
+returned losses; ``warmup_compile`` ("true", or "auto" with k > 1)
+captures the run's graphs before epoch 1 (``Trainer.warmup``).
 """
 
 from __future__ import annotations
@@ -242,6 +249,23 @@ def run_training(
     meter = ThroughputMeter(device=trainer.device)
     profiled = False
 
+    spd = max(1, int(cfg.train.steps_per_dispatch))
+    use_chunks = (spd > 1 and cfg.train.update_gap <= 1
+                  and trainer.staging.pack)
+    wm = str(cfg.train.warmup_compile).lower()
+    if wm in ("true", "1", "yes") or (wm == "auto" and spd > 1):
+        # the train batcher's shapes get the train graphs; those of the
+        # evaluation batchers only the evaluation graphs
+        reps = train_batcher.warmup_batches()
+        eval_reps = []
+        for b in (dev_batcher, test_batcher, train_eval_batcher):
+            if b is not None:
+                eval_reps += b.warmup_batches()
+        t0 = time.time()
+        stats = trainer.warmup(reps, eval_batches=eval_reps)
+        print(f"warmup: compiled {stats['programs']} programs in "
+              f"{time.time() - t0:.1f}s ({len(reps)} batch shapes)")
+
     for epoch in range(start_epoch, cfg.train.num_epoch + 1):
         # device scalars, summed and fetched once; after a mid-epoch resume
         # the losses of the batches before it lead
@@ -250,29 +274,16 @@ def run_training(
                         for x in (resumed.get("epoch_losses") or [])
                         if epoch == start_epoch]
         meter.start()
-        # after a mid-epoch resume, the batches from the resume point on
-        first = skip_batches if epoch == start_epoch else 0
-        batches = (map(train_batcher.materialize,
-                       train_batcher.chunks[first:])
-                   if first else train_batcher)
-        for i, batch in enumerate(batches, start=first):
-            start = time.time()
-            global_step += 1
-            if profile_dir and not profiled and global_step == 3:
-                with trace(profile_dir):  # a warm step
-                    loss = trainer.update(batch)
-                profiled = True
-                print(f"profiler trace written to {profile_dir}")
-            else:
-                loss = trainer.update(batch)
+
+        def step_bookkeeping(i, batch, loss, sec, epoch=epoch,
+                             epoch_losses=epoch_losses):
             epoch_losses.append(loss)
             meter.step(int(batch["edge_mask"].sum()),
                        int(batch["example_mask"].sum()))
             if global_step % cfg.train.log_step == 0:
                 print(fmt.format(
                     datetime.now(), global_step, max_steps, epoch,
-                    cfg.train.num_epoch, float(loss), time.time() - start,
-                    current_lr,
+                    cfg.train.num_epoch, float(loss), sec, current_lr,
                 ) + f" [{meter.summary()}]")
             if (cfg.train.save_steps
                     and global_step % cfg.train.save_steps == 0):
@@ -292,6 +303,61 @@ def run_training(
                             and not name.endswith(".tmp")
                             and name != f"checkpoint_step_{global_step}"):
                         rmtree(os.path.join(run_dir, name))
+
+        buf: list = []
+        buf_t0 = 0.0
+
+        def flush_buf():
+            # one replay a piece (Trainer.update_chunk); the bookkeeping
+            # replays per step from the returned losses
+            nonlocal buf, global_step, profiled
+            if not buf:
+                return
+            if profile_dir and not profiled:
+                with trace(profile_dir):
+                    losses = trainer.update_chunk([b for _, b in buf])
+                profiled = True
+                print(f"profiler trace written to {profile_dir}")
+            else:
+                losses = trainer.update_chunk([b for _, b in buf])
+            sec = (time.time() - buf_t0) / len(buf)
+            for (bi, bb), loss in zip(buf, losses):
+                global_step += 1
+                step_bookkeeping(bi, bb, loss, sec)
+            buf = []
+
+        # after a mid-epoch resume, the batches from the resume point on
+        first = skip_batches if epoch == start_epoch else 0
+        batches = (map(train_batcher.materialize,
+                       train_batcher.chunks[first:])
+                   if first else train_batcher)
+        for i, batch in enumerate(batches, start=first):
+            if use_chunks:
+                if buf and batch["words"].shape != buf[0][1]["words"].shape:
+                    flush_buf()
+                if not buf:
+                    buf_t0 = time.time()
+                buf.append((i, batch))
+                # a chunk ends at a save_steps boundary, so that a step
+                # checkpoint holds exactly that step's state
+                cap = spd
+                if cfg.train.save_steps:
+                    cap = min(cap, cfg.train.save_steps
+                              - global_step % cfg.train.save_steps)
+                if len(buf) >= cap:
+                    flush_buf()
+                continue
+            start = time.time()
+            global_step += 1
+            if profile_dir and not profiled and global_step == 3:
+                with trace(profile_dir):  # a warm step
+                    loss = trainer.update(batch)
+                profiled = True
+                print(f"profiler trace written to {profile_dir}")
+            else:
+                loss = trainer.update(batch)
+            step_bookkeeping(i, batch, loss, time.time() - start)
+        flush_buf()
         trainer.flush_gradients()
         train_loss = (float(torch.stack(epoch_losses).sum())
                       if epoch_losses else 0.0)

@@ -15,8 +15,13 @@ Counterpart of ``gcn_tpu.train.optim``: ``build_optimizer`` chains
 
 ``torch.optim``'s rules differ from optax's in places (adamax puts its ε
 elsewhere, adagrad starts its accumulator at 0), so every rule is written
-here over plain tensors.  The learning rate is a plain attribute that
-``set_learning_rate`` changes in place; the rules read it at each step.
+here over plain tensors.  A step makes no host sync and touches only
+tensors that outlive it, so a CUDA graph can capture it: the step count
+``count`` is an int32 tensor beside the parameters, from which adam's and
+adamax's bias corrections ``1 - b**count`` and adagrad's per-step decay
+are computed on the device in f32, as optax computes them; the learning
+rate ``learning_rate`` is an f32 scalar tensor that ``set_learning_rate``
+fills in place; the state tensors are updated in place.
 
 ``state_tree`` and ``load_state_tree`` carry the state across as optax
 holds it for gcn_tpu's ``build_optimizer``: ``inject_hyperparams`` around
@@ -50,17 +55,21 @@ class Optimizer:
         if name not in CORES:
             raise ValueError(f"Unsupported optimizer: {name}")
         self.name = name
-        self.learning_rate = float(learning_rate)
+        self.learning_rate = torch.tensor(float(learning_rate),
+                                          dtype=torch.float32)
         self.max_grad_norm = max_grad_norm
         self.topn = topn
         self.lr_decay = lr_decay
         self.word_emb_name = word_emb_name
-        self.count = 0
+        self.count = torch.zeros((), dtype=torch.int32)
         self.state: dict[str, dict[str, torch.Tensor]] = {}
 
     def init(self, params: dict[str, torch.Tensor]) -> None:
-        """Fresh state for ``params`` (name → tensor)."""
-        self.count = 0
+        """Fresh state for ``params`` (name → tensor), the count and the
+        rate on their device."""
+        device = next(iter(params.values())).device if params else "cpu"
+        self.count = torch.zeros((), dtype=torch.int32, device=device)
+        self.learning_rate = self.learning_rate.to(device)
         self.state = {}
         for k, p in params.items():
             if self.name in ("adagrad", "myadagrad"):
@@ -94,37 +103,48 @@ class Optimizer:
                                g / norm.to(g.dtype) * self.max_grad_norm)
                 for k, g in grads.items()}
 
+    def state_tensors(self) -> list[torch.Tensor]:
+        """Every tensor a step changes: the count and the state."""
+        return [self.count] + [t for st in self.state.values()
+                               for t in st.values()]
+
     def updates(self, grads: dict[str, torch.Tensor]):
         """The core rule: the update to add to each parameter."""
-        self.count += 1
-        step = self.count
+        self.count.add_(1)
+        step = self.count.float()
+        lr = self.learning_rate
+        if self.name in ("adagrad", "myadagrad"):
+            decay = 1.0 / (1.0 + (step - 1.0) * self.lr_decay)
+        elif self.name in ("adam", "adamax"):
+            bc1 = 1 - torch.pow(_B1, step)
+            bc2 = 1 - torch.pow(_B2, step)
         out = {}
         for k, g in grads.items():
             st = self.state.get(k)
             if self.name == "sgd":
-                u = g * -self.learning_rate
+                u = g * -lr
             elif self.name in ("adagrad", "myadagrad"):
-                st["accum"] = st["accum"] + g * g
-                decay = 1.0 / (1.0 + (step - 1.0) * self.lr_decay)
-                u = (decay * g / (st["accum"].sqrt() + _ADAGRAD_EPS)
-                     * -self.learning_rate)
+                st["accum"].copy_(st["accum"] + g * g)
+                u = decay * g / (st["accum"].sqrt() + _ADAGRAD_EPS) * -lr
             elif self.name == "adam":
-                st["mu"] = (1 - _B1) * g + _B1 * st["mu"]
-                st["nu"] = (1 - _B2) * g * g + _B2 * st["nu"]
-                mu_hat = st["mu"] / (1 - _B1 ** step)
-                nu_hat = st["nu"] / (1 - _B2 ** step)
+                st["mu"].copy_((1 - _B1) * g + _B1 * st["mu"])
+                st["nu"].copy_((1 - _B2) * g * g + _B2 * st["nu"])
+                mu_hat = st["mu"] / bc1
+                nu_hat = st["nu"] / bc2
                 u = mu_hat / (nu_hat.sqrt() + _ADAM_EPS) * -_FIXED_LR["adam"]
             elif self.name == "adamax":
-                st["mu"] = (1 - _B1) * g + _B1 * st["mu"]
-                st["nu"] = torch.maximum(g.abs() + _ADAM_EPS, _B2 * st["nu"])
-                mu_hat = st["mu"] / (1 - _B1 ** step)
+                st["mu"].copy_((1 - _B1) * g + _B1 * st["mu"])
+                st["nu"].copy_(torch.maximum(g.abs() + _ADAM_EPS,
+                                             _B2 * st["nu"]))
+                mu_hat = st["mu"] / bc1
                 u = mu_hat / st["nu"] * -_FIXED_LR["adamax"]
             else:  # adadelta
-                st["e_g"] = (1 - _RHO) * g * g + _RHO * st["e_g"]
+                st["e_g"].copy_((1 - _RHO) * g * g + _RHO * st["e_g"])
                 delta = ((st["e_x"] + _ADADELTA_EPS).sqrt()
                          / (st["e_g"] + _ADADELTA_EPS).sqrt() * g)
-                st["e_x"] = (1 - _RHO) * delta * delta + _RHO * st["e_x"]
-                u = delta * -self.learning_rate
+                st["e_x"].copy_((1 - _RHO) * delta * delta
+                                + _RHO * st["e_x"])
+                u = delta * -lr
             out[k] = u
         return out
 
@@ -145,7 +165,7 @@ class Optimizer:
         """The state as an optax tree of numpy arrays (see the module's
         docstring); keys in optax's order."""
         layout, _ = self._core_layout()
-        count = np.asarray(self.count, np.int32)
+        count = np.asarray(int(self.count), np.int32)
 
         def fill(node):
             return {k: fill(v) if isinstance(v, dict)
@@ -156,14 +176,16 @@ class Optimizer:
 
         return {"count": count,
                 "hyperparams": {"learning_rate": np.asarray(
-                    self.learning_rate, np.float32)},
+                    float(self.learning_rate), np.float32)},
                 "hyperparams_states": {},
                 "inner_state": {"0": {}, "1": {}, "2": fill(layout)}}
 
     def load_state_tree(self, tree: dict,
                         params: dict[str, torch.Tensor]) -> None:
         """Take the state from an optax tree of ``state_tree``'s layout,
-        each tensor onto its parameter's device and dtype."""
+        each tensor onto its parameter's device and dtype; state tensors
+        that exist already are overwritten in place (a captured step
+        reads them where they are)."""
         layout, count_key = self._core_layout()
         core = tree["inner_state"]["2"]
         state: dict[str, dict[str, torch.Tensor]] = {}
@@ -192,9 +214,15 @@ class Optimizer:
 
         take(layout, core, "")
         count_at = core["0"][count_key] if count_key else tree["count"]
-        self.count = int(count_at)
-        self.learning_rate = float(tree["hyperparams"]["learning_rate"])
-        self.state = state
+        self.count.fill_(int(count_at))
+        self.learning_rate.fill_(float(tree["hyperparams"]["learning_rate"]))
+        for n, st in state.items():
+            have = self.state.setdefault(n, {})
+            for v, t in st.items():
+                if v in have and have[v].shape == t.shape:
+                    have[v].copy_(t)
+                else:
+                    have[v] = t
 
     @torch.no_grad()
     def step(self, params: dict[str, torch.Tensor],
@@ -213,6 +241,7 @@ def build_optimizer(name: str, learning_rate: float,
 
 
 def set_learning_rate(opt: Optimizer, new_lr: float) -> Optimizer:
-    """Change the rate the next step uses (the plateau decay hook)."""
-    opt.learning_rate = float(new_lr)
+    """Change the rate the next step uses (the plateau decay hook), in
+    place, so a captured step reads it too."""
+    opt.learning_rate.fill_(float(new_lr))
     return opt

@@ -10,9 +10,21 @@ Counterpart of the training half of ``gcn_tpu.train.trainer.Trainer``:
   backward kernels on the card) and, when ``update_gap <= 1``, one
   freeze → clip → optimizer step; otherwise it sums the gradients and
   steps in ``flush_gradients`` after ``update_gap`` batches;
+* ``update_chunk`` takes k same-shape batches as k fused steps in
+  ``chunk_plan`` pieces of at most ``steps_per_dispatch`` (gcn_tpu's
+  ``_chunk_step``): the same steps as k ``update`` calls;
+* on the card a fused step (``update_gap <= 1``) is a replay of a CUDA
+  graph captured per batch signature and dispatch size
+  (``train.dispatch``), its batch moved in by ``train.transfer`` (one
+  pinned copy where it packs); a piece of k is one replay of a k-step
+  graph.  Accumulating steps, the CPU, ``eager_dispatch()`` and a model
+  that a graph cannot hold (``GCNClassifier.capturable``) run step by
+  step;
 * the dropout stream of step s is a ``torch.Generator`` seeded from
   ``(seed, s)``, as JAX folds the step into its key, so a run restarted at
-  step s draws the same masks;
+  step s draws the same masks (a graph's step slot is reseeded so);
+* ``warmup`` captures the graphs a run will need before it starts and
+  leaves the trainer's state as it was;
 * ``predict_batch`` and ``evaluate`` run the ``Evaluator`` code on the same
   module;
 * ``save`` and ``load`` write and read checkpoints in gcn_tpu's format
@@ -21,11 +33,13 @@ Counterpart of the training half of ``gcn_tpu.train.trainer.Trainer``:
   gradients: its ``global_step`` counts only the batches applied, so a
   resumed run replays the pending ones with the same dropout streams.
 
-``update`` returns the loss as a device tensor and does not synchronise.
+``update`` returns the loss as a device tensor of its own (a graph's output
+is copied out before the next replay) and does not synchronise.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Iterable, Optional
 
 import numpy as np
@@ -36,12 +50,21 @@ from gcn_tpu_torch.config import Config
 from gcn_tpu_torch.convert import params_from_jax, params_to_jax
 from gcn_tpu_torch.models.gcn import GCNClassifier, init_params
 from gcn_tpu_torch.train import checkpoint as ckpt
+from gcn_tpu_torch.train.dispatch import (
+    GraphCache,
+    allowed_chunk_sizes,
+    chunk_plan,
+    graphs_on,
+)
 from gcn_tpu_torch.train.evaluator import (
     Evaluator,
     batch_to_device,
     resolve_device,
 )
 from gcn_tpu_torch.train.optim import build_optimizer, set_learning_rate
+from gcn_tpu_torch.train.transfer import Staging
+
+RING_SLOTS = 4  # pinned batch buffers: the host runs up to 4 steps ahead
 
 
 def conv_l2_penalty(model: torch.nn.Module) -> torch.Tensor:
@@ -56,6 +79,13 @@ def step_seed(seed: int, step: int) -> int:
     """The 64-bit seed of step ``step``'s dropout stream."""
     return int(np.random.SeedSequence([seed % 2**63, step]).generate_state(
         1, np.uint64)[0])
+
+
+def _signature(batch: dict) -> tuple:
+    """Every field's name, shape and dtype: one representative a
+    signature is enough for a warm-up."""
+    return tuple(sorted((k, np.shape(v), np.asarray(v).dtype.str)
+                        for k, v in batch.items()))
 
 
 class Trainer:
@@ -98,6 +128,11 @@ class Trainer:
         self._accum: Optional[dict] = None
         self._accum_count = 0
         self._evaluator = Evaluator.for_model(cfg, self.model)
+        self.staging = Staging(self.device, cfg.train.pack_transfers
+                               and not cfg.model.use_bert_embeddings,
+                               cfg.train.pack_format, RING_SLOTS)
+        self._graphs = GraphCache(self.staging, self.device)
+        self.graphs = self._graphs.graphs  # batch signature → StepGraph
 
     def step_generator(self, step: int) -> torch.Generator:
         """The dropout stream of ``step``, on the trainer's device."""
@@ -121,11 +156,9 @@ class Trainer:
             loss = loss + cfg.pooling_l2 * pen
         return loss
 
-    def _loss_and_grads(self, batch: dict):
-        step = self.global_step
-        self.global_step += 1
-        loss = self._loss(batch_to_device(batch, self.device),
-                          self.step_generator(step))
+    def _grads(self, batch: dict, generator: torch.Generator):
+        """(loss, gradients by parameter name) of one device batch."""
+        loss = self._loss(batch, generator)
         # every parameter but those the model names unused must reach the
         # loss (autograd raises otherwise); those get a zero gradient, as
         # under jax.grad
@@ -137,11 +170,49 @@ class Trainer:
             k: grads[k] if k in grads else torch.zeros_like(p)
             for k, p in self.params.items()}
 
+    def _loss_and_grads(self, batch: dict):
+        step = self.global_step
+        self.global_step += 1
+        return self._grads(batch_to_device(batch, self.device),
+                           self.step_generator(step))
+
+    def _fused(self) -> bool:
+        """Whether the next batch is one whole optimizer step."""
+        return self.cfg.train.update_gap <= 1 and self._accum is None
+
+    def _steps(self, static, generators) -> torch.Tensor:
+        """Fused steps over a graph's static batches, one a generator (the
+        function a train graph captures): their losses [k]."""
+        losses = []
+        for i, gen in enumerate(generators):
+            loss, grads = self._grads(self.staging.device_batch(static, i),
+                                      gen)
+            self.opt.step(self.params, grads)
+            losses.append(loss)
+        return torch.stack(losses)
+
+    def _state(self) -> list[torch.Tensor]:
+        """Every tensor a fused step changes."""
+        return [*self.params.values(), *self.opt.state_tensors()]
+
+    def _replay(self, batches: list) -> list:
+        """``len(batches)`` fused steps as one replay; each step's loss."""
+        k = len(batches)
+        losses = self._graphs.replay(
+            batches, self._steps,
+            seeds=[step_seed(self.seed, self.global_step + i)
+                   for i in range(k)],
+            state=self._state())
+        self.global_step += k
+        return list(losses.clone().unbind(0))
+
     def update(self, batch: dict) -> torch.Tensor:
         """Forward + backward on one numpy batch; steps the optimizer every
         ``update_gap`` batches.  Returns the loss as a device scalar."""
+        if self._fused() and graphs_on(self.device, self.model):
+            return self._replay([batch])[0]
         loss, grads = self._loss_and_grads(batch)
-        if self.cfg.train.update_gap <= 1 and self._accum is None:
+        if self._fused():
             self.opt.step(self.params, grads)
             return loss
         if self._accum is None:
@@ -152,6 +223,73 @@ class Trainer:
         if self._accum_count >= self.cfg.train.update_gap:
             self.flush_gradients()
         return loss
+
+    def update_chunk(self, batches: list) -> list:
+        """``len(batches)`` fused optimizer steps, as gcn_tpu's
+        ``update_chunk``: same-shape packable batches go out in
+        ``chunk_plan`` pieces of at most ``steps_per_dispatch`` (all at
+        once where that is 1 or less), a piece of k as one replay of a
+        k-step graph on the card; otherwise one ``update`` a batch.  The
+        same steps as ``update`` on each batch; returns their losses."""
+        if (len(batches) < 2 or self.cfg.train.update_gap > 1
+                or self._accum is not None
+                or not all(self.staging.packs(b) for b in batches)
+                or len({b["words"].shape for b in batches}) != 1):
+            return [self.update(b) for b in batches]
+        spd = int(self.cfg.train.steps_per_dispatch)
+        cap = spd if spd > 1 else len(batches)
+        losses: list = []
+        i = 0
+        for size in chunk_plan(len(batches), cap):
+            sub = batches[i:i + size]
+            i += size
+            if size > 1 and graphs_on(self.device, self.model):
+                losses.extend(self._replay(sub))
+            else:
+                losses.extend(self.update(b) for b in sub)
+        return losses
+
+    def warmup(self, batches: Iterable[dict], *,
+               eval_batches: Optional[Iterable[dict]] = None) -> dict:
+        """Capture the graphs a run will need before it starts (gcn_tpu's
+        ``warmup``).  ``batches``: one representative a train batch shape
+        (``Batcher.warmup_batches``), each given the fused step's graph
+        and, when ``steps_per_dispatch`` > 1 and it packs, the chunk
+        graphs of ``allowed_chunk_sizes``; ``eval_batches``: those of
+        shapes only evaluation sees, each given the evaluation graphs
+        (with ``eval_batches=None`` the train shapes get them too).
+        Parameters, optimizer state, ``global_step``
+        and the dropout streams stay as they were.  Nothing is captured
+        on the CPU, inside ``eager_dispatch()`` or for a model that a
+        graph cannot hold.  Returns
+        ``{"programs": graphs captured, "seconds"}``."""
+        t0 = time.perf_counter()
+        reps: dict = {}
+        for b in batches:
+            ent = reps.setdefault(_signature(b),
+                                  {"batch": b, "train": False, "eval": False})
+            ent["train"] = True
+            ent["eval"] |= eval_batches is None
+        for b in (eval_batches or ()):
+            reps.setdefault(_signature(b), {"batch": b, "train": False,
+                                            "eval": False})["eval"] = True
+        before = len(self.graphs) + len(self._evaluator.graphs)
+        if graphs_on(self.device, self.model):
+            cap = max(1, int(self.cfg.train.steps_per_dispatch))
+            fused = self.cfg.train.update_gap <= 1
+            for ent in reps.values():
+                b = ent["batch"]
+                sizes = (allowed_chunk_sizes(cap)
+                         if self.staging.packs(b) else [1])
+                if ent["train"] and fused:
+                    for k in sizes:
+                        self._graphs.get([b] * k, self._steps, k,
+                                         self._state())
+                if ent["eval"]:
+                    self._evaluator.warmup(b)
+            torch.cuda.synchronize(self.device)
+        return {"programs": len(self.graphs) + len(self._evaluator.graphs)
+                - before, "seconds": time.perf_counter() - t0}
 
     @property
     def pending_batches(self) -> int:

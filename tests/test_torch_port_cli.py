@@ -14,8 +14,8 @@
 * The SemEval CLI selects on train F1 without a dev split;
   ``prepare_vocab`` writes gcn_tpu's files from a GloVe file the test
   writes; the parser has gcn_tpu's flags and defaults; unsupported flags
-  raise, dispatch-only ones are stored and named, and no card without
-  ``--cpu`` raises.
+  raise, the JAX-only ones are stored and named, the dispatch flags
+  act (chunked steps, warm-up), and no card without ``--cpu`` raises.
 """
 
 import json
@@ -331,8 +331,13 @@ def test_dispatch_only_flags_are_stored_and_named(tmp_path, capsys):
     line = [ln for ln in capsys.readouterr().out.splitlines()
             if "not acted on" in ln]
     assert len(line) == 1
+    assert cli.DISPATCH_ONLY == ("prng_impl", "compilation_cache_dir",
+                                 "debug_nans")
     for flag in cli.DISPATCH_ONLY:
         assert f"--{flag}" in line[0]
+    for flag in ("pack_transfers", "pack_format", "steps_per_dispatch",
+                 "warmup_compile"):  # these act (test_dispatch_flags_act)
+        assert f"--{flag}" not in line[0]
     run = tmp_path / "runs" / "dd"
     t = json.load(open(run / "config.json"))["train"]
     assert (t["pack_transfers"], t["pack_format"], t["steps_per_dispatch"],
@@ -344,6 +349,49 @@ def test_dispatch_only_flags_are_stored_and_named(tmp_path, capsys):
         "test_incorrect_data.json"]
     assert os.path.exists(tmp_path / "cm.pkl")
     assert not os.path.exists(run / "test_incorrect_data.json")
+
+
+def test_dispatch_flags_act(tmp_path, capsys, monkeypatch):
+    """--steps_per_dispatch 4 sends the train steps to update_chunk in
+    chunks, --warmup_compile true runs Trainer.warmup once before epoch 1
+    with every batcher's shapes (and auto does only with chunks),
+    --pack_format picks the packed layout, and --pack_transfers false
+    turns the chunks off, as in gcn_tpu."""
+    calls = {"chunks": [], "warmup": [], "formats": set()}
+    update_chunk = trainer_mod.Trainer.update_chunk
+    warmup = trainer_mod.Trainer.warmup
+
+    def chunked(self, batches):
+        calls["chunks"].append(len(batches))
+        calls["formats"].add((self.staging.pack, self.staging.fmt))
+        return update_chunk(self, batches)
+
+    def warmed(self, batches, **kw):
+        calls["warmup"].append((len(batches), len(kw["eval_batches"])))
+        return warmup(self, batches, **kw)
+
+    monkeypatch.setattr(trainer_mod.Trainer, "update_chunk", chunked)
+    monkeypatch.setattr(trainer_mod.Trainer, "warmup", warmed)
+    base = [*SMALL, "--cpu", "--num_epoch", "1",
+            "--model_save_dir", str(tmp_path)]
+    train.main([*base, "--id", "a", "--steps_per_dispatch", "4",
+                "--warmup_compile", "true", "--pack_format", "int32"])
+    assert sum(calls["chunks"]) == 5 and max(calls["chunks"]) > 1
+    assert calls["formats"] == {(True, "int32")}
+    assert len(calls["warmup"]) == 1 and min(calls["warmup"][0]) > 0
+    assert any(ln.startswith("warmup: compiled 0 programs")
+               for ln in capsys.readouterr().out.splitlines())
+    for i, (kw, chunks, warmups) in enumerate((
+            (["--steps_per_dispatch", "4", "--pack_transfers", "false"], 0,
+             1),  # auto warms up at 4 either way
+            (["--warmup_compile", "false", "--steps_per_dispatch", "2"], 5,
+             0),
+            ([], 0, 0))):
+        calls["chunks"].clear()
+        calls["warmup"].clear()
+        train.main([*base, "--id", f"b{i}", *kw])
+        assert sum(calls["chunks"]) == chunks, kw
+        assert len(calls["warmup"]) == warmups, kw
 
 
 def test_entry_points_raise_without_a_card(tmp_path, monkeypatch):

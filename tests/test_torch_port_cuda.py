@@ -891,3 +891,212 @@ def test_scan_plan_keeps_cgcn_weights_resident(backward):
     _, slice_floats, rest = lstm_mod._layout(
         480, wide.cluster, wide.rows, wide.rows_per_thread, backward)
     assert 4 * (slice_floats + rest) > lstm_mod.SMEM_LIMIT
+
+
+# ------------------------------------------------------------- dispatch
+def _graph_and_eager(cfg, device):
+    """Two trainers from one seeded state: the first replays graphs, the
+    second runs eagerly (``eager_dispatch``) when driven so."""
+    model = GCNClassifier(cfg.model)
+    init_params(model, torch.Generator().manual_seed(0))
+    state = model.state_dict()
+    return Trainer(cfg, state, device=device), Trainer(cfg, state,
+                                                       device=device)
+
+
+def loader_batch(rng, b=6, n=16):
+    """``random_batch`` with every field the loader gives (``pad_mask``,
+    ``edge_deprel``), so that it packs."""
+    batch = random_batch(rng, b=b, n=n)
+    batch["pad_mask"] = np.arange(n)[None, :] >= batch["lengths"][:, None]
+    batch["edge_deprel"] = np.where(batch["edge_mask"],
+                                    rng.randint(1, 42, (b, n)), 0)
+    return batch
+
+
+def _same_params(a, b):
+    for k, v in a.model.state_dict().items():
+        assert torch.equal(b.model.state_dict()[k], v), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["compact", "int32", "fields"])
+def test_graph_steps_equal_eager_steps(cuda_device, fmt):
+    """Dropout on: steps replayed from graphs (one step, and a 7-batch
+    ``update_chunk`` as 4 + 2 + 1) give the eager steps' losses and
+    parameters bit for bit, whichever way the batches cross; evaluation
+    through graphs, in chunks of 4, gives the eager predictions, probs
+    and loss."""
+    from gcn_tpu_torch.train.dispatch import eager_dispatch
+
+    cfg = small_cfg(**{"train.steps_per_dispatch": 4,
+                       "train.batch_size": 6,
+                       "train.effective_batch_size": 6,
+                       "train.pack_format": "int32" if fmt == "int32"
+                       else "compact",
+                       "train.pack_transfers": fmt != "fields"})
+    graph, eager = _graph_and_eager(cfg, cuda_device)
+    rng = np.random.RandomState(4)
+    batches = [loader_batch(rng) for _ in range(3)] + [
+        loader_batch(rng, n=24)]
+    chunk = [loader_batch(rng) for _ in range(7)]
+    got = [graph.update(b) for b in batches] + graph.update_chunk(chunk)
+    with eager_dispatch():
+        want = [eager.update(b) for b in batches + chunk]
+    assert [float(x) for x in got] == [float(x) for x in want]
+    _same_params(graph, eager)
+    assert graph.global_step == eager.global_step == 11
+    # one graph per signature and dispatch size
+    assert len(graph.graphs) == (2 if fmt == "fields" else 4)
+    mixed = batches + chunk[:5] + [loader_batch(rng, b=3)]
+    got = graph.evaluate(mixed)
+    with eager_dispatch():
+        want = eager.evaluate(mixed)
+    assert got[0] == want[0] and got[1] == want[1] and got[2] == want[2]
+
+
+@pytest.mark.cuda
+def test_graph_losses_are_not_overwritten(cuda_device):
+    """The loss of step 1, kept as a tensor, still holds step 1's value
+    after step 2 replays the same graph; the graph's output does not."""
+    from gcn_tpu_torch.train.dispatch import eager_dispatch
+
+    cfg = small_cfg()
+    graph, eager = _graph_and_eager(cfg, cuda_device)
+    rng = np.random.RandomState(5)
+    b1, b2 = loader_batch(rng), loader_batch(rng)
+    l1 = graph.update(b1)
+    l2 = graph.update(b2)
+    with eager_dispatch():
+        w1, w2 = eager.update(b1), eager.update(b2)
+    assert float(l1) == float(w1) and float(l2) == float(w2)
+    assert float(l1) != float(l2)
+    (out,) = [g.outputs for g in graph.graphs.values()]
+    assert float(out[0]) == float(l2)
+
+
+@pytest.mark.cuda
+def test_launch_counts_hold_under_replay(cuda_device):
+    """Each replay adds the launches its graph captured; the eager call
+    before a capture is not counted."""
+    cfg = small_cfg()
+    tr, _ = _graph_and_eager(cfg, cuda_device)
+    kernels = (lstm_mod.KERNEL, lstm_mod.BACKWARD_KERNEL, gmm_mod.KERNEL,
+               gmm_mod.BACKWARD_KERNEL)
+    for k in kernels:
+        k.launches = 0
+    rng = np.random.RandomState(6)
+    for _ in range(3):
+        tr.update(random_batch(rng))
+    torch.cuda.synchronize()
+    layers = cfg.model.num_layers
+    assert [k.launches for k in kernels] == [3, 3, 3 * layers, 3 * layers]
+    ev = Evaluator.for_model(cfg, tr.model)
+    ev.evaluate([random_batch(rng) for _ in range(4)])
+    assert lstm_mod.KERNEL.launches == 3 + 4
+
+
+@pytest.mark.cuda
+def test_pinned_ring_waits_for_the_copy_in_flight(cuda_device):
+    """A ring of one buffer: the second ``take`` waits until the copy
+    that read the first is done, so what the card receives is what was
+    written before it, though the stream was busy when the copy went
+    out."""
+    from gcn_tpu_torch.train.transfer import PinnedRing
+
+    ring = PinnedRing(1)
+    n = 1 << 20
+    dst = torch.zeros(n, dtype=torch.uint8, device=cuda_device)
+    torch.cuda._sleep(200_000_000)  # keep the stream busy for a while
+    slot, buf = ring.take(n)
+    buf.fill_(1)
+    dst.copy_(buf, non_blocking=True)
+    ring.release(slot)
+    _, again = ring.take(n)
+    again.fill_(2)
+    torch.cuda.synchronize()
+    assert int(dst.min()) == int(dst.max()) == 1
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises(cuda_device):
+    """A model that claims a graph can hold it while its step reads the
+    host (the plain grouped matmul's group sizes): the capture fails and
+    the step raises, in a process of its own."""
+    import subprocess
+    import sys
+    import textwrap
+
+    code = textwrap.dedent("""
+        import sys
+        import numpy as np
+        sys.path.insert(0, "tests")
+        from test_torch_port_cuda import random_batch, small_cfg
+        from gcn_tpu_torch.models.gcn import GCNClassifier
+        from gcn_tpu_torch.train.trainer import Trainer
+        GCNClassifier.capturable = property(lambda self: True)
+        tr = Trainer(small_cfg(**{"model.deprel_factored": "ragged"}),
+                     device="cuda")
+        try:
+            tr.update(random_batch(np.random.RandomState(0)))
+        except RuntimeError as e:
+            print("raised:", str(e).splitlines()[0])
+        else:
+            print("no error")
+    """)
+    repo = __file__.rsplit("/tests/", 1)[0]
+    out = subprocess.run([sys.executable, "-c", code], cwd=repo,
+                         capture_output=True, text=True, timeout=300)
+    assert "raised:" in out.stdout, out.stdout + out.stderr[-3000:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plain", ["ragged", "scan"])
+def test_plain_versions_train_and_evaluate_on_the_card(cuda_device, plain):
+    """The plain versions a config can pick on the card: the grouped
+    matmul's (``deprel_factored="ragged"``, which reads the host, so its
+    steps run eagerly and nothing is captured) and the scan's
+    (``rnn_impl="scan"``, through graphs).  Steps, a 4-batch chunk and
+    evaluation give the eager run's bits."""
+    from gcn_tpu_torch.train.dispatch import eager_dispatch
+
+    key, value = {"ragged": ("model.deprel_factored", "ragged"),
+                  "scan": ("model.rnn_impl", "scan")}[plain]
+    cfg = small_cfg(**{key: value, "train.steps_per_dispatch": 4,
+                       "train.batch_size": 6,
+                       "train.effective_batch_size": 6})
+    graph, eager = _graph_and_eager(cfg, cuda_device)
+    rng = np.random.RandomState(8)
+    batches = [loader_batch(rng) for _ in range(6)]
+    got = [graph.update(b) for b in batches[:2]] + graph.update_chunk(
+        batches[2:])
+    ev = graph.evaluate(batches)
+    with eager_dispatch():
+        want = [eager.update(b) for b in batches]
+        ev_want = eager.evaluate(batches)
+    assert all(np.isfinite(float(x)) for x in got)
+    assert [float(x) for x in got] == [float(x) for x in want]
+    _same_params(graph, eager)
+    assert ev[0] == ev_want[0] and ev[1] == ev_want[1]
+    assert ev[2] == ev_want[2]
+    captured = len(graph.graphs) + len(graph._evaluator.graphs)
+    assert (captured == 0) is (plain == "ragged")
+
+
+@pytest.mark.cuda
+def test_eager_steps_on_the_card_are_the_same_bits_twice(cuda_device):
+    """3840 tokens a batch (past the 3072 where ``embedding``'s backward
+    on the card turns to an algorithm that differs from run to run): two
+    eager steps from one state on one batch give the same loss and
+    gradients, so graphs can be held to the eager steps in bits."""
+    cfg = small_cfg(**{"train.batch_size": 40})
+    model = GCNClassifier(cfg.model)
+    init_params(model, torch.Generator().manual_seed(0))
+    state = model.state_dict()
+    batch = loader_batch(np.random.RandomState(9), b=40, n=96)
+    runs = [Trainer(cfg, state, device=cuda_device)._loss_and_grads(batch)
+            for _ in range(3)]
+    for loss, grads in runs[1:]:
+        assert float(loss) == float(runs[0][0])
+        for k, g in grads.items():
+            assert torch.equal(g, runs[0][1][k]), k
