@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the port's C-GCN, paper-GCN, attention, diagonal_deprel, BERT-input
-and SemEval paths on one NVIDIA GPU.
+"""Drive the port's C-GCN, paper-GCN, attention, diagonal_deprel, BERT-input,
+SemEval and bf16 paths on one NVIDIA GPU, and score the reference's trained
+checkpoints.
 
     python3 chip_smoke.py
 
@@ -23,7 +24,12 @@ Phases, one JSON line each:
    same function (for the bilinear also one SGEMM on its prebuilt
    [M, D*T] operand), and the kernel's
    bound at the card's peak rates (3xTF32 for the kernels that run it,
-   with the f32 FMA bound beside); for the scans also their cluster
+   with the f32 FMA bound beside); kernels 1-8 also in their bf16
+   instances, on the same inputs rounded to bf16, each a row of its own
+   (``..._bf16``): within TOL_BF16 of the plain version in bf16, the same
+   bits twice, timed alike, its bound on bf16 bytes (and the bf16 tensor
+   cores' peak where a product counts), its library call in bf16; for the
+   scans also their cluster
    partition and how many of its clusters fit the card at once, and the
    backward's time by launch (gates, chain, dW; for the grouped matmul's,
    dx, dS and the partials' sum); then the floor of the graph timings
@@ -74,6 +80,10 @@ Phases, one JSON line each:
    time and idle share, evaluation sentences/s eager and synced against
    graphs, copies and bytes a step packed and unpacked, and the warm-up's
    graphs, seconds and pool MiB;
+   On a bf16 path (``F32_TWIN``) every kernel runs its bf16 instance
+   only (a launch of an f32 instance fails the run), the plain versions
+   and the CPU are held within TOL_BF16, and the logits' gap to the f32
+   twin on the same weights is printed (gated in the reference phase);
 7. cli    — the run's entry points at ``train_cgcn.sh``'s flags
    (``cgcn_preset`` at its widths, sgd 0.3, B=50) on the committed
    2400/1200/1200-sentence data of ``.campaign_r5/flagship/seed11``:
@@ -93,7 +103,19 @@ Phases, one JSON line each:
    CPU's only where it is the CPU's second at a top-two gap under 1e-4).
    The whole run again at ``--steps_per_dispatch 4 --warmup_compile
    true``: its ``logs.txt`` and ``best_model`` the spd=1 run's bits.
-   Epoch walls, sustained examples/s and the eval CLI's sentences/s.
+   Epoch walls, sustained examples/s and the eval CLI's sentences/s;
+8. reference — the reference's trained checkpoints (the original PyTorch
+   C-GCN's ``best_model.pt`` of ``.campaign_r5/flagship/seed{11,17}/
+   reference_full_deprel_models/cmp``, loaded with ``weights_only``, its
+   config built here from the run's ``config.json``), carried in by
+   ``gcn_tpu_torch.compat.torch_import``, score their seed's 1200 dev
+   sentences through ``Evaluator`` at B=50: on the CPU at the runs' own
+   best dev F1 (0.680328, 0.664319); on the card in f32 on the dense bands
+   and on kernels 5-6, the CPU's labels but at near-ties; in bf16 on both,
+   against the same run in f32, at most 6 predictions apart, the F1
+   within 0.005 and the largest logit gap within twice gcn_tpu's own
+   (0.66, 0.49).  Exported by ``compat.torch_export`` and imported again,
+   the parameters keep their bits.
 
 The paths: ``cgcn`` (``cgcn_preset``: BiLSTM, factored full_deprel on
 dense bands), ``cgcn_fused`` (the same with ``use_pallas=True``: the band
@@ -106,8 +128,11 @@ the bilinear v2 kernel feeding the band aggregation), ``cdiag_fused``
 (``cgcn_preset`` with ``adj_type="diagonal_deprel"`` and
 ``use_pallas=True``: the BiLSTM, the preprocessor, then the band
 aggregation on the deprel gates), ``cgcn_bert`` (``cgcn_preset`` on
-precomputed 1024-wide word vectors, no word table) and ``cgcn_semeval``
-(``cgcn_preset`` on SemEval: no NER, 10 classes).
+precomputed 1024-wide word vectors, no word table), ``cgcn_semeval``
+(``cgcn_preset`` on SemEval: no NER, 10 classes), and ``cgcn_bf16``,
+``cgcn_fused_bf16`` and ``gcn_fused_bf16`` (``compute_dtype="bfloat16"``
+on ``cgcn``, ``cgcn_fused`` and ``gcn_fused``: kernels 1-4, 1-6 and 7-8
+in their bf16 instances).
 
 Then one line with every kernel's numbers, the ``nvidia-smi`` name and
 power limit, and the last line ``{"ok": true, "device": {...}}``.  Any
@@ -138,6 +163,7 @@ SYNTH_BATCHES = 4             # synthetic batches at the N=96 bucket
 PEAK_F32_FLOPS = 67e12        # H100 SXM f32 (no tensor cores), dense
 PEAK_TF32X3_FLOPS = 495e12 / 3  # H100 SXM TF32 tensor cores, dense, three
                                 # products per f32 product (3xTF32)
+PEAK_BF16_FLOPS = 989e12      # H100 SXM bf16 tensor cores, dense
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 TOL_F32 = 1e-4                # kernel vs plain: f32, other summation order
 TOL_BF16 = 1e-2               # bf16 storage, error over max(1, |ref|): one
@@ -391,7 +417,24 @@ def load_batches(cfg, vocab, rng, bert_rng=None):
 
 
 # --------------------------------------------------------------- kernels
-def check_lstm(torch, rng, dev) -> dict:
+def bf16_bound(n_bytes: float, flops: float) -> dict:
+    """The bound keys of a bf16 row whose products count at the bf16 tensor
+    cores' peak."""
+    return dict(zip(("bound_ms", "bound_by"),
+                    bound(n_bytes, flops, PEAK_BF16_FLOPS,
+                          "operations (bf16)")))
+
+
+def library_or_none(torch, fn, note: str):
+    """(ms of ``fn`` by ``time_ms``, note) where the library call runs, else
+    (None, why not): a yardstick the PyTorch build may refuse in bf16."""
+    try:
+        return time_ms(fn, 20), note
+    except (RuntimeError, NotImplementedError) as e:
+        return None, f"not measured: {str(e)[:200]}"
+
+
+def check_lstm(torch, rng, dev) -> list[dict]:
     from gcn_tpu_torch.ops import lstm_scan as mod
 
     g, t, h = 2, N_BUCKET, 200
@@ -440,7 +483,33 @@ def check_lstm(torch, rng, dev) -> dict:
     flops = 2.0 * g * steps * h * 4 * h
     bound_ms, bound_by = bound(n_bytes, flops)
     plan = mod.scan_plan(B, h)
-    return {
+    # the bf16 instance (bf16 xp, w_hh, h and c; f32 gates), timed alike
+    first, again = (mod.lstm_scan_forward(xb, lengths, wb) for _ in range(2))
+    same_b = all(torch.equal(a, b) for a, b in zip(first, again))
+    fn_b = functools.partial(mod.lstm_scan_forward, xb, lengths, wb)
+    lstm_b = lstm.to(torch.bfloat16)
+    packed_b = torch.nn.utils.rnn.pack_padded_sequence(
+        x.bfloat16(), lengths.cpu(), batch_first=True, enforce_sorted=False)
+    with torch.no_grad():
+        lib_b, lib_b_note = library_or_none(
+            torch, lambda: lstm_b(packed_b),
+            "torch.nn.LSTM (cuDNN) bidirectional, packed, D=360, bf16 (eager: "
+            "median of event pairs)")
+    row_b = {
+        "name": "lstm_scan_forward_bf16", "route": "cuda",
+        "source": "gcn_tpu_torch/csrc/lstm_scan.cu",
+        "replaces": "gcn_tpu/ops/pallas/lstm_scan.py:128",
+        "dtype": "bfloat16", "shape": {"T": t, "G": g, "B": B, "H": h},
+        "max_abs_err": max(max_err(hk, hp), max_err(ck, cp)),
+        "errs": {"bf16": errs["bf16"]}, "same_bits_twice": same_b,
+        "tol": {"bf16": TOL_BF16}, "ok": errs["bf16"] <= TOL_BF16 and same_b,
+        **kernel_ms(fn_b), "plain_ms": graph_ms(functools.partial(
+            mod.lstm_scan_plain, xb, lengths, wb), reps=5),
+        **bf16_bound(2 * (xp.numel() + 2 * t * g * B * h + w_hh.numel())
+                     + 4 * B, flops),
+        "library_ms": lib_b, "library": lib_b_note, "timing": TIMING_GRAPH,
+    }
+    return [{
         "name": "lstm_scan_forward", "route": "cuda",
         "source": "gcn_tpu_torch/csrc/lstm_scan.cu",
         "replaces": "gcn_tpu/ops/pallas/lstm_scan.py:128",
@@ -453,7 +522,7 @@ def check_lstm(torch, rng, dev) -> dict:
         "library": "torch.nn.LSTM (cuDNN) bidirectional, packed, D=360 "
                    "(eager: median of event pairs)",
         "timing": TIMING_GRAPH,
-    }
+    }, row_b]
 
 
 def scan_plan_facts(mod, plan, g: int) -> dict:
@@ -521,6 +590,32 @@ def check_gmm(torch, rng, dev, gs) -> list[dict]:
                 library_note = f"not measured: {str(e)[:200]}"
         used = int((gs > 0).sum())
         n_bytes = 4 * (x.numel() + used * t * h + m * h + r)
+        # the bf16 instance, timed alike; torch._grouped_mm runs bf16
+        xb, sb = x.bfloat16(), s.bfloat16()
+        got_b = mod.grouped_matmul(xb, sb, gs)
+        same_b = bool(torch.equal(got_b, mod.grouped_matmul(xb, sb, gs)))
+        lib_b, lib_b_note = (None, "torch._grouped_mm is absent")
+        if grouped_mm is not None:
+            lib_b, lib_b_note = library_or_none(
+                torch, lambda: grouped_mm(xb, sb, offs=offs),
+                "torch._grouped_mm bf16 (eager)")
+        row_b = {
+            "name": f"grouped_matmul_forward_bf16_T{t}", "route": "cuda",
+            "source": "gcn_tpu_torch/csrc/grouped_matmul.cu",
+            "replaces": "gcn_tpu/ops/pallas/grouped_matmul.py:153",
+            "dtype": "bfloat16",
+            "shape": {"M": m, "T": t, "H": h, "R": r, "groups_used": used},
+            "max_abs_err": max_err(got_b, mod.grouped_matmul_plain(xb, sb, gs)),
+            "errs": {"bf16": err_bf16}, "same_bits_twice": same_b,
+            "tol": {"bf16": TOL_BF16},
+            "ok": err_bf16 <= TOL_BF16 and same_b,
+            **kernel_ms(functools.partial(mod.grouped_matmul, xb, sb, gs)),
+            "plain_ms": time_ms(lambda: mod.grouped_matmul_plain(xb, sb, gs),
+                                10),
+            **bf16_bound(2 * (x.numel() + used * t * h + m * h) + 4 * r,
+                         2.0 * m * t * h),
+            "library_ms": lib_b, "library": lib_b_note, "timing": TIMING_GMM,
+        }
         out.append({
             "name": f"grouped_matmul_forward_T{t}", "route": "cuda",
             "source": "gcn_tpu_torch/csrc/grouped_matmul.cu",
@@ -535,10 +630,11 @@ def check_gmm(torch, rng, dev, gs) -> list[dict]:
             "library_ms": library_ms, "library": library_note,
             "timing": TIMING_GMM,
         })
+        out.append(row_b)
     return out
 
 
-def check_lstm_backward(torch, rng, dev) -> dict:
+def check_lstm_backward(torch, rng, dev) -> list[dict]:
     from gcn_tpu_torch.ops import lstm_scan as mod
 
     g, t, h = 2, N_BUCKET, 200
@@ -610,7 +706,49 @@ def check_lstm_backward(torch, rng, dev) -> dict:
                    + B)
     bound_ms, bound_by = bound(n_bytes, flops)
     plan = mod.scan_plan(B, h, backward=True)
-    return {
+    # the bf16 instance (bf16 xp, w_hh, states and dxp; f32 gy and dW),
+    # timed alike; the yardstick is cuDNN's layer in bf16
+    args_b = inputs(torch.bfloat16, None)
+    first, again = (mod.lstm_scan_backward(*args_b) for _ in range(2))
+    same_b = all(torch.equal(a, b) for a, b in zip(first, again))
+    lstm_b = lstm.to(torch.bfloat16)
+    x_b = x.detach().bfloat16().requires_grad_()
+    leaves_b = [x_b] + list(lstm_b.parameters())
+
+    def lib_fwd_b():
+        packed = torch.nn.utils.rnn.pack_padded_sequence(
+            x_b, len_cpu, batch_first=True, enforce_sorted=False)
+        return lstm_b(packed)[0].data
+
+    lib_b = None
+    fwd_b, lib_b_note = library_or_none(torch, lib_fwd_b, "")
+    if fwd_b is not None:
+        grad_b = grad_out.bfloat16()
+        fwd_bwd_b, lib_b_note = library_or_none(
+            torch, lambda: torch.autograd.grad(lib_fwd_b(), leaves_b, grad_b),
+            "torch.nn.LSTM (cuDNN) bidirectional, packed, D=360, bf16, "
+            "forward+backward minus forward (eager)")
+        if fwd_bwd_b is not None:
+            lib_b = fwd_bwd_b - fwd_b
+    gy_n = args_b[0].numel()
+    row_b = {
+        "name": "lstm_scan_backward_bf16", "route": "cuda",
+        "source": "gcn_tpu_torch/csrc/lstm_scan_backward.cu",
+        "replaces": "gcn_tpu/ops/pallas/lstm_scan.py:262",
+        "dtype": "bfloat16",
+        "shape": {"T": t, "G": g, "B": B, "H": h, "sum_len": steps},
+        "max_abs_err": abs_errs["bf16"], "errs": {"bf16": errs["bf16"]},
+        "same_bits_twice": same_b, "tol": {"bf16": TOL_BF16},
+        "ok": errs["bf16"] <= TOL_BF16 and same_b,
+        **kernel_ms(functools.partial(mod.lstm_scan_backward, *args_b)),
+        "plain_ms": graph_ms(functools.partial(mod.lstm_scan_backward_plain,
+                                               *args_b), reps=3),
+        # gy and dW f32; xp, w_hh, h, c and dxp bf16
+        **bf16_bound(4 * gy_n + 2 * 2 * gy_n + 2 * 2 * xp.numel()
+                     + 2 * w_hh.numel() + 4 * w_hh.numel() + 4 * B, flops),
+        "library_ms": lib_b, "library": lib_b_note, "timing": TIMING_GRAPH,
+    }
+    return [{
         "name": "lstm_scan_backward", "route": "cuda",
         "source": "gcn_tpu_torch/csrc/lstm_scan_backward.cu",
         "replaces": "gcn_tpu/ops/pallas/lstm_scan.py:262",
@@ -630,7 +768,7 @@ def check_lstm_backward(torch, rng, dev) -> dict:
                    "pairs)",
         "library_fwd_ms": fwd_ms, "library_fwd_bwd_ms": fwd_bwd_ms,
         "timing": TIMING_GRAPH,
-    }
+    }, row_b]
 
 
 def check_gmm_backward(torch, rng, dev, gs) -> list[dict]:
@@ -692,6 +830,45 @@ def check_gmm_backward(torch, rng, dev, gs) -> list[dict]:
         n_bytes = 4 * (x.numel() + g.numel() + used * t * h + m * t
                        + r * t * h + r)
         slots = mod.BACKWARD_KERNEL.load().grouped_matmul_backward_partials(m)
+        # the bf16 instance (bf16 x, g, s and dx; f32 dS), timed alike
+        args_b = (x.bfloat16(), g.bfloat16(), s.bfloat16(), gs)
+        first, again = (mod.grouped_matmul_backward(*args_b)
+                        for _ in range(2))
+        same_b = all(torch.equal(a, b) for a, b in zip(first, again))
+        want_b = mod.grouped_matmul_backward_plain(*args_b)
+        lib_b, lib_b_note = None, "torch._grouped_mm is absent"
+        if grouped_mm is not None:
+            xb = args_b[0].clone().requires_grad_()
+            sb = args_b[2].clone().requires_grad_()
+            fwd_b, lib_b_note = library_or_none(
+                torch, lambda: grouped_mm(xb, sb, offs=offs), "")
+            if fwd_b is not None:
+                fwd_bwd_b, lib_b_note = library_or_none(
+                    torch, lambda: torch.autograd.grad(
+                        grouped_mm(xb, sb, offs=offs), [xb, sb], args_b[1]),
+                    "torch._grouped_mm bf16 autograd, forward+backward "
+                    "minus forward (eager)")
+                if fwd_bwd_b is not None:
+                    lib_b = fwd_bwd_b - fwd_b
+        row_b = {
+            "name": f"grouped_matmul_backward_bf16_T{t}", "route": "cuda",
+            "source": "gcn_tpu_torch/csrc/grouped_matmul_backward.cu",
+            "replaces": "gcn_tpu/ops/pallas/grouped_matmul.py:208",
+            "dtype": "bfloat16",
+            "shape": {"M": m, "T": t, "H": h, "R": r, "groups_used": used},
+            "max_abs_err": max(max_err(a, b) for a, b in zip(first, want_b)),
+            "errs": {"bf16": errs["bf16"]}, "same_bits_twice": same_b,
+            "tol": {"bf16": TOL_BF16},
+            "ok": errs["bf16"] <= TOL_BF16 and same_b,
+            **kernel_ms(functools.partial(mod.grouped_matmul_backward,
+                                          *args_b)),
+            "plain_ms": time_ms(
+                lambda: mod.grouped_matmul_backward_plain(*args_b), 10),
+            # x, g, the used groups' S and dx bf16; every group's dS f32
+            **bf16_bound(2 * (x.numel() + g.numel() + used * t * h + m * t)
+                         + 4 * (r * t * h + r), 4.0 * m * t * h),
+            "library_ms": lib_b, "library": lib_b_note, "timing": TIMING_GMM,
+        }
         out.append({
             "name": f"grouped_matmul_backward_T{t}", "route": "cuda",
             "source": "gcn_tpu_torch/csrc/grouped_matmul_backward.cu",
@@ -706,6 +883,7 @@ def check_gmm_backward(torch, rng, dev, gs) -> list[dict]:
             "library_ms": library_ms, "library": library_note,
             "timing": TIMING_GMM,
         })
+        out.append(row_b)
     return out
 
 
@@ -734,78 +912,93 @@ TIMING_GRAPH = ("ms, plain_ms, library_ms: 20 calls in one CUDA graph, "
                 "the wrapper included")
 
 
+DTYPE_TAG = {"float32": "", "bfloat16": "_bf16"}  # a bf16 row's name tag
+
+
 def check_band(torch, rng, dev, edges) -> list[dict]:
-    """Kernels 5 and 6 at the C-GCN layer's shapes (x [B, 96, 200])."""
+    """Kernels 5 and 6 at the C-GCN layer's shapes (x [B, 96, 200]), each
+    in its f32 and its bf16 instance (the same inputs, rounded)."""
     from gcn_tpu_torch.ops import band_aggregate as mod
     from gcn_tpu_torch.ops.adjacency import build_adjacency
 
     b, n, h = edges[0].shape[0], N_BUCKET, 200
-    x_f, x_r, x_s = (torch.tensor(rng.randn(b, n, h), dtype=torch.float32,
-                                  device=dev) for _ in range(3))
-    fwd_errs, fwd_abs, fwd_same = {}, 0.0, True
-    for relu in (True, False):
-        got = mod.band_aggregate_forward(*edges, x_f, x_r, x_s, relu)
-        again = mod.band_aggregate_forward(*edges, x_f, x_r, x_s, relu)
-        want = mod.band_aggregate_plain(*edges, x_f, x_r, x_s, relu)
-        fwd_errs[f"relu={relu}"] = scaled_err(got, want)
-        fwd_abs = max(fwd_abs, max_err(got, want))
-        fwd_same = fwd_same and bool(torch.equal(got, again))
-    got = mod.pair_aggregate(*edges, x_f)
-    again = mod.pair_aggregate(*edges, x_f)
-    want = mod.pair_aggregate_plain(*edges, x_f)
-    pair_err = max(scaled_err(a, w) for a, w in zip(got, want))
-    pair_abs = max(max_err(a, w) for a, w in zip(got, want))
-    pair_same = all(bool(torch.equal(a, a2)) for a, a2 in zip(got, again))
-    torch.cuda.synchronize()
+    x32 = [torch.tensor(rng.randn(b, n, h), dtype=torch.float32, device=dev)
+           for _ in range(3)]
     # yardstick only (the port never calls it): the dense path's product on
     # a band built beforehand; the build is timed apart
     build_ms = graph_ms(lambda: build_adjacency(*edges, n))
     adj = build_adjacency(*edges, n)
-    band_fr = torch.cat([adj.forward, adj.reverse], dim=2)   # [B, N, 2N]
-    x_fr = torch.cat([x_f, x_r], dim=1)                      # [B, 2N, H]
-    band_tf = torch.cat([adj.reverse, adj.forward], dim=1)   # [B, 2N, N]
     e_bytes, valid = edge_facts(torch, edges, n)
     rows = []
-    for name, line, fn, plain, lib, lib_note, err, abs_err, same, n_bytes, \
-            flops in (
-        ("band_aggregate_forward", 88,
-         lambda: mod.band_aggregate_forward(*edges, x_f, x_r, x_s),
-         lambda: mod.band_aggregate_plain(*edges, x_f, x_r, x_s),
-         lambda: torch.bmm(band_fr, x_fr),
-         "torch.bmm of the prebuilt [A_f | A_f^T] band [B, N, 2N] with "
-         "[x_f; x_r] (no x_s, denom or ReLU)",
-         max(fwd_errs.values()), fwd_abs, fwd_same,
-         4 * 4 * x_f.numel() + e_bytes, 2.0 * valid * h + 3.0 * x_f.numel()),
-        ("band_aggregate_pair", 149,
-         lambda: mod.pair_aggregate(*edges, x_f),
-         lambda: mod.pair_aggregate_plain(*edges, x_f),
-         lambda: torch.bmm(band_tf, x_f),
-         "torch.bmm of the prebuilt [A_f^T; A_f] band [B, 2N, N] with x",
-         pair_err, pair_abs, pair_same, 3 * 4 * x_f.numel() + e_bytes,
-         2.0 * valid * h),
-    ):
-        bound_ms, bound_by = bound(n_bytes, flops)
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": "gcn_tpu_torch/csrc/band_aggregate.cu",
-            "replaces": f"gcn_tpu/ops/pallas/band_aggregate.py:{line}",
-            "shape": {"B": b, "N": n, "E": edges[0].shape[1], "H": h,
-                      "valid_edges": valid},
-            "max_abs_err": abs_err,
-            "errs": fwd_errs if name.endswith("forward") else {"f32": err},
-            "same_bits_twice": same,
-            "tol": {"f32": TOL_F32}, "ok": err <= TOL_F32 and same,
-            **kernel_ms(fn), "plain_ms": graph_ms(plain),
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": graph_ms(lib), "library": lib_note,
-            "library_band_build_ms": build_ms, "timing": TIMING_GRAPH,
-        })
+    for dtype, tol in (("float32", TOL_F32), ("bfloat16", TOL_BF16)):
+        tdt = getattr(torch, dtype)
+        x_f, x_r, x_s = (x.to(tdt) for x in x32)
+        esize = x_f.element_size()
+        key = "f32" if dtype == "float32" else "bf16"
+        fwd_errs, fwd_abs, fwd_same = {}, 0.0, True
+        for relu in (True, False):
+            got = mod.band_aggregate_forward(*edges, x_f, x_r, x_s, relu)
+            again = mod.band_aggregate_forward(*edges, x_f, x_r, x_s, relu)
+            want = mod.band_aggregate_plain(*edges, x_f, x_r, x_s, relu)
+            fwd_errs[f"{key} relu={relu}"] = scaled_err(got, want)
+            fwd_abs = max(fwd_abs, max_err(got, want))
+            fwd_same = fwd_same and bool(torch.equal(got, again))
+        got = mod.pair_aggregate(*edges, x_f)
+        again = mod.pair_aggregate(*edges, x_f)
+        want = mod.pair_aggregate_plain(*edges, x_f)
+        pair_err = max(scaled_err(a, w) for a, w in zip(got, want))
+        pair_abs = max(max_err(a, w) for a, w in zip(got, want))
+        pair_same = all(bool(torch.equal(a, a2)) for a, a2 in zip(got, again))
+        torch.cuda.synchronize()
+        band_fr = torch.cat([adj.forward, adj.reverse], dim=2).to(tdt)
+        x_fr = torch.cat([x_f, x_r], dim=1)                      # [B, 2N, H]
+        band_tf = torch.cat([adj.reverse, adj.forward], dim=1).to(tdt)
+        tag = DTYPE_TAG[dtype]
+        for name, line, fn, plain, lib, lib_note, err, abs_err, same, \
+                n_bytes, flops in (
+            ("band_aggregate_forward", 88,
+             lambda: mod.band_aggregate_forward(*edges, x_f, x_r, x_s),
+             lambda: mod.band_aggregate_plain(*edges, x_f, x_r, x_s),
+             lambda: torch.bmm(band_fr, x_fr),
+             f"torch.bmm of the prebuilt [A_f | A_f^T] band [B, N, 2N] with "
+             f"[x_f; x_r], {dtype} (no x_s, denom or ReLU)",
+             max(fwd_errs.values()), fwd_abs, fwd_same,
+             4 * esize * x_f.numel() + e_bytes,
+             2.0 * valid * h + 3.0 * x_f.numel()),
+            ("band_aggregate_pair", 149,
+             lambda: mod.pair_aggregate(*edges, x_f),
+             lambda: mod.pair_aggregate_plain(*edges, x_f),
+             lambda: torch.bmm(band_tf, x_f),
+             f"torch.bmm of the prebuilt [A_f^T; A_f] band [B, 2N, N] with "
+             f"x, {dtype}",
+             pair_err, pair_abs, pair_same, 3 * esize * x_f.numel() + e_bytes,
+             2.0 * valid * h),
+        ):
+            # sums of neighbour rows in f32 on the CUDA cores, either type
+            bound_ms, bound_by = bound(n_bytes, flops)
+            rows.append({
+                "name": name + tag, "route": "cuda",
+                "source": "gcn_tpu_torch/csrc/band_aggregate.cu",
+                "replaces": f"gcn_tpu/ops/pallas/band_aggregate.py:{line}",
+                "dtype": dtype,
+                "shape": {"B": b, "N": n, "E": edges[0].shape[1], "H": h,
+                          "valid_edges": valid},
+                "max_abs_err": abs_err,
+                "errs": fwd_errs if name.endswith("forward") else {key: err},
+                "same_bits_twice": same,
+                "tol": {key: tol}, "ok": err <= tol and same,
+                **kernel_ms(fn), "plain_ms": graph_ms(plain),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": graph_ms(lib), "library": lib_note,
+                "library_band_build_ms": build_ms, "timing": TIMING_GRAPH,
+            })
     return rows
 
 
 def check_spmm(torch, rng, dev, edges) -> list[dict]:
     """Kernels 7 and 8 at the paper GCN's two layers' shapes (h [B, 96, T]
-    with T = 360 and 200, W [T, 200])."""
+    with T = 360 and 200, W [T, 200]), each in its f32 and its bf16
+    instance (the same inputs, rounded)."""
     from gcn_tpu_torch.ops import spmm_fused as mod
     from gcn_tpu_torch.ops.adjacency import build_adjacency
 
@@ -816,57 +1009,78 @@ def check_spmm(torch, rng, dev, edges) -> list[dict]:
     e_bytes, valid = edge_facts(torch, edges, n)
     rows = []
     for t in (360, 200):
-        h = torch.tensor(rng.randn(b, n, t), dtype=torch.float32, device=dev)
-        g = torch.tensor(rng.randn(b, n, t), dtype=torch.float32, device=dev)
-        w = torch.tensor(rng.uniform(-1, 1, (t, hd)) / np.sqrt(t),
-                         dtype=torch.float32, device=dev)
-        bias = torch.tensor(rng.uniform(-0.1, 0.1, hd), dtype=torch.float32,
-                            device=dev)
-        got = mod.gcn_spmm_forward(*edges, h, w, bias)
-        want = mod.gcn_spmm_plain(*edges, h, w, bias)
-        fwd_err, fwd_abs = scaled_err(got, want), max_err(got, want)
-        got = mod.sym_pair(*edges, g, h)
-        want = mod.sym_pair_plain(*edges, g, h)
-        pair_err = max(scaled_err(a, w_) for a, w_ in zip(got, want))
-        pair_abs = max(max_err(a, w_) for a, w_ in zip(got, want))
-        torch.cuda.synchronize()
-        gh = torch.cat([g, h], dim=2)
-        gather = 2.0 * valid * t + 2.0 * b * n * t   # S·x of one operand
-        for name, line, fn, plain, lib, lib_note, err, abs_err, n_bytes, \
-                flops in (
-            (f"spmm_fused_forward_T{t}", 88,
-             lambda: mod.gcn_spmm_forward(*edges, h, w, bias),
-             lambda: mod.gcn_spmm_plain(*edges, h, w, bias),
-             lambda: torch.bmm(s_full, h) @ w,
-             "torch.bmm of the prebuilt S = A_f + A_f^T + diag(incident+1) "
-             "band with h, then @ W (two calls; no 2b, denom or ReLU)",
-             fwd_err, fwd_abs,
-             4 * (h.numel() + w.numel() + hd + b * n * hd) + e_bytes,
-             2.0 * b * n * t * hd + gather + 3.0 * b * n * hd),
-            (f"spmm_fused_sym_pair_T{t}", 174,
-             lambda: mod.sym_pair(*edges, g, h),
-             lambda: mod.sym_pair_plain(*edges, g, h),
-             lambda: torch.bmm(s_full, gh),
-             "torch.bmm of the prebuilt S band with [x1 | x2] [B, N, 2T]",
-             pair_err, pair_abs, 4 * 4 * h.numel() + e_bytes, 2 * gather),
-        ):
-            if "forward" in name:  # the W product runs 3xTF32
-                bounds = tf32x3_bound(n_bytes, flops)
-            else:
-                bounds = dict(zip(("bound_ms", "bound_by"),
-                                  bound(n_bytes, flops)))
-            rows.append({
-                "name": name, "route": "cuda",
-                "source": "gcn_tpu_torch/csrc/spmm_fused.cu",
-                "replaces": f"gcn_tpu/ops/pallas/spmm_fused.py:{line}",
-                "shape": {"B": b, "N": n, "E": edges[0].shape[1], "T": t,
-                          "H": hd, "valid_edges": valid},
-                "max_abs_err": abs_err, "errs": {"f32": err},
-                "tol": {"f32": TOL_F32}, "ok": err <= TOL_F32,
-                **kernel_ms(fn), "plain_ms": graph_ms(plain), **bounds,
-                "library_ms": graph_ms(lib), "library": lib_note,
-                "library_band_build_ms": build_ms, "timing": TIMING_GRAPH,
-            })
+        h32 = torch.tensor(rng.randn(b, n, t), dtype=torch.float32,
+                           device=dev)
+        g32 = torch.tensor(rng.randn(b, n, t), dtype=torch.float32,
+                           device=dev)
+        w32 = torch.tensor(rng.uniform(-1, 1, (t, hd)) / np.sqrt(t),
+                           dtype=torch.float32, device=dev)
+        bias32 = torch.tensor(rng.uniform(-0.1, 0.1, hd), dtype=torch.float32,
+                              device=dev)
+        for dtype, tol in (("float32", TOL_F32), ("bfloat16", TOL_BF16)):
+            tdt = getattr(torch, dtype)
+            h, g, w, bias = (a.to(tdt) for a in (h32, g32, w32, bias32))
+            esize = h.element_size()
+            key = "f32" if dtype == "float32" else "bf16"
+            got = mod.gcn_spmm_forward(*edges, h, w, bias)
+            want = mod.gcn_spmm_plain(*edges, h, w, bias)
+            fwd_err, fwd_abs = scaled_err(got, want), max_err(got, want)
+            fwd_same = bool(torch.equal(
+                got, mod.gcn_spmm_forward(*edges, h, w, bias)))
+            got = mod.sym_pair(*edges, g, h)
+            want = mod.sym_pair_plain(*edges, g, h)
+            pair_err = max(scaled_err(a, w_) for a, w_ in zip(got, want))
+            pair_abs = max(max_err(a, w_) for a, w_ in zip(got, want))
+            pair_same = all(bool(torch.equal(a, a2)) for a, a2 in zip(
+                got, mod.sym_pair(*edges, g, h)))
+            torch.cuda.synchronize()
+            s_t = s_full.to(tdt)
+            gh = torch.cat([g, h], dim=2)
+            gather = 2.0 * valid * t + 2.0 * b * n * t   # S·x of one operand
+            tag = DTYPE_TAG[dtype]
+            for name, line, fn, plain, lib, lib_note, err, abs_err, same, \
+                    n_bytes, flops in (
+                (f"spmm_fused_forward{tag}_T{t}", 88,
+                 lambda: mod.gcn_spmm_forward(*edges, h, w, bias),
+                 lambda: mod.gcn_spmm_plain(*edges, h, w, bias),
+                 lambda: torch.bmm(s_t, h) @ w,
+                 "torch.bmm of the prebuilt S = A_f + A_f^T + "
+                 f"diag(incident+1) band with h, then @ W, {dtype} (two "
+                 "calls; no 2b, denom or ReLU)",
+                 fwd_err, fwd_abs, fwd_same,
+                 esize * (h.numel() + w.numel() + hd + b * n * hd) + e_bytes,
+                 2.0 * b * n * t * hd + gather + 3.0 * b * n * hd),
+                (f"spmm_fused_sym_pair{tag}_T{t}", 174,
+                 lambda: mod.sym_pair(*edges, g, h),
+                 lambda: mod.sym_pair_plain(*edges, g, h),
+                 lambda: torch.bmm(s_t, gh),
+                 f"torch.bmm of the prebuilt S band with [x1 | x2] "
+                 f"[B, N, 2T], {dtype}",
+                 pair_err, pair_abs, pair_same,
+                 4 * esize * h.numel() + e_bytes, 2 * gather),
+            ):
+                if "forward" not in name:  # a gather alone
+                    bounds = dict(zip(("bound_ms", "bound_by"),
+                                      bound(n_bytes, flops)))
+                elif dtype == "float32":  # the W product runs 3xTF32
+                    bounds = tf32x3_bound(n_bytes, flops)
+                else:  # the W product of bf16 values
+                    bounds = bf16_bound(n_bytes, flops)
+                rows.append({
+                    "name": name, "route": "cuda",
+                    "source": "gcn_tpu_torch/csrc/spmm_fused.cu",
+                    "replaces": f"gcn_tpu/ops/pallas/spmm_fused.py:{line}",
+                    "dtype": dtype,
+                    "shape": {"B": b, "N": n, "E": edges[0].shape[1],
+                              "T": t, "H": hd, "valid_edges": valid},
+                    "max_abs_err": abs_err, "errs": {key: err},
+                    "same_bits_twice": same,
+                    "tol": {key: tol}, "ok": err <= tol and same,
+                    **kernel_ms(fn), "plain_ms": graph_ms(plain), **bounds,
+                    "library_ms": graph_ms(lib), "library": lib_note,
+                    "library_band_build_ms": build_ms,
+                    "timing": TIMING_GRAPH,
+                })
     return rows
 
 
@@ -1096,7 +1310,17 @@ PATHS = {
     "cgcn_semeval": ("cgcn_preset", {"model.dataset": "semeval",
                                      "model.num_class": 10,
                                      "train.word_dropout": 0.0}),
+    # compute_dtype="bfloat16": kernels 1-4, 5-6 and 7-8 in their bf16
+    # instances
+    "cgcn_bf16": ("cgcn_preset", {"model.compute_dtype": "bfloat16"}),
+    "cgcn_fused_bf16": ("cgcn_preset", {"model.use_pallas": True,
+                                        "model.compute_dtype": "bfloat16"}),
+    "gcn_fused_bf16": ("gcn_preset", {"model.use_pallas": True,
+                                      "model.compute_dtype": "bfloat16"}),
 }
+# each bf16 path's f32 twin: the same configuration and weights in f32
+F32_TWIN = {"cgcn_bf16": "cgcn", "cgcn_fused_bf16": "cgcn_fused",
+            "gcn_fused_bf16": "gcn_fused"}
 # the inputs each path reads (``load_batches``): the in-repo TACRED and
 # synthetic N=96 sentences by word ids, the same sentences as seeded
 # [L, 1024] float rows, or the in-repo SemEval and synthetic SemEval
@@ -1130,6 +1354,8 @@ EXPECTED = {
     "cgcn_bert": (_CGCN, {**_CGCN, **_CGCN_BWD}),
     "cgcn_semeval": (_CGCN, {**_CGCN, **_CGCN_BWD}),
 }
+# a bf16 path launches its twin's kernels, each in its bf16 instance only
+EXPECTED.update({p: EXPECTED[twin] for p, twin in F32_TWIN.items()})
 # Each path's card-side reference, the plain versions: the scan's and the
 # grouped matmul's; for the edge-list layers the dense bands
 # (``build_adjacency`` + ``bmm``, what their plain versions compute); for
@@ -1143,6 +1369,12 @@ PLAIN = {
     "cgcn_attn": {"model.rnn_impl": "scan", "model.attention_impl": "dense"},
     "cgcn_bilinear": {"model.rnn_impl": "scan", "model.use_pallas": False},
     "cdiag_fused": _PLAIN, "cgcn_bert": _PLAIN, "cgcn_semeval": _PLAIN,
+    # the same in bf16 (the path's own compute dtype) where the card runs
+    # the plain versions (kernels 1-4); None: the plain versions of the
+    # edge-list kernels in bf16 run on the CPU only (the card's dense bands
+    # round each band's product, at other points: they are held apart,
+    # ``run_slice``), so the path is held against the CPU, every batch
+    "cgcn_bf16": _PLAIN, "cgcn_fused_bf16": None, "gcn_fused_bf16": None,
 }
 # a path whose logits must also equal another path's on the same weights:
 # the non-factored full_deprel against the factored one (both exact)
@@ -1175,6 +1407,18 @@ def path_config(path: str, **extra):
     return getattr(config, preset)(**{**overrides, **extra})
 
 
+def path_dtype(path: str) -> str:
+    """The compute dtype of a path ("float32" or "bfloat16")."""
+    return path_config(path).model.compute_dtype
+
+
+# a bf16 path's tolerances in place of the f32 ones: logits and h_out per
+# row against the plain versions (which round at other points: the dense
+# bands round each band's product) and against the CPU; the trainers'
+TOL_PATH = {"float32": (TOL_SLICE, TOL_TRAIN), "bfloat16": (TOL_BF16,
+                                                            TOL_BF16)}
+
+
 def eager_dispatch():
     """The port's ``eager_dispatch()``: the card runs its steps and
     forwards eagerly inside it."""
@@ -1183,18 +1427,29 @@ def eager_dispatch():
     return eager()
 
 
-def counted(fn):
-    """Run ``fn`` with every kernel's count set to 0 just before; returns
-    (its result, every count just after)."""
+def counted(fn, dtype: str = "float32"):
+    """Run ``fn`` with every kernel's counts set to 0 just before; returns
+    (its result, each kernel's launches of its ``dtype`` instance just
+    after).  A launch of a kernel's other instance (bf16 on an f32 path,
+    f32 on a bf16 one) fails the run."""
     import torch
 
     kernels = kernel_table()
     for k in kernels.values():
-        k.launches = 0
+        k.reset()
     torch.cuda.synchronize()
     out = fn()
     torch.cuda.synchronize()
-    return out, {name: k.launches for name, k in kernels.items()}
+    counts = {}
+    for name, k in kernels.items():
+        bf16 = k.launches_of("_bf16")
+        mine, other = ((bf16, k.launches - bf16) if dtype == "bfloat16"
+                       else (k.launches - bf16, bf16))
+        if other:
+            fail(f"kernel {name} launched {other} times outside its "
+                 f"{dtype} instance: {k.by_function}")
+        counts[name] = mine
+    return out, counts
 
 
 def check_launches(path: str, what: str, launches: dict, expected: dict,
@@ -1218,14 +1473,16 @@ def run_slice(torch, dev, real, synth, vocab_size: int, path: str) -> dict:
 
     base = {"model.vocab_size": vocab_size, "train.batch_size": B}
     cfg = path_config(path, **base)
-    plain_cfg = path_config(path, **base, **PLAIN[path])
+    dtype = cfg.model.compute_dtype
+    tol = TOL_PATH[dtype][0]
     model = GCNClassifier(cfg.model)
     init_params(model, torch.Generator().manual_seed(SEED))
     state = model.state_dict()
     ev = Evaluator(cfg, state, device=dev)
-    ev_plain = Evaluator(plain_cfg, state, device=dev)
     # on the CPU every kernel's wrapper runs its plain version
     ev_cpu = Evaluator(cfg, state, device="cpu")
+    ev_plain = ev_cpu if PLAIN[path] is None else Evaluator(
+        path_config(path, **base, **PLAIN[path]), state, device=dev)
     fused = cfg.model.use_pallas is True
     if fused:  # the same weights on the dense bands (use_pallas=False)
         ev_dense = Evaluator(path_config(path, **base,
@@ -1234,11 +1491,14 @@ def run_slice(torch, dev, real, synth, vocab_size: int, path: str) -> dict:
     cross = CROSS.get(path)
     if cross:  # the same weights on another path
         ev_cross = Evaluator(path_config(cross, **base), state, device=dev)
+    twin = F32_TWIN.get(path)
+    if twin:  # the same weights in f32: the gap bf16 costs, printed
+        ev_twin = Evaluator(path_config(twin, **base), state, device=dev)
 
     # the main path, counted
     t0 = time.perf_counter()
     (preds, probs, loss), launches = counted(
-        lambda: ev.evaluate(real + synth))
+        lambda: ev.evaluate(real + synth), dtype)
     first_s = time.perf_counter() - t0
     per_forward = check_launches(path, "evaluation forward", launches,
                                  EXPECTED[path][0], len(real + synth))
@@ -1251,10 +1511,13 @@ def run_slice(torch, dev, real, synth, vocab_size: int, path: str) -> dict:
     # on the dense bands and on the cross path, over the batches' valid
     # rows (padded rows pool -1e12 fills)
     err, err_cpu, err_dense, err_cross = 0.0, 0.0, 0.0, 0.0
+    gap = {"row_err": 0.0, "logits_row_err": 0.0, "logits_max_abs_err": 0.0,
+           "largest_logit": 0.0, "predictions_differ": 0, "rows": 0}
     with torch.no_grad():
         for i, b in enumerate(real + synth):
             lk, hk = ev.model(batch_to_device(b, dev))
-            lp, hp = ev_plain.model(batch_to_device(b, dev))
+            lp, hp = (t.to(dev) for t in ev_plain.model(
+                batch_to_device(b, ev_plain.device)))
             if lk.shape != (B, cfg.model.num_class) or not bool(
                     torch.isfinite(lk).all()):
                 fail(f"{path}: logits shape {tuple(lk.shape)} or "
@@ -1270,12 +1533,32 @@ def run_slice(torch, dev, real, synth, vocab_size: int, path: str) -> dict:
                 lx, hx = ev_cross.model(batch_to_device(b, dev))
                 err_cross = max(err_cross, row_err(lk[valid], lx[valid]),
                                 row_err(hk[valid], hx[valid]))
+            if twin:
+                lt, ht = ev_twin.model(batch_to_device(b, dev))
+                gap["row_err"] = max(gap["row_err"],
+                                     row_err(lk[valid], lt[valid]),
+                                     row_err(hk[valid], ht[valid]))
+                gap["logits_row_err"] = max(gap["logits_row_err"],
+                                            row_err(lk[valid], lt[valid]))
+                gap["logits_max_abs_err"] = max(gap["logits_max_abs_err"],
+                                                max_err(lk[valid], lt[valid]))
+                gap["largest_logit"] = max(gap["largest_logit"],
+                                           float(lt[valid].abs().max()))
+                gap["predictions_differ"] += int(
+                    (lk[valid].argmax(1) != lt[valid].argmax(1)).sum())
+                gap["rows"] += int(valid.sum())
             if i == 0:
                 lc, _ = ev_cpu.model(batch_to_device(b, "cpu"))
                 err_cpu = row_err(lk[valid].cpu(), lc[valid.cpu()])
-    if max(err, err_cpu, err_dense, err_cross) > TOL_SLICE:
+    # in bf16 the dense bands round at other points than the edge-list
+    # kernels (each band's product): held within twice the gap that bf16
+    # itself costs against f32 on these rows (logits and h_out), as the
+    # CPU tests hold the port to gcn_tpu
+    tol_dense = tol if dtype == "float32" else 2 * gap["row_err"]
+    if (max(err, err_cpu, err_cross) > tol or err_dense > tol_dense):
         fail(f"{path}: slice logits differ: card plain {err}, cpu "
-             f"{err_cpu}, dense bands {err_dense}, {cross} {err_cross}")
+             f"{err_cpu}, dense bands {err_dense} (tolerance {tol_dense}), "
+             f"{cross} {err_cross}; tolerance {tol}")
 
     gold = [l for b in real + synth for l in
             (b["labels"][b["example_mask"]]).tolist()]
@@ -1299,14 +1582,17 @@ def run_slice(torch, dev, real, synth, vocab_size: int, path: str) -> dict:
             return rate(batches)
 
     return {
-        "phase": "slice", "path": path, "sentences": n_sent,
+        "phase": "slice", "path": path, "dtype": dtype, "sentences": n_sent,
         "batches": {"real": len(real), "synthetic_n96": len(synth)},
         "launches": launches, "launches_per_forward": per_forward,
         "first_pass_s": first_s,
         "row_err_plain_card": err, "row_err_plain_cpu": err_cpu,
         "row_err_dense_bands": err_dense if fused else None,
+        "tol_dense_bands": tol_dense if fused else None,
+        "plain_on": str(ev_plain.device),
         "row_err_cross": {cross: err_cross} if cross else None,
-        "tol": TOL_SLICE, "loss": loss, "f1_random_weights": f1,
+        "bf16_gap_to_f32": {twin: gap} if twin else None,
+        "tol": tol, "loss": loss, "f1_random_weights": f1,
         "sentences_per_s_real": rate(real),
         "sentences_per_s_n96": rate(synth),
         "sentences_per_s_real_eager": eager_rate(real),
@@ -1443,7 +1729,8 @@ def run_train(torch, dev, real_train, synth_train, vocab_size,
     base = {"model.vocab_size": vocab_size, "train.batch_size": B,
             "train.effective_batch_size": B}
     cfg = path_config(path, **base)
-    plain_cfg = path_config(path, **base, **PLAIN[path])
+    dtype = cfg.model.compute_dtype
+    tol = TOL_PATH[dtype][1]
     nodrop_cfg = path_config(path, **base, **{"model.input_dropout": 0.0,
                                               "model.rnn_dropout": 0.0,
                                               "model.gcn_dropout": 0.0})
@@ -1460,7 +1747,8 @@ def run_train(torch, dev, real_train, synth_train, vocab_size,
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved()
     t0 = time.perf_counter()
-    losses, launches = counted(lambda: [tr.update(b) for b in batches])
+    losses, launches = counted(lambda: [tr.update(b) for b in batches],
+                               dtype)
     first_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
     graph_mib = (torch.cuda.memory_reserved() - reserved) / 2**20
@@ -1474,9 +1762,16 @@ def run_train(torch, dev, real_train, synth_train, vocab_size,
 
     # kernels against the plain versions on the card: same weights, seed
     # and batches, so the same dropout masks (the references run eagerly;
-    # the plain grouped matmul would anyway: a graph cannot hold it)
-    a = Trainer(cfg, state, device=dev)
-    p = Trainer(plain_cfg, state, device=dev)
+    # the plain grouped matmul would anyway: a graph cannot hold it); where
+    # the plain versions run on the CPU only (PLAIN None), against the CPU
+    # with dropout off (the card's and the CPU's generators differ)
+    if PLAIN[path] is None:
+        a = Trainer(nodrop_cfg, state, device=dev)
+        p = Trainer(nodrop_cfg, state, device="cpu")
+    else:
+        a = Trainer(cfg, state, device=dev)
+        p = Trainer(path_config(path, **base, **PLAIN[path]), state,
+                    device=dev)
     loss_err = 0.0
     for b in batches[:3]:
         la = float(a.update(b))
@@ -1490,10 +1785,10 @@ def run_train(torch, dev, real_train, synth_train, vocab_size,
     lc, lcpu = float(c.update(real_train[0])), float(cpu.update(real_train[0]))
     cpu_loss_err = abs(lc - lcpu) / abs(lcpu)
     cpu_param_err = params_err(c, cpu)
-    if max(loss_err, param_err, cpu_loss_err, cpu_param_err) > TOL_TRAIN:
+    if max(loss_err, param_err, cpu_loss_err, cpu_param_err) > tol:
         fail(f"{path}: trainers disagree: plain on the card loss {loss_err} "
              f"params {param_err}; cpu loss {cpu_loss_err} params "
-             f"{cpu_param_err}")
+             f"{cpu_param_err}; tolerance {tol}")
 
     # the loss falls on one fixed batch
     f = Trainer(cfg, state, device=dev)
@@ -1512,7 +1807,15 @@ def run_train(torch, dev, real_train, synth_train, vocab_size,
     with eager_dispatch():
         eager_walls = epoch_walls(torch, epoch)
     span_ms = time_ms(epoch, 3, warmup=0)
-    busy = device_time(torch, epoch)
+    # the profiler traces graph replays, but on the bf16 paths its trace
+    # of them crashed the process (a segmentation fault inside a replay,
+    # from the fourth bf16 path of one process on; never without the
+    # profiler, never eagerly): there it traces the same steps eagerly,
+    # the same kernels
+    profiled = "graph replays" if dtype == "float32" else "eager steps"
+    with (contextlib.nullcontext() if dtype == "float32"
+          else eager_dispatch()):
+        busy = device_time(torch, epoch)
     # device memory one eager step adds above what is allocated before it
     # (activations, saved tensors, gradients): the fused paths keep no
     # [B, N, N] band.  A graph holds its own in its pool (graph_mib).
@@ -1527,15 +1830,15 @@ def run_train(torch, dev, real_train, synth_train, vocab_size,
     n_sent = sum(int(b["example_mask"].sum()) for b in synth_train)
     wall = min(walls)
     return {
-        "phase": "train", "path": path, "steps": len(batches),
+        "phase": "train", "path": path, "dtype": dtype, "steps": len(batches),
         "batches": {"real": len(real_train), "synthetic_n96": steps},
         "launches": launches, "launches_per_step": per_step,
         "first_pass_s": first_s, "losses": losses,
         "plain_card": {"loss_rel_err": loss_err, "param_err": param_err,
-                       "steps": 3},
+                       "steps": 3, "plain_on": str(p.device)},
         "cpu_no_dropout": {"loss_rel_err": cpu_loss_err,
                            "param_err": cpu_param_err, "steps": 1},
-        "tol": TOL_TRAIN, "fixed_batch_losses": fall,
+        "tol": tol, "fixed_batch_losses": fall,
         "ms_per_step_n96": wall / steps * 1e3,
         "walls_s": walls,
         "ms_per_step_n96_eager": min(eager_walls) / steps * 1e3,
@@ -1547,6 +1850,7 @@ def run_train(torch, dev, real_train, synth_train, vocab_size,
         "step_peak_mib_n96_eager": peak_mib,
         "device_busy_ms_per_step_n96": (
             None if busy is None else busy["busy_ms"] / steps),
+        "device_busy_profiled": profiled,
         "device_time_per_step_n96": None if busy is None else {
             "by_category_ms": {k: v / steps for k, v in
                                busy["by_category_ms"].items()},
@@ -2080,6 +2384,181 @@ def run_cli(torch) -> dict:
     }
 
 
+# ------------------------------------------------------------- reference
+# the reference's trained C-GCN checkpoints (the original PyTorch code's
+# best_model.pt, committed with their run's config.json and vocab.pkl):
+# their best dev F1 (logs.txt: 68.03 and 66.43), as the port scores them
+REFERENCE_DEV_F1 = {11: 0.680328, 17: 0.664319}
+# gcn_tpu's own bf16 against its f32 on these checkpoints (the CPU, the
+# non-factored path, 1200 dev sentences): the largest logit gap; the
+# port's bf16 may take twice it
+JAX_BF16_LOGIT_GAP = {11: 0.331, 17: 0.243}
+E2E_MAX_FLIPS = 6             # of 1200 predictions, bf16 against f32
+E2E_F1 = 0.005                # dev F1, bf16 against f32
+# the model fields of a reference run's config.json (the options its
+# train.py saved under the same names)
+REFERENCE_FIELDS = ("emb_dim", "ner_dim", "pos_dim", "vocab_size",
+                    "hidden_dim", "num_layers", "rnn", "rnn_hidden",
+                    "rnn_layers", "prune_k", "adj_type", "deprel_emb_dim",
+                    "deprel_self_loop", "deprel_directed", "deprel_max_depth",
+                    "no_adj", "pooling", "mlp_layers", "num_class", "dataset")
+
+
+def reference_config(opt: dict, **extra):
+    """The port's Config of a reference run's config.json, for evaluation
+    at B=50: its model fields, the reference's one shared full_deprel W
+    (``deprel_shared_w``), and ``extra`` model fields."""
+    from gcn_tpu_torch.config import Config
+
+    cfg = Config()
+    for k in REFERENCE_FIELDS:
+        setattr(cfg.model, k, opt[k])
+    cfg.model.deprel_shared_w = opt["adj_type"] == "full_deprel"
+    for k, v in extra.items():
+        setattr(cfg.model, k, v)
+    cfg.train.batch_size = B
+    return cfg
+
+
+def reference_run(torch, cfg, state, batcher, device, dtype="float32"):
+    """One scoring of a reference checkpoint: ``Evaluator.evaluate`` on
+    ``device`` (counted on the card), then every valid row's logits by the
+    same model, and the dev F1."""
+    from gcn_tpu_torch import constants
+    from gcn_tpu_torch.train.evaluator import Evaluator, batch_to_device
+    from gcn_tpu_torch.train.scorer import score
+
+    ev = Evaluator(cfg, state, device=device)
+    t0 = time.perf_counter()
+    if device == "cpu":
+        (preds, probs, loss), launches = ev.evaluate(batcher), None
+    else:
+        (preds, probs, loss), launches = counted(
+            lambda: ev.evaluate(batcher), dtype)
+    seconds = time.perf_counter() - t0
+    logits = []
+    with torch.no_grad():
+        for b in batcher:
+            lg, _ = ev.model(batch_to_device(b, device))
+            logits.append(lg[torch.from_numpy(b["example_mask"]).to(
+                lg.device)].float().cpu())
+    id2label = {v: k for k, v in constants.LABEL_TO_ID.items()}
+    labels = [id2label[p] for p in preds]
+    f1 = score(batcher.gold(), labels, out=io.StringIO())[2]
+    return {"labels": labels, "probs": np.asarray(probs), "loss": loss,
+            "logits": torch.cat(logits).numpy(), "f1": f1,
+            "seconds": seconds, "launches": launches, "model": ev.model}
+
+
+def run_reference(torch, dev) -> dict:
+    """The reference phase (module docstring, 8); fails on any miss."""
+    from gcn_tpu_torch import constants
+    from gcn_tpu_torch.compat.torch_export import (params_to_torch_state,
+                                                   state_dict_to_torch_state)
+    from gcn_tpu_torch.compat.torch_import import torch_state_to_params
+    from gcn_tpu_torch.convert import params_from_jax
+    from gcn_tpu_torch.data.dataset import Batcher, RelationDataset
+    from gcn_tpu_torch.data.vocab import Vocab
+
+    id2label = {v: k for k, v in constants.LABEL_TO_ID.items()}
+
+    out = {}
+    for seed, target in sorted(REFERENCE_DEV_F1.items()):
+        run = os.path.join(FLAGSHIP, f"seed{seed}",
+                           "reference_full_deprel_models", "cmp")
+        ckpt = torch.load(os.path.join(run, "best_model.pt"),
+                          map_location="cpu", weights_only=True)
+        with open(os.path.join(run, "config.json")) as f:
+            opt = json.load(f)
+        state = {k: v.numpy() for k, v in ckpt["model"].items()}
+        cfg = reference_config(opt)
+        params = torch_state_to_params(state, cfg.model)
+        weights = params_from_jax(params)
+        ds = RelationDataset(
+            os.path.join(FLAGSHIP, f"seed{seed}", "data", "dev.json"), cfg,
+            Vocab.load(os.path.join(run, "vocab.pkl")), evaluation=True)
+        batcher = Batcher(ds, B, evaluation=True)
+        runs = {"cpu_f32_dense": reference_run(torch, cfg, weights, batcher,
+                                               "cpu")}
+        for name, extra in (
+                ("f32_dense", {}), ("f32_fused", {"use_pallas": True}),
+                ("bf16_dense", {"compute_dtype": "bfloat16"}),
+                ("bf16_fused", {"use_pallas": True,
+                                "compute_dtype": "bfloat16"})):
+            runs[name] = reference_run(
+                torch, reference_config(opt, **extra), weights, batcher, dev,
+                extra.get("compute_dtype", "float32"))
+        cpu = runs["cpu_f32_dense"]
+        if round(cpu["f1"], 6) != target:
+            fail(f"reference seed {seed}: CPU dev F1 {cpu['f1']}, not "
+                 f"{target}")
+        res = {"target_dev_f1": target, "cpu_dev_f1": cpu["f1"],
+               "sentences": len(cpu["labels"]), "runs": {}}
+        # f32 on the card: the CPU's labels, or its second label at a
+        # near-tie (check_seed_checkpoint's rule)
+        top2 = np.argsort(cpu["probs"], axis=1)[:, -2:]
+        for name in ("f32_dense", "f32_fused"):
+            r = runs[name]
+            flipped = [i for i, (a, c) in enumerate(zip(r["labels"],
+                                                         cpu["labels"]))
+                       if a != c]
+            ties = [i for i in flipped
+                    if r["labels"][i] == id2label[top2[i, 0]]
+                    and cpu["probs"][i, top2[i, 1]]
+                    - cpu["probs"][i, top2[i, 0]] < NEAR_TIE]
+            if len(ties) < len(flipped) or (
+                    not flipped and round(r["f1"], 6) != target):
+                fail(f"reference seed {seed} {name}: dev F1 {r['f1']}, "
+                     f"{len(flipped) - len(ties)} rows unlike the CPU's "
+                     "other than at a near-tie")
+            res["runs"][name] = {
+                "dev_f1": r["f1"], "rows_unlike_cpu": len(flipped),
+                "probs_max_abs_err_cpu": float(np.abs(
+                    r["probs"] - cpu["probs"]).max()),
+                "dev_loss": r["loss"], "seconds": r["seconds"],
+                "sentences_per_s": len(r["labels"]) / r["seconds"],
+                "launches": r["launches"]}
+        # bf16 against the same path in f32 (the E2E gate)
+        for name, twin in (("bf16_dense", "f32_dense"),
+                           ("bf16_fused", "f32_fused")):
+            r, t = runs[name], runs[twin]
+            flips = sum(a != c for a, c in zip(r["labels"], t["labels"]))
+            gap = float(np.abs(r["logits"] - t["logits"]).max())
+            gate = {"flips_max": E2E_MAX_FLIPS, "f1_max": E2E_F1,
+                    "logit_gap_max": 2 * JAX_BF16_LOGIT_GAP[seed]}
+            res["runs"][name] = {
+                "dev_f1": r["f1"], "predictions_unlike_f32": flips,
+                "f1_gap": abs(r["f1"] - t["f1"]), "max_logit_gap": gap,
+                "largest_logit_f32": float(np.abs(t["logits"]).max()),
+                "gate": gate, "dev_loss": r["loss"],
+                "seconds": r["seconds"],
+                "sentences_per_s": len(r["labels"]) / r["seconds"],
+                "launches": r["launches"]}
+            if (flips > E2E_MAX_FLIPS or abs(r["f1"] - t["f1"]) > E2E_F1
+                    or gap > gate["logit_gap_max"]):
+                fail(f"reference seed {seed} {name}: {res['runs'][name]}")
+        # export, re-import: the same bits; and from the model's state_dict
+        back = torch_state_to_params(params_to_torch_state(params,
+                                                           cfg.model),
+                                     cfg.model)
+        flat, flat_back = params_from_jax(params), params_from_jax(back)
+        again = state_dict_to_torch_state(
+            runs["f32_dense"]["model"].state_dict(), cfg.model)
+        same = (flat.keys() == flat_back.keys()
+                and all(torch.equal(flat[k], flat_back[k]) for k in flat)
+                and again.keys() == state.keys()
+                and all(np.array_equal(again[k], state[k]) for k in state))
+        if not same:
+            fail(f"reference seed {seed}: export and re-import changed the "
+                 "parameters")
+        res["export_round_trip_same_bits"] = same
+        out[seed] = res
+        print(f"reference: seed {seed} dev F1 "
+              + ", ".join(f"{k} {v['dev_f1']:.6f}"
+                          for k, v in res["runs"].items()), flush=True)
+    return {"phase": "reference", "seeds": out}
+
+
 # the path whose train run gives each kernel's "launches" in the kernels
 # line: the one that brought the kernel in; v1 is on no path, and its
 # launches are those of the kernel phase
@@ -2093,6 +2572,14 @@ HOME_PATH = {"lstm_scan_forward": "cgcn", "lstm_scan_backward": "cgcn",
              "sddmm_forward": "cgcn_attn", "sddmm_backward": "cgcn_attn",
              "deprel_bilinear_v2": "cgcn_bilinear",
              "deprel_bilinear_v1": None}
+# and each bf16 instance's (kernels 1-8)
+HOME_PATH_BF16 = {**{k: "cgcn_bf16" for k in (
+    "lstm_scan_forward", "lstm_scan_backward", "grouped_matmul_forward",
+    "grouped_matmul_backward")},
+    "band_aggregate_forward": "cgcn_fused_bf16",
+    "band_aggregate_pair": "cgcn_fused_bf16",
+    "spmm_fused_forward": "gcn_fused_bf16",
+    "spmm_fused_sym_pair": "gcn_fused_bf16"}
 
 
 def kernel_of(row_name: str) -> str:
@@ -2145,8 +2632,8 @@ def main() -> int:
     edges = edge_lists(torch, synth[0], dev)
     # in row order from one generator, so no row's inputs depend on the
     # rows after it
-    rows = ([check_lstm(torch, rng, dev)] + check_gmm(torch, rng, dev, gs)
-            + [check_lstm_backward(torch, rng, dev)]
+    rows = (check_lstm(torch, rng, dev) + check_gmm(torch, rng, dev, gs)
+            + check_lstm_backward(torch, rng, dev)
             + check_gmm_backward(torch, rng, dev, gs)
             + check_band(torch, rng, dev, edges)
             + check_spmm(torch, rng, dev, edges)
@@ -2187,26 +2674,31 @@ def main() -> int:
           "at_s": time.perf_counter() - t_start})
     cli = run_cli(torch)
     emit({**cli, "nvidia_smi": smi, "at_s": time.perf_counter() - t_start})
+    emit({**run_reference(torch, dev), "nvidia_smi": smi,
+          "at_s": time.perf_counter() - t_start})
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     line = []
     for row in rows:
         kernel = kernel_of(row["name"])
-        home = HOME_PATH[kernel]
+        dtype = row.get("dtype", "float32")
+        home = (HOME_PATH if dtype == "float32" else HOME_PATH_BF16)[kernel]
         row["launches"] = (v1_launches if home is None
                            else trains[home]["launches"][kernel])
+        # the launches of this row's instance: on the paths of its dtype
         by_path = {
             path: {"eval_forward":
                    slices[path]["launches_per_forward"][kernel],
                    "train_step": trains[path]["launches_per_step"][kernel]}
-            for path in PATHS}
-        line.append({**{k: row[k] for k in keys},
+            for path in PATHS if path_dtype(path) == dtype}
+        line.append({**{k: row[k] for k in keys}, "dtype": dtype,
                      **{k: row[k] for k in ("bound_f32_ms", "library_sgemm_ms")
                         if k in row},
                      "launches_path": home or "kernel phase",
                      "launches_by_path": by_path,
-                     "launches_cli": cli["launches"][kernel]})
+                     **({"launches_cli": cli["launches"][kernel]}
+                        if dtype == "float32" else {})})
     emit({"kernels": line})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

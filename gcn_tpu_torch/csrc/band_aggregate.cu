@@ -2,10 +2,12 @@
 //
 // Replaces two Pallas TPU kernels of gcn_tpu/ops/pallas/band_aggregate.py:
 //   _kernel       (launched by _forward, reached through
-//                  fused_band_aggregate)    -> band_aggregate_forward_f32
+//                  fused_band_aggregate)    -> band_aggregate_forward_{f32,bf16}
 //   _pair_kernel  (launched by pair_aggregate, the forward's backward)
-//                                           -> band_aggregate_pair_f32
-// Same contract, f32:
+//                                           -> band_aggregate_pair_{f32,bf16}
+// Same contract, in f32 or bf16 (x_* and the outputs of one type, as the
+// TPU kernels take their input's dtype; bf16 sums in f32 and rounds each
+// output once, at its store, where the TPU kernels round):
 //   parent, child  [B, E] int32   edge p -> c of sentence b
 //   mask           [B, E] uint8   0 = padded slot
 //   forward:  out = act((A_f x_f + A_f^T x_r + x_s) / denom)
@@ -40,8 +42,12 @@
 // its walk unrolled, timed faster than two or four rows a warp in
 // lockstep.  The pair walks the same ballots with the two directions
 // kept apart (gather_pair): (A_f x)[i] sums x over the children of i,
-// (A_f^T x)[i] over its parents, each in edge order.
+// (A_f^T x)[i] over its parents, each in edge order.  The bf16 instances
+// are the same kernels on bf16 rows (edge_gather.cuh's typed loads and
+// stores: 8-byte loads where H % 4 == 0, f32 sums, a bf16 store): their
+// rows move half the bytes.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <stdint.h>
@@ -54,6 +60,7 @@ namespace {
 
 using edge_gather::add4;
 using edge_gather::edges_bytes;
+using edge_gather::vec_bytes;
 using edge_gather::gather_pair;
 using edge_gather::gather_row;
 using edge_gather::load4;
@@ -68,16 +75,16 @@ constexpr int kRows = kThreads / 32;    // a row each
 // Rows blockIdx.y * kRows.. of sentence blockIdx.x, one a warp, 128 kV
 // columns from column tile blockIdx.z.  A row sums x_f over its forward
 // neighbours, x_r over its reverse ones (edge_gather.cuh), then x_s, and
-// divides by deg + [deg > 0] + 1.
-template <int kV, bool kVec>
+// divides by deg + [deg > 0] + 1.  T: the rows' storage, f32 or bf16.
+template <typename T, int kV, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 band_aggregate_fwd_kernel(const int* __restrict__ parent,
                           const int* __restrict__ child,
                           const unsigned char* __restrict__ mask,
-                          const float* __restrict__ xf,
-                          const float* __restrict__ xr,
-                          const float* __restrict__ xs,
-                          float* __restrict__ out, int n, int e, int h,
+                          const T* __restrict__ xf,
+                          const T* __restrict__ xr,
+                          const T* __restrict__ xs,
+                          T* __restrict__ out, int n, int e, int h,
                           int relu) {
   extern __shared__ int fwd_smem[];
   int* ep = fwd_smem;
@@ -120,13 +127,13 @@ band_aggregate_fwd_kernel(const int* __restrict__ parent,
 
 // The same rows and columns: out_f[i] sums x over the forward neighbours
 // of i (its children), out_t[i] over its reverse ones (its parents).
-template <int kV, bool kVec>
+template <typename T, int kV, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 band_pair_kernel(const int* __restrict__ parent,
                  const int* __restrict__ child,
                  const unsigned char* __restrict__ mask,
-                 const float* __restrict__ x, float* __restrict__ out_t,
-                 float* __restrict__ out_f, int n, int e, int h) {
+                 const T* __restrict__ x, T* __restrict__ out_t,
+                 T* __restrict__ out_f, int n, int e, int h) {
   extern __shared__ int pair_smem[];
   int* ep = pair_smem;
   int* ec = ep + e;
@@ -162,7 +169,8 @@ band_pair_kernel(const int* __restrict__ parent,
 // std::integral_constant values) with args over rows of width h: blocks of
 // kRows rows of one sentence and 128 kV columns, kV = 1-3 so that one tile
 // covers up to 384 columns, with the sentence's edge slots in shared
-// memory.  kVec: 16-byte loads and stores (h % 4 == 0, operands aligned).
+// memory.  kVec: 4 columns a load and store (h % 4 == 0, operands aligned
+// to vec_bytes).
 template <class Pick, class... Args>
 int launch_rows(int b, int n, int e, int h, bool vec, void* stream,
                 Pick&& pick, Args... args) {
@@ -186,7 +194,45 @@ int launch_rows(int b, int n, int e, int h, bool vec, void* stream,
   return vec ? by_kv(std::true_type{}) : by_kv(std::false_type{});
 }
 
-bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
+template <typename T>
+bool aligned(const void* p) {
+  return (uintptr_t)p % vec_bytes<T>() == 0;
+}
+
+template <typename T>
+int forward(const void* parent, const void* child, const void* mask,
+            const void* xf, const void* xr, const void* xs, void* out, int b,
+            int n, int e, int h, int relu, void* stream) {
+  const bool vec = h % 4 == 0 && aligned<T>(xf) && aligned<T>(xr) &&
+                   aligned<T>(xs) && aligned<T>(out);
+  return launch_rows(
+      b, n, e, h, vec, stream,
+      [](auto kv, auto kvec) {
+        return band_aggregate_fwd_kernel<T, decltype(kv)::value,
+                                         decltype(kvec)::value>;
+      },
+      static_cast<const int*>(parent), static_cast<const int*>(child),
+      static_cast<const unsigned char*>(mask), static_cast<const T*>(xf),
+      static_cast<const T*>(xr), static_cast<const T*>(xs),
+      static_cast<T*>(out), n, e, h, relu);
+}
+
+template <typename T>
+int pair(const void* parent, const void* child, const void* mask,
+         const void* x, void* out_t, void* out_f, int b, int n, int e, int h,
+         void* stream) {
+  const bool vec = h % 4 == 0 && aligned<T>(x) && aligned<T>(out_t) &&
+                   aligned<T>(out_f);
+  return launch_rows(
+      b, n, e, h, vec, stream,
+      [](auto kv, auto kvec) {
+        return band_pair_kernel<T, decltype(kv)::value,
+                                decltype(kvec)::value>;
+      },
+      static_cast<const int*>(parent), static_cast<const int*>(child),
+      static_cast<const unsigned char*>(mask), static_cast<const T*>(x),
+      static_cast<T*>(out_t), static_cast<T*>(out_f), n, e, h);
+}
 
 }  // namespace
 
@@ -197,34 +243,33 @@ int band_aggregate_forward_f32(const void* parent, const void* child,
                                const void* xr, const void* xs, void* out,
                                int b, int n, int e, int h, int relu,
                                void* stream) {
-  const bool vec = h % 4 == 0 && aligned16(xf) && aligned16(xr) &&
-                   aligned16(xs) && aligned16(out);
-  return launch_rows(
-      b, n, e, h, vec, stream,
-      [](auto kv, auto kvec) {
-        return band_aggregate_fwd_kernel<decltype(kv)::value,
-                                         decltype(kvec)::value>;
-      },
-      static_cast<const int*>(parent), static_cast<const int*>(child),
-      static_cast<const unsigned char*>(mask), static_cast<const float*>(xf),
-      static_cast<const float*>(xr), static_cast<const float*>(xs),
-      static_cast<float*>(out), n, e, h, relu);
+  return forward<float>(parent, child, mask, xf, xr, xs, out, b, n, e, h,
+                        relu, stream);
+}
+
+int band_aggregate_forward_bf16(const void* parent, const void* child,
+                                const void* mask, const void* xf,
+                                const void* xr, const void* xs, void* out,
+                                int b, int n, int e, int h, int relu,
+                                void* stream) {
+  return forward<__nv_bfloat16>(parent, child, mask, xf, xr, xs, out, b, n,
+                                e, h, relu, stream);
 }
 
 int band_aggregate_pair_f32(const void* parent, const void* child,
                             const void* mask, const void* x, void* out_t,
                             void* out_f, int b, int n, int e, int h,
                             void* stream) {
-  const bool vec = h % 4 == 0 && aligned16(x) && aligned16(out_t) &&
-                   aligned16(out_f);
-  return launch_rows(
-      b, n, e, h, vec, stream,
-      [](auto kv, auto kvec) {
-        return band_pair_kernel<decltype(kv)::value, decltype(kvec)::value>;
-      },
-      static_cast<const int*>(parent), static_cast<const int*>(child),
-      static_cast<const unsigned char*>(mask), static_cast<const float*>(x),
-      static_cast<float*>(out_t), static_cast<float*>(out_f), n, e, h);
+  return pair<float>(parent, child, mask, x, out_t, out_f, b, n, e, h,
+                     stream);
+}
+
+int band_aggregate_pair_bf16(const void* parent, const void* child,
+                             const void* mask, const void* x, void* out_t,
+                             void* out_f, int b, int n, int e, int h,
+                             void* stream) {
+  return pair<__nv_bfloat16>(parent, child, mask, x, out_t, out_f, b, n, e,
+                             h, stream);
 }
 
 const char* band_aggregate_error_string(int code) {

@@ -28,9 +28,19 @@
 // row (gather_row: several of its neighbour loads in flight at once;
 // gather_pair: the same walk with the two directions summed apart) or
 // several in lockstep (gather_rows: one load of every row at a time).
+//
+// Rows are f32 or bf16 (load4 / store4 are typed on the storage): a bf16
+// lane loads its 4 columns as one 8-byte load and widens them with
+// __bfloat162float, so every sum runs in f32 whatever the storage, and a
+// bf16 store rounds once, to nearest even (__float2bfloat16_rn, as
+// PyTorch's and JAX's casts round).  The bf16 rows keep the f32 rows' lane
+// map (4 columns of each 128 a lane), so one kernel body serves both types
+// and a warp still reads 256 contiguous bytes a row and group; 8 columns
+// a 16-byte load would halve the loads but change the map.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace edge_gather {
@@ -76,10 +86,47 @@ __device__ __forceinline__ void add4(float4& v, const float4& u) {
   v.w += u.w;
 }
 
-// Columns k..k+3 of row r of x (rows of width t), zero past t: one 16-byte
-// load with kVec (t a multiple of 4, x 16-byte aligned), else four 4-byte
-// ones; through the non-coherent path (LDG.CONSTANT), x being const
-// __restrict__ (an explicit __ldg timed slower in the lockstep walk).
+// Four bf16 values, one 8-byte load or store.
+struct __align__(8) bf16x4 {
+  __nv_bfloat162 lo, hi;
+};
+
+// An f32 value in the storage type T: itself, or rounded to bf16.
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// v rounded to the storage type T and widened back: what a store and a
+// reload of it would give.
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  return to_f32(from_f32<T>(v));
+}
+
+// Bytes a kVec load or store of 4 columns reads or writes: the alignment
+// its operand needs.
+template <typename T>
+constexpr int vec_bytes() {
+  return 4 * (int)sizeof(T);
+}
+
+// Columns k..k+3 of row r of x (rows of width t), as f32, zero past t: one
+// 16-byte (f32) or 8-byte (bf16) load with kVec (t a multiple of 4, x
+// aligned to vec_bytes<T>()), else four of one value each; through the
+// non-coherent path (LDG.CONSTANT), x being const __restrict__ (an
+// explicit __ldg timed slower in the lockstep walk).
 template <bool kVec>
 __device__ __forceinline__ float4 load4(const float* __restrict__ x, int r,
                                         int k, int t) {
@@ -90,7 +137,24 @@ __device__ __forceinline__ float4 load4(const float* __restrict__ x, int r,
                      k + 2 < t ? p[2] : 0.0f, k + 3 < t ? p[3] : 0.0f);
 }
 
-// Stores v to columns k..k+3 of row r of x (rows of width t), none past t.
+template <bool kVec>
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* __restrict__ x,
+                                        int r, int k, int t) {
+  const __nv_bfloat16* p = x + (size_t)r * t + k;
+  if (kVec) {
+    if (k >= t) return zero4();
+    const bf16x4 q = *reinterpret_cast<const bf16x4*>(p);
+    return make_float4(__bfloat162float(q.lo.x), __bfloat162float(q.lo.y),
+                       __bfloat162float(q.hi.x), __bfloat162float(q.hi.y));
+  }
+  return make_float4(k < t ? __bfloat162float(p[0]) : 0.0f,
+                     k + 1 < t ? __bfloat162float(p[1]) : 0.0f,
+                     k + 2 < t ? __bfloat162float(p[2]) : 0.0f,
+                     k + 3 < t ? __bfloat162float(p[3]) : 0.0f);
+}
+
+// Stores v to columns k..k+3 of row r of x (rows of width t), none past t;
+// a bf16 row takes each value rounded to nearest even.
 template <bool kVec>
 __device__ __forceinline__ void store4(float* __restrict__ x, int r, int k,
                                        int t, const float4& v) {
@@ -103,6 +167,25 @@ __device__ __forceinline__ void store4(float* __restrict__ x, int r, int k,
   if (k + 1 < t) p[1] = v.y;
   if (k + 2 < t) p[2] = v.z;
   if (k + 3 < t) p[3] = v.w;
+}
+
+template <bool kVec>
+__device__ __forceinline__ void store4(__nv_bfloat16* __restrict__ x, int r,
+                                       int k, int t, const float4& v) {
+  __nv_bfloat16* p = x + (size_t)r * t + k;
+  if (kVec) {
+    if (k < t) {
+      bf16x4 q;
+      q.lo = __floats2bfloat162_rn(v.x, v.y);
+      q.hi = __floats2bfloat162_rn(v.z, v.w);
+      *reinterpret_cast<bf16x4*>(p) = q;
+    }
+    return;
+  }
+  if (k < t) p[0] = __float2bfloat16_rn(v.x);
+  if (k + 1 < t) p[1] = __float2bfloat16_rn(v.y);
+  if (k + 2 < t) p[2] = __float2bfloat16_rn(v.z);
+  if (k + 3 < t) p[3] = __float2bfloat16_rn(v.w);
 }
 
 // Adds to v[u] the neighbour rows of the warp's row `row` and returns

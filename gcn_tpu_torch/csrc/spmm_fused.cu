@@ -3,10 +3,11 @@
 //
 // Replaces two Pallas TPU kernels of gcn_tpu/ops/pallas/spmm_fused.py:
 //   _kernel           (launched by _forward, reached through
-//                      fused_gcn_spmm)          -> spmm_fused_forward_f32
+//                      fused_gcn_spmm)        -> spmm_fused_forward_{f32,bf16}
 //   _sym_pair_kernel  (launched by _sym_pair, the forward's backward)
-//                                               -> spmm_fused_sym_pair_f32
-// Same contract, f32:
+//                                             -> spmm_fused_sym_pair_{f32,bf16}
+// Same contract, in f32 or bf16 (h, W, b and out of one type, x1, x2, o1
+// and o2 of one type):
 //   parent, child  [B, E] int32, mask [B, E] uint8 (0 = padded slot)
 //   S = A_f + A_f^T + diag(incident + 1), A_f[p, c] = count of the edges
 //       p -> c whose mask is set and whose ends both lie in [0, N)
@@ -51,7 +52,18 @@
 // rows in flight.  That timed faster than both operands in one warp, which
 // shares the ballots but holds twice the registers, and than two or four
 // rows a warp in lockstep.
+//
+// The bf16 instances round where the TPU kernel rounds: the forward sums
+// (S h) in f32, rounds it to bf16 in its A tile (the TPU kernel casts
+// (S h) to h's dtype before the product with W), multiplies by the bf16 W
+// in f32 and rounds the output once; the sym pair sums in f32 and rounds
+// each output once.  Their rows move as bf16 (edge_gather.cuh's typed
+// loads and stores), and W streams through the ring as bf16.  The
+// forward's product then runs one TF32 pass a k-step instead of three
+// (tf32x3_tile.cuh, kExact: bf16 values and their products are exact in
+// TF32 and its f32 accumulator), its A tile and fragments as in f32.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <stdint.h>
@@ -63,6 +75,10 @@ namespace {
 
 using edge_gather::add4;
 using edge_gather::edges_bytes;
+using edge_gather::from_f32;
+using edge_gather::round_to;
+using edge_gather::to_f32;
+using edge_gather::vec_bytes;
 using edge_gather::gather_row;
 using edge_gather::gather_rows;
 using edge_gather::load4;
@@ -76,9 +92,12 @@ using tf32x3::kStages;
 using FwdTile = tf32x3::Tile<3, 4, 1, 7>;
 constexpr int kAK = 256;                   // forward: (S h) columns per gather
 constexpr int kLda = kAK + 4;              // conflict-free A fragment reads
-constexpr size_t kFwdTiles =  // the forward's degrees and tiles
-    sizeof(int) * FwdTile::kBM + sizeof(float) * FwdTile::kBM * kLda +
-    FwdTile::kRingBytes;
+// the forward's degrees and tiles: the A tile in f32, the W ring in T
+template <typename T>
+constexpr size_t fwd_tiles() {
+  return sizeof(int) * FwdTile::kBM + sizeof(float) * FwdTile::kBM * kLda +
+         sizeof(T) * (size_t)kStages * FwdTile::kStageFloats;
+}
 static_assert(kAK % tf32x3::kBK == 0, "a gather covers whole W chunks");
 constexpr int kPairThreads = 256;  // sym pair: 8 warps, a row each
 constexpr int kPairRows = kPairThreads / 32;
@@ -87,14 +106,15 @@ constexpr int kPairRows = kPairThreads / 32;
 // (rows start at hb, width t) into a_s [kBM][kLda], zero past n and t; the
 // first call (k0 = 0) also writes each row's degree to deg [kBM].
 // Warp w takes rows w, w + kWarps, ...; lane l the columns 4l..4l + 3 of
-// each 128 (16-byte loads with kVec: t a multiple of 4, hb aligned).  Each
-// row sums its forward neighbours, its reverse ones (edge_gather.cuh),
-// then diag * self.
-template <bool kVec>
+// each 128 (4 columns a load with kVec: t a multiple of 4, hb aligned).
+// Each row sums its forward neighbours, its reverse ones
+// (edge_gather.cuh), then diag * self, in f32; a_s holds the sums rounded
+// to T (bf16 rounds them there, as the TPU kernel does, f32 keeps them).
+template <typename T, bool kVec>
 __device__ __forceinline__ void gather_tile(const int* __restrict__ ep,
                                             const int* __restrict__ ec,
                                             int* __restrict__ deg,
-                                            const float* __restrict__ hb,
+                                            const T* __restrict__ hb,
                                             float* __restrict__ a_s, int m0,
                                             int n, int e, int t, int k0) {
   constexpr int kWarps = FwdTile::kThreads / 32;
@@ -132,28 +152,35 @@ __device__ __forceinline__ void gather_tile(const int* __restrict__ ep,
       float4 out = v[j][u];
       add4(out, make_float4(diag * sf.x, diag * sf.y, diag * sf.z,
                             diag * sf.w));
+      out = make_float4(round_to<T>(out.x), round_to<T>(out.y),
+                        round_to<T>(out.z), round_to<T>(out.w));
       *reinterpret_cast<float4*>(a_s + r * kLda + lane * 4 + 128 * u) = out;
     }
   }
 }
 
+// T: the storage of h, W, b and out, f32 or bf16; a bf16 product runs one
+// TF32 pass a k-step (kExact).
+template <typename T>
 __global__ void __launch_bounds__(FwdTile::kThreads, 1)
 spmm_fused_fwd_kernel(const int* __restrict__ parent,
                       const int* __restrict__ child,
                       const unsigned char* __restrict__ mask,
-                      const float* __restrict__ hin,
-                      const float* __restrict__ w,
-                      const float* __restrict__ bias,
-                      float* __restrict__ out, int n, int e, int t, int hdim,
+                      const T* __restrict__ hin,
+                      const T* __restrict__ w,
+                      const T* __restrict__ bias,
+                      T* __restrict__ out, int n, int e, int t, int hdim,
                       size_t tiles_at, bool vec_h, bool vec_w) {
   using Tl = FwdTile;
+  constexpr bool kExact = sizeof(T) == 2;
   extern __shared__ __align__(16) int fwd_smem[];
   int* ep = fwd_smem;  // [e] the edge slots, then (16-byte aligned) the rest
   int* ec = ep + e;
   int* deg = reinterpret_cast<int*>(reinterpret_cast<char*>(fwd_smem) +
                                     tiles_at);  // [kBM]
   float* a_s = reinterpret_cast<float*>(deg + Tl::kBM);
-  float* ring = a_s + Tl::kBM * kLda;  // W chunks, [kBK][kLdw] each
+  // W chunks, [kBK][kLdw] each
+  T* ring = reinterpret_cast<T*>(a_s + Tl::kBM * kLda);
   const int b = blockIdx.x;
   const int n0 = blockIdx.y * Tl::kBN;
   const int m0 = blockIdx.z * Tl::kBM;
@@ -169,7 +196,7 @@ spmm_fused_fwd_kernel(const int* __restrict__ parent,
   load_edges(parent + (size_t)b * e, child + (size_t)b * e,
              mask + (size_t)b * e, n, e, ep, ec);
   for (int c = 0; c < kStages - 1; ++c) issue(c);
-  const float* hb = hin + (size_t)b * n * t;
+  const T* hb = hin + (size_t)b * n * t;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, q = lane % 4;
   const int wm = warp % Tl::kWarpsM, wn = warp / Tl::kWarpsM;
@@ -185,17 +212,17 @@ spmm_fused_fwd_kernel(const int* __restrict__ parent,
     if (kk == 0) {
       __syncthreads();  // every warp is done with the previous gather
       if (vec_h)
-        gather_tile<true>(ep, ec, deg, hb, a_s, m0, n, e, t,
-                          c * tf32x3::kBK);
+        gather_tile<T, true>(ep, ec, deg, hb, a_s, m0, n, e, t,
+                             c * tf32x3::kBK);
       else
-        gather_tile<false>(ep, ec, deg, hb, a_s, m0, n, e, t,
-                           c * tf32x3::kBK);
+        gather_tile<T, false>(ep, ec, deg, hb, a_s, m0, n, e, t,
+                              c * tf32x3::kBK);
     }
     tf32x3::ring_wait();  // also publishes the gather
     if (c == chunks) break;
     issue(c + kStages - 1);
     const float* as = a_s + (wm * 16 + g) * kLda + kk + q;
-    tf32x3::mma_chunk<1, Tl::kNT, Tl::kNT, Tl::kLdw>(
+    tf32x3::mma_chunk<1, Tl::kNT, Tl::kNT, Tl::kLdw, kExact>(
         acc, ring + (c % kStages) * Tl::kStageFloats + wn * Tl::kNT * 8,
         [&](int, int ks, float (&a)[4]) {
           const float* p = as + ks * 8;
@@ -211,15 +238,16 @@ spmm_fused_fwd_kernel(const int* __restrict__ parent,
     const int r = wm * 16 + g + half * 8, row = m0 + r;
     if (row >= n) continue;
     const float denom = (float)deg[r] + (deg[r] > 0 ? 1.0f : 0.0f) + 1.0f;
-    float* orow = out + ((size_t)b * n + row) * hdim;
+    T* orow = out + ((size_t)b * n + row) * hdim;
 #pragma unroll
     for (int j = 0; j < Tl::kNT; ++j) {
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int col = n0 + wn * Tl::kNT * 8 + j * 8 + 2 * q + i;
         if (col >= hdim) continue;
-        const float z = (acc[0][j][half * 2 + i] + 2.0f * bias[col]) / denom;
-        orow[col] = fmaxf(z, 0.0f);
+        const float z =
+            (acc[0][j][half * 2 + i] + 2.0f * to_f32(bias[col])) / denom;
+        orow[col] = from_f32<T>(fmaxf(z, 0.0f));
       }
     }
   }
@@ -228,15 +256,16 @@ spmm_fused_fwd_kernel(const int* __restrict__ parent,
 // (S x) rows blockIdx.y * kPairRows.. of sentence blockIdx.x, one a warp,
 // 128 kV columns from column tile blockIdx.z: x1's tiles first, then
 // x2's.  A row sums its forward neighbours, its reverse ones
-// (edge_gather.cuh), then diag * self, diag = [deg > 0] + 1.
-template <int kV, bool kVec>
+// (edge_gather.cuh), then diag * self, diag = [deg > 0] + 1.  T: the
+// storage, f32 or bf16.
+template <typename T, int kV, bool kVec>
 __global__ void __launch_bounds__(kPairThreads)
 spmm_sym_pair_kernel(const int* __restrict__ parent,
                      const int* __restrict__ child,
                      const unsigned char* __restrict__ mask,
-                     const float* __restrict__ x1,
-                     const float* __restrict__ x2, float* __restrict__ o1,
-                     float* __restrict__ o2, int n, int e, int t1, int t2,
+                     const T* __restrict__ x1,
+                     const T* __restrict__ x2, T* __restrict__ o1,
+                     T* __restrict__ o2, int n, int e, int t1, int t2,
                      int tiles1) {
   extern __shared__ int pair_smem[];
   int* ep = pair_smem;
@@ -248,8 +277,8 @@ spmm_sym_pair_kernel(const int* __restrict__ parent,
   if (i >= n) return;  // the whole warp; no barrier follows
   const bool first = (int)blockIdx.z < tiles1;
   const int t = first ? t1 : t2;
-  const float* x = (first ? x1 : x2) + (size_t)b * n * t;
-  float* o = (first ? o1 : o2) + (size_t)b * n * t;
+  const T* x = (first ? x1 : x2) + (size_t)b * n * t;
+  T* o = (first ? o1 : o2) + (size_t)b * n * t;
   const int kc = (first ? blockIdx.z : blockIdx.z - tiles1) * 128 * kV +
                  threadIdx.x % 32 * 4;
   auto src = [&](int, int r, int u) {
@@ -273,38 +302,37 @@ spmm_sym_pair_kernel(const int* __restrict__ parent,
   }
 }
 
-}  // namespace
+bool aligned(const void* p, int bytes) { return (uintptr_t)p % bytes == 0; }
 
-extern "C" {
-
-int spmm_fused_forward_f32(const void* parent, const void* child,
-                           const void* mask, const void* h, const void* w,
-                           const void* bias, void* out, int b, int n, int e,
-                           int t, int hdim, void* stream) {
+template <typename T>
+int forward(const void* parent, const void* child, const void* mask,
+            const void* h, const void* w, const void* bias, void* out, int b,
+            int n, int e, int t, int hdim, void* stream) {
   const size_t tiles_at = edges_bytes(e);  // the tiles follow ep, ec
-  const size_t smem = tiles_at + kFwdTiles;
-  cudaError_t err = set_smem(spmm_fused_fwd_kernel, smem, 0);
+  const size_t smem = tiles_at + fwd_tiles<T>();
+  cudaError_t err = set_smem(spmm_fused_fwd_kernel<T>, smem, 0);
   if (err != cudaSuccess) return (int)err;
-  const bool vec_h = t % 4 == 0 && (uintptr_t)h % 16 == 0;
-  const bool vec_w = hdim % 4 == 0 && (uintptr_t)w % 16 == 0;
+  const bool vec_h = t % 4 == 0 && aligned(h, vec_bytes<T>());
+  // W chunks stream by 16-byte copies, 16 / sizeof(T) columns each
+  const bool vec_w = hdim % (16 / (int)sizeof(T)) == 0 && aligned(w, 16);
   dim3 grid(b, (hdim + FwdTile::kBN - 1) / FwdTile::kBN,
             (n + FwdTile::kBM - 1) / FwdTile::kBM);
-  spmm_fused_fwd_kernel<<<grid, FwdTile::kThreads, smem,
-                          (cudaStream_t)stream>>>(
+  spmm_fused_fwd_kernel<T><<<grid, FwdTile::kThreads, smem,
+                             (cudaStream_t)stream>>>(
       static_cast<const int*>(parent), static_cast<const int*>(child),
-      static_cast<const unsigned char*>(mask), static_cast<const float*>(h),
-      static_cast<const float*>(w), static_cast<const float*>(bias),
-      static_cast<float*>(out), n, e, t, hdim, tiles_at, vec_h, vec_w);
+      static_cast<const unsigned char*>(mask), static_cast<const T*>(h),
+      static_cast<const T*>(w), static_cast<const T*>(bias),
+      static_cast<T*>(out), n, e, t, hdim, tiles_at, vec_h, vec_w);
   return (int)cudaGetLastError();
 }
 
-int spmm_fused_sym_pair_f32(const void* parent, const void* child,
-                            const void* mask, const void* x1, const void* x2,
-                            void* o1, void* o2, int b, int n, int e, int t1,
-                            int t2, void* stream) {
-  const bool vec = t1 % 4 == 0 && t2 % 4 == 0 && (uintptr_t)x1 % 16 == 0 &&
-                   (uintptr_t)x2 % 16 == 0 && (uintptr_t)o1 % 16 == 0 &&
-                   (uintptr_t)o2 % 16 == 0;
+template <typename T>
+int sym_pair(const void* parent, const void* child, const void* mask,
+             const void* x1, const void* x2, void* o1, void* o2, int b, int n,
+             int e, int t1, int t2, void* stream) {
+  const int vb = vec_bytes<T>();
+  const bool vec = t1 % 4 == 0 && t2 % 4 == 0 && aligned(x1, vb) &&
+                   aligned(x2, vb) && aligned(o1, vb) && aligned(o2, vb);
   // 128 kV columns a tile, kV = 1-3 so that one tile covers up to 384
   const int groups = ((t1 > t2 ? t1 : t2) + 127) / 128;
   const int kv = groups <= 1 ? 1 : groups == 2 ? 2 : 3;
@@ -317,19 +345,54 @@ int spmm_fused_sym_pair_f32(const void* parent, const void* child,
     if (err != cudaSuccess) return (int)err;
     kernel<<<grid, kPairThreads, smem, (cudaStream_t)stream>>>(
         static_cast<const int*>(parent), static_cast<const int*>(child),
-        static_cast<const unsigned char*>(mask),
-        static_cast<const float*>(x1), static_cast<const float*>(x2),
-        static_cast<float*>(o1), static_cast<float*>(o2), n, e, t1, t2,
-        tiles1);
+        static_cast<const unsigned char*>(mask), static_cast<const T*>(x1),
+        static_cast<const T*>(x2), static_cast<T*>(o1), static_cast<T*>(o2),
+        n, e, t1, t2, tiles1);
     return (int)cudaGetLastError();
   };
   if (vec)
-    return kv == 1   ? launch(spmm_sym_pair_kernel<1, true>)
-           : kv == 2 ? launch(spmm_sym_pair_kernel<2, true>)
-                     : launch(spmm_sym_pair_kernel<3, true>);
-  return kv == 1   ? launch(spmm_sym_pair_kernel<1, false>)
-         : kv == 2 ? launch(spmm_sym_pair_kernel<2, false>)
-                   : launch(spmm_sym_pair_kernel<3, false>);
+    return kv == 1   ? launch(spmm_sym_pair_kernel<T, 1, true>)
+           : kv == 2 ? launch(spmm_sym_pair_kernel<T, 2, true>)
+                     : launch(spmm_sym_pair_kernel<T, 3, true>);
+  return kv == 1   ? launch(spmm_sym_pair_kernel<T, 1, false>)
+         : kv == 2 ? launch(spmm_sym_pair_kernel<T, 2, false>)
+                   : launch(spmm_sym_pair_kernel<T, 3, false>);
+}
+
+}  // namespace
+
+extern "C" {
+
+int spmm_fused_forward_f32(const void* parent, const void* child,
+                           const void* mask, const void* h, const void* w,
+                           const void* bias, void* out, int b, int n, int e,
+                           int t, int hdim, void* stream) {
+  return forward<float>(parent, child, mask, h, w, bias, out, b, n, e, t,
+                        hdim, stream);
+}
+
+int spmm_fused_forward_bf16(const void* parent, const void* child,
+                            const void* mask, const void* h, const void* w,
+                            const void* bias, void* out, int b, int n, int e,
+                            int t, int hdim, void* stream) {
+  return forward<__nv_bfloat16>(parent, child, mask, h, w, bias, out, b, n,
+                                e, t, hdim, stream);
+}
+
+int spmm_fused_sym_pair_f32(const void* parent, const void* child,
+                            const void* mask, const void* x1, const void* x2,
+                            void* o1, void* o2, int b, int n, int e, int t1,
+                            int t2, void* stream) {
+  return sym_pair<float>(parent, child, mask, x1, x2, o1, o2, b, n, e, t1,
+                         t2, stream);
+}
+
+int spmm_fused_sym_pair_bf16(const void* parent, const void* child,
+                             const void* mask, const void* x1, const void* x2,
+                             void* o1, void* o2, int b, int n, int e, int t1,
+                             int t2, void* stream) {
+  return sym_pair<__nv_bfloat16>(parent, child, mask, x1, x2, o1, o2, b, n,
+                                 e, t1, t2, stream);
 }
 
 const char* spmm_fused_error_string(int code) {

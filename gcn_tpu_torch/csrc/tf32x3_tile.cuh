@@ -57,9 +57,23 @@
 //    here.
 // Every output element sums its k-chunks in one fixed order and there are
 // no float atomics: two calls give the same bits.
+//
+// bf16 operands (the fused GCN layer's bf16 instance).  A bf16 value
+// widened to f32 is exact in TF32 (8 significand bits of TF32's 11), and
+// so is the product of two of them in the f32 accumulator, so the split's
+// lo parts are zero and 3xTF32's two correction products add nothing:
+// with kExact, mma_chunk_ab issues one TF32 product a k-step, at the TF32
+// rate (495 TFLOP/s) and with the f32 accumulation and chunk fold of the
+// f32 path.  One TF32 pass, not bf16 mma.sync.m16n8k16: the A and B
+// fragments keep this file's m16n8k8 layout, so the kernels' A tiles,
+// their fragment functors and the W ring serve both types; only the ring's
+// storage (copy_tile and mma_chunk take bf16 W rows, half the bytes) and
+// the pass count change.  The bf16 MMA's 2x rate would matter where the
+// product bounds a kernel, which the fused layer's is not (PERF.md).
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -112,7 +126,7 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 
 // cp.async of 16 or 4 bytes; with ok false nothing is read and the
 // destination is zero-filled.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_u32(dst)),
@@ -140,17 +154,24 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Rows [0, kRows) and columns [c0, c0 + kCols) of a row-major matrix with
 // row stride ld whose first row is src, into dst [kRows][kLd]: rows at or
-// past valid_rows and columns at or past cols are zero-filled.  With vec
-// (ld, c0 and cols multiples of 4 and src 16-byte aligned) 16 bytes a
-// copy, else 4.  Issues the copies only: the caller commits the group.
-template <int kRows, int kCols, int kLd, int kThreads>
-__device__ __forceinline__ void copy_tile(float* dst, const float* src,
-                                          int ld, int valid_rows, int c0,
-                                          int cols, bool vec) {
+// past valid_rows and columns at or past cols are zero-filled.  T: f32 or
+// bf16.  With vec (ld, c0 and cols multiples of 16 / sizeof(T), src and
+// the rows of dst 16-byte aligned) 16 bytes a copy, else one value: 4-byte
+// copies for f32, plain loads and stores for bf16 (cp.async moves no
+// fewer than 4 bytes), which the ring's barrier publishes alike.  Issues
+// the copies only: the caller commits the group.
+template <int kRows, int kCols, int kLd, int kThreads, typename T>
+__device__ __forceinline__ void copy_tile(T* dst, const T* src, int ld,
+                                          int valid_rows, int c0, int cols,
+                                          bool vec) {
+  constexpr int kPer = 16 / (int)sizeof(T);  // values a 16-byte copy
+  static_assert(sizeof(T) == 4 ||
+                    (kCols % kPer == 0 && (kLd * sizeof(T)) % 16 == 0),
+                "16-byte copies of whole bf16 rows");
   if (vec) {
-    constexpr int kVecs = kCols / 4;
+    constexpr int kVecs = kCols / kPer;
     for (int i = threadIdx.x; i < kRows * kVecs; i += kThreads) {
-      const int r = i / kVecs, c = (i % kVecs) * 4;
+      const int r = i / kVecs, c = (i % kVecs) * kPer;
       const bool ok = r < valid_rows && c0 + c < cols;
       cp_async16(dst + r * kLd + c, ok ? src + (size_t)r * ld + c0 + c : src,
                  ok);
@@ -159,10 +180,19 @@ __device__ __forceinline__ void copy_tile(float* dst, const float* src,
     for (int i = threadIdx.x; i < kRows * kCols; i += kThreads) {
       const int r = i / kCols, c = i % kCols;
       const bool ok = r < valid_rows && c0 + c < cols;
-      cp_async4(dst + r * kLd + c, ok ? src + (size_t)r * ld + c0 + c : src,
-                ok);
+      if constexpr (sizeof(T) == 4) {
+        cp_async4(dst + r * kLd + c, ok ? src + (size_t)r * ld + c0 + c : src,
+                  ok);
+      } else {
+        dst[r * kLd + c] = ok ? src[(size_t)r * ld + c0 + c] : T(0.0f);
+      }
     }
   }
+}
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
 }
 
 // Before reading chunk c of a ring whose chunks are committed one group
@@ -203,7 +233,9 @@ __device__ __forceinline__ void ring_wait() {
 // (rows within the k-step, column within the n-tile), so a kernel can
 // keep B's chunk transposed in shared memory (the grouped matmul's dx
 // reads S[g] rows as columns).  mma_chunk is mma_chunk_ab with B the
-// row-major W chunk at ws.
+// row-major W chunk at ws (f32 or bf16 values).  kExact: every A and B
+// value is exact in TF32 (bf16 values), so one product a k-step, a_hi
+// b_hi, gives what the three would.
 struct AddFold {
   __device__ __forceinline__ float operator()(int, int, float acc,
                                               float c) const {
@@ -211,8 +243,8 @@ struct AddFold {
   }
 };
 
-template <int kMT, int kNT, int kG, class AFrag, class BFrag,
-          class Fold = AddFold>
+template <int kMT, int kNT, int kG, bool kExact = false, class AFrag,
+          class BFrag, class Fold = AddFold>
 __device__ __forceinline__ void mma_chunk_ab(float (&acc)[kMT][kNT][4],
                                              AFrag a_frag, BFrag b_frag,
                                              Fold fold = Fold()) {
@@ -247,16 +279,18 @@ __device__ __forceinline__ void mma_chunk_ab(float (&acc)[kMT][kNT][4],
         split(b[1], bhi[j][1], blo[j][1]);
       }
       // the small products first, each pass over the whole group
+      if constexpr (!kExact) {
 #pragma unroll
-      for (int j = 0; j < kG; ++j)
+        for (int j = 0; j < kG; ++j)
 #pragma unroll
-        for (int mt = 0; mt < kMT; ++mt)
-          if (j < gn) mma_tf32(c[mt][j], alo[mt], bhi[j]);
+          for (int mt = 0; mt < kMT; ++mt)
+            if (j < gn) mma_tf32(c[mt][j], alo[mt], bhi[j]);
 #pragma unroll
-      for (int j = 0; j < kG; ++j)
+        for (int j = 0; j < kG; ++j)
 #pragma unroll
-        for (int mt = 0; mt < kMT; ++mt)
-          if (j < gn) mma_tf32(c[mt][j], ahi[mt], blo[j]);
+          for (int mt = 0; mt < kMT; ++mt)
+            if (j < gn) mma_tf32(c[mt][j], ahi[mt], blo[j]);
+      }
 #pragma unroll
       for (int j = 0; j < kG; ++j)
 #pragma unroll
@@ -274,18 +308,18 @@ __device__ __forceinline__ void mma_chunk_ab(float (&acc)[kMT][kNT][4],
   }
 }
 
-template <int kMT, int kNT, int kG, int kLdw, class AFrag,
-          class Fold = AddFold>
+template <int kMT, int kNT, int kG, int kLdw, bool kExact = false, class W,
+          class AFrag, class Fold = AddFold>
 __device__ __forceinline__ void mma_chunk(float (&acc)[kMT][kNT][4],
-                                          const float* __restrict__ ws,
+                                          const W* __restrict__ ws,
                                           AFrag a_frag, Fold fold = Fold()) {
   const int lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
-  mma_chunk_ab<kMT, kNT, kG>(
+  mma_chunk_ab<kMT, kNT, kG, kExact>(
       acc, a_frag,
       [&](int j, int ks, float (&b)[2]) {
-        const float* w0 = ws + (ks * 8 + q) * kLdw + j * 8 + g;
-        b[0] = w0[0];
-        b[1] = w0[4 * kLdw];
+        const W* w0 = ws + (ks * 8 + q) * kLdw + j * 8 + g;
+        b[0] = widen(w0[0]);
+        b[1] = widen(w0[4 * kLdw]);
       },
       fold);
 }

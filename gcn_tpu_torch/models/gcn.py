@@ -24,8 +24,16 @@ model's stochastic points in its order, each drawn from the caller's
 ``torch.Generator``: embedding dropout (word ids only), input dropout, the
 BiLSTM's inter-layer dropout, rnn dropout, then per GCN layer edge dropout
 and deprel forgetting on the forward band, the same on the reverse band
-(full_deprel only), and gcn dropout between layers.  Unpacked batches,
-f32.  Other settings raise ``NotImplementedError``.
+(full_deprel only), and gcn dropout between layers.  Unpacked batches.
+``compute_dtype="bfloat16"`` casts where JAX casts (``COMPUTE_DTYPES``):
+the embeddings and word vectors, the BiLSTM's input and parameters, the
+bands and denominators, the layer weights and factored tables, the MLP
+and classifier; the kernels run their bf16 instances, the softmax of the
+dense attention backend runs in f32, and logits and ``h_out`` come back
+f32.  Two combinations wait for their kernels' bf16 instances and raise
+``NotImplementedError`` naming ROADMAP.md §1 item 4: the attention edge
+backend and the non-factored full_deprel on the fused path.  Other
+settings raise ``NotImplementedError`` too.
 
 Parameters keep the flax names and layouts (``word_emb``,
 ``rnn.l0_fwd_w_ih [D, 4H]``, ``gcn_deprel_w0 [D, T, H]``,
@@ -102,41 +110,66 @@ def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return table[ids]
 
 
-def _check_supported(cfg: ModelConfig) -> None:
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+BF16_LATER = "ROADMAP.md §1 item 4"  # the kernels whose bf16 instances wait
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a configuration the port cannot
+    build (``GCNClassifier`` calls it first)."""
     resolve_attention_impl(cfg.attention_impl, 0, 0)
     unsupported = {
         "adj_type": cfg.adj_type not in ("regular", "full_deprel",
                                          "attention", "diagonal_deprel"),
         "dataset": cfg.dataset not in ("tacred", "semeval"),
-        "compute_dtype": cfg.compute_dtype != "float32",
+        "compute_dtype": cfg.compute_dtype not in COMPUTE_DTYPES,
         "use_pallas": cfg.use_pallas not in (True, False, "auto"),
         "graph_partition": cfg.graph_partition != "none",
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
-            f"the port runs f32 on one device; unsupported settings: "
+            f"the port runs on one device; unsupported settings: "
             f"{', '.join(bad)}")
+    if cfg.compute_dtype == "bfloat16":
+        if cfg.adj_type == "attention" and cfg.attention_impl == "edge":
+            _refuse_bf16("the attention edge backend (the SDDMM kernels)")
+        if (cfg.adj_type == "full_deprel" and cfg.use_pallas is True
+                and cfg.deprel_factored is False):
+            _refuse_bf16("the non-factored full_deprel on the fused path "
+                         "(the deprel bilinear kernels)")
+
+
+def _refuse_bf16(what: str):
+    raise NotImplementedError(
+        f"compute_dtype='bfloat16' with {what}: their bf16 instances are "
+        f"not ported yet ({BF16_LATER})")
 
 
 class TorchDense(nn.Module):
-    """``x @ kernel + bias`` with flax's ``[in, out]`` kernel layout."""
+    """``x @ kernel + bias`` with flax's ``[in, out]`` kernel layout, x and
+    the parameters cast to ``dtype`` and the bias added in it."""
 
-    def __init__(self, fan_in: int, features: int):
+    def __init__(self, fan_in: int, features: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.kernel = nn.Parameter(torch.empty(fan_in, features))
         self.bias = nn.Parameter(torch.empty(features))
 
     def forward(self, x):
-        return x @ self.kernel + self.bias
+        return (x.to(self.dtype) @ self.kernel.to(self.dtype)
+                + self.bias.to(self.dtype))
 
 
 class BiLSTM(nn.Module):
     """Parameter container for ``ops.lstm.bilstm`` (``l{i}_{fwd,bwd}_*``)."""
 
     def __init__(self, in_dim: int, hidden: int, num_layers: int,
-                 impl: str, dropout_rate: float):
+                 impl: str, dropout_rate: float,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.num_layers = num_layers
         self.impl = impl
         self.dropout_rate = dropout_rate
@@ -153,12 +186,12 @@ class BiLSTM(nn.Module):
 
     def forward(self, x, lengths, deterministic=True, generator=None):
         params = [
-            {d: {k: getattr(self, f"l{li}_{d}_{k}")
+            {d: {k: getattr(self, f"l{li}_{d}_{k}").to(self.dtype)
                  for k in ("w_ih", "w_hh", "b_ih", "b_hh")}
              for d in ("fwd", "bwd")}
             for li in range(self.num_layers)
         ]
-        return bilstm(params, x, lengths, impl=self.impl,
+        return bilstm(params, x.to(self.dtype), lengths, impl=self.impl,
                       inter_dropout=self.dropout_rate,
                       deterministic=deterministic, generator=generator)
 
@@ -175,8 +208,11 @@ class GCNClassifier(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        _check_supported(cfg)
+        check_supported(cfg)
         self.cfg = cfg
+        # the forward's compute dtype; parameters and their gradients stay
+        # f32, cast where JAX casts them (inside the forward, as in flax)
+        self.dtype = COMPUTE_DTYPES[cfg.compute_dtype]
         if not cfg.use_bert_embeddings:
             self.word_emb = nn.Parameter(
                 torch.empty(cfg.vocab_size, cfg.emb_dim))
@@ -190,12 +226,12 @@ class GCNClassifier(nn.Module):
         if cfg.rnn:
             self.rnn = BiLSTM(cfg.input_dim, cfg.rnn_hidden, cfg.rnn_layers,
                               impl=cfg.rnn_impl,
-                              dropout_rate=cfg.rnn_dropout)
+                              dropout_rate=cfg.rnn_dropout, dtype=self.dtype)
         t0 = cfg.gcn_input_dim
         diagonal = cfg.adj_type == "diagonal_deprel"
         full = cfg.adj_type == "full_deprel"
         if diagonal:
-            self.preprocessor = TorchDense(t0, cfg.hidden_dim)
+            self.preprocessor = TorchDense(t0, cfg.hidden_dim, self.dtype)
         # the regular and attention modes' table is a one-wide dummy, as in
         # JAX; diagonal_deprel's rows are its gates, hidden_dim wide
         d = (cfg.deprel_emb_dim if full
@@ -235,9 +271,10 @@ class GCNClassifier(nn.Module):
                     nn.Parameter(torch.empty(d, cfg.hidden_dim)))
         fan_in = 3 * cfg.hidden_dim
         for i in range(cfg.mlp_layers):
-            setattr(self, f"mlp{i}", TorchDense(fan_in, cfg.hidden_dim))
+            setattr(self, f"mlp{i}",
+                    TorchDense(fan_in, cfg.hidden_dim, self.dtype))
             fan_in = cfg.hidden_dim
-        self.classifier = TorchDense(fan_in, cfg.num_class)
+        self.classifier = TorchDense(fan_in, cfg.num_class, self.dtype)
 
     def deprel_weights(self, l: int):
         if self.cfg.deprel_shared_w:
@@ -250,6 +287,14 @@ class GCNClassifier(nn.Module):
         [T, H], bias [H])."""
         return (getattr(self, f"gcn_w{l}_kernel"),
                 getattr(self, f"gcn_w{l}_bias"))
+
+    def _cast(self, *params):
+        """The parameters in the compute dtype (f32 ones as they are)."""
+        return tuple(p.to(self.dtype) for p in params)
+
+    def _table(self):
+        """The deprel table in the compute dtype."""
+        return self.deprel_emb.to(self.dtype)
 
     def _use_factored(self) -> bool:
         v = self.cfg.deprel_factored
@@ -295,10 +340,15 @@ class GCNClassifier(nn.Module):
                              f"[B, N, D], got {tuple(words.shape)}")
         n = words.shape[1]
         fused = self.use_fused(deterministic)
+        dt = self.dtype
         attn_impl = None
         if cfg.adj_type == "attention":
             attn_impl = resolve_attention_impl(cfg.attention_impl,
                                                words.shape[0], n)
+            if attn_impl == "edge" and dt != torch.float32:
+                _refuse_bf16("the attention edge backend (the SDDMM "
+                             "kernels), which attention_impl='auto' took "
+                             f"for a [{words.shape[0]}, {n}] batch")
         if fused or attn_impl == "edge":
             # the kernels' operand types; no band is built on these paths
             edges = (batch["edge_parent"].to(torch.int32).contiguous(),
@@ -308,13 +358,13 @@ class GCNClassifier(nn.Module):
             adj, pool_exclude = None, ~incident
         else:
             adj = build_adjacency(batch["edge_parent"], batch["edge_child"],
-                                  batch["edge_mask"], n)
+                                  batch["edge_mask"], n, dt)
             pool_exclude = adj.pool_mask
 
         if cfg.use_bert_embeddings:
             # precomputed word vectors go in as they are: no table, no
             # embedding dropout, no padding-row zeroing
-            word_vecs = words.float()
+            word_vecs = words.to(dt)
         else:
             # embeddings (padding_idx=0 semantics for words)
             word_vecs = lookup(self.word_emb, words)
@@ -324,11 +374,11 @@ class GCNClassifier(nn.Module):
             if mult is not None:
                 word_vecs = word_vecs * mult
             word_vecs = word_vecs.masked_fill((words == 0)[..., None], 0.0)
-        embs = [word_vecs]
+        embs = [word_vecs.to(dt)]
         if cfg.pos_dim > 0:
-            embs.append(lookup(self.pos_emb, batch["pos"]))
+            embs.append(lookup(self.pos_emb, batch["pos"]).to(dt))
         if cfg.ner_dim > 0 and cfg.dataset == "tacred":
-            embs.append(lookup(self.ner_emb, batch["ner"]))
+            embs.append(lookup(self.ner_emb, batch["ner"]).to(dt))
         h = torch.cat(embs, dim=2)
         h = dropout(h, cfg.input_dropout, deterministic, generator)
         if cfg.rnn:
@@ -342,7 +392,7 @@ class GCNClassifier(nn.Module):
         plans: dict = {}
         for l in range(cfg.num_layers):
             if cfg.adj_type == "regular":
-                w, b = self.gcn_weights(l)
+                w, b = self._cast(*self.gcn_weights(l))
                 if fused:
                     # the kernel applies the denominator and the ReLU
                     h = fused_gcn_spmm(*edges, h.contiguous(), w, b)
@@ -391,9 +441,11 @@ class GCNClassifier(nn.Module):
         over each destination's edges, weighting the ``h @ W`` messages of
         both bands.  The edge backend takes the edge lists ``edges``, the
         dense one (``edges`` None) the ``Adjacency``."""
-        w, b = self.gcn_weights(l)
-        q = h @ getattr(self, f"attn_q{l}")
-        k = h @ getattr(self, f"attn_k{l}")
+        w, b, wq, wk = self._cast(*self.gcn_weights(l),
+                                  getattr(self, f"attn_q{l}"),
+                                  getattr(self, f"attn_k{l}"))
+        q = h @ wq
+        k = h @ wk
         hw = h @ w
         scale = 1.0 / math.sqrt(self.cfg.hidden_dim)
         if edges is None:
@@ -416,10 +468,12 @@ class GCNClassifier(nn.Module):
         edge count (a duplicated edge counts twice in the softmax and the
         aggregate, as on the edge lists), then a dense aggregate.  The
         row maximum is a constant of the softmax (JAX stops its
-        gradient)."""
-        s = torch.einsum("bxh,byh->bxy", q, k) * scale
+        gradient).  The scores come in the compute dtype; the softmax runs
+        in f32 and its weights meet ``hw`` in ``hw``'s dtype, as in JAX."""
+        s = (torch.einsum("bxh,byh->bxy", q, k) * scale).float()
         agg = None
-        for cnt in (adj.forward, adj.reverse):  # destination = parent, child
+        fwd = adj.forward.float()
+        for cnt in (fwd, fwd.transpose(1, 2)):  # destination = parent, child
             m = cnt > 0
             sm = torch.where(m, s, torch.full((), -1e30, dtype=s.dtype,
                                               device=s.device))
@@ -427,7 +481,7 @@ class GCNClassifier(nn.Module):
             ex = torch.where(m, cnt * torch.exp(sm - mx),
                              torch.zeros((), dtype=s.dtype, device=s.device))
             den = ex.sum(dim=2, keepdim=True).clamp(min=1e-30)
-            band = (ex / den) @ hw
+            band = (ex / den).to(hw.dtype) @ hw
             agg = band if agg is None else agg + band
         return agg
 
@@ -438,7 +492,7 @@ class GCNClassifier(nn.Module):
         at the token's own id + 42 (the reference indexes the reverse band
         by the message sender's id), not zeroed, so padding reads row 42;
         the self-loop row.  The same for every layer, as JAX reads them."""
-        table = self.deprel_emb
+        table = self._table()
         e_fwd = self._table_rows(table, deprel).masked_fill(
             (deprel == 0)[..., None], 0.0)
         e_rev = self._table_rows(table,
@@ -459,7 +513,7 @@ class GCNClassifier(nn.Module):
     def _relation_table(self):
         """The relation table + an all-ones row (forgotten relations and
         layers past ``deprel_max_depth``) and an all-zeros row (padding)."""
-        table = self.deprel_emb
+        table = self._table()
         d = table.shape[1]
         return torch.cat([table, table.new_ones((1, d)),
                           table.new_zeros((1, d))], dim=0)
@@ -521,7 +575,7 @@ class GCNClassifier(nn.Module):
         """(x_f, x_r): h through each band's relation transforms, by one
         grouped matmul over the stacked bands (they share S); x_r is None
         for a directed model (``ids_r`` None)."""
-        w, b = self.deprel_weights(l)
+        w, b = self._cast(*self.deprel_weights(l))
         s, bs = self._factored_tables(w, b)
         past_depth = l >= self.cfg.deprel_max_depth
         impl = self._bilinear_impl()
@@ -543,7 +597,7 @@ class GCNClassifier(nn.Module):
         deprel_max_depth), or None without the self loop."""
         if not self.cfg.deprel_self_loop:
             return None
-        e_self = self.deprel_emb[constants.SELF_LOOP_INDEX]
+        e_self = self._table()[constants.SELF_LOOP_INDEX]
         if l >= self.cfg.deprel_max_depth:
             e_self = torch.ones_like(e_self)
         return e_self
@@ -554,7 +608,7 @@ class GCNClassifier(nn.Module):
         factored (grouped matmul) or the einsum ``full_deprel_layer``."""
         a_f, ids_f, a_r, ids_r = self._band_inputs(adj, deprel, l,
                                                    deterministic, generator)
-        w, b = self.deprel_weights(l)
+        w, b = self._cast(*self.deprel_weights(l))
         e_self = self._self_loop_emb(l)
         if not self._use_factored():
             e_rev = None if ids_r is None else self._relation_rows(ids_r)
@@ -579,7 +633,7 @@ class GCNClassifier(nn.Module):
         kernel (``deprel_factored=False``)."""
         _, ids_f, _, ids_r = self._band_inputs(None, deprel, l,
                                                deterministic, generator)
-        w, b = self.deprel_weights(l)
+        w, b = self._cast(*self.deprel_weights(l))
         if self._use_factored():
             x_f, x_r = self._band_messages(h, ids_f, ids_r, l, plans,
                                            deterministic)

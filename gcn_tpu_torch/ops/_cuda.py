@@ -13,7 +13,9 @@ and ``build_all`` builds several at once (one ``nvcc`` each, in parallel).
 
 Launch counts survive CUDA graphs: a replay makes no Python call, so the
 launches made while a graph is captured are tallied (``tally_launches``)
-and added again at each replay (``count_replay``).
+and added again at each replay (``count_replay``).  Each kernel counts its
+launches in all and by exported function (``by_function``), so that a
+kernel's f32 and bf16 instances are told apart (``launches_of``).
 """
 
 from __future__ import annotations
@@ -62,7 +64,8 @@ class CudaKernel:
     ``functions`` maps each exported name to its ctypes argument types;
     every exported launcher returns the ``cudaGetLastError()`` code.
     ``launches`` counts successful launches, replays of captured launches
-    included, and is reset by callers that want to know whether a path
+    included, and ``by_function`` the same by exported function;
+    ``reset`` sets both to 0 for callers that want to know whether a path
     went through the kernel.  Several entries
     may share one source (``name`` tells them apart); they share its
     library and count their launches apart.
@@ -74,7 +77,24 @@ class CudaKernel:
         self.functions = functions
         self.name = name or self.source.stem
         self.launches = 0
+        self.by_function: dict[str, int] = {}
         self._lib = None
+
+    def reset(self) -> None:
+        """Set the launch counts to 0."""
+        self.launches = 0
+        self.by_function = {}
+
+    def count(self, fname: str, n: int = 1) -> None:
+        """Add ``n`` launches of the exported function ``fname``."""
+        self.launches += n
+        self.by_function[fname] = self.by_function.get(fname, 0) + n
+
+    def launches_of(self, suffix: str) -> int:
+        """Launches of the exported functions whose names end in
+        ``suffix`` (``"_f32"``, ``"_bf16"``: one instance of the kernel)."""
+        return sum(n for f, n in self.by_function.items()
+                   if f.endswith(suffix))
 
     def lib_path(self) -> Path:
         headers = b"".join(h.read_bytes()
@@ -126,15 +146,15 @@ class CudaKernel:
         self.query(fname, *args)
         if _TALLIES:
             tally = _TALLIES[-1]
-            tally[self] = tally.get(self, 0) + 1
+            tally[self, fname] = tally.get((self, fname), 0) + 1
         else:
-            self.launches += 1
+            self.count(fname)
 
 
 @contextlib.contextmanager
 def tally_launches():
     """Count the launches made inside the block in a dict of its own
-    (kernel → launches) instead of the kernels' ``launches``."""
+    ((kernel, function) → launches) instead of the kernels' counts."""
     tally: dict = {}
     _TALLIES.append(tally)
     try:
@@ -146,8 +166,8 @@ def tally_launches():
 def count_replay(tally: dict) -> None:
     """Add a captured graph's launches to the kernels' counts: one
     replay launched them all again."""
-    for kernel, n in tally.items():
-        kernel.launches += n
+    for (kernel, fname), n in tally.items():
+        kernel.count(fname, n)
 
 
 def build_all(kernels: list[CudaKernel]) -> dict[str, dict]:

@@ -17,6 +17,12 @@ together as a ``torch.autograd.Function`` whose backward follows the JAX
 package's custom VJP: ``gs = g·act′/denom``, ``(dx_f, dx_r) =
 pair_aggregate(gs)``, ``dx_s = gs``.  It saves the edge lists and the
 output only.  Edges with mask 0 or an end outside [0, N) add nothing.
+
+Operands are f32 or bf16 (one dtype a call), as the Pallas kernels take
+their input's dtype: bf16 operands are summed in f32 and each output is
+rounded to bf16 once, at its store (the kernels' ``_bf16`` instances and
+the plain versions alike); the backward forms ``gs`` in f32 and rounds it
+to the cotangent's dtype, as JAX's custom VJP does.
 """
 
 from __future__ import annotations
@@ -31,10 +37,13 @@ from gcn_tpu_torch.ops.spmm import node_degrees
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("band_aggregate.cu", {
-    "band_aggregate_forward_f32": [_P] * 7 + [_I] * 5 + [_P]})
+    f"band_aggregate_forward_{t}": [_P] * 7 + [_I] * 5 + [_P]
+    for t in ("f32", "bf16")})
 PAIR_KERNEL = CudaKernel("band_aggregate.cu", {
-    "band_aggregate_pair_f32": [_P] * 6 + [_I] * 4 + [_P]},
-    name="band_aggregate_pair")
+    f"band_aggregate_pair_{t}": [_P] * 6 + [_I] * 4 + [_P]
+    for t in ("f32", "bf16")}, name="band_aggregate_pair")
+# the suffix of each operand dtype's instance of an edge-list kernel
+SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 MAX_SHARED_BYTES = 232448  # a block's shared memory on the H100
 
 
@@ -47,8 +56,9 @@ def edges_bytes(n: int, e: int) -> int:
 
 def check_edges(fname, parent, child, mask, xs, smem):
     """Device, type, shape and contiguity checks of the edge-list kernels'
-    wrappers; returns (B, N, E).  ``xs`` are the [B, N, *] f32 operands;
-    ``smem(n, e)`` is the shared memory a block of the kernel takes."""
+    wrappers; returns (B, N, E).  ``xs`` are the [B, N, *] operands, all
+    f32 or all bf16; ``smem(n, e)`` is the shared memory a block of the
+    kernel takes."""
     x = xs[0]
     if x.device.type != "cuda":
         raise ValueError(f"{fname}: unsupported device {x.device}")
@@ -64,8 +74,9 @@ def check_edges(fname, parent, child, mask, xs, smem):
     b, n = x.shape[0], x.shape[1]
     e = parent.shape[1]
     for a in xs:
-        if a.dtype != torch.float32:
-            raise TypeError(f"{fname}: unsupported dtype {a.dtype}")
+        if a.dtype not in SUFFIX or a.dtype != x.dtype:
+            raise TypeError(f"{fname}: unsupported dtypes "
+                            f"{[t.dtype for t in xs]}")
         if a.dim() != 3 or a.shape[:2] != (b, n):
             raise ValueError(f"{fname}: operands must be [B={b}, N={n}, *], "
                              f"got {tuple(a.shape)}")
@@ -93,18 +104,20 @@ def band_denom(parent, child, mask, n: int, dtype=torch.float32):
 
 def band_aggregate_plain(parent, child, mask, x_f, x_r, x_s,
                          relu: bool = True):
-    """Plain PyTorch version: the dense band and ``torch.bmm``."""
-    adj = build_adjacency(parent, child, mask, x_f.shape[1], x_f.dtype)
-    z = (torch.bmm(adj.forward, x_f) + torch.bmm(adj.reverse, x_r)
-         + x_s) / adj.denom
-    return torch.relu(z) if relu else z
+    """Plain PyTorch version: the dense band and ``torch.bmm`` in f32, the
+    result in the operands' dtype."""
+    adj = build_adjacency(parent, child, mask, x_f.shape[1])
+    z = (torch.bmm(adj.forward, x_f.float())
+         + torch.bmm(adj.reverse, x_r.float()) + x_s.float()) / adj.denom
+    return (torch.relu(z) if relu else z).to(x_f.dtype)
 
 
 def band_aggregate_forward(parent, child, mask, x_f, x_r, x_s,
                            relu: bool = True):
     """``act((A_f x_f + A_fᵀ x_r + x_s)/denom)``: parent/child [B, E]
-    int32, mask [B, E] bool, x_* [B, N, H] f32 → [B, N, H].  The CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors."""
+    int32, mask [B, E] bool, x_* [B, N, H] f32 or bf16 → [B, N, H] in
+    their dtype.  The CUDA kernel's instance for that dtype for CUDA
+    tensors, the plain version for CPU tensors."""
     if x_f.device.type == "cpu":
         return band_aggregate_plain(parent, child, mask, x_f, x_r, x_s, relu)
     b, n, e = check_edges("band_aggregate_forward", parent, child, mask,
@@ -117,7 +130,7 @@ def band_aggregate_forward(parent, child, mask, x_f, x_r, x_s,
         return out
     with torch.cuda.device(x_f.device):
         KERNEL.launch(
-            "band_aggregate_forward_f32", parent.data_ptr(),
+            f"band_aggregate_forward_{SUFFIX[x_f.dtype]}", parent.data_ptr(),
             child.data_ptr(), mask.data_ptr(), x_f.data_ptr(),
             x_r.data_ptr(), x_s.data_ptr(), out.data_ptr(), b, n, e, h,
             int(relu), torch.cuda.current_stream(x_f.device).cuda_stream)
@@ -125,14 +138,18 @@ def band_aggregate_forward(parent, child, mask, x_f, x_r, x_s,
 
 
 def pair_aggregate_plain(parent, child, mask, x):
-    """Plain PyTorch version of ``pair_aggregate``."""
-    adj = build_adjacency(parent, child, mask, x.shape[1], x.dtype)
-    return torch.bmm(adj.reverse, x), torch.bmm(adj.forward, x)
+    """Plain PyTorch version of ``pair_aggregate``: ``torch.bmm`` in f32,
+    each result in x's dtype."""
+    adj = build_adjacency(parent, child, mask, x.shape[1])
+    xf = x.float()
+    return (torch.bmm(adj.reverse, xf).to(x.dtype),
+            torch.bmm(adj.forward, xf).to(x.dtype))
 
 
 def pair_aggregate(parent, child, mask, x):
-    """``(A_fᵀ x, A_f x)`` for x [B, N, H] f32: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    """``(A_fᵀ x, A_f x)`` for x [B, N, H] f32 or bf16: the CUDA kernel's
+    instance for its dtype for CUDA tensors, the plain version for CPU
+    tensors."""
     if x.device.type == "cpu":
         return pair_aggregate_plain(parent, child, mask, x)
     b, n, e = check_edges("pair_aggregate", parent, child, mask, (x,),
@@ -142,9 +159,9 @@ def pair_aggregate(parent, child, mask, x):
         return out_t, out_f
     with torch.cuda.device(x.device):
         PAIR_KERNEL.launch(
-            "band_aggregate_pair_f32", parent.data_ptr(), child.data_ptr(),
-            mask.data_ptr(), x.data_ptr(), out_t.data_ptr(),
-            out_f.data_ptr(), b, n, e, x.shape[2],
+            f"band_aggregate_pair_{SUFFIX[x.dtype]}", parent.data_ptr(),
+            child.data_ptr(), mask.data_ptr(), x.data_ptr(),
+            out_t.data_ptr(), out_f.data_ptr(), b, n, e, x.shape[2],
             torch.cuda.current_stream(x.device).cuda_stream)
     return out_t, out_f
 
@@ -166,8 +183,8 @@ class FusedBandAggregate(torch.autograd.Function):
     def backward(ctx, g):
         parent, child, mask, out = ctx.saved_tensors
         denom = band_denom(parent, child, mask, out.shape[1])
-        gz = torch.where(out > 0, g, 0.0) if ctx.relu else g
-        gs = (gz / denom).contiguous()
+        gz = torch.where(out > 0, g.float(), 0.0) if ctx.relu else g.float()
+        gs = (gz / denom).to(g.dtype).contiguous()
         dx_f, dx_r = pair_aggregate(parent, child, mask, gs)
         return None, None, None, dx_f, dx_r, gs, None
 

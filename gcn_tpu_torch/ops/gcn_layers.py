@@ -68,7 +68,9 @@ class GroupPlan(NamedTuple):
 def make_group_plan(ids, n_groups: int) -> GroupPlan:
     """Sort plan over the flattened relation ids (stable, as in JAX); the
     one-hot rows carry the bias gather and give the group sizes by a
-    reduction (no host sync on the card)."""
+    reduction (no host sync on the card).  The one-hot stays f32 whatever
+    the compute dtype, so the counts are exact to 2^24 tokens a group (a
+    bf16 sum would miscount odd counts above 256)."""
     flat = ids.reshape(-1).long()
     perm = torch.argsort(flat, stable=True)
     inv_perm = torch.argsort(perm, stable=True)
@@ -109,7 +111,8 @@ def grouped_bilinear(h, ids, s, bs, impl: str = "auto", plan=None):
     out_sorted = grouped_matmul_fn(h_sorted, s.contiguous(), plan.group_sizes,
                                    use_kernel=impl != "ragged")
     out = permute_rows(out_sorted, plan.inv_perm, plan.perm)
-    return (out + plan.onehot @ bs).reshape(b_sz, n, s.shape[-1])
+    bias = plan.onehot.to(out.dtype) @ bs.to(out.dtype)
+    return (out + bias).reshape(b_sz, n, s.shape[-1])
 
 
 def bilinear_traverse(h, e, w, b):

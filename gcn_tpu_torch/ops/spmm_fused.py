@@ -20,6 +20,14 @@ whose backward follows the JAX package's custom VJP: ``gs = g·relu′ /
 denom``, ``db = 2Σgs``, ``gw = gs Wᵀ``, ``(dh, Sh) = sym_pair(gw, h)``,
 ``dW = (Sh)ᵀ gs``; the two small products with W are ``torch.matmul``,
 as JAX leaves them to XLA outside its kernel.
+
+Operands are f32 or bf16 (h, w and b of one dtype), as the Pallas kernels
+take their input's dtype.  In bf16 both kernels and their plain versions
+sum in f32 and round each output to bf16 once, at its store; the forward
+also rounds ``S h`` to bf16 before the product with W, where JAX's kernel
+rounds it.  The backward follows JAX's rounding points: ``gs`` in f32,
+``gw = gs Wᵀ`` from ``gs`` rounded to h's dtype, ``dW`` summed in f32 and
+rounded to w's dtype, ``db = 2 Σ gs`` in f32, rounded to w's dtype.
 """
 
 from __future__ import annotations
@@ -30,25 +38,24 @@ import torch
 
 from gcn_tpu_torch.ops._cuda import CudaKernel
 from gcn_tpu_torch.ops.adjacency import build_adjacency
-from gcn_tpu_torch.ops.band_aggregate import (band_denom, check_edges,
-                                              edges_bytes)
+from gcn_tpu_torch.ops.band_aggregate import (SUFFIX, band_denom,
+                                              check_edges, edges_bytes)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("spmm_fused.cu", {
-    "spmm_fused_forward_f32": [_P] * 7 + [_I] * 5 + [_P]})
+    f"spmm_fused_forward_{t}": [_P] * 7 + [_I] * 5 + [_P]
+    for t in ("f32", "bf16")})
 SYM_PAIR_KERNEL = CudaKernel("spmm_fused.cu", {
-    "spmm_fused_sym_pair_f32": [_P] * 7 + [_I] * 5 + [_P]},
-    name="spmm_fused_sym_pair")
-# the forward's shared memory beyond its edge slots (csrc/spmm_fused.cu
-# kFwdTiles): 48 row degrees, (S h) 48 rows x (256 + 4), three W chunks of
-# 32 x (224 + 8)
-FORWARD_TILE_BYTES = 4 * (48 + 48 * 260 + 3 * 32 * 232)
-
-
-def forward_smem_bytes(n: int, e: int) -> int:
-    """Shared memory of the forward for E edge slots: the slots' parents
-    and children, 16-byte aligned, then the tiles."""
-    return edges_bytes(n, e) + FORWARD_TILE_BYTES
+    f"spmm_fused_sym_pair_{t}": [_P] * 7 + [_I] * 5 + [_P]
+    for t in ("f32", "bf16")}, name="spmm_fused_sym_pair")
+def forward_smem_bytes(n: int, e: int, itemsize: int = 4) -> int:
+    """Shared memory of the forward for E edge slots and operands of
+    ``itemsize`` bytes (csrc/spmm_fused.cu ``fwd_tiles``): the slots'
+    parents and children, 16-byte aligned, 48 row degrees, the f32 (S h)
+    tile of 48 rows x (256 + 4), and three W chunks of 32 x (224 + 8) in
+    the operands' dtype."""
+    return (edges_bytes(n, e) + 4 * (48 + 48 * 260)
+            + itemsize * 3 * 32 * 232)
 
 
 def _sym_band(parent, child, mask, n, dtype):
@@ -60,51 +67,66 @@ def _sym_band(parent, child, mask, n, dtype):
 
 def gcn_spmm_plain(parent, child, mask, h, w, b):
     """Plain PyTorch version: the dense band, ``torch.bmm`` and
-    ``torch.matmul``."""
-    band, diag, denom = _sym_band(parent, child, mask, h.shape[1], h.dtype)
-    ah = torch.bmm(band, h) + diag * h
-    return torch.relu((ah @ w + 2.0 * b) / denom)
+    ``torch.matmul`` in f32, ``S h`` rounded to h's dtype before the
+    product with W, the result in h's dtype."""
+    band, diag, denom = _sym_band(parent, child, mask, h.shape[1],
+                                  torch.float32)
+    hf = h.float()
+    ah = (torch.bmm(band, hf) + diag * hf).to(h.dtype).float()
+    z = (ah @ w.float() + 2.0 * b.float()) / denom
+    return torch.relu(z).to(h.dtype)
 
 
 def gcn_spmm_forward(parent, child, mask, h, w, b):
     """The fused layer: parent/child [B, E] int32, mask [B, E] bool,
-    h [B, N, T], w [T, H], b [H] f32 → [B, N, H].  The CUDA kernel for
-    CUDA tensors, the plain version for CPU tensors."""
+    h [B, N, T], w [T, H], b [H], all f32 or all bf16 → [B, N, H] in their
+    dtype.  The CUDA kernel's instance for that dtype for CUDA tensors,
+    the plain version for CPU tensors."""
     if h.device.type == "cpu":
         return gcn_spmm_plain(parent, child, mask, h, w, b)
-    bsz, n, e = check_edges("gcn_spmm_forward", parent, child, mask, (h,),
-                            forward_smem_bytes)
+    bsz, n, e = check_edges(
+        "gcn_spmm_forward", parent, child, mask, (h,),
+        lambda n_, e_: forward_smem_bytes(n_, e_, h.element_size()))
     t = h.shape[2]
     if w.dim() != 2 or w.shape[0] != t or b.shape != (w.shape[1],):
         raise ValueError(f"w must be [{t}, H] and b [H], got "
                          f"{tuple(w.shape)} and {tuple(b.shape)}")
     for a in (w, b):
-        if a.dtype != torch.float32 or a.device != h.device \
+        if a.dtype != h.dtype or a.device != h.device \
                 or not a.is_contiguous():
-            raise ValueError("w and b must be contiguous f32 on h's device")
+            raise ValueError("w and b must be contiguous, in h's dtype, on "
+                             "h's device")
     hdim = w.shape[1]
     out = torch.empty((bsz, n, hdim), dtype=h.dtype, device=h.device)
     if out.numel() == 0:
         return out
     with torch.cuda.device(h.device):
         KERNEL.launch(
-            "spmm_fused_forward_f32", parent.data_ptr(), child.data_ptr(),
-            mask.data_ptr(), h.data_ptr(), w.data_ptr(), b.data_ptr(),
-            out.data_ptr(), bsz, n, e, t, hdim,
+            f"spmm_fused_forward_{SUFFIX[h.dtype]}", parent.data_ptr(),
+            child.data_ptr(), mask.data_ptr(), h.data_ptr(), w.data_ptr(),
+            b.data_ptr(), out.data_ptr(), bsz, n, e, t, hdim,
             torch.cuda.current_stream(h.device).cuda_stream)
     return out
 
 
 def sym_pair_plain(parent, child, mask, x1, x2):
-    """Plain PyTorch version of ``sym_pair``."""
-    band, diag, _ = _sym_band(parent, child, mask, x1.shape[1], x1.dtype)
-    return torch.bmm(band, x1) + diag * x1, torch.bmm(band, x2) + diag * x2
+    """Plain PyTorch version of ``sym_pair``: ``torch.bmm`` in f32, each
+    result in its operand's dtype."""
+    band, diag, _ = _sym_band(parent, child, mask, x1.shape[1],
+                              torch.float32)
+
+    def s_times(x):
+        xf = x.float()
+        return (torch.bmm(band, xf) + diag * xf).to(x.dtype)
+
+    return s_times(x1), s_times(x2)
 
 
 def sym_pair(parent, child, mask, x1, x2):
     """``(S x1, S x2)``, ``S = A_f + A_fᵀ + diag(incident + 1)``, for
-    x1 [B, N, T1], x2 [B, N, T2] f32: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors."""
+    x1 [B, N, T1], x2 [B, N, T2], both f32 or both bf16: the CUDA kernel's
+    instance for their dtype for CUDA tensors, the plain version for CPU
+    tensors."""
     if x1.device.type == "cpu":
         return sym_pair_plain(parent, child, mask, x1, x2)
     bsz, n, e = check_edges("sym_pair", parent, child, mask, (x1, x2),
@@ -115,9 +137,9 @@ def sym_pair(parent, child, mask, x1, x2):
         return o1, o2
     with torch.cuda.device(x1.device):
         SYM_PAIR_KERNEL.launch(
-            "spmm_fused_sym_pair_f32", parent.data_ptr(), child.data_ptr(),
-            mask.data_ptr(), x1.data_ptr(), x2.data_ptr(), o1.data_ptr(),
-            o2.data_ptr(), bsz, n, e, t1, t2,
+            f"spmm_fused_sym_pair_{SUFFIX[x1.dtype]}", parent.data_ptr(),
+            child.data_ptr(), mask.data_ptr(), x1.data_ptr(), x2.data_ptr(),
+            o1.data_ptr(), o2.data_ptr(), bsz, n, e, t1, t2,
             torch.cuda.current_stream(x1.device).cuda_stream)
     return o1, o2
 
@@ -136,12 +158,13 @@ class FusedGcnSpmm(torch.autograd.Function):
     def backward(ctx, g):
         parent, child, mask, h, w, out = ctx.saved_tensors
         denom = band_denom(parent, child, mask, h.shape[1])
-        gs = torch.where(out > 0, g, 0.0) / denom
-        db = 2.0 * gs.sum(dim=(0, 1))
-        gw = (gs @ w.T).contiguous()
+        gs = torch.where(out > 0, g.float(), 0.0) / denom
+        db = (2.0 * gs.sum(dim=(0, 1))).to(w.dtype)
+        gw = (gs.to(h.dtype) @ w.T).contiguous()
         dh, ah = sym_pair(parent, child, mask, gw, h)
-        dw = ah.reshape(-1, ah.shape[-1]).T @ gs.reshape(-1, gs.shape[-1])
-        return None, None, None, dh, dw, db
+        dw = ah.float().reshape(-1, ah.shape[-1]).T @ gs.reshape(
+            -1, gs.shape[-1])
+        return None, None, None, dh, dw.to(w.dtype), db
 
 
 def fused_gcn_spmm(parent, child, mask, h, w, b):

@@ -11,7 +11,9 @@ scripts with the same arguments, and ``args_to_config`` fills the same
   ``--cuda`` is accepted.
 * ``check_supported``: flags that change what is computed and that the
   port lacks raise ``NotImplementedError`` naming their ``ROADMAP.md``
-  item (``UNSUPPORTED``).
+  item (``UNSUPPORTED``), and so does a combination the model refuses
+  (``models.gcn.check_supported``: ``--compute_dtype bfloat16`` on the
+  kernels whose bf16 instances wait), before anything is written.
 * ``dispatch_only_line``: flags that only tune JAX itself are stored in
   ``config.json`` and named in one printed line (``DISPATCH_ONLY``).
   ``--pack_transfers``, ``--pack_format``, ``--steps_per_dispatch`` and
@@ -31,8 +33,6 @@ UNSUPPORTED = {
                        "cross-sentence packing: ROADMAP.md §1 item 5"),
     "graph_partition": (lambda a: a.graph_partition != "none",
                         "graph partitioning: ROADMAP.md §1 item 8"),
-    "compute_dtype": (lambda a: a.compute_dtype == "bfloat16",
-                      "bf16 compute: ROADMAP.md §1 item 4"),
     "sparse_emb_grad": (lambda a: a.sparse_emb_grad == "true",
                         "row-sparse embedding gradients: ROADMAP.md §1 "
                         "item 6"),
@@ -176,7 +176,10 @@ def build_parser(dataset: str) -> argparse.ArgumentParser:
     # gcn_tpu's own flags beyond the reference's
     p.add_argument("--compute_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
-                   help="bfloat16 is not ported (raises).")
+                   help="bfloat16: the forward in bf16 (parameters, "
+                        "gradients and the loss stay f32); not yet with "
+                        "the attention edge backend or the non-factored "
+                        "fused full_deprel (raises).")
     p.add_argument("--group_by_length", type=str2bool, default=False,
                    help="Batch same-length-bucket sentences together "
                         "(changes batch composition vs the reference's "
@@ -327,12 +330,16 @@ def args_to_config(args: argparse.Namespace) -> Config:
 
 
 def check_supported(args: argparse.Namespace) -> None:
-    """Raise ``NotImplementedError`` for a flag the port cannot honour."""
+    """Raise ``NotImplementedError`` for a flag the port cannot honour, or
+    a combination of flags its model cannot build."""
+    from gcn_tpu_torch.models.gcn import check_supported as check_model
+
     for flag, (unsupported, what) in UNSUPPORTED.items():
         if unsupported(args):
             raise NotImplementedError(
                 f"--{flag} {getattr(args, flag)}: {what} is not ported "
                 f"to gcn_tpu_torch yet")
+    check_model(args_to_config(args).model)
 
 
 def dispatch_only_line() -> str:

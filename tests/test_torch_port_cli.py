@@ -304,15 +304,17 @@ def test_parser_has_gcn_tpu_flags_and_defaults():
 
 
 @pytest.mark.parametrize("flag", [
-    ("--pack_sentences", "4", "item 5"),
-    ("--graph_partition", "halo", "item 8"),
-    ("--compute_dtype", "bfloat16", "item 4"),
-    ("--sparse_emb_grad", "true", "item 6"),
+    (["--pack_sentences", "4"], "item 5"),
+    (["--graph_partition", "halo"], "item 8"),
+    # bf16 runs, but not yet on the attention edge backend's kernels
+    (["--compute_dtype", "bfloat16", "--adj_type", "attention",
+      "--attention_impl", "edge"], "item 4"),
+    (["--sparse_emb_grad", "true"], "item 6"),
 ])
 def test_unsupported_flags_raise(flag, tmp_path):
-    name, value, item = flag
+    args, item = flag
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 {item}"):
-        train.main([*SMALL, "--cpu", name, value,
+        train.main([*SMALL, "--cpu", *args,
                     "--model_save_dir", str(tmp_path)])
     assert not os.listdir(tmp_path)
 

@@ -15,6 +15,10 @@ entry in another order) and 1e-2 of it in bf16.  The edge-list kernels
 (band aggregation, fused GCN layer, their backward pairs): 1e-5 of
 max(1, max |reference|) in f32, sums of a few neighbour rows (and, in the
 fused layer, T products) in another order than the dense band's matmul.
+The edge-list kernels' bf16 instances: 1e-2 of max(1, max |reference|)
+against their bf16 plain versions (both sum in f32 and round each output
+once, so they differ by a rounding flip, 2^-8 of |y|, where the two sums
+straddle a rounding boundary; the fused layer rounds S h too).
 The SDDMM and its backward: 1e-5 of max(1, max |reference|) (dot products
 of H terms, sums over a node's edges).  The bilinear kernels: 1e-4 of
 max(1, max |reference|) (sums of D·T products, up to 20000, in another
@@ -481,28 +485,37 @@ EDGE_CARD_CASES = (EDGE_CASES + list(EDGE_SIZES) + ["star", "forest"]
                    + list(SLOTS))
 
 
+# the edge-list kernels' instances: (operand dtype, tolerance, suffix)
+EDGE_DTYPES = {torch.float32: (1e-5, "_f32"), torch.bfloat16: (1e-2, "_bf16")}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("h", [70, 200])  # 4-byte loads; the C-GCN's width
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [70, 200])  # 4-value loads off; the C-GCN's
 @pytest.mark.parametrize("name", EDGE_CARD_CASES)
-def test_band_aggregate_kernels_match_plain(cuda_device, name, h):
+def test_band_aggregate_kernels_match_plain(cuda_device, name, h, dtype):
+    tol, suffix = EDGE_DTYPES[dtype]
     edges, b, n = edge_tensors(name, cuda_device)
-    xs = features(np.random.RandomState(5), cuda_device, *[(b, n, h)] * 3)
+    xs = [x.to(dtype) for x in features(np.random.RandomState(5),
+                                        cuda_device, *[(b, n, h)] * 3)]
     for relu in (True, False):
-        launches = band_mod.KERNEL.launches
+        launches = band_mod.KERNEL.launches_of(suffix)
         got = band_mod.band_aggregate_forward(*edges, *xs, relu)
         again = band_mod.band_aggregate_forward(*edges, *xs, relu)
-        assert band_mod.KERNEL.launches == launches + 2
+        assert band_mod.KERNEL.launches_of(suffix) == launches + 2
+        assert got.dtype == dtype
         assert torch.equal(got, again)  # no float atomics
         want = band_mod.band_aggregate_plain(*edges, *xs, relu)
-        assert scaled_err(got, want) <= 1e-5
-    launches = band_mod.PAIR_KERNEL.launches
+        assert scaled_err(got, want) <= tol
+    launches = band_mod.PAIR_KERNEL.launches_of(suffix)
     got = band_mod.pair_aggregate(*edges, xs[0])
     again = band_mod.pair_aggregate(*edges, xs[0])
-    assert band_mod.PAIR_KERNEL.launches == launches + 2
+    assert band_mod.PAIR_KERNEL.launches_of(suffix) == launches + 2
     for a, a2, w in zip(got, again,
                         band_mod.pair_aggregate_plain(*edges, xs[0])):
+        assert a.dtype == dtype
         assert torch.equal(a, a2)  # no float atomics
-        assert scaled_err(a, w) <= 1e-5
+        assert scaled_err(a, w) <= tol
 
 
 # (T1, T2): ragged widths on 4-byte loads, and the paper GCN's two layers
@@ -511,31 +524,34 @@ SPMM_WIDTHS = {"t75x40": (75, 40), "t360": (360, 360), "t200": (200, 200)}
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("widths", list(SPMM_WIDTHS))
 @pytest.mark.parametrize("name", EDGE_CARD_CASES)
-def test_spmm_fused_kernels_match_plain(cuda_device, name, widths):
+def test_spmm_fused_kernels_match_plain(cuda_device, name, widths, dtype):
+    tol, suffix = EDGE_DTYPES[dtype]
     edges, b, n = edge_tensors(name, cuda_device)
     t1, t2 = SPMM_WIDTHS[widths]
     rng = np.random.RandomState(6)
     h, x2 = features(rng, cuda_device, (b, n, t1), (b, n, t2))
     w, bias = features(rng, cuda_device, (t1, 70), (70,))
-    w = w / np.sqrt(t1)
-    launches = spmm_mod.KERNEL.launches
+    h, x2, w, bias = (a.to(dtype) for a in (h, x2, w / np.sqrt(t1), bias))
+    launches = spmm_mod.KERNEL.launches_of(suffix)
     got = spmm_mod.gcn_spmm_forward(*edges, h, w, bias)
     again = spmm_mod.gcn_spmm_forward(*edges, h, w, bias)
-    assert spmm_mod.KERNEL.launches == launches + 2
+    assert spmm_mod.KERNEL.launches_of(suffix) == launches + 2
+    assert got.dtype == dtype
     assert torch.equal(got, again)
     assert scaled_err(got, spmm_mod.gcn_spmm_plain(*edges, h, w, bias)) \
-        <= 1e-5
-    launches = spmm_mod.SYM_PAIR_KERNEL.launches
+        <= tol
+    launches = spmm_mod.SYM_PAIR_KERNEL.launches_of(suffix)
     got = spmm_mod.sym_pair(*edges, h, x2)
     again = spmm_mod.sym_pair(*edges, h, x2)
-    assert spmm_mod.SYM_PAIR_KERNEL.launches == launches + 2
+    assert spmm_mod.SYM_PAIR_KERNEL.launches_of(suffix) == launches + 2
     for a, a2, want in zip(got, again,
                            spmm_mod.sym_pair_plain(*edges, h, x2)):
-        assert a.shape == want.shape
+        assert a.shape == want.shape and a.dtype == dtype
         assert torch.equal(a, a2)  # no float atomics
-        assert scaled_err(a, want) <= 1e-5
+        assert scaled_err(a, want) <= tol
 
 
 def tree_edges(rng, b, n):
@@ -569,8 +585,10 @@ SPMM_TILE_CASES = {
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("name", sorted(SPMM_TILE_CASES))
-def test_spmm_fused_forward_on_its_tiles(cuda_device, name):
+def test_spmm_fused_forward_on_its_tiles(cuda_device, name, dtype):
+    tol, suffix = EDGE_DTYPES[dtype]
     b, n, t, h, kind = SPMM_TILE_CASES[name]
     rng = np.random.RandomState(sum(map(ord, name)))
     if kind == "trees":
@@ -581,14 +599,14 @@ def test_spmm_fused_forward_on_its_tiles(cuda_device, name):
             arrays[2][:] = False
     edges = [torch.from_numpy(a).to(cuda_device) for a in arrays]
     x, w, bias = features(rng, cuda_device, (b, n, t), (t, h), (h,))
-    w = w / np.sqrt(t)
-    launches = spmm_mod.KERNEL.launches
+    x, w, bias = (a.to(dtype) for a in (x, w / np.sqrt(t), bias))
+    launches = spmm_mod.KERNEL.launches_of(suffix)
     got = spmm_mod.gcn_spmm_forward(*edges, x, w, bias)
     again = spmm_mod.gcn_spmm_forward(*edges, x, w, bias)
-    assert spmm_mod.KERNEL.launches == launches + 2
+    assert spmm_mod.KERNEL.launches_of(suffix) == launches + 2
     assert torch.equal(got, again)
     assert scaled_err(got, spmm_mod.gcn_spmm_plain(*edges, x, w, bias)) \
-        <= 1e-5
+        <= tol
 
 
 @pytest.mark.cuda
@@ -657,6 +675,48 @@ def test_fused_path_on_card_matches_cpu(cuda_device, preset):
     assert pair.launches == launches + 3 * cfg.model.num_layers
     for k, v in cpu.model.state_dict().items():
         assert scaled_err(card.model.state_dict()[k].cpu(), v) <= 1e-4, k
+
+
+@pytest.mark.cuda
+def test_bf16_fused_path_on_card_matches_cpu(cuda_device):
+    """``cgcn_preset`` with use_pallas=True in bf16, dropout off: the
+    evaluation forward and three train steps on the card (every kernel of
+    the path in its bf16 instance, none in f32) against the plain versions
+    in bf16 on the CPU.  Tolerance 1e-2 of max(1, |value|): both round
+    at the same points, and a rounding flip where the two sums straddle a
+    bf16 boundary (2^-8 of a value) moves what follows it."""
+    cfg = small_cfg(cgcn_preset, **{"model.use_pallas": True,
+                                    "model.compute_dtype": "bfloat16",
+                                    "model.input_dropout": 0.0,
+                                    "model.rnn_dropout": 0.0,
+                                    "model.gcn_dropout": 0.0})
+    model = GCNClassifier(cfg.model)
+    init_params(model, torch.Generator().manual_seed(0))
+    state = model.state_dict()
+    kernels = [lstm_mod.KERNEL, lstm_mod.BACKWARD_KERNEL, gmm_mod.KERNEL,
+               gmm_mod.BACKWARD_KERNEL, band_mod.KERNEL,
+               band_mod.PAIR_KERNEL]
+    for k in kernels:
+        k.reset()
+    batch = random_batch(np.random.RandomState(0))
+    with torch.no_grad():
+        got, _ = Evaluator(cfg, state, device=cuda_device).model(
+            batch_to_device(batch, cuda_device))
+        want, _ = Evaluator(cfg, state, device="cpu").model(
+            batch_to_device(batch, torch.device("cpu")))
+    assert scaled_err(got.cpu(), want) <= 1e-2
+    card = Trainer(cfg, state, device=cuda_device)
+    cpu = Trainer(cfg, state, device="cpu")
+    rng = np.random.RandomState(1)
+    for _ in range(3):
+        batch = random_batch(rng)
+        got, want = float(card.update(batch)), float(cpu.update(batch))
+        assert abs(got - want) <= 1e-2 * max(1.0, abs(want))
+    for k, v in cpu.model.state_dict().items():
+        assert scaled_err(card.model.state_dict()[k].cpu(), v) <= 1e-2, k
+    for k in kernels:
+        assert k.launches_of("_bf16") > 0 and k.launches_of("_f32") == 0, \
+            (k.name, k.by_function)
 
 
 # the SDDMM's cases and widths: H = 70 takes the backward's 4-byte
