@@ -58,7 +58,9 @@
 // Every output element sums its k-chunks in one fixed order and there are
 // no float atomics: two calls give the same bits.
 //
-// bf16 operands (the fused GCN layer's bf16 instance).  A bf16 value
+// bf16 operands (the bf16 instances of the fused GCN layer and of the
+// bilinear v1; the bilinear v2's A = e x, a product of two bf16 values,
+// is not exact in TF32 and keeps the split).  A bf16 value
 // widened to f32 is exact in TF32 (8 significand bits of TF32's 11), and
 // so is the product of two of them in the f32 accumulator, so the split's
 // lo parts are zero and 3xTF32's two correction products add nothing:

@@ -23,7 +23,14 @@ Evaluation batches keep file order, drop no words, and are built once and
 replayed every epoch; a dataset loaded with ``evaluation=True`` drops no
 words in any batcher.  ``RelationDataset.raw_data`` keeps the JSON records
 (the misclassified-example dumps).  Only TACRED batches carry ``ner``.
-Cross-sentence packing is not ported yet.
+
+``PackedBatcher`` is gcn_tpu's cross-sentence packing: rows filled
+greedily with whole sentences up to ``pack_len`` tokens or ``max_slots``
+sentences, over one shuffle of the order; edges offset into the row,
+``seg_start`` marking each sentence's first token, per-slot [B, S, N]
+masks, and ``labels`` / ``example_mask`` flattened [B·S] in row-major slot
+order.  It has ``Batcher``'s iteration surface (``advance``,
+``warmup_batches``, the evaluation cache), and takes word ids only.
 """
 
 from __future__ import annotations
@@ -133,37 +140,11 @@ class RelationDataset:
         return len(self.examples)
 
 
-class Batcher:
-    """Chunk a dataset into static-shape padded batches: shuffled once and
-    with word dropout for training, in file order and without for
-    evaluation (``evaluation=True``)."""
-
-    def __init__(self, dataset: RelationDataset, batch_size: int,
-                 evaluation: bool = False, seed: int = 1234,
-                 length_buckets=None, pad_batches: bool = True,
-                 group_by_length: bool = False):
-        self.ds = dataset
-        self.batch_size = batch_size
-        self.evaluation = evaluation
-        self.rng = np.random.RandomState(seed)
-        self.pad_batches = pad_batches
-        self.length_buckets = sorted(
-            length_buckets or dataset.cfg.data.length_buckets)
-        order = list(range(len(dataset)))
-        if not evaluation:
-            random.Random(seed).shuffle(order)
-        if group_by_length:
-            order = sorted(order, key=lambda i: self._bucket_len(
-                dataset.examples[i].length))
-        self.order = order
-        self.num_examples = len(order)
-        self.gold_labels = [
-            dataset.id2label[dataset.examples[i].relation] for i in order
-        ]
-        self.chunks = [
-            order[i : i + batch_size] for i in range(0, len(order), batch_size)
-        ]
-        self._cache: Optional[list] = None
+class _Batches:
+    """The iteration surface of ``Batcher`` and ``PackedBatcher``: each has
+    ``ds``, ``evaluation``, ``rng``, ``chunks``, ``gold_labels``,
+    ``_cache``, ``materialize(chunk)`` and ``_examples(chunk)`` (the
+    chunk's example indices in the order its word dropout is drawn)."""
 
     def gold(self) -> list[str]:
         """Gold labels in iteration order."""
@@ -199,10 +180,47 @@ class Batcher:
         if self.word_dropout() <= 0:
             return
         for i in range(batches):
-            for j in self.chunks[i % len(self.chunks)]:
+            for j in self._examples(self.chunks[i % len(self.chunks)]):
                 ex = self.ds.examples[j]
                 if ex.words.ndim == 1:
                     self.rng.random_sample(ex.length)
+
+
+class Batcher(_Batches):
+    """Chunk a dataset into static-shape padded batches: shuffled once and
+    with word dropout for training, in file order and without for
+    evaluation (``evaluation=True``)."""
+
+    def __init__(self, dataset: RelationDataset, batch_size: int,
+                 evaluation: bool = False, seed: int = 1234,
+                 length_buckets=None, pad_batches: bool = True,
+                 group_by_length: bool = False):
+        self.ds = dataset
+        self.batch_size = batch_size
+        self.evaluation = evaluation
+        self.rng = np.random.RandomState(seed)
+        self.pad_batches = pad_batches
+        self.length_buckets = sorted(
+            length_buckets or dataset.cfg.data.length_buckets)
+        order = list(range(len(dataset)))
+        if not evaluation:
+            random.Random(seed).shuffle(order)
+        if group_by_length:
+            order = sorted(order, key=lambda i: self._bucket_len(
+                dataset.examples[i].length))
+        self.order = order
+        self.num_examples = len(order)
+        self.gold_labels = [
+            dataset.id2label[dataset.examples[i].relation] for i in order
+        ]
+        self.chunks = [
+            order[i : i + batch_size] for i in range(0, len(order), batch_size)
+        ]
+        self._cache: Optional[list] = None
+
+    @staticmethod
+    def _examples(chunk: list[int]) -> list[int]:
+        return chunk
 
     def warmup_batches(self) -> list[dict]:
         """One representative batch per distinct (rows, bucket) shape, for
@@ -295,6 +313,149 @@ class Batcher:
             "lengths": lengths,
             "labels": labels,
             "example_mask": example_mask,
+            "edge_parent": edge_parent,
+            "edge_child": edge_child,
+            "edge_deprel": edge_deprel,
+            "edge_mask": edge_mask,
+        }
+        if self.ds.dataset == "tacred":
+            batch["ner"] = ner
+        return batch
+
+
+class PackedBatcher(_Batches):
+    """Cross-sentence packing (gcn_tpu's ``PackedBatcher``): several
+    sentences share one node row, filled greedily in one shuffle of the
+    order (file order for evaluation) up to ``pack_len`` tokens (the
+    largest length bucket by default, at least the longest sentence) or
+    ``max_slots`` sentences; ``rows_per_batch`` rows a batch, the last
+    batch's rows padded.  ``batch_size`` counts rows.  ``order`` and
+    ``gold_labels`` follow the flattened slots, row by row."""
+
+    def __init__(self, dataset: RelationDataset, rows_per_batch: int,
+                 pack_len: Optional[int] = None, max_slots: int = 10,
+                 evaluation: bool = False, seed: int = 1234):
+        if any(ex.words.ndim != 1 for ex in dataset.examples):
+            raise ValueError("PackedBatcher packs integer word ids, not "
+                             "float word vectors")
+        self.ds = dataset
+        self.evaluation = evaluation
+        self.rng = np.random.RandomState(seed)
+        self.rows_per_batch = rows_per_batch
+        buckets = sorted(dataset.cfg.data.length_buckets)
+        max_len = max((ex.length for ex in dataset.examples), default=1)
+        self.pack_len = max(pack_len or buckets[-1], max_len)
+        self.max_slots = max_slots
+        order = list(range(len(dataset)))
+        if not evaluation:
+            random.Random(seed).shuffle(order)
+        rows: list[list[int]] = []
+        cur: list[int] = []
+        filled = 0
+        for i in order:
+            length = dataset.examples[i].length
+            if cur and (filled + length > self.pack_len
+                        or len(cur) >= max_slots):
+                rows.append(cur)
+                cur, filled = [], 0
+            cur.append(i)
+            filled += length
+        if cur:
+            rows.append(cur)
+        self.rows = rows
+        self.order = [i for row in rows for i in row]
+        self.gold_labels = [
+            dataset.id2label[dataset.examples[i].relation]
+            for i in self.order
+        ]
+        self.chunks = [rows[j:j + rows_per_batch]
+                       for j in range(0, len(rows), rows_per_batch)]
+        self.num_examples = len(self.order)
+        self.batch_size = rows_per_batch  # rows, not examples
+        self._cache: Optional[list] = None
+
+    @staticmethod
+    def _examples(chunk: list[list[int]]) -> list[int]:
+        return [i for row in chunk for i in row]
+
+    def warmup_batches(self) -> list[dict]:
+        """The one batch shape's representative, built with a throwaway
+        ``RandomState`` (the word-dropout stream stays as it was)."""
+        if not self.chunks:
+            return []
+        saved = self.rng
+        try:
+            self.rng = np.random.RandomState(0)
+            return [self.materialize(self.chunks[0])]
+        finally:
+            self.rng = saved
+
+    def materialize(self, chunk: list[list[int]]) -> dict[str, np.ndarray]:
+        b, n, s = self.rows_per_batch, self.pack_len, self.max_slots
+        words = np.full((b, n), constants.PAD_ID, np.int32)
+        pos = np.zeros((b, n), np.int32)
+        ner = np.zeros((b, n), np.int32)
+        deprel = np.zeros((b, n), np.int32)
+        pad_mask = np.ones((b, n), bool)
+        seg_start = np.zeros((b, n), bool)
+        lengths = np.zeros((b,), np.int32)
+        slot_mask = np.zeros((b, s, n), bool)
+        subj_mask = np.zeros((b, s, n), bool)
+        obj_mask = np.zeros((b, s, n), bool)
+        labels = np.zeros((b, s), np.int32)
+        example_mask = np.zeros((b, s), bool)
+        e_cap = n  # the trees of a row's sentences have < n edges
+        edge_parent = np.zeros((b, e_cap), np.int32)
+        edge_child = np.zeros((b, e_cap), np.int32)
+        edge_deprel = np.zeros((b, e_cap), np.int32)
+        edge_mask = np.zeros((b, e_cap), bool)
+
+        word_do = self.word_dropout()
+        for r, row in enumerate(chunk):
+            off = ne_off = 0
+            for si, i in enumerate(row):
+                ex = self.ds.examples[i]
+                length = ex.length
+                w = ex.words
+                if word_do > 0:
+                    drop = (self.rng.random_sample(length) < word_do) & (
+                        w != constants.UNK_ID)
+                    w = np.where(drop, constants.UNK_ID, w)
+                sl = slice(off, off + length)
+                words[r, sl] = w
+                pos[r, sl] = ex.pos
+                if ex.ner is not None:
+                    ner[r, sl] = ex.ner
+                deprel[r, sl] = ex.deprel
+                pad_mask[r, sl] = False
+                seg_start[r, off] = True
+                slot_mask[r, si, sl] = True
+                subj_mask[r, si, sl] = ex.subj_pos == 0
+                obj_mask[r, si, sl] = ex.obj_pos == 0
+                labels[r, si] = ex.relation
+                example_mask[r, si] = True
+                g = ex.graph
+                ne = g.num_edges
+                edge_parent[r, ne_off:ne_off + ne] = g.edge_parent + off
+                edge_child[r, ne_off:ne_off + ne] = g.edge_child + off
+                edge_deprel[r, ne_off:ne_off + ne] = g.edge_deprel
+                edge_mask[r, ne_off:ne_off + ne] = True
+                ne_off += ne
+                off += length
+            lengths[r] = off
+
+        batch = {
+            "words": words,
+            "pad_mask": pad_mask,
+            "pos": pos,
+            "deprel": deprel,
+            "seg_start": seg_start,
+            "slot_mask": slot_mask,
+            "subj_mask": subj_mask,
+            "obj_mask": obj_mask,
+            "lengths": lengths,
+            "labels": labels.reshape(-1),
+            "example_mask": example_mask.reshape(-1),
             "edge_parent": edge_parent,
             "edge_child": edge_child,
             "edge_deprel": edge_deprel,

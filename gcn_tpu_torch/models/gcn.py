@@ -24,16 +24,25 @@ model's stochastic points in its order, each drawn from the caller's
 ``torch.Generator``: embedding dropout (word ids only), input dropout, the
 BiLSTM's inter-layer dropout, rnn dropout, then per GCN layer edge dropout
 and deprel forgetting on the forward band, the same on the reverse band
-(full_deprel only), and gcn dropout between layers.  Unpacked batches.
+(full_deprel only), and gcn dropout between layers.
 ``compute_dtype="bfloat16"`` casts where JAX casts (``COMPUTE_DTYPES``):
 the embeddings and word vectors, the BiLSTM's input and parameters, the
-bands and denominators, the layer weights and factored tables, the MLP
-and classifier; the kernels run their bf16 instances, the softmax of the
-dense attention backend runs in f32, and logits and ``h_out`` come back
-f32.  Two combinations wait for their kernels' bf16 instances and raise
-``NotImplementedError`` naming ROADMAP.md §1 item 4: the attention edge
-backend and the non-factored full_deprel on the fused path.  Other
-settings raise ``NotImplementedError`` too.
+bands and denominators, the layer weights, attention projections and
+factored tables, the MLP and classifier; every kernel runs its bf16
+instance, the attention scores (the SDDMM's output, its scale and the
+softmax, on either backend) stay f32 and their weights meet the messages
+in bf16, and logits and ``h_out`` come back f32.  Settings the port
+cannot build (``graph_partition``, unknown modes) raise
+``NotImplementedError``.
+
+Cross-sentence-packed batches (``data.dataset.PackedBatcher``: several
+sentences share a row) carry ``seg_start`` [B, N], which resets the
+BiLSTM's carry at each sentence's first token (and, in the reverse
+direction, at its last), and ``slot_mask`` [B, S, N]: then the head pools
+per slot (``pool_slots``; subject and object masks are [B, S, N] too),
+and logits and ``h_out`` are [B·S, ...] in row-major slot order.  Their
+edges are offset into the row, so the bands are block-diagonal and
+nothing else changes.
 
 Parameters keep the flax names and layouts (``word_emb``,
 ``rnn.l0_fwd_w_ih [D, 4H]``, ``gcn_deprel_w0 [D, T, H]``,
@@ -72,7 +81,7 @@ from gcn_tpu_torch.ops.gcn_layers import (
     self_loop_traverse,
 )
 from gcn_tpu_torch.ops.lstm import bilstm
-from gcn_tpu_torch.ops.pooling import pool
+from gcn_tpu_torch.ops.pooling import pool, pool_slots
 from gcn_tpu_torch.ops.sddmm import edge_softmax, sddmm
 from gcn_tpu_torch.ops.spmm import (
     node_degrees,
@@ -111,7 +120,6 @@ def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-BF16_LATER = "ROADMAP.md §1 item 4"  # the kernels whose bf16 instances wait
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -131,19 +139,6 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"the port runs on one device; unsupported settings: "
             f"{', '.join(bad)}")
-    if cfg.compute_dtype == "bfloat16":
-        if cfg.adj_type == "attention" and cfg.attention_impl == "edge":
-            _refuse_bf16("the attention edge backend (the SDDMM kernels)")
-        if (cfg.adj_type == "full_deprel" and cfg.use_pallas is True
-                and cfg.deprel_factored is False):
-            _refuse_bf16("the non-factored full_deprel on the fused path "
-                         "(the deprel bilinear kernels)")
-
-
-def _refuse_bf16(what: str):
-    raise NotImplementedError(
-        f"compute_dtype='bfloat16' with {what}: their bf16 instances are "
-        f"not ported yet ({BF16_LATER})")
 
 
 class TorchDense(nn.Module):
@@ -184,7 +179,8 @@ class BiLSTM(nn.Module):
                         nn.Parameter(torch.empty(shape)))
             in_dim = 2 * hidden
 
-    def forward(self, x, lengths, deterministic=True, generator=None):
+    def forward(self, x, lengths, deterministic=True, generator=None,
+                seg_start=None):
         params = [
             {d: {k: getattr(self, f"l{li}_{d}_{k}").to(self.dtype)
                  for k in ("w_ih", "w_hh", "b_ih", "b_hh")}
@@ -193,12 +189,14 @@ class BiLSTM(nn.Module):
         ]
         return bilstm(params, x.to(self.dtype), lengths, impl=self.impl,
                       inter_dropout=self.dropout_rate,
-                      deterministic=deterministic, generator=generator)
+                      deterministic=deterministic, generator=generator,
+                      seg_start=seg_start)
 
 
 class GCNClassifier(nn.Module):
     """Returns ``(logits, h_out)``: logits [B, C] and the sentence pooling
-    output [B, H], both f32, as the JAX model does.
+    output [B, H] ([B·S, ...] for a packed batch), both f32, as the JAX
+    model does.
 
     ``unused_params`` names the parameters that no forward reaches (the
     one-wide deprel table of the regular and attention modes, kept for
@@ -345,10 +343,6 @@ class GCNClassifier(nn.Module):
         if cfg.adj_type == "attention":
             attn_impl = resolve_attention_impl(cfg.attention_impl,
                                                words.shape[0], n)
-            if attn_impl == "edge" and dt != torch.float32:
-                _refuse_bf16("the attention edge backend (the SDDMM "
-                             "kernels), which attention_impl='auto' took "
-                             f"for a [{words.shape[0]}, {n}] batch")
         if fused or attn_impl == "edge":
             # the kernels' operand types; no band is built on these paths
             edges = (batch["edge_parent"].to(torch.int32).contiguous(),
@@ -382,7 +376,8 @@ class GCNClassifier(nn.Module):
         h = torch.cat(embs, dim=2)
         h = dropout(h, cfg.input_dropout, deterministic, generator)
         if cfg.rnn:
-            h = self.rnn(h, batch["lengths"], deterministic, generator)
+            h = self.rnn(h, batch["lengths"], deterministic, generator,
+                         batch.get("seg_start"))
             h = dropout(h, cfg.rnn_dropout, deterministic, generator)
 
         deprel = batch["deprel"]
@@ -425,10 +420,21 @@ class GCNClassifier(nn.Module):
             if l < cfg.num_layers - 1:
                 h = dropout(h, cfg.gcn_dropout, deterministic, generator)
 
-        h_out = pool(h, pool_exclude, cfg.pooling)
-        subj_out = pool(h, ~batch["subj_mask"], cfg.pooling)
-        obj_out = pool(h, ~batch["obj_mask"], cfg.pooling)
-        out = torch.cat([h_out, subj_out, obj_out], dim=1)
+        if "slot_mask" in batch:
+            # packed rows: every head quantity is per slot, [B, S, H],
+            # then flattened to [B·S, ...] in row-major slot order
+            sent_ex = ~batch["slot_mask"] | pool_exclude[:, None, :]
+            h_out = pool_slots(h, sent_ex, cfg.pooling)
+            subj_out = pool_slots(h, ~batch["subj_mask"], cfg.pooling)
+            obj_out = pool_slots(h, ~batch["obj_mask"], cfg.pooling)
+            out = torch.cat([h_out, subj_out, obj_out], dim=2)
+            out = out.reshape(-1, out.shape[-1])
+            h_out = h_out.reshape(-1, h_out.shape[-1])
+        else:
+            h_out = pool(h, pool_exclude, cfg.pooling)
+            subj_out = pool(h, ~batch["subj_mask"], cfg.pooling)
+            obj_out = pool(h, ~batch["obj_mask"], cfg.pooling)
+            out = torch.cat([h_out, subj_out, obj_out], dim=1)
         for i in range(cfg.mlp_layers):
             out = torch.relu(getattr(self, f"mlp{i}")(out))
         logits = self.classifier(out)

@@ -19,6 +19,14 @@ edges, in plain PyTorch as JAX leaves it to XLA.
 An edge counts when its mask is set and both ends lie in [0, N); an edge
 with an end outside scores 0 and takes no part in the softmax or the
 gradients (JAX's gathers give NaN there, ``ROADMAP.md`` §3).
+
+u and v are f32 or bf16 (one dtype a call, as the Pallas kernels take
+their operands' dtype); the scores and the cotangent g stay f32, and du,
+dv come back in u's dtype.  bf16 rounds where JAX rounds: the forward's
+dot sums the widened rows in f32; the backward rounds each message
+``ḡ_e · v[child_e]`` to bf16, sums the messages in f32 and rounds du and
+dv once (the kernels' ``_bf16`` instances and the plain versions alike).
+``edge_softmax`` runs in the scores' f32.
 """
 
 from __future__ import annotations
@@ -28,15 +36,16 @@ import ctypes
 import torch
 
 from gcn_tpu_torch.ops._cuda import CudaKernel
-from gcn_tpu_torch.ops.band_aggregate import check_edges
+from gcn_tpu_torch.ops.band_aggregate import SUFFIX, check_edges
 from gcn_tpu_torch.ops.spmm import gather_rows, scatter_rows, valid_edges
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("sddmm.cu", {
-    "sddmm_forward_f32": [_P] * 6 + [_I] * 4 + [_P]})
+    f"sddmm_forward_{t}": [_P] * 6 + [_I] * 4 + [_P]
+    for t in ("f32", "bf16")})
 BACKWARD_KERNEL = CudaKernel("sddmm.cu", {
-    "sddmm_backward_f32": [_P] * 9 + [_I] * 4 + [_P]},
-    name="sddmm_backward")
+    f"sddmm_backward_{t}": [_P] * 9 + [_I] * 4 + [_P]
+    for t in ("f32", "bf16")}, name="sddmm_backward")
 # the backward's list build alone, for its tests
 LISTS_KERNEL = CudaKernel("sddmm.cu", {
     "sddmm_lists_i32": [_P] * 4 + [_I] * 3 + [_P]}, name="sddmm_lists")
@@ -57,9 +66,11 @@ def _build_smem(n: int, e: int) -> int:
 
 
 def sddmm_plain(parent, child, mask, u, v):
-    """Plain PyTorch version of ``sddmm_forward``."""
+    """Plain PyTorch version of ``sddmm_forward``: the rows widened to
+    f32, the dot in f32."""
     ok = valid_edges(parent, child, mask, u.shape[1])
-    s = (gather_rows(u, parent) * gather_rows(v, child)).sum(-1)
+    s = (gather_rows(u, parent).float()
+         * gather_rows(v, child).float()).sum(-1)
     return torch.where(ok, s, torch.zeros((), dtype=s.dtype,
                                           device=s.device))
 
@@ -74,8 +85,8 @@ def _check(fname, parent, child, mask, u, v, smem):
 
 def sddmm_forward(parent, child, mask, u, v):
     """Per-edge scores: parent/child [B, E] int32, mask [B, E] bool, u, v
-    [B, N, H] f32 → [B, E] f32.  The CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    [B, N, H] f32 or bf16 → [B, E] f32.  The CUDA kernel's instance for
+    u's dtype for CUDA tensors, the plain version for CPU tensors."""
     if u.device.type == "cpu":
         return sddmm_plain(parent, child, mask, u, v)
     b, n, e = _check("sddmm_forward", parent, child, mask, u, v, _no_smem)
@@ -84,9 +95,10 @@ def sddmm_forward(parent, child, mask, u, v):
         return out
     with torch.cuda.device(u.device):
         KERNEL.launch(
-            "sddmm_forward_f32", parent.data_ptr(), child.data_ptr(),
-            mask.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(), b,
-            n, e, u.shape[2], torch.cuda.current_stream(u.device).cuda_stream)
+            f"sddmm_forward_{SUFFIX[u.dtype]}", parent.data_ptr(),
+            child.data_ptr(), mask.data_ptr(), u.data_ptr(), v.data_ptr(),
+            out.data_ptr(), b, n, e, u.shape[2],
+            torch.cuda.current_stream(u.device).cuda_stream)
     return out
 
 
@@ -141,19 +153,24 @@ def edge_lists(parent, child, mask, n: int):
 
 
 def sddmm_backward_plain(parent, child, mask, g, u, v):
-    """Plain PyTorch version of ``sddmm_backward``."""
+    """Plain PyTorch version of ``sddmm_backward``: the messages in f32,
+    rounded to u's dtype, summed in f32 and the sums rounded to it."""
     n = u.shape[1]
     ok = valid_edges(parent, child, mask, n)
-    gm = torch.where(ok, g, torch.zeros((), dtype=g.dtype,
-                                        device=g.device))[:, :, None]
-    du = scatter_rows(gm * gather_rows(v, child), parent, n)
-    dv = scatter_rows(gm * gather_rows(u, parent), child, n)
-    return du, dv
+    gm = torch.where(ok, g.float(), 0.0)[:, :, None]
+
+    def messages(rows):
+        return (gm * rows.float()).to(u.dtype).float()
+
+    du = scatter_rows(messages(gather_rows(v, child)), parent, n)
+    dv = scatter_rows(messages(gather_rows(u, parent)), child, n)
+    return du.to(u.dtype), dv.to(v.dtype)
 
 
 def sddmm_backward(parent, child, mask, g, u, v):
-    """``(du, dv)`` for the cotangent g [B, E] f32: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    """``(du, dv)`` in u's dtype for the cotangent g [B, E] f32: the CUDA
+    kernel's instance for u's dtype for CUDA tensors, the plain version for
+    CPU tensors."""
     if u.device.type == "cpu":
         return sddmm_backward_plain(parent, child, mask, g, u, v)
     b, n, e = _check("sddmm_backward", parent, child, mask, u, v,
@@ -170,10 +187,11 @@ def sddmm_backward(parent, child, mask, g, u, v):
                         device=u.device)
     with torch.cuda.device(u.device):
         BACKWARD_KERNEL.launch(
-            "sddmm_backward_f32", parent.data_ptr(), child.data_ptr(),
-            mask.data_ptr(), g.data_ptr(), u.data_ptr(), v.data_ptr(),
-            du.data_ptr(), dv.data_ptr(), lists.data_ptr(), b, n, e,
-            u.shape[2], torch.cuda.current_stream(u.device).cuda_stream)
+            f"sddmm_backward_{SUFFIX[u.dtype]}", parent.data_ptr(),
+            child.data_ptr(), mask.data_ptr(), g.data_ptr(), u.data_ptr(),
+            v.data_ptr(), du.data_ptr(), dv.data_ptr(), lists.data_ptr(), b,
+            n, e, u.shape[2],
+            torch.cuda.current_stream(u.device).cuda_stream)
     return du, dv
 
 

@@ -16,6 +16,14 @@ kernels' band builds drop it (JAX's gather of an out-of-range child gives
 NaN, which its scatter then carries: the port drops the edge instead).
 The sums are ``scatter_add``s, which add with float atomics on the card,
 so two runs there agree within float error, not bit for bit.
+
+The values may be bf16 with f32 edge weights (the attention edge
+backend at ``compute_dtype="bfloat16"``).  The port then does what JAX
+does: the weights are cast to the values' dtype before the product, each
+message is rounded to bf16, and the messages are summed in bf16 into a
+bf16 target (``scatter_add`` in the values' dtype, JAX's ``.at[].add``
+likewise), each addition rounding.  On the card a bf16 ``scatter_add``
+is float atomics too.
 """
 
 from __future__ import annotations

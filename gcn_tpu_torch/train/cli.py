@@ -11,9 +11,8 @@ scripts with the same arguments, and ``args_to_config`` fills the same
   ``--cuda`` is accepted.
 * ``check_supported``: flags that change what is computed and that the
   port lacks raise ``NotImplementedError`` naming their ``ROADMAP.md``
-  item (``UNSUPPORTED``), and so does a combination the model refuses
-  (``models.gcn.check_supported``: ``--compute_dtype bfloat16`` on the
-  kernels whose bf16 instances wait), before anything is written.
+  item (``UNSUPPORTED``), and so does a setting the model refuses
+  (``models.gcn.check_supported``), before anything is written.
 * ``dispatch_only_line``: flags that only tune JAX itself are stored in
   ``config.json`` and named in one printed line (``DISPATCH_ONLY``).
   ``--pack_transfers``, ``--pack_format``, ``--steps_per_dispatch`` and
@@ -29,8 +28,6 @@ from gcn_tpu_torch.config import Config
 
 # flag → (the value it is unsupported at, as a test of args; the message)
 UNSUPPORTED = {
-    "pack_sentences": (lambda a: a.pack_sentences > 0,
-                       "cross-sentence packing: ROADMAP.md §1 item 5"),
     "graph_partition": (lambda a: a.graph_partition != "none",
                         "graph partitioning: ROADMAP.md §1 item 8"),
     "sparse_emb_grad": (lambda a: a.sparse_emb_grad == "true",

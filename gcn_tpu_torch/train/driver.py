@@ -12,9 +12,14 @@ sgd/adagrad/adadelta; ``logs.txt``, ``config.json``, ``vocab.pkl``,
 confusion matrices and misclassified examples.  Checkpoints are
 gcn_tpu's format, so either package resumes or evaluates the other's run.
 
+``--pack_sentences S`` builds every batcher as a ``PackedBatcher`` (rows
+of up to ``pack_len`` tokens and S sentences, ``batch_size`` rows a
+batch), as gcn_tpu's driver does; BERT inputs with it raise
+``ValueError``.
+
 A resumed run is the uninterrupted one: the step counter seeds the
 dropout streams (``Trainer.load``), the train batcher draws the word
-dropout of the batches before the resume point (``Batcher.advance``), and
+dropout of the batches before the resume point (``advance``), and
 the checkpoint's meta carries the selection history that the plateau
 decay reads and, in a step checkpoint, the losses of the epoch's batches
 before it.  The epoch's losses are summed on the device and fetched once.
@@ -40,7 +45,12 @@ import numpy as np
 import torch
 
 from gcn_tpu_torch.config import Config
-from gcn_tpu_torch.data.dataset import Batcher, RelationDataset, constants_for
+from gcn_tpu_torch.data.dataset import (
+    Batcher,
+    PackedBatcher,
+    RelationDataset,
+    constants_for,
+)
 from gcn_tpu_torch.data.vocab import Vocab
 from gcn_tpu_torch.train import checkpoint as ckpt
 from gcn_tpu_torch.train import scorer
@@ -173,11 +183,35 @@ def run_training(
 
     bs = cfg.train.batch_size
     ebs = cfg.train.eval_batch_size or bs
-    train_batcher = Batcher(train_ds, bs, seed=cfg.train.seed,
-                            group_by_length=cfg.data.group_by_length)
-    train_eval_batcher = Batcher(train_ds, ebs, evaluation=True)
-    dev_batcher = Batcher(dev_ds, ebs, evaluation=True) if dev_ds else None
-    test_batcher = Batcher(test_ds, ebs, evaluation=True)
+    if cfg.data.pack_sentences > 0:
+        if cfg.model.use_bert_embeddings:
+            raise ValueError(
+                "--pack_sentences does not support BERT embedding inputs"
+                " (float [L,D] word vectors; PackedBatcher packs integer"
+                " token ids) — use --pack_sentences 0 with"
+                " --use_bert_embeddings"
+            )
+        # cross-sentence packing: several sentences a row, the same
+        # per-sentence math; batch_size counts ROWS here
+
+        def packed(ds, evaluation):
+            return PackedBatcher(
+                ds, ebs if evaluation else bs,
+                pack_len=cfg.data.pack_len or None,
+                max_slots=cfg.data.pack_sentences,
+                evaluation=evaluation, seed=cfg.train.seed)
+
+        train_batcher = packed(train_ds, False)
+        train_eval_batcher = packed(train_ds, True)
+        dev_batcher = packed(dev_ds, True) if dev_ds else None
+        test_batcher = packed(test_ds, True)
+    else:
+        train_batcher = Batcher(train_ds, bs, seed=cfg.train.seed,
+                                group_by_length=cfg.data.group_by_length)
+        train_eval_batcher = Batcher(train_ds, ebs, evaluation=True)
+        dev_batcher = (Batcher(dev_ds, ebs, evaluation=True)
+                       if dev_ds else None)
+        test_batcher = Batcher(test_ds, ebs, evaluation=True)
 
     model_id = cfg.id if len(cfg.id) > 1 else "0" + cfg.id
     run_dir = os.path.join(cfg.model_save_dir, model_id)

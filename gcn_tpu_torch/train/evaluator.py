@@ -148,8 +148,10 @@ class Evaluator:
     def evaluate(self, batches: Iterable[dict]):
         """(preds, probs, avg_loss) over the batches.  avg_loss follows the
         reference normalization (Σ batch_loss / num_examples × batch_size)
-        when every batch has ``cfg.train.batch_size`` rows, else the
-        per-example mean weighted by each batch's valid rows.  With
+        when every batch has ``cfg.train.batch_size`` rows and none is
+        cross-sentence-packed, else it is the per-example mean: each
+        batch's mean loss weighted by its valid examples (gcn_tpu's, for a
+        packed batch, whose ``batch_size`` counts rows, not examples).  With
         ``steps_per_dispatch`` k > 1, runs of same-shape packable batches
         go out k at a time (gcn_tpu's ``evaluate``)."""
         bs = self.cfg.train.batch_size
@@ -176,7 +178,8 @@ class Evaluator:
             pending.append((probs, done, masks))
             losses.append(loss)
             weights.extend(int(m.sum()) for m in masks)
-            offsize |= any(len(m) != bs for m in masks)
+            offsize |= any(len(m) != bs or "slot_mask" in b
+                           for m, b in zip(masks, sub))
 
         buf: list[dict] = []
         depth = max(WINDOW // spd, 2) if spd > 1 else WINDOW

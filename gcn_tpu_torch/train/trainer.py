@@ -16,8 +16,9 @@ Counterpart of the training half of ``gcn_tpu.train.trainer.Trainer``:
 * on the card a fused step (``update_gap <= 1``) is a replay of a CUDA
   graph captured per batch signature and dispatch size
   (``train.dispatch``), its batch moved in by ``train.transfer`` (one
-  pinned copy where it packs); a piece of k is one replay of a k-step
-  graph.  Accumulating steps, the CPU, ``eager_dispatch()`` and a model
+  pinned copy where it packs, a cross-sentence-packed batch in the
+  sentence format, one step a replay); a piece of k is one replay of a
+  k-step graph.  Accumulating steps, the CPU, ``eager_dispatch()`` and a model
   that a graph cannot hold (``GCNClassifier.capturable``) run step by
   step;
 * the dropout stream of step s is a ``torch.Generator`` seeded from

@@ -7,6 +7,9 @@ Counterpart of gcn_tpu's ``Trainer._maybe_pack`` / ``_place_stack`` (the
   packed straight into a pinned host buffer (compact uint8 or int32, as
   ``pack_format`` says; int32 where a field does not fit the compact
   widths) and crosses in ONE ``non_blocking`` copy;
+* a cross-sentence-packed batch (``data.packing.sentence_packable``, one
+  at a time, as gcn_tpu sends them) crosses in one copy in the sentence
+  format (``pack_sentence_batch``), whatever ``pack_format`` says;
 * any other batch (float BERT words, extra keys, ``pack_transfers=False``)
   crosses field by field, each field also from pinned memory.
 
@@ -29,9 +32,13 @@ from gcn_tpu_torch.data.packing import (
     fits_compact,
     pack_batch,
     pack_batch_compact,
+    pack_sentence_batch,
     packable,
     packed_width,
+    sentence_packable,
+    sp_width,
     unpack_batch,
+    unpack_sentence_batch,
 )
 
 _ALIGN = 64  # bytes between fields in a pinned buffer
@@ -71,9 +78,11 @@ class PinnedRing:
 @dataclass
 class StaticBatch:
     """A graph's input buffers on the card: one packed [k, B, W] tensor,
-    or a dict of one tensor a field (in the host arrays' dtypes)."""
+    or a dict of one tensor a field (in the host arrays' dtypes).
+    ``slots``: (N, S) of a sentence-packed buffer, else None."""
     buffers: object
     has_ner: bool
+    slots: tuple | None = None
 
     @property
     def count(self) -> int:
@@ -104,8 +113,13 @@ class Staging:
         self.bytes = 0
 
     def packs(self, batch: dict) -> bool:
-        """Whether ``batch`` crosses packed."""
+        """Whether ``batch`` crosses packed in a format that stacks k
+        batches (the chunked paths take only these)."""
         return self.pack and packable(batch)
+
+    def packs_sentences(self, batch: dict) -> bool:
+        """Whether ``batch`` crosses in the sentence-packed format."""
+        return self.pack and sentence_packable(batch)
 
     def signature(self, batches: list) -> tuple:
         """What a graph's static inputs depend on: the packed buffer's
@@ -119,6 +133,10 @@ class Staging:
                     packed_width(n, "ner" in b, fmt), "ner" in b)
         if len(batches) != 1:
             raise ValueError("only packed batches cross k at a time")
+        if self.packs_sentences(b):
+            rows, n = b["words"].shape
+            return ("sentences", rows, n, b["slot_mask"].shape[1],
+                    "ner" in b)
         return ("fields",) + tuple(sorted(
             (k, np.shape(v), np.asarray(v).dtype.str) for k, v in b.items()))
 
@@ -130,6 +148,11 @@ class Staging:
             dtype = torch.uint8 if fmt == "compact" else torch.int32
             return StaticBatch(torch.empty((k, rows, width), dtype=dtype,
                                            device=self.device), has_ner)
+        if sig[0] == "sentences":
+            _, rows, n, s, has_ner = sig
+            return StaticBatch(torch.empty(
+                (1, rows, sp_width(n, s, has_ner)), dtype=torch.uint8,
+                device=self.device), has_ner, (n, s))
         return StaticBatch(
             {k: torch.empty(shape, dtype=_torch_dtype(np.dtype(dt)),
                             device=self.device)
@@ -139,16 +162,18 @@ class Staging:
         """Start the copies of ``batches`` into ``static`` on the current
         stream; returns without waiting for them."""
         if isinstance(static.buffers, torch.Tensor):
-            self._send_packed(batches, static.buffers)
+            self._send_packed(batches, static)
         else:
             self._send_fields(batches[0], static.buffers)
 
-    def _send_packed(self, batches: list, static: torch.Tensor) -> None:
+    def _send_packed(self, batches: list, target: StaticBatch) -> None:
+        static = target.buffers
         np_dtype = np.uint8 if static.dtype == torch.uint8 else np.int32
         nbytes = static.numel() * static.element_size()
         slot, buf = self.ring.take(nbytes)
         host = buf.numpy().view(np_dtype).reshape(tuple(static.shape))
-        packer = (pack_batch_compact if static.dtype == torch.uint8
+        packer = (pack_sentence_batch if target.slots is not None
+                  else pack_batch_compact if static.dtype == torch.uint8
                   else pack_batch)
         for i, b in enumerate(batches):
             packer(b, out=host[i])
@@ -181,6 +206,9 @@ class Staging:
     def device_batch(static: StaticBatch, i: int) -> dict:
         """The i-th batch of ``static`` as the model reads it (on the
         card, inside or outside a capture)."""
+        if static.slots is not None:
+            return unpack_sentence_batch(static.buffers[i], *static.slots,
+                                         static.has_ner)
         if isinstance(static.buffers, torch.Tensor):
             return unpack_batch(static.buffers[i], static.has_ner)
         return {k: t if t.is_floating_point() or t.dtype == torch.bool

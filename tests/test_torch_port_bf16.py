@@ -10,15 +10,16 @@ gaps are printed.  (At these widths JAX's gap on the logits is about 1e-3
 of logits near 0.35.)
 
 * per module that holds a kernel: the scan, the grouped matmul, the band
-  aggregation and its pair, the fused GCN layer and its sym pair (their
-  plain versions, which the CPU runs), forward and gradients;
+  aggregation and its pair, the fused GCN layer and its sym pair, the
+  SDDMM (kernels 9-10) and the deprel bilinear v2 and v1 with its bias
+  (kernels 11-12; their plain versions, which the CPU runs), forward and
+  gradients;
 * the whole forward at ``SMALL`` widths on the dense, fused full_deprel,
-  fused regular and diagonal paths (and the dense regular, dense
-  attention and non-factored ones), and one train step's gradients;
+  fused regular, diagonal, attention edge and fused non-factored paths
+  (and the dense regular, dense attention and non-factored ones), and one
+  train step's gradients;
 * the bf16 forward runs in bf16: every kernel's plain version receives
   bf16 operands (a port that ignored the dtype would pass the gap tests);
-* the two combinations whose kernels have no bf16 instance yet raise
-  ``NotImplementedError`` naming ROADMAP.md §1 item 4;
 * a bf16 run's checkpoint (f32 parameters, ``compute_dtype`` in its
   config) loads in gcn_tpu's ``load_checkpoint`` and back.
 """
@@ -39,6 +40,8 @@ from gcn_tpu.ops.pallas.band_aggregate import \
     fused_band_aggregate as jax_fused_band_aggregate
 from gcn_tpu.ops.pallas.band_aggregate import \
     pair_aggregate as jax_pair_aggregate
+from gcn_tpu.ops.pallas import deprel_bilinear as jax_bilinear
+from gcn_tpu.ops.pallas.sddmm import sddmm as jax_sddmm
 from gcn_tpu.ops.pallas.grouped_matmul import grouped_matmul as jax_gmm
 from gcn_tpu.ops.pallas.lstm_scan import lstm_scan_stacked
 from gcn_tpu.ops.pallas.spmm_fused import _sym_pair
@@ -52,8 +55,10 @@ from gcn_tpu_torch.data.dataset import Batcher, RelationDataset
 from gcn_tpu_torch.data.vocab import Vocab
 from gcn_tpu_torch.models.gcn import GCNClassifier
 from gcn_tpu_torch.ops import band_aggregate as band_mod
+from gcn_tpu_torch.ops import deprel_bilinear as bilinear_mod
 from gcn_tpu_torch.ops import grouped_matmul as gmm_mod
 from gcn_tpu_torch.ops import lstm_scan as lstm_mod
+from gcn_tpu_torch.ops import sddmm as sddmm_mod
 from gcn_tpu_torch.ops import spmm_fused as spmm_mod
 from gcn_tpu_torch.train.checkpoint import load_checkpoint
 from gcn_tpu_torch.train.evaluator import batch_to_device
@@ -213,6 +218,67 @@ def test_fused_gcn_layer_and_sym_pair_match_jax_in_bf16(case):
               out["p16"], out["p32"], out["j16"], out["j32"])
 
 
+@pytest.mark.parametrize("case", EDGE_CASES_BF16)
+def test_sddmm_and_its_gradients_match_jax_in_bf16(case):
+    """Kernels 9-10's plain versions against gcn_tpu's ``sddmm`` (Pallas in
+    interpret mode): the f32 scores, and du, dv in the operands' dtype
+    for an f32 cotangent."""
+    edges, xs, _ = band_inputs(case)
+    tedges = [torch.from_numpy(a) for a in edges]
+    u, v = xs[0] / 4, xs[1] / 4
+    g = np.random.RandomState(len(case) + 2).randn(B, E).astype(np.float32)
+    out = {}
+    for name, jdt, tdt in (("32", jnp.float32, torch.float32),
+                           ("16", jnp.bfloat16, torch.bfloat16)):
+        s, vjp = jax.vjp(lambda a, c: jax_sddmm(*edges, a, c),
+                         jnp.asarray(u, jdt), jnp.asarray(v, jdt))
+        out["j" + name] = [s, *vjp(jnp.asarray(g))]
+        tu, tv = t(u, tdt).requires_grad_(), t(v, tdt).requires_grad_()
+        st = sddmm_mod.sddmm(*tedges, tu, tv)
+        grads = torch.autograd.grad(st, [tu, tv], t(g))
+        assert st.dtype == torch.float32
+        assert grads[0].dtype == grads[1].dtype == tdt
+        out["p" + name] = [st, *grads]
+    gap_check(f"sddmm scores and du, dv ({case})", out["p16"], out["p32"],
+              out["j16"], out["j32"])
+
+
+BM, BT, BD, BH = 70, 24, 5, 16  # 70 rows: a partial tile of 32 in JAX
+
+
+@pytest.mark.parametrize("version", ["v2", "v1"])
+def test_bilinear_and_its_gradients_match_jax_in_bf16(version):
+    """Kernels 11-12's plain versions, with the bias, against gcn_tpu's
+    ``deprel_bilinear_v2`` and ``deprel_bilinear`` (Pallas in interpret
+    mode): the output in x's dtype and (dx, de, dW).  JAX's v1 rounds its
+    bf16 output at every d, the port's once; JAX's backward carries dx in
+    bf16 across its d steps, the port's rounds each product once."""
+    rng = np.random.RandomState(3)
+    x = rng.randn(BM, BT).astype(np.float32)
+    e = rng.randn(BM, BD).astype(np.float32)
+    w = (rng.randn(BD, BT, BH) / np.sqrt(BT)).astype(np.float32)
+    b = (rng.randn(BD, BH) * 0.1).astype(np.float32)
+    r = rng.randn(BM, BH).astype(np.float32)
+    jax_fn = {"v2": jax_bilinear.deprel_bilinear_v2,
+              "v1": jax_bilinear.deprel_bilinear}[version]
+    fn = {"v2": bilinear_mod.deprel_bilinear_v2,
+          "v1": bilinear_mod.deprel_bilinear}[version]
+    out = {}
+    for name, jdt, tdt in (("32", jnp.float32, torch.float32),
+                           ("16", jnp.bfloat16, torch.bfloat16)):
+        jb = jnp.asarray(b, jdt)
+        y, vjp = jax.vjp(lambda *a: jax_fn(*a, b=jb, tile_m=32),
+                         *(jnp.asarray(a, jdt) for a in (x, e, w)))
+        out["j" + name] = [y, *vjp(jnp.asarray(r, jdt))]
+        args = [t(a, tdt).requires_grad_() for a in (x, e, w)]
+        yt = fn(*args, t(b, tdt))
+        grads = torch.autograd.grad(yt, args, t(r, tdt))
+        assert {yt.dtype, *(a.dtype for a in grads)} == {tdt}
+        out["p" + name] = [yt, *grads]
+    gap_check(f"bilinear {version} with bias, dx, de, dW", out["p16"],
+              out["p32"], out["j16"], out["j32"])
+
+
 # ---------------------------------------------------------- whole model
 PATHS = {
     "cgcn": ("cgcn_preset", {}),
@@ -225,6 +291,10 @@ PATHS = {
     "cgcn_attn_dense": ("cgcn_preset", {"model.adj_type": "attention",
                                         "model.attention_impl": "dense"}),
     "cgcn_einsum": ("cgcn_preset", {"model.deprel_factored": False}),
+    "cgcn_attn": ("cgcn_preset", {"model.adj_type": "attention",
+                                  "model.attention_impl": "edge"}),
+    "cgcn_bilinear": ("cgcn_preset", {"model.deprel_factored": False,
+                                      "model.use_pallas": True}),
 }
 
 
@@ -274,7 +344,8 @@ def test_forward_matches_jax_in_bf16(path):
               list(out["j16"]), list(out["j32"]))
 
 
-@pytest.mark.parametrize("path", ["cgcn", "cgcn_fused", "gcn_fused"])
+@pytest.mark.parametrize("path", ["cgcn", "cgcn_fused", "gcn_fused",
+                                  "cgcn_attn", "cgcn_bilinear"])
 def test_train_step_gradients_match_jax_in_bf16(path):
     """jax.value_and_grad of gcn_tpu's Trainer._loss (dropout off) against
     the port's, in f32 and bf16: every parameter's gradient (f32 in both
@@ -316,28 +387,37 @@ PLAIN_VERSIONS = [(lstm_mod, "lstm_scan_plain"),
                   (band_mod, "band_aggregate_plain"),
                   (band_mod, "pair_aggregate_plain"),
                   (spmm_mod, "gcn_spmm_plain"),
-                  (spmm_mod, "sym_pair_plain")]
+                  (spmm_mod, "sym_pair_plain"),
+                  (sddmm_mod, "sddmm_plain"),
+                  (sddmm_mod, "sddmm_backward_plain"),
+                  (bilinear_mod, "bilinear_v2_plain")]
 
 
 @pytest.mark.parametrize("path", ["cgcn", "cgcn_fused", "gcn_fused",
-                                  "cdiag_fused"])
+                                  "cdiag_fused", "cgcn_attn",
+                                  "cgcn_bilinear"])
 def test_bf16_step_runs_the_plain_versions_in_bf16(path, monkeypatch):
     """A train step (forward and backward) on the CPU: each kernel's plain
-    version receives bf16 operands only (the scan backward's cotangent
-    excepted: it is f32, as JAX's kernel takes it)."""
+    version receives bf16 operands only (the cotangents of the scan
+    backward and of the SDDMM backward excepted: they are f32, as JAX's
+    kernels take them)."""
     seen: dict = {}
 
     def spy(mod, fname):
         real = getattr(mod, fname)
 
         def wrapper(*args, **kw):
+            skip = {"lstm_scan_backward_plain": 1,
+                    "sddmm_backward_plain": 4}.get(fname, 0)
             seen.setdefault(fname, set()).update(
-                a.dtype for a in args[1 if fname.startswith(
-                    "lstm_scan_backward") else 0:]
+                a.dtype for i, a in enumerate(args)
+                if i != skip - 1 or not skip
                 if isinstance(a, torch.Tensor) and a.is_floating_point())
             return real(*args, **kw)
 
         monkeypatch.setattr(mod, fname, wrapper)
+        if fname.startswith("bilinear_"):  # reached through its table
+            monkeypatch.setitem(mod._PLAIN, fname.split("_")[1], wrapper)
 
     for mod, fname in PLAIN_VERSIONS:
         spy(mod, fname)
@@ -351,29 +431,54 @@ def test_bf16_step_runs_the_plain_versions_in_bf16(path, monkeypatch):
                             "band_aggregate_plain", "pair_aggregate_plain"}}
     want["cgcn_fused"] = want["cgcn"] | {"band_aggregate_plain",
                                          "pair_aggregate_plain"}
+    scan = {"lstm_scan_plain", "lstm_scan_backward_plain"}
+    want["cgcn_attn"] = scan | {"sddmm_plain", "sddmm_backward_plain"}
+    want["cgcn_bilinear"] = scan | {"bilinear_v2_plain",
+                                    "band_aggregate_plain",
+                                    "pair_aggregate_plain"}
     assert set(seen) == want[path]
     assert all(d == {torch.bfloat16} for d in seen.values()), seen
 
 
-# ------------------------------------------------------------- refusals
-def test_bf16_combinations_without_kernels_raise():
-    for path, ov in (
-            ("cgcn", {"model.adj_type": "attention",
-                      "model.attention_impl": "edge"}),
-            ("cgcn", {"model.deprel_factored": False,
-                      "model.use_pallas": True})):
-        _, tcfg = configs(path, "bfloat16", **ov)
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md §1 item 4"):
-            GCNClassifier(tcfg.model)
-        _, tcfg = configs(path, "float32", **ov)
-        GCNClassifier(tcfg.model)  # f32 builds
-    # attention_impl="auto" takes the edge backend per batch: the forward
-    # that resolves to it raises (the raise comes before any work)
-    _, tcfg = configs("cgcn", "bfloat16", **{"model.adj_type": "attention"})
-    model = GCNClassifier(tcfg.model)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 4"):
-        model({"words": torch.zeros(1, 8200, dtype=torch.long)})
+# ------------------------------------------------- attention_impl auto
+def test_bf16_auto_attention_takes_the_edge_kernels_in_bf16(monkeypatch):
+    """Every combination builds in bf16, and attention_impl="auto" takes
+    the edge backend where the [B, N, N] score buffer passes JAX's budget
+    (here a budget of 0): its forward reaches the SDDMM's plain version
+    with bf16 operands and gives JAX's bf16 logits within the gap rule's
+    bound, measured on the same batch through the explicit edge backend."""
+    from gcn_tpu_torch.models import gcn as gcn_mod
+
+    for ov in ({"model.adj_type": "attention"},
+               {"model.adj_type": "attention",
+                "model.attention_impl": "edge"},
+               {"model.deprel_factored": False, "model.use_pallas": True}):
+        GCNClassifier(configs("cgcn", "bfloat16", **ov)[1].model)
+    jcfg, tcfg = configs("cgcn_attn", "bfloat16")
+    _, auto_cfg = configs("cgcn", "bfloat16",
+                          **{"model.adj_type": "attention"})
+    jbatch, tbatch = batches(jcfg, tcfg)
+    jax_model = JaxGCN(jcfg.model)
+    params = jax_model.init({"params": jax.random.key(0),
+                             "dropout": jax.random.key(1)}, jbatch, True)
+    state = params_from_jax(jax.device_get(params))
+    edge, auto = GCNClassifier(tcfg.model), GCNClassifier(auto_cfg.model)
+    edge.load_state_dict(state)
+    auto.load_state_dict(state)
+    seen = []
+    real = sddmm_mod.sddmm_plain
+
+    def spy(*args):
+        seen.append(args[3].dtype)
+        return real(*args)
+
+    monkeypatch.setattr(sddmm_mod, "sddmm_plain", spy)
+    monkeypatch.setattr(gcn_mod, "ATTN_DENSE_BYTE_BUDGET", 0)
+    with torch.no_grad():
+        got, _ = auto(batch_to_device(tbatch, torch.device("cpu")))
+        want, _ = edge(batch_to_device(tbatch, torch.device("cpu")))
+    assert seen and set(seen) == {torch.bfloat16}
+    assert torch.equal(got, want)
 
 
 # ---------------------------------------------------------- checkpoints

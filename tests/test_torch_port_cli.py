@@ -14,8 +14,9 @@
 * The SemEval CLI selects on train F1 without a dev split;
   ``prepare_vocab`` writes gcn_tpu's files from a GloVe file the test
   writes; the parser has gcn_tpu's flags and defaults; unsupported flags
-  raise, the JAX-only ones are stored and named, the dispatch flags
-  act (chunked steps, warm-up), and no card without ``--cpu`` raises.
+  raise (``--pack_sentences`` runs: ``test_torch_port_sentence_packing``),
+  the JAX-only ones are stored and named, the dispatch flags act (chunked
+  steps, warm-up), and no card without ``--cpu`` raises.
 """
 
 import json
@@ -304,11 +305,8 @@ def test_parser_has_gcn_tpu_flags_and_defaults():
 
 
 @pytest.mark.parametrize("flag", [
-    (["--pack_sentences", "4"], "item 5"),
+    (["--graph_partition", "edges"], "item 8"),
     (["--graph_partition", "halo"], "item 8"),
-    # bf16 runs, but not yet on the attention edge backend's kernels
-    (["--compute_dtype", "bfloat16", "--adj_type", "attention",
-      "--attention_impl", "edge"], "item 4"),
     (["--sparse_emb_grad", "true"], "item 6"),
 ])
 def test_unsupported_flags_raise(flag, tmp_path):

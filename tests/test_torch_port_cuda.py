@@ -22,15 +22,25 @@ straddle a rounding boundary; the fused layer rounds S h too).
 The SDDMM and its backward: 1e-5 of max(1, max |reference|) (dot products
 of H terms, sums over a node's edges).  The bilinear kernels: 1e-4 of
 max(1, max |reference|) (sums of D·T products, up to 20000, in another
-order than the plain version's matmul).  Every edge-list and bilinear
-kernel gives the same bits when it is called twice (no float atomics).
+order than the plain version's matmul).  Their bf16 instances (kernels
+9-12) against their bf16 plain versions: every value within one bf16
+rounding step of the plain version's beyond the f32 instance's tolerance
+(``bf16_flip``: both sum in f32 and round once, so past the f32 sums'
+own difference they part only where the two sums straddle a rounding
+boundary; the largest difference is printed); the SDDMM's f32 scores
+within 1e-5.  Every edge-list and bilinear kernel gives the same bits
+when it is called twice (no float atomics).
 """
+
+import os
 
 import numpy as np
 import pytest
 import torch
 
 from gcn_tpu_torch.config import cgcn_preset, gcn_preset
+from gcn_tpu_torch.data.dataset import PackedBatcher, RelationDataset
+from gcn_tpu_torch.data.vocab import Vocab
 from gcn_tpu_torch.models.gcn import GCNClassifier, init_params
 from gcn_tpu_torch.ops import band_aggregate as band_mod
 from gcn_tpu_torch.ops import deprel_bilinear as bilinear_mod
@@ -150,6 +160,23 @@ def scaled_err(got, want) -> float:
     want = want.float()
     return float((got.float() - want).abs().max()) / max(
         1.0, float(want.abs().max()))
+
+
+def bf16_flip(got, want, f32_tol: float) -> float:
+    """Assert that bf16 ``got`` lies within one rounding step (one bf16 ulp
+    of the larger magnitude) of bf16 ``want``, beyond ``f32_tol`` of max(1,
+    max |want|): the f32 instance's tolerance, by which the two f32 sums
+    may differ before they are rounded (a sum that cancels to near 0 has
+    ulps far below it).  Returns the largest difference."""
+    assert got.dtype == want.dtype == torch.bfloat16
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    big = torch.maximum(g.abs(), w.abs()).clamp(min=2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    slack = f32_tol * max(1.0, float(w.abs().max()))
+    assert bool((diff <= ulp + slack).all()), float(
+        ((diff - slack) / ulp).max())
+    return float(diff.max())
 
 
 def lstm_backward_inputs(rng, dtype, device, with_keep, t=12, g=2, b=6,
@@ -733,28 +760,40 @@ def sddmm_case(name, device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("name", list(SDDMM_CASES))
-def test_sddmm_kernels_match_plain(cuda_device, name):
+def test_sddmm_kernels_match_plain(cuda_device, name, dtype):
+    """Both instances: the f32 scores within 1e-5 of the plain version's;
+    du and dv within 1e-5 (f32) or the plain version's bits but one
+    rounding step (bf16)."""
+    suffix = EDGE_DTYPES[dtype][1]
     edges, b, n, h = sddmm_case(name, cuda_device)
     rng = np.random.RandomState(7)
-    u, v = features(rng, cuda_device, (b, n, h), (b, n, h))
+    u, v = (a.to(dtype) for a in features(rng, cuda_device, (b, n, h),
+                                          (b, n, h)))
     (g,) = features(rng, cuda_device, tuple(edges[0].shape))
-    launches = sddmm_mod.KERNEL.launches
+    launches = sddmm_mod.KERNEL.launches_of(suffix)
     got = sddmm_mod.sddmm_forward(*edges, u, v)
     again = sddmm_mod.sddmm_forward(*edges, u, v)
-    assert sddmm_mod.KERNEL.launches == launches + 2
+    assert sddmm_mod.KERNEL.launches_of(suffix) == launches + 2
+    assert got.dtype == torch.float32
     assert torch.equal(got, again)
     assert scaled_err(got, sddmm_mod.sddmm_plain(*edges, u, v)) <= 1e-5
     # masked edges and edges with an end outside [0, n) score exactly 0
     assert not got[~valid_edges(*edges, n)].any()
-    launches = sddmm_mod.BACKWARD_KERNEL.launches
+    launches = sddmm_mod.BACKWARD_KERNEL.launches_of(suffix)
     got = sddmm_mod.sddmm_backward(*edges, g, u, v)
     again = sddmm_mod.sddmm_backward(*edges, g, u, v)
-    assert sddmm_mod.BACKWARD_KERNEL.launches == launches + 2
+    assert sddmm_mod.BACKWARD_KERNEL.launches_of(suffix) == launches + 2
     want = sddmm_mod.sddmm_backward_plain(*edges, g, u, v)
     for a, a2, w in zip(got, again, want):
+        assert a.dtype == dtype
         assert torch.equal(a, a2)  # no float atomics
-        assert scaled_err(a, w) <= 1e-5
+        if dtype == torch.float32:
+            assert scaled_err(a, w) <= 1e-5
+        else:
+            print(f"sddmm backward bf16 {name}: largest difference "
+                  f"{bf16_flip(a, w, 1e-5):.3g}")
 
 
 @pytest.mark.cuda
@@ -784,25 +823,35 @@ BILINEAR_SHAPES = {"ragged": (70, 37, 5, 70),    # no tile fits
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("version", ["v2", "v1"])
 @pytest.mark.parametrize("shape", sorted(BILINEAR_SHAPES))
-def test_deprel_bilinear_kernels_match_plain(cuda_device, shape, version):
+def test_deprel_bilinear_kernels_match_plain(cuda_device, shape, version,
+                                             dtype):
+    """Both instances of both versions: within 1e-4 (f32) or the plain
+    version's bits but one rounding step (bf16)."""
+    suffix = EDGE_DTYPES[dtype][1]
     m, t, d, h = BILINEAR_SHAPES[shape]
     rng = np.random.RandomState(8)
     x, e, w = features(rng, cuda_device, (m, t), (m, d), (d, t, h))
-    w = w / np.sqrt(t)
-    kernel = bilinear_mod._KERNELS[version][0]
+    x, e, w = (a.to(dtype) for a in (x, e, w / np.sqrt(t)))
+    kernel = bilinear_mod._KERNELS[version]
     lib = kernel.load()
-    launches = kernel.launches
+    launches = kernel.launches_of(suffix)
     sums = lib.deprel_bilinear_sum_launches()
     got = bilinear_mod.bilinear_forward(x, e, w, version)
     # the slice sums the launcher launched in that call, by its own count
     sums = lib.deprel_bilinear_sum_launches() - sums
     again = bilinear_mod.bilinear_forward(x, e, w, version)
-    assert kernel.launches == launches + 2
+    assert kernel.launches_of(suffix) == launches + 2
+    assert got.dtype == dtype
     assert torch.equal(got, again)
     plain = getattr(bilinear_mod, f"bilinear_{version}_plain")
-    assert scaled_err(got, plain(x, e, w)) <= 1e-4
+    if dtype == torch.float32:
+        assert scaled_err(got, plain(x, e, w)) <= 1e-4
+    else:
+        print(f"bilinear {version} bf16 {shape}: largest difference "
+              f"{bf16_flip(got, plain(x, e, w), 1e-4):.3g}")
     # both versions split K into the same slices, and a call sums their
     # partials by a second kernel exactly where there is more than one
     slices = lib.deprel_bilinear_slices(m, d, h)
@@ -824,9 +873,8 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     x = torch.randn(16, 8, device=cuda_device)
     e = torch.randn(16, 3, device=cuda_device)
     w = torch.randn(3, 8, 5, device=cuda_device)
-    with pytest.raises(TypeError):
-        bilinear_mod.bilinear_forward(x.bfloat16(), e.bfloat16(),
-                                      w.bfloat16())
+    with pytest.raises(TypeError):  # one dtype a call
+        bilinear_mod.bilinear_forward(x.bfloat16(), e, w)
     with pytest.raises(ValueError, match="contiguous"):
         bilinear_mod.bilinear_forward(x.T.contiguous().T, e, w)
     with pytest.raises(ValueError, match="expected"):
@@ -1160,3 +1208,144 @@ def test_eager_steps_on_the_card_are_the_same_bits_twice(cuda_device):
         assert float(loss) == float(runs[0][0])
         for k, g in grads.items():
             assert torch.equal(g, runs[0][1][k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["attention", "bilinear"])
+def test_bf16_new_paths_on_card_match_cpu(cuda_device, mode):
+    """The attention edge backend and the non-factored fused full_deprel
+    in bf16, dropout off: the evaluation forward and three train steps on
+    the card (kernels 9-10 or 11 in their bf16 instances, none in f32)
+    against the plain versions in bf16 on the CPU, within 1e-2 of max(1,
+    |value|) (both round at the same points; a rounding flip where two f32
+    sums straddle a bf16 boundary moves what follows it)."""
+    extra = ({"model.adj_type": "attention", "model.attention_impl": "edge"}
+             if mode == "attention" else
+             {"model.deprel_factored": False, "model.use_pallas": True})
+    cfg = small_cfg(**extra, **{"model.compute_dtype": "bfloat16",
+                                "model.input_dropout": 0.0,
+                                "model.rnn_dropout": 0.0,
+                                "model.gcn_dropout": 0.0})
+    kernels = ([sddmm_mod.KERNEL, sddmm_mod.BACKWARD_KERNEL]
+               if mode == "attention"
+               else [bilinear_mod.KERNEL_V2, band_mod.KERNEL,
+                     band_mod.PAIR_KERNEL])
+    kernels += [lstm_mod.KERNEL, lstm_mod.BACKWARD_KERNEL]
+    for k in kernels:
+        k.reset()
+    model = GCNClassifier(cfg.model)
+    init_params(model, torch.Generator().manual_seed(0))
+    state = model.state_dict()
+    batch = random_batch(np.random.RandomState(0))
+    with torch.no_grad():
+        got, _ = Evaluator(cfg, state, device=cuda_device).model(
+            batch_to_device(batch, cuda_device))
+        want, _ = Evaluator(cfg, state, device="cpu").model(
+            batch_to_device(batch, torch.device("cpu")))
+    assert scaled_err(got.cpu(), want) <= 1e-2
+    card = Trainer(cfg, state, device=cuda_device)
+    cpu = Trainer(cfg, state, device="cpu")
+    rng = np.random.RandomState(1)
+    for _ in range(3):
+        batch = random_batch(rng)
+        got, want = float(card.update(batch)), float(cpu.update(batch))
+        assert abs(got - want) <= 1e-2 * max(1.0, abs(want))
+    for k, v in cpu.model.state_dict().items():
+        assert scaled_err(card.model.state_dict()[k].cpu(), v) <= 1e-2, k
+    for k in kernels:
+        assert k.launches_of("_bf16") > 0 and k.launches_of("_f32") == 0, \
+            (k.name, k.by_function)
+
+
+def packed_batches(rows=4, pack_len=64, slots=4, train=True):
+    """``PackedBatcher`` batches of the in-repo TACRED split, by the port's
+    own loader (word dropout on for training)."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    vocab = Vocab.load(os.path.join(repo, "dataset", "vocab", "vocab.pkl"))
+    cfg = small_cfg(**{"model.vocab_size": vocab.size,
+                       "train.batch_size": rows,
+                       "train.effective_batch_size": rows})
+    ds = RelationDataset(os.path.join(repo, "dataset", "tacred",
+                                      "train.json"), cfg, vocab)
+    return cfg, list(PackedBatcher(ds, rows, pack_len=pack_len,
+                                   max_slots=slots, evaluation=not train))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_kernels_take_the_packed_rows_resets(cuda_device, dtype):
+    """The scan forward and backward kernels with the carry factor that
+    ``_segment_resets`` builds from a real ``PackedBatcher`` batch: within
+    the tolerances of ``test_lstm_kernel_matches_plain`` and
+    ``test_lstm_backward_kernel_matches_plain`` of the plain versions, and
+    the packed rows' outputs those of each sentence in a row of its own
+    (plain versions, 1e-5)."""
+    from gcn_tpu_torch.ops.lstm import _segment_resets
+
+    _, batches = packed_batches()
+    batch = batches[0]
+    seg = torch.from_numpy(batch["seg_start"]).to(cuda_device)
+    lengths = torch.from_numpy(batch["lengths"]).to(cuda_device)
+    reset_f, reset_b = _segment_resets(seg, lengths)
+    keep = (1.0 - torch.stack((reset_f.T, reset_b.T), 1).float()
+            ).contiguous()
+    t, g, b, h = keep.shape[0], 2, keep.shape[2], 24
+    rng = np.random.RandomState(3)
+    xp = torch.from_numpy(rng.randn(t, g, b, 4 * h).astype(np.float32)).to(
+        cuda_device, dtype)
+    w = torch.from_numpy((rng.randn(g, h, 4 * h) / np.sqrt(h)).astype(
+        np.float32)).to(cuda_device, dtype)
+    len32 = lengths.to(torch.int32)
+    states = lstm_mod.lstm_scan_forward(xp, len32, w, keep)
+    want = lstm_mod.lstm_scan_plain(xp, len32, w, keep)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for a, b_ in zip(states, want):
+        torch.testing.assert_close(a.float(), b_.float(), atol=tol, rtol=0)
+    gy = torch.from_numpy(rng.randn(t, g, b, h).astype(np.float32)).to(
+        cuda_device)
+    tpos = torch.arange(t, device=cuda_device)[:, None, None, None]
+    gy = torch.where(tpos < len32[None, None, :, None], gy, 0.0).contiguous()
+    got = lstm_mod.lstm_scan_backward(gy, xp, len32, w, *want, keep)
+    ref = lstm_mod.lstm_scan_backward_plain(gy, xp, len32, w, *want, keep)
+    btol = 1e-4 if dtype == torch.float32 else 1e-2
+    for a, b_ in zip(got, ref):
+        assert scaled_err(a, b_) <= btol
+    # the forward direction restarts at every sentence of a packed row:
+    # each sentence's forward states are those of its tokens alone
+    starts = np.flatnonzero(batch["seg_start"][0])
+    ends = list(starts[1:]) + [int(batch["lengths"][0])]
+    assert len(starts) > 1
+    for s0, s1 in zip(starts, ends):
+        alone, _ = lstm_mod.lstm_scan_plain(
+            xp[s0:s1, :1, :1].contiguous(),
+            torch.tensor([s1 - s0], dtype=torch.int32, device=cuda_device),
+            w[:1].contiguous())
+        torch.testing.assert_close(states[0][s0:s1, 0, 0].float(),
+                                   alone[:, 0, 0].float(), atol=tol,
+                                   rtol=0)
+
+
+@pytest.mark.cuda
+def test_packed_graph_steps_equal_eager_steps(cuda_device):
+    """Dropout on: packed batches (one sentence-format copy each) through
+    graphs give the eager steps' losses and parameters in bits, and
+    evaluation through graphs gives the eager predictions, probs and the
+    weighted loss."""
+    from gcn_tpu_torch.train.dispatch import eager_dispatch
+
+    cfg, batches = packed_batches()
+    graph, eager = _graph_and_eager(cfg, cuda_device)
+    assert graph.staging.packs_sentences(batches[0])
+    copies = graph.staging.copies
+    got = [graph.update(b) for b in batches]
+    assert graph.staging.copies - copies == len(batches)
+    with eager_dispatch():
+        want = [eager.update(b) for b in batches]
+    assert [float(x) for x in got] == [float(x) for x in want]
+    _same_params(graph, eager)
+    assert len(graph.graphs) == 1  # one packed shape
+    _, evals = packed_batches(train=False)
+    got = graph.evaluate(evals)
+    with eager_dispatch():
+        want = eager.evaluate(evals)
+    assert got[0] == want[0] and got[1] == want[1] and got[2] == want[2]

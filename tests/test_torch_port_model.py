@@ -148,11 +148,7 @@ def test_init_params_match_jax_distributions():
 
 
 def test_unsupported_modes_raise():
-    # bf16 on the attention edge backend: its kernels' bf16 instances wait
-    for ov in ({"model.compute_dtype": "bfloat16",
-                "model.adj_type": "attention",
-                "model.attention_impl": "edge"},
-               {"model.graph_partition": "edges"},
+    for ov in ({"model.graph_partition": "edges"},
                {"model.graph_partition": "halo"}):
         _, tcfg = _configs(**ov)
         with pytest.raises(NotImplementedError):
