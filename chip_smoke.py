@@ -1314,11 +1314,13 @@ def check_sddmm(torch, rng, dev, edges) -> list[dict]:
     return rows
 
 
-def check_bilinear(torch, rng, dev) -> tuple[list[dict], dict]:
+def check_bilinear(torch, rng, dev, ptxas: dict) -> tuple[list[dict], dict]:
     """Kernels 11 and 12 at the non-factored C-GCN layer's shapes (M =
     B·N = 4800 tokens, D = 50, H = 200, T = 400 and 200), each in its f32
-    and its bf16 instance (the same inputs, rounded); returns the rows and
-    the launches of v1 in this phase (its only caller here) by dtype."""
+    and its bf16 instance (the same inputs, rounded), with the achieved
+    TFLOP/s and the instance's ``ptxas`` lines (``ptxas``: the build's, by
+    mangled kernel name); returns the rows and the launches of v1 in this
+    phase (its only caller here) by dtype."""
     from gcn_tpu_torch.ops import deprel_bilinear as mod
 
     m, d, h = B * N_BUCKET, 50, 200
@@ -1355,13 +1357,18 @@ def check_bilinear(torch, rng, dev) -> tuple[list[dict], dict]:
                 want = plain(x, e, w)
                 err, abs_err = scaled_err(got, want), max_err(got, want)
                 same = bool(torch.equal(got, again))
-                # both on the mainloop: 3xTF32 in f32; in bf16 against the
-                # bf16 tensor cores' peak (v1 runs one TF32 pass, v2 keeps
-                # the split of its A = e x)
+                # 3xTF32 in f32 (the mainloop); in bf16 one wgmma kernel for
+                # both versions, against the bf16 tensor cores' peak
                 bounds = (tf32x3_bound(n_bytes, flops) if dtype == "float32"
                           else bf16_bound(n_bytes, flops))
                 fn = functools.partial(mod.bilinear_forward, x, e, w,
                                        version)
+                ms = kernel_ms(fn)
+                # the instance's kernel: the template's for this version in
+                # f32, the one bf16 kernel in bf16
+                tag = (f"deprel_bilinear_kernelILb{int(version == 'v1')}"
+                       if dtype == "float32" else
+                       "deprel_bilinear_bf16_kernel")
                 rows.append({
                     "name": f"deprel_bilinear_{version}"
                             f"{DTYPE_TAG[dtype]}_T{t}",
@@ -1374,7 +1381,13 @@ def check_bilinear(torch, rng, dev) -> tuple[list[dict], dict]:
                     "max_abs_err": abs_err, "errs": {key: err},
                     "same_bits_twice": same, "tol": {key: tol},
                     "ok": err <= tol and same,
-                    **kernel_ms(fn),
+                    **ms, "tflops": flops / (ms["ms"] * 1e-3) / 1e12,
+                    "ptxas": {k: v for k, v in ptxas.items() if tag in k},
+                    **({"registers_note": "ptxas counts a thread's "
+                        "registers at launch (384 threads); setmaxnreg "
+                        "gives the two consumer warpgroups 232 and the "
+                        "producer 40"}
+                       if dtype == "bfloat16" else {}),
                     "plain_ms": graph_ms(functools.partial(plain, x, e, w)),
                     **bounds, "library_ms": library_ms,
                     "library": f'torch.einsum("md,mt,dth->mh", e, x, w), '
@@ -1763,6 +1776,7 @@ KERNEL_GROUPS = (  # device time by category, matched on kernel names
     ("sddmm backward kernels", ("sddmm_lists_kernel",
                                 "sddmm_gather_kernel")),
     ("deprel bilinear kernels", ("deprel_bilinear_kernel",
+                                 "deprel_bilinear_bf16_kernel",
                                  "deprel_bilinear_sum_kernel")),
     ("copies", ("Memcpy", "Memset")),
     ("library matmuls", ("gemm", "cublas", "cutlass", "xmma")),
@@ -2941,7 +2955,8 @@ def main() -> int:
             + check_band(torch, rng, dev, edges)
             + check_spmm(torch, rng, dev, edges)
             + check_sddmm(torch, rng, dev, edges))
-    bilinear_rows, v1_launches = check_bilinear(torch, rng, dev)
+    bilinear_rows, v1_launches = check_bilinear(
+        torch, rng, dev, ptxas_by_function(report["deprel_bilinear"]["log"]))
     rows += bilinear_rows
     for row in rows:
         emit({"phase": "kernel", **row})

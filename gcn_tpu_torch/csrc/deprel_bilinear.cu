@@ -16,54 +16,84 @@
 //
 // What bounds it on the H100 (SXM, 700 W).  At the C-GCN layer's shapes
 // (M = 4800, T = 400 or 200, D = 50, H = 200) it is 2 M D T H = 38.4
-// (19.2) GFLOP against 28.5 MB moved: bound by operations.  The TPU's v2
-// packs W into one [T, D*Hp] operand (H padded to 128 lanes) for one wide
-// MXU product per row tile and then gates lane slices by e; v1 streams
-// W[d] through VMEM along a sequential grid axis and accumulates
-// e[:, d] * (x W[d]) in the resident output block.  Neither padding nor
-// the sequential grid carries over.  Neither kernel writes the [M, D*T]
-// intermediate.
+// (19.2) GFLOP against 28.5 MB moved in f32 (14.3 MB in bf16): bound by
+// operations.  The TPU's v2 packs W into one [T, D*Hp] operand (H padded
+// to 128 lanes) for one wide MXU product per row tile and then gates lane
+// slices by e; v1 streams W[d] through VMEM along a sequential grid axis
+// and accumulates e[:, d] * (x W[d]) in the resident output block.
+// Neither padding nor the sequential grid carries over.  No kernel here
+// writes the [M, D*T] intermediate.
 //
-// Both versions are one kernel template, an implicit GEMM over K = D*T on
-// the 3xTF32 tensor-core mainloop of tf32x3_tile.cuh (f32 error, three
-// TF32 products a k-step): bound at an effective 165 TFLOP/s, 0.233
-// (0.116) ms, against 0.573 (0.287) ms at the f32 FMA rate.  They differ
-// only in where e enters:
+// Both types share the grid: a block owns 128 rows and all H = 200
+// columns (one 208-wide tile), 4800 rows make only 38 row tiles for 132
+// SMs, so K is split over d into S slices (S = SMs / row tiles, 3 here:
+// 114 blocks of 16-17 values of d), each writing an f32 [M, H] partial that
+// a second kernel, launched by the same entry point, sums in slice order.
+// Each output element sums in one fixed order and there are no float
+// atomics, so two calls give the same bits.
+//
+// f32 (deprel_bilinear_kernel): an implicit GEMM over K = D*T on the
+// 3xTF32 tensor-core mainloop of tf32x3_tile.cuh (f32 error, three TF32
+// products a k-step): bound at an effective 165 TFLOP/s, 0.233 (0.116)
+// ms, against 0.573 (0.287) ms at the f32 FMA rate.  v2 and v1 differ only
+// in where e enters:
 //   v2 forms A = e[m, d] * x[m, t] on the fly (e read from device memory
 //      one d ahead) and adds each chunk's product into the sum;
 //   v1 takes A = x[m, t] as it is and folds each chunk's product c of
 //      (t chunk, d) in as acc = e[m, d] * c + acc (one fmaf), the
 //      d-streamed form of the TPU's v1, which spares the per-d forming of
 //      A that is much of v2's work beside the MMAs.
-// A block owns 128 rows and all H = 200 columns (one 208-wide tile), so A
-// is formed once per (t chunk, d) and not once per column block.  The
-// k-loop puts t outside d: an x tile of 128 rows x 32 t arrives once
+// The k-loop puts t outside d: an x tile of 128 rows x 32 t arrives once
 // (cp.async, a three-deep ring) and serves every d of the block's slice,
 // each warp reading its A fragments from it and splitting them in
 // registers; W [D, T, H] is already the [D*T, H] operand, whose 32-row
-// chunk (d, t chunk) streams through a three-stage cp.async ring.  4800
-// rows make only 38 row tiles for 132 SMs, so K is split over d into S
-// slices (S = SMs / row tiles, 3 here: 114 blocks of 16-17 values of d),
-// each writing an [M, H] partial that a second kernel, launched by the
-// same entry point, sums in slice order.  W (16 MB at T = 400) is read
-// from L2 once per row tile, 0.6 GB a call at 128 rows (1.2 GB at 64,
-// which is why the tile is 128 rows tall).  Each output element sums in
-// a fixed order (t chunk, then d, then the slices), so two calls give the
-// same bits.
+// chunk (d, t chunk) streams through a three-stage cp.async ring and is
+// read from L2 once per row tile (0.6 GB a call at T = 400; twice that at
+// 64 rows, which is why the tile is 128 rows tall).  Each output sums t
+// chunks, then d, then the slices.
 //
-// The bf16 instances are the same template on bf16 x, e and W: the x tile
-// and the W ring hold bf16 (half the bytes), values are widened where a
-// fragment reads them, the sums (and the slices' partials) stay f32, and
-// out is rounded to bf16 once, at its store or in the slice sum: the
-// rounding of the TPU's _kernel_v2 (its product and gating in f32, one
-// .astype).  The TPU's v1 adds each d's term into a bf16 output block,
-// rounding at every d; the port's v1 rounds once, as its v2.  v1's A = x
-// and W are bf16, exact in TF32, so its bf16 instance runs one TF32 pass
-// a k-step (tf32x3_tile.cuh's kExact); v2's A = e x is a product of two
-// bf16 values, 16 significand bits, which TF32 does not hold, so v2 keeps
-// the split of A (its a_lo b_hi pass is what makes it exact; the a_hi b_lo
-// pass adds zeros, W being exact).
+// bf16 (deprel_bilinear_bf16_kernel, both versions): the TPU's _kernel_v2
+// order, y_d = x W_d with bf16 operands and f32 sums, then
+// acc = e[m, d] * y_d + acc in f32, and out rounded to bf16 once (at its
+// store or in the slice sum).  A bf16 x bf16 product is exact in the f32
+// accumulator, so the products run on the bf16 tensor cores as they are
+// (wgmma.mma_async.m64n208k16, 989 TFLOP/s peak: bound at 0.039 (0.019)
+// ms) with no split and no A formed on the CUDA cores; e enters only at
+// the fold, so v1 and v2 are one arithmetic in bf16.  (The TPU's v1 adds
+// each d's term into a bf16 output block, rounding at every d; the port's
+// v1 rounds once, as its v2.)  A block is three warpgroups: two consumers
+// of 64 rows each, which hold two f32 fragments of 64 x 208 (the fresh
+// y_d and the running acc: 104 + 104 registers a thread, 232 by
+// setmaxnreg), and one producer (40 registers) that copies.  The operands
+// sit in shared memory in the 128-byte-swizzled layouts that wgmma reads
+// through its descriptors:
+//   x: the row tile's [128, T] resident, K-major, in blocks of 64 t
+//      (16 KB each, 8 at most: T <= 512 stays resident), each block with
+//      a barrier of its own, so the products start on the first;
+//   W: chunks of 32 t rows x 208 columns of W[d] (MN-major: W's own
+//      row-major [T, H] layout, four blocks of 64 columns, 16 KB a chunk)
+//      through a six-stage ring (full and empty mbarriers).
+// The producer is one thread issuing TMA copies (tensor maps from the
+// driver's cuTensorMapEncodeTiled; zeros outside the matrices).  The two
+// blocks of a cluster take neighbouring row tiles of one slice, and each
+// copies two of a W chunk's four column blocks into both (multicast): W
+// is read from L2 once a pair of row tiles (19 x W's 8 MB a call at
+// T = 400; read once a row tile, the copies bound the kernel).  Operands
+// that TMA cannot take (T or H not a multiple of 8, a base not 16-byte
+// aligned: T = 37, an x at an odd element offset) go through the
+// producer's 128 threads instead: cp.async of 16 bytes where the rows
+// allow, element by element where not, each block its own W.  The order:
+//   T <= 512:  for d: y = x W_d over all of T (fresh, 13 chunks at
+//              T = 400), acc += e_d y;  -- the TPU's v2 order exactly
+//   T > 512:   for each 512-wide pass of t (x reloaded): for d: y over
+//              the pass, acc += e_d y  -- a fold per (pass, d)
+// and then the slices in order.  A consumer keeps two chunks' products in
+// flight while it issues the next (wgmma.wait_group 2), hands each slot
+// back to both blocks' producers when its products are done, and waits
+// for all of them (wait_group 0) before each fold.  The output goes out
+// two columns a store.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -73,20 +103,16 @@
 namespace {
 
 using tf32x3::kStages;
-using tf32x3::widen;
 
+// ---------------------------------------------------------------- f32
 // 4 x 2 warps, each 32 rows x 104 columns: 128 x 208 a block
 using BTile = tf32x3::Tile<4, 2, 2, 13>;
 constexpr int kGroup = 7;  // n-tiles per fresh accumulator (registers)
-// x tile row stride, in values: conflict-free fragment reads, and 16-byte
-// rows for the bf16 tile's copies
-template <typename T>
-constexpr int kLdx = tf32x3::kBK + (sizeof(T) == 4 ? 4 : 8);
-template <typename T>
-constexpr int kXVals = BTile::kBM * kLdx<T>;
-template <typename T>
+// x tile row stride, in floats: conflict-free fragment reads
+constexpr int kLdx = tf32x3::kBK + 4;
+constexpr int kXVals = BTile::kBM * kLdx;
 constexpr size_t kSmem =  // the W ring, then a ring of as many x tiles
-    BTile::kRingBytes + sizeof(T) * kStages * kXVals<T>;
+    BTile::kRingBytes + sizeof(float) * kStages * kXVals;
 
 __device__ __forceinline__ float from_f32(float v, float*) { return v; }
 __device__ __forceinline__ __nv_bfloat16 from_f32(float v, __nv_bfloat16*) {
@@ -94,24 +120,21 @@ __device__ __forceinline__ __nv_bfloat16 from_f32(float v, __nv_bfloat16*) {
 }
 
 // Block (row tile, column tile, slice s): rows m0.., columns n0.., d in
-// [s D / S, (s + 1) D / S).  Writes out (S == 1, rounded to T) or the
-// slice's f32 [M, H] partial at part + s M H.  kV1: e enters at the fold
-// (v1), else in A (v2).  T: the storage of x, e, W and out.
-template <typename T, bool kV1>
+// [s D / S, (s + 1) D / S).  Writes out (S == 1) or the slice's [M, H]
+// partial at part + s M H.  kV1: e enters at the fold (v1), else in A
+// (v2).
+template <bool kV1>
 __global__ void __launch_bounds__(BTile::kThreads, 1)
-deprel_bilinear_kernel(const T* __restrict__ x, const T* __restrict__ e,
-                       const T* __restrict__ w, T* __restrict__ out,
+deprel_bilinear_kernel(const float* __restrict__ x,
+                       const float* __restrict__ e,
+                       const float* __restrict__ w, float* __restrict__ out,
                        float* __restrict__ part, int m, int t, int d_dim,
                        int h, int slices, bool vec_x, bool vec_w) {
   using Tl = BTile;
   constexpr int kBK = tf32x3::kBK;
-  constexpr int kLd = kLdx<T>;
-  // bf16 A and W are exact in TF32 where A is x itself (v1): one pass
-  constexpr bool kExact = kV1 && sizeof(T) == 2;
   extern __shared__ __align__(16) float smem_f[];
-  T* wring = reinterpret_cast<T*>(smem_f);
-  T* xring = reinterpret_cast<T*>(reinterpret_cast<char*>(smem_f) +
-                                  Tl::kRingBytes);
+  float* wring = smem_f;
+  float* xring = smem_f + Tl::kRingBytes / sizeof(float);
   const int m0 = blockIdx.x * Tl::kBM, n0 = blockIdx.y * Tl::kBN;
   const int d0 = (int)((long long)blockIdx.z * d_dim / slices);
   const int ds = (int)((long long)(blockIdx.z + 1) * d_dim / slices) - d0;
@@ -124,8 +147,8 @@ deprel_bilinear_kernel(const T* __restrict__ x, const T* __restrict__ e,
           w + ((size_t)d * t + (size_t)tc * kBK) * h, h,
           min(kBK, t - tc * kBK), n0, h, vec_w);
       if (c % ds == 0)  // the x tile rides with its t chunk's first d
-        tf32x3::copy_tile<Tl::kBM, kBK, kLd, Tl::kThreads>(
-            xring + (tc % kStages) * kXVals<T>, x + (size_t)m0 * t, t,
+        tf32x3::copy_tile<Tl::kBM, kBK, kLdx, Tl::kThreads>(
+            xring + (tc % kStages) * kXVals, x + (size_t)m0 * t, t,
             m - m0, tc * kBK, t, vec_x);
     }
     tf32x3::cp_async_commit();
@@ -136,7 +159,7 @@ deprel_bilinear_kernel(const T* __restrict__ x, const T* __restrict__ e,
   const int g = lane / 4, q = lane % 4;
   const int wm = warp % Tl::kWarpsM, wn = warp / Tl::kWarpsM;
   // this lane's A rows: m-tile mt, half hf -> m0 + wm*32 + mt*16 + hf*8 + g
-  const T* erow[Tl::kMT][2];
+  const float* erow[Tl::kMT][2];
 #pragma unroll
   for (int mt = 0; mt < Tl::kMT; ++mt)
 #pragma unroll
@@ -149,7 +172,7 @@ deprel_bilinear_kernel(const T* __restrict__ x, const T* __restrict__ e,
     for (int mt = 0; mt < Tl::kMT; ++mt)
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf)
-        ev[mt][hf] = erow[mt][hf] ? widen(erow[mt][hf][d]) : 0.0f;
+        ev[mt][hf] = erow[mt][hf] ? erow[mt][hf][d] : 0.0f;
   };
   float ev[Tl::kMT][2], ev_next[Tl::kMT][2];
   e_at(ev, d0);
@@ -166,19 +189,19 @@ deprel_bilinear_kernel(const T* __restrict__ x, const T* __restrict__ e,
     if (c + 1 < chunks) e_at(ev_next, d0 + (c + 1) % ds);
     tf32x3::ring_wait();
     issue(c + kStages - 1);
-    const T* xs = xring + (c / ds % kStages) * kXVals<T> +
-                  (wm * 16 * Tl::kMT + g) * kLd + q;
-    const T* ws =
+    const float* xs = xring + (c / ds % kStages) * kXVals +
+                      (wm * 16 * Tl::kMT + g) * kLdx + q;
+    const float* ws =
         wring + (c % kStages) * Tl::kStageFloats + wn * Tl::kNT * 8;
     if constexpr (kV1) {
-      tf32x3::mma_chunk<Tl::kMT, Tl::kNT, kGroup, Tl::kLdw, kExact>(
+      tf32x3::mma_chunk<Tl::kMT, Tl::kNT, kGroup, Tl::kLdw>(
           acc, ws,
           [&](int mt, int ks, float (&a)[4]) {
-            const T* p = xs + mt * 16 * kLd + ks * 8;
-            a[0] = widen(p[0]);
-            a[1] = widen(p[8 * kLd]);
-            a[2] = widen(p[4]);
-            a[3] = widen(p[8 * kLd + 4]);
+            const float* p = xs + mt * 16 * kLdx + ks * 8;
+            a[0] = p[0];
+            a[1] = p[8 * kLdx];
+            a[2] = p[4];
+            a[3] = p[8 * kLdx + 4];
           },
           [&](int mt, int i, float sum, float chunk) {
             return fmaf(ev[mt][i / 2], chunk, sum);
@@ -186,11 +209,11 @@ deprel_bilinear_kernel(const T* __restrict__ x, const T* __restrict__ e,
     } else {
       tf32x3::mma_chunk<Tl::kMT, Tl::kNT, kGroup, Tl::kLdw>(
           acc, ws, [&](int mt, int ks, float (&a)[4]) {
-            const T* p = xs + mt * 16 * kLd + ks * 8;
-            a[0] = __fmul_rn(ev[mt][0], widen(p[0]));
-            a[1] = __fmul_rn(ev[mt][1], widen(p[8 * kLd]));
-            a[2] = __fmul_rn(ev[mt][0], widen(p[4]));
-            a[3] = __fmul_rn(ev[mt][1], widen(p[8 * kLd + 4]));
+            const float* p = xs + mt * 16 * kLdx + ks * 8;
+            a[0] = __fmul_rn(ev[mt][0], p[0]);
+            a[1] = __fmul_rn(ev[mt][1], p[8 * kLdx]);
+            a[2] = __fmul_rn(ev[mt][0], p[4]);
+            a[3] = __fmul_rn(ev[mt][1], p[8 * kLdx + 4]);
           });
     }
 #pragma unroll
@@ -199,7 +222,7 @@ deprel_bilinear_kernel(const T* __restrict__ x, const T* __restrict__ e,
       for (int hf = 0; hf < 2; ++hf) ev[mt][hf] = ev_next[mt][hf];
   }
 
-  float* dst = part + (size_t)blockIdx.z * m * h;
+  float* dst = slices > 1 ? part + (size_t)blockIdx.z * m * h : out;
 #pragma unroll
   for (int mt = 0; mt < Tl::kMT; ++mt)
 #pragma unroll
@@ -211,15 +234,454 @@ deprel_bilinear_kernel(const T* __restrict__ x, const T* __restrict__ e,
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           const int col = n0 + wn * Tl::kNT * 8 + j * 8 + 2 * q + i;
-          if (col >= h) continue;
-          const float v = acc[mt][j][hf * 2 + i];
-          if (slices > 1)
-            dst[(size_t)row * h + col] = v;
-          else
-            out[(size_t)row * h + col] = from_f32(v, out);
+          if (col < h) dst[(size_t)row * h + col] = acc[mt][j][hf * 2 + i];
         }
     }
 }
+
+// --------------------------------------------------------------- bf16
+namespace wg {
+
+using bf16 = __nv_bfloat16;
+constexpr int kBM = 128, kBN = 208;  // the f32 tile's: one slice count
+constexpr int kThreads = 384;        // two consumer warpgroups of 64 rows,
+                                     // then one producer warpgroup
+constexpr int kConsumerRegs = 232, kProducerRegs = 40;  // setmaxnreg
+constexpr int kNVals = kBN / 2;      // f32 values of a 64 x 208 fragment
+                                     // a thread: 104
+constexpr int kKC = 32;              // t rows a W chunk: two k-steps of 16
+constexpr int kStages = 6;           // W chunks in the ring
+constexpr int kPending = 2;          // chunks' products a consumer keeps in
+                                     // flight past the one it issued
+constexpr int kLag = 4;              // chunks a copying thread has in
+                                     // flight before it reports the oldest
+static_assert(kLag <= kStages - kPending, "the ring would deadlock");
+constexpr int kXBlocks = 8;          // x blocks of 64 t resident: a pass
+constexpr int kPass = 64 * kXBlocks;  // t values a pass
+constexpr int kXBlockBytes = kBM * 128;   // [128 rows, 64 t], 16 KB
+constexpr int kWBlockBytes = kKC * 128;   // [32 t, 64 columns], 4 KB
+constexpr int kStageBytes = (kBN + 63) / 64 * kWBlockBytes;  // 16 KB
+constexpr int kWPieces = kBN / 8;    // 16-byte pieces of a chunk row
+constexpr int kBarBytes = 1024;      // the mbarriers, ahead of the ring
+static_assert(kBM == BTile::kBM && kBN == BTile::kBN,
+              "deprel_bilinear_slices serves both types");
+static_assert(2 * 128 * kConsumerRegs + 128 * kProducerRegs <= 65536,
+              "the register file");
+
+// Byte offset of 16-byte piece p of 128-byte row r in a block of rows
+// whose base is 1024-byte aligned, under the 128-byte swizzle (TMA's
+// SWIZZLE_128B, wgmma's layout type 1): the piece index XOR r mod 8.
+__device__ __forceinline__ int swizzled(int r, int p) {
+  return r * 128 + ((p ^ (r & 7)) << 4);
+}
+
+// wgmma shared-memory matrix descriptor with the 128-byte swizzle:
+// start address, leading and stride byte offsets (16-byte units).
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         (uint64_t)((lbo & 0x3FFFF) >> 4) << 16 |
+         (uint64_t)((sbo & 0x3FFFF) >> 4) << 32 | 1ull << 62;
+}
+
+#define WG_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+// d (+)= A B for a 64 x 16 bf16 A (K-major) and a 16 x 208 bf16 B
+// (MN-major, the transpose flag set), f32 d; accumulate 0 overwrites d.
+__device__ __forceinline__ void mma_208(float (&d)[kNVals], uint64_t a,
+                                        uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %106, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n208k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103}, %104, %105, p, 1, 1, 0, 1;\n}\n"
+      : WG_D4(0), WG_D4(4), WG_D4(8), WG_D4(12), WG_D4(16), WG_D4(20),
+        WG_D4(24), WG_D4(28), WG_D4(32), WG_D4(36), WG_D4(40), WG_D4(44),
+        WG_D4(48), WG_D4(52), WG_D4(56), WG_D4(60), WG_D4(64), WG_D4(68),
+        WG_D4(72), WG_D4(76), WG_D4(80), WG_D4(84), WG_D4(88), WG_D4(92),
+        WG_D4(96), WG_D4(100)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+#undef WG_D4
+
+// The compiler must not move reads or writes of d across the wgmma that
+// own it in flight: each register passes through an empty asm.
+__device__ __forceinline__ void fence_regs(float (&d)[kNVals]) {
+#pragma unroll
+  for (int i = 0; i < kNVals; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void mma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void mma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int n>
+__device__ __forceinline__ void mma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+// one arrival, with release semantics: this thread's earlier writes are
+// seen by whoever waits for the phase
+__device__ __forceinline__ void bar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// one arrival on the barrier at the same place in CTA `rank` of the
+// cluster.  CTA-scope release: what it orders is the caller's reads of the
+// slot, which its wgmma wait has already completed (a cluster-scope
+// release would fence all of device memory at every arrival)
+__device__ __forceinline__ void bar_arrive_remote(uint32_t bar,
+                                                  uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(bar),
+      "r"(rank)
+      : "memory");
+}
+// until the phase of this parity has completed (acquire)
+__device__ __forceinline__ void bar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+// TMA: the box at coordinates c (innermost first) of the tensor map into
+// shared memory at dst; its bytes count against bar's expected bytes.
+__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map,
+                                       int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+// ... into the same place of every CTA of the cluster in `ctas` (a bit a
+// rank), each counting the bytes against its own barrier at bar
+__device__ __forceinline__ void tma_3d_multicast(uint32_t dst,
+                                                 const CUtensorMap* map,
+                                                 int c0, int c1, int c2,
+                                                 uint32_t bar,
+                                                 uint16_t ctas) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%2, %3, %4}], [%5], %6;\n" ::
+          "r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar), "h"(ctas)
+      : "memory");
+}
+// one arrival that also expects `bytes` more of asynchronous copies
+__device__ __forceinline__ void bar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// Rows [0, kKC) of the W[d] rows at src (row stride h), columns
+// [n0, n0 + kBN), into a ring slot: MN-major blocks of 64 columns, each
+// [kKC t rows, 128 bytes] swizzled.  Rows at or past `rows` and columns at
+// or past h are zeros.  vec: h a multiple of 8 and src 16-byte aligned.
+// i0, step: this thread's first piece and the producer's thread count.
+__device__ __forceinline__ void load_w(unsigned char* dst, const bf16* src,
+                                       int h, int rows, int n0, bool vec,
+                                       int i0, int step) {
+  if (vec) {
+    for (int i = i0; i < kKC * kWPieces; i += step) {
+      const int r = i / kWPieces, p = i % kWPieces, col = n0 + p * 8;
+      const bool ok = r < rows && col < h;
+      tf32x3::cp_async16(dst + (p / 8) * kWBlockBytes + swizzled(r, p % 8),
+                         ok ? src + (size_t)r * h + col : src, ok);
+    }
+  } else {
+    for (int i = i0; i < kKC * kBN; i += step) {
+      const int r = i / kBN, c = i % kBN, col = n0 + c;
+      *reinterpret_cast<bf16*>(dst + (c / 64) * kWBlockBytes +
+                               swizzled(r, c % 64 / 8) + c % 8 * 2) =
+          r < rows && col < h ? src[(size_t)r * h + col]
+                              : __float2bfloat16_rn(0.0f);
+    }
+  }
+}
+
+// Columns [0, cols) of the kBM rows at src (row stride ld; rows at or
+// past `rows` are zeros) into K-major blocks of 64 columns, each [kBM
+// rows, 128 bytes] swizzled; columns past cols, up to the last block's
+// end, are zeros.  vec: ld a multiple of 8 and src 16-byte aligned.
+__device__ __forceinline__ void load_x(unsigned char* dst, const bf16* src,
+                                       int ld, int rows, int cols, bool vec,
+                                       int i0, int step) {
+  const int blocks = (cols + 63) / 64;
+  if (vec) {
+    const int pieces = blocks * 8;
+    for (int i = i0; i < kBM * pieces; i += step) {
+      const int r = i / pieces, p = i % pieces;
+      const bool ok = r < rows && p * 8 < cols;
+      tf32x3::cp_async16(dst + (p / 8) * kXBlockBytes + swizzled(r, p % 8),
+                         ok ? src + (size_t)r * ld + p * 8 : src, ok);
+    }
+  } else {
+    const int vals = blocks * 64;
+    for (int i = i0; i < kBM * vals; i += step) {
+      const int r = i / vals, c = i % vals;
+      *reinterpret_cast<bf16*>(dst + (c / 64) * kXBlockBytes +
+                               swizzled(r, c % 64 / 8) + c % 8 * 2) =
+          r < rows && c < cols ? src[(size_t)r * ld + c]
+                               : __float2bfloat16_rn(0.0f);
+    }
+  }
+}
+
+// Block (row tile, column tile, slice s) as the f32 kernel's; writes out
+// (S == 1, rounded to bf16) or the slice's f32 partial at part + s M H.
+// Warpgroups 0-1 multiply and fold, warpgroup 2 copies.  Barriers: full[i]
+// (ring slot i has landed: its bytes, or the copying threads' reports,
+// whose first chunk of a pass also brings the pass's x), x_full[b] (with
+// TMA: x block b of the pass has landed), empty[i] (the consumers' warps
+// are done reading slot i), x_free (they are done with a pass's x).  The
+// two CTAs of a cluster take neighbouring row tiles of one slice: with
+// TMA each copies half of every W chunk into both (W is read from L2 once
+// a pair of row tiles) and so waits until both CTAs' 8 warps are done
+// with the slot; without, each copies its own (128 threads, cp.async).
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
+deprel_bilinear_bf16_kernel(const __grid_constant__ CUtensorMap map_x,
+                            const __grid_constant__ CUtensorMap map_w,
+                            const bf16* __restrict__ x,
+                            const bf16* __restrict__ e,
+                            const bf16* __restrict__ w,
+                            bf16* __restrict__ out, float* __restrict__ part,
+                            int m, int t, int d_dim, int h, int slices,
+                            bool tma, bool vec_x, bool vec_w) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // the swizzle repeats every 1024 bytes: blocks start on multiples of it
+  const uint32_t raw = tf32x3::smem_u32(smem_raw);
+  const uint32_t bars = (raw + 1023u) & ~1023u;
+  const uint32_t ring_s = bars + kBarBytes;
+  const uint32_t x_s = ring_s + kStages * kStageBytes;
+  auto full = [&](int i) { return bars + 8 * i; };
+  auto empty = [&](int i) { return bars + 8 * (kStages + i); };
+  const uint32_t x_free = bars + 16 * kStages;
+  auto x_full = [&](int i) { return x_free + 8 + 8 * i; };
+
+  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
+  const int d0 = (int)((long long)blockIdx.z * d_dim / slices);
+  const int ds = (int)((long long)(blockIdx.z + 1) * d_dim / slices) - d0;
+  const int group = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      bar_init(full(i), tma ? 1 : 128);
+      bar_init(empty(i), tma ? 16 : 8);
+    }
+    bar_init(x_free, 8);
+    for (int i = 0; i < kXBlocks; ++i) bar_init(x_full(i), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the peer's barriers are initialised before anything reaches them
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  uint32_t rank;  // in the cluster
+  asm("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
+
+  if (group == 2) {  // ------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kProducerRegs));
+    if (tma) {  // one thread issues every copy
+      if (threadIdx.x != 256) return;
+      int slot = 0, phase = 0, issued = 0;
+      constexpr int kHalf = kStageBytes / kWBlockBytes / 2;  // W blocks
+      for (int tp0 = 0, pass = 0; tp0 < t; tp0 += kPass, ++pass) {
+        const int tp = min(kPass, t - tp0);
+        if (pass > 0) bar_wait(x_free, (pass - 1) & 1);
+        for (int d = d0; d < d0 + ds; ++d)
+          for (int tc = tp0; tc < tp0 + tp; tc += kKC) {
+            // the slot's last chunk has been handed back
+            if (issued++ >= kStages) bar_wait(empty(slot), phase ^ 1);
+            // the pass's x block by block, each ahead of the first chunk
+            // that reads it
+            if (d == d0 && (tc - tp0) % 64 == 0) {
+              const int kb = (tc - tp0) / 64;
+              bar_expect(x_full(kb), kXBlockBytes);
+              tma_2d(x_s + kb * kXBlockBytes, &map_x, tc, m0, x_full(kb));
+            }
+            bar_expect(full(slot), kStageBytes);
+            // W[d] rows tc.., this CTA's two of the four blocks of 64
+            // columns, into both CTAs (rows past T and columns past H
+            // arrive as zeros)
+            for (int nb = kHalf * rank; nb < kHalf * (rank + 1); ++nb)
+              tma_3d_multicast(
+                  ring_s + slot * kStageBytes + nb * kWBlockBytes, &map_w,
+                  n0 + 64 * nb, tc, d, full(slot), 0x3);
+            slot = slot + 1 == kStages ? 0 : slot + 1;
+            phase ^= slot == 0;
+          }
+      }
+      // the last chunks handed back by both CTAs: no arrival from the
+      // peer reaches this CTA after it exits
+      for (int i = max(0, issued - kStages); i < issued; ++i)
+        bar_wait(empty(i % kStages), i / kStages & 1);
+      return;
+    }
+    unsigned char* ring = smem_raw + (ring_s - raw);
+    unsigned char* xt = smem_raw + (x_s - raw);
+    const int pt = threadIdx.x - 256;
+    int it = 0, reported = 0;  // chunks issued, and reported landed
+    for (int tp0 = 0, pass = 0; tp0 < t; tp0 += kPass, ++pass) {
+      const int tp = min(kPass, t - tp0);
+      const int per_d = (tp + kKC - 1) / kKC;
+      if (pass > 0) bar_wait(x_free, (pass - 1) & 1);
+      for (int c = 0; c < per_d * ds; ++c, ++it) {
+        if (it >= kStages) bar_wait(empty(it % kStages),
+                                    (it / kStages - 1) & 1);
+        const int d = d0 + c / per_d, tc = c % per_d * kKC;
+        load_w(ring + it % kStages * kStageBytes,
+               w + ((size_t)d * t + tp0 + tc) * h, h, min(kKC, tp - tc),
+               n0, vec_w, pt, 128);
+        if (c == 0)  // the pass's x rides with its first chunk
+          load_x(xt, x + (size_t)m0 * t + tp0, t, m - m0, tp, vec_x, pt,
+                 128);
+        tf32x3::cp_async_commit();
+        if (it + 1 - reported == kLag) {  // the oldest chunk has landed
+          tf32x3::cp_async_wait<kLag - 1>();
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          bar_arrive(full(reported++ % kStages));
+        }
+      }
+      // the pass's last chunks: the consumers' x_free needs them all
+      tf32x3::cp_async_wait<0>();
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      while (reported < it) bar_arrive(full(reported++ % kStages));
+    }
+    return;
+  }
+
+  // --------------------------------------------------------- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int lane = threadIdx.x % 32;
+  // this thread's fragment rows: row0 (values 4j, 4j + 1) and row0 + 8
+  // (4j + 2, 4j + 3), columns n0 + 8j + 2 (lane % 4) + {0, 1}
+  const int row0 = m0 + group * 64 + threadIdx.x % 128 / 32 * 16 + lane / 4;
+  auto e_at = [&](int row, int d) {
+    return row < m ? __bfloat162float(e[(size_t)row * d_dim + d]) : 0.0f;
+  };
+
+  float acc[kNVals], y[kNVals];
+#pragma unroll
+  for (int i = 0; i < kNVals; ++i) acc[i] = y[i] = 0.0f;
+
+  // the descriptors of the first k-step; a k-step adds its byte offsets,
+  // in 16-byte units, to their start-address field
+  const uint64_t a0 = desc(x_s + group * 64 * 128, 16, 1024);
+  const uint64_t b0 = desc(ring_s, kWBlockBytes, 1024);
+  // the ring slot (and its phase) of the next chunk to read, the slot of
+  // the next to hand back, and the chunks read but not handed back
+  int slot = 0, phase = 0, back = 0, held = 0;
+  auto hand_back = [&](int keep) {  // all but the newest `keep`
+    for (; held > keep; --held) {
+      if (lane == 0) {
+        bar_arrive(empty(back));
+        if (tma) bar_arrive_remote(empty(back), rank ^ 1);
+      }
+      back = back + 1 == kStages ? 0 : back + 1;
+    }
+  };
+  for (int tp0 = 0, pass = 0; tp0 < t; tp0 += kPass, ++pass) {
+    const int per_d = (min(kPass, t - tp0) + kKC - 1) / kKC;
+    for (int d = d0; d < d0 + ds; ++d) {
+      const float e_lo = e_at(row0, d), e_hi = e_at(row0 + 8, d);
+      for (int k = 0; k < per_d; ++k) {
+        // with TMA each x block has a barrier of its own (else x rides
+        // with the pass's first chunk)
+        if (tma && d == d0 && k * kKC % 64 == 0)
+          bar_wait(x_full(k * kKC / 64), pass & 1);
+        bar_wait(full(slot), phase);
+        mma_fence();
+        // every k-step of the chunk, also past T: x and W are zeros there
+        // (a product left out would cost ptxas's fence before each wgmma)
+#pragma unroll
+        for (int s = 0; s < kKC / 16; ++s) {
+          const int tt = k * kKC + s * 16;
+          // A: rows 64 group.., t in [tt, tt + 16) of block tt / 64 (the
+          // k-step's 32 bytes within the swizzled row); B: the chunk's
+          // rows 16 s.., 8-row groups 1024 bytes apart, column blocks
+          // kWBlockBytes apart
+          mma_208(y, a0 + ((tt / 64 * kXBlockBytes + tt % 64 * 2) >> 4),
+                  b0 + ((slot * kStageBytes + s * 16 * 128) >> 4),
+                  k > 0 || s > 0);
+        }
+        mma_commit();
+        ++held;
+        slot = slot + 1 == kStages ? 0 : slot + 1;
+        phase ^= slot == 0;
+        if (k < per_d - 1) {
+          mma_wait<kPending>();
+          hand_back(kPending);
+        }
+      }
+      // y = x W_d over the pass: fold it in
+      mma_wait<0>();
+      fence_regs(y);
+      hand_back(0);
+#pragma unroll
+      for (int i = 0; i < kNVals; ++i)
+        acc[i] = fmaf(i & 2 ? e_hi : e_lo, y[i], acc[i]);
+      fence_regs(y);
+    }
+    if (lane == 0) bar_arrive(x_free);
+  }
+
+  // two neighbouring columns a store where H is even: half the store
+  // instructions, and every block stores at its end, where nothing hides
+  // them
+  float* dst = part + (size_t)blockIdx.z * m * h;
+  const bool pairs = h % 2 == 0;
+#pragma unroll
+  for (int j = 0; j < kNVals / 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; i += 2) {
+      const int row = row0 + (i & 2 ? 8 : 0);
+      const int col = n0 + 8 * j + 2 * (lane % 4);
+      const size_t at = (size_t)row * h + col;
+      const float v0 = acc[4 * j + i], v1 = acc[4 * j + i + 1];
+      if (row >= m || col >= h) continue;
+      if (pairs && slices > 1) {
+        *reinterpret_cast<float2*>(dst + at) = make_float2(v0, v1);
+      } else if (pairs) {
+        *reinterpret_cast<__nv_bfloat162*>(out + at) =
+            __floats2bfloat162_rn(v0, v1);
+      } else {
+        for (int c = 0; c < 2 && col + c < h; ++c) {
+          if (slices > 1)
+            dst[at + c] = c ? v1 : v0;
+          else
+            out[at + c] = __float2bfloat16_rn(c ? v1 : v0);
+        }
+      }
+    }
+}
+
+}  // namespace wg
 
 // Launches of deprel_bilinear_sum_kernel this library has made, read by
 // deprel_bilinear_sum_launches().
@@ -247,29 +709,20 @@ int sm_count() {
   return sms;
 }
 
-template <typename T, bool kV1>
-int launch(const void* x, const void* e, const void* w, void* out,
-           void* part, int m, int t, int d_dim, int h, int slices,
-           void* stream) {
+// The grid of either type, or 0 where the shapes do not fit one.
+dim3 grid_of(int m, int d_dim, int h, int slices) {
   const long long rows = ((long long)m + BTile::kBM - 1) / BTile::kBM;
   const int cols = (h + BTile::kBN - 1) / BTile::kBN;
   if (rows > 0x7fffffffLL || cols > 65535 || slices < 1 || slices > d_dim ||
       slices > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      deprel_bilinear_kernel<T, kV1>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem<T>);
-  if (err != cudaSuccess) return (int)err;
-  constexpr int kPer = 16 / (int)sizeof(T);  // values a 16-byte copy
-  const bool vec_x = t % kPer == 0 && (uintptr_t)x % 16 == 0;
-  const bool vec_w = h % kPer == 0 && (uintptr_t)w % 16 == 0;
-  const cudaStream_t st = (cudaStream_t)stream;
-  deprel_bilinear_kernel<T, kV1><<<dim3((unsigned)rows, cols, slices),
-                                   BTile::kThreads, kSmem<T>, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(e),
-      static_cast<const T*>(w), static_cast<T*>(out),
-      static_cast<float*>(part), m, t, d_dim, h, slices, vec_x, vec_w);
-  err = cudaGetLastError();
+    return dim3(0, 0, 0);
+  return dim3((unsigned)rows, cols, slices);
+}
+
+// After the main kernel's launch: the slice sum where there are slices.
+template <typename T>
+int finish(cudaError_t err, const void* part, void* out, int m, int h,
+           int slices, cudaStream_t st) {
   if (err != cudaSuccess || slices == 1) return (int)err;
   const size_t count = (size_t)m * h;
   const int threads = 256;
@@ -280,6 +733,103 @@ int launch(const void* x, const void* e, const void* w, void* out,
   err = cudaGetLastError();
   if (err == cudaSuccess) ++g_sum_launches;
   return (int)err;
+}
+
+template <bool kV1>
+int launch_f32(const void* x, const void* e, const void* w, void* out,
+               void* part, int m, int t, int d_dim, int h, int slices,
+               void* stream) {
+  const dim3 grid = grid_of(m, d_dim, h, slices);
+  if (grid.x == 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      deprel_bilinear_kernel<kV1>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const bool vec_x = t % 4 == 0 && (uintptr_t)x % 16 == 0;
+  const bool vec_w = h % 4 == 0 && (uintptr_t)w % 16 == 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  deprel_bilinear_kernel<kV1><<<grid, BTile::kThreads, kSmem, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(e),
+      static_cast<const float*>(w), static_cast<float*>(out),
+      static_cast<float*>(part), m, t, d_dim, h, slices, vec_x, vec_w);
+  return finish<float>(cudaGetLastError(), part, out, m, h, slices, st);
+}
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime (the
+// library links no libcuda)
+decltype(&cuTensorMapEncodeTiled) tensor_map_encoder() {
+  static decltype(&cuTensorMapEncodeTiled) fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<decltype(&cuTensorMapEncodeTiled)>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The tensor maps of x [M, T] (boxes of 128 rows x 64 t) and W [D, T, H]
+// (boxes of one d, kKC rows, 64 columns), 128-byte swizzled, zeros
+// outside; false where the driver refuses them.
+bool tensor_maps(CUtensorMap* map_x, CUtensorMap* map_w, const void* x,
+                 const void* w, int m, int t, int d_dim, int h) {
+  const auto encode = tensor_map_encoder();
+  if (!encode) return false;
+  const cuuint64_t x_dim[2] = {(cuuint64_t)t, (cuuint64_t)m};
+  const cuuint64_t x_stride[1] = {(cuuint64_t)t * 2};
+  const cuuint32_t x_box[2] = {64, wg::kBM};
+  const cuuint64_t w_dim[3] = {(cuuint64_t)h, (cuuint64_t)t,
+                               (cuuint64_t)d_dim};
+  const cuuint64_t w_stride[2] = {(cuuint64_t)h * 2, (cuuint64_t)t * h * 2};
+  const cuuint32_t w_box[3] = {64, wg::kKC, 1};
+  const cuuint32_t ones[3] = {1, 1, 1};
+  return encode(map_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(x), x_dim, x_stride, x_box, ones,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS &&
+         encode(map_w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(w), w_dim, w_stride, w_box, ones,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int launch_bf16(const void* x, const void* e, const void* w, void* out,
+                void* part, int m, int t, int d_dim, int h, int slices,
+                void* stream) {
+  dim3 grid = grid_of(m, d_dim, h, slices);
+  if (grid.x == 0 || grid.x > 0x7ffffffe) return (int)cudaErrorInvalidValue;
+  grid.x += grid.x % 2;  // clusters of two row tiles
+  // 1 KB to align, the barriers, the ring and the resident x blocks
+  const int x_blocks = min(wg::kXBlocks, (t + 63) / 64);
+  const int smem = 1024 + wg::kBarBytes + wg::kStages * wg::kStageBytes +
+                   x_blocks * wg::kXBlockBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      wg::deprel_bilinear_bf16_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  // TMA takes 16-byte-aligned bases and row strides; other operands go
+  // through the copying warpgroup
+  const bool vec_x = t % 8 == 0 && (uintptr_t)x % 16 == 0;
+  const bool vec_w = h % 8 == 0 && (uintptr_t)w % 16 == 0;
+  CUtensorMap map_x{}, map_w{};
+  const bool tma = vec_x && vec_w && t > 0 &&
+                   tensor_maps(&map_x, &map_w, x, w, m, t, d_dim, h);
+  const cudaStream_t st = (cudaStream_t)stream;
+  wg::deprel_bilinear_bf16_kernel<<<grid, wg::kThreads, smem, st>>>(
+      map_x, map_w, static_cast<const wg::bf16*>(x),
+      static_cast<const wg::bf16*>(e), static_cast<const wg::bf16*>(w),
+      static_cast<wg::bf16*>(out), static_cast<float*>(part), m, t, d_dim,
+      h, slices, tma, vec_x, vec_w);
+  return finish<wg::bf16>(cudaGetLastError(), part, out, m, h, slices, st);
 }
 
 }  // namespace
@@ -302,33 +852,31 @@ int deprel_bilinear_sum_launches() { return g_sum_launches; }
 
 // v2 (e in A) and v1 (e at the fold) into out; with slices > 1 the
 // slices' partials go to part [slices, M, H] (f32 in either instance)
-// first.
+// first.  In bf16 both versions run the one bf16 kernel (e at the fold).
 int deprel_bilinear_v2_f32(const void* x, const void* e, const void* w,
                            void* out, void* part, int m, int t, int d_dim,
                            int h, int slices, void* stream) {
-  return launch<float, false>(x, e, w, out, part, m, t, d_dim, h, slices,
-                              stream);
+  return launch_f32<false>(x, e, w, out, part, m, t, d_dim, h, slices,
+                           stream);
 }
 
 int deprel_bilinear_v1_f32(const void* x, const void* e, const void* w,
                            void* out, void* part, int m, int t, int d_dim,
                            int h, int slices, void* stream) {
-  return launch<float, true>(x, e, w, out, part, m, t, d_dim, h, slices,
-                             stream);
+  return launch_f32<true>(x, e, w, out, part, m, t, d_dim, h, slices,
+                          stream);
 }
 
 int deprel_bilinear_v2_bf16(const void* x, const void* e, const void* w,
                             void* out, void* part, int m, int t, int d_dim,
                             int h, int slices, void* stream) {
-  return launch<__nv_bfloat16, false>(x, e, w, out, part, m, t, d_dim, h,
-                                      slices, stream);
+  return launch_bf16(x, e, w, out, part, m, t, d_dim, h, slices, stream);
 }
 
 int deprel_bilinear_v1_bf16(const void* x, const void* e, const void* w,
                             void* out, void* part, int m, int t, int d_dim,
                             int h, int slices, void* stream) {
-  return launch<__nv_bfloat16, true>(x, e, w, out, part, m, t, d_dim, h,
-                                     slices, stream);
+  return launch_bf16(x, e, w, out, part, m, t, d_dim, h, slices, stream);
 }
 
 const char* deprel_bilinear_error_string(int code) {

@@ -1,7 +1,7 @@
 // One block-tile GEMM mainloop on the tensor cores in 3xTF32, f32 in and
 // f32 out: the shared core of the fused GCN layer (spmm_fused.cu, which
 // replaces gcn_tpu/ops/pallas/spmm_fused.py:88 _forward -> _kernel), of
-// the deprel bilinear v2 and v1 (deprel_bilinear.cu, which replaces
+// the f32 deprel bilinear v2 and v1 (deprel_bilinear.cu, which replaces
 // gcn_tpu/ops/pallas/deprel_bilinear.py:143 _core_v2_forward ->
 // _kernel_v2 and :57 _core_forward -> _kernel), of the scan backward's
 // dW_hh (lstm_scan_backward.cu) and of the grouped matmul's three
@@ -35,8 +35,11 @@
 // every row tile) and a split A tile per k-step, and its accumulator and
 // the per-chunk one below would take the registers that the fragments
 // use here.  mma.sync is the simpler route; it runs these products well
-// below the tensor cores' peak (PERF.md gives the measured rates), so
-// wgmma is the next step for the bilinear kernels.
+// below the tensor cores' peak (PERF.md gives the measured rates).  The
+// bilinear's bf16 instances run on wgmma instead (deprel_bilinear.cu,
+// deprel_bilinear_bf16_kernel): in bf16 neither operand needs a split, e
+// is folded in after each relation's product, and W's own row-major
+// layout is wgmma's MN-major B.
 //
 // The pieces:
 //  * Tile<...>: the block's warp grid; each warp owns kMT x kNT fragments
@@ -58,17 +61,15 @@
 // Every output element sums its k-chunks in one fixed order and there are
 // no float atomics: two calls give the same bits.
 //
-// bf16 operands (the bf16 instances of the fused GCN layer and of the
-// bilinear v1; the bilinear v2's A = e x, a product of two bf16 values,
-// is not exact in TF32 and keeps the split).  A bf16 value
+// bf16 operands (the bf16 instance of the fused GCN layer).  A bf16 value
 // widened to f32 is exact in TF32 (8 significand bits of TF32's 11), and
 // so is the product of two of them in the f32 accumulator, so the split's
 // lo parts are zero and 3xTF32's two correction products add nothing:
 // with kExact, mma_chunk_ab issues one TF32 product a k-step, at the TF32
 // rate (495 TFLOP/s) and with the f32 accumulation and chunk fold of the
 // f32 path.  One TF32 pass, not bf16 mma.sync.m16n8k16: the A and B
-// fragments keep this file's m16n8k8 layout, so the kernels' A tiles,
-// their fragment functors and the W ring serve both types; only the ring's
+// fragments keep this file's m16n8k8 layout, so the kernel's A tile, its
+// fragment functor and the W ring serve both types; only the ring's
 // storage (copy_tile and mma_chunk take bf16 W rows, half the bytes) and
 // the pass count change.  The bf16 MMA's 2x rate would matter where the
 // product bounds a kernel, which the fused layer's is not (PERF.md).

@@ -9,14 +9,18 @@ of the non-factored ``full_deprel`` layer (the reference's
 ``traverse_deprel``).  Two kernels compute it, as in JAX, both in
 ``csrc/deprel_bilinear.cu``: v2 (``deprel_bilinear_v2`` and
 ``deprel_bilinear_batched``, what the model runs) and v1 (the public
-``deprel_bilinear``), both an implicit GEMM over K = D·T on the tensor
-cores in 3xTF32 (``csrc/tf32x3_tile.cuh``, f32-level error), summing each
-output over t chunks, then d, then the d slices they split K into (the
-slices' partials go through a scratch the wrapper allocates).  v2 scales
+``deprel_bilinear``).  Each splits K = D·T into d slices whose f32
+partials go through a scratch the wrapper allocates and are summed in
+slice order by a second launch of the same call.  In f32 both are an
+implicit GEMM on the tensor cores in 3xTF32 (``csrc/tf32x3_tile.cuh``,
+f32-level error), summing each output over t chunks, then d: v2 scales
 its operand by e (``e ⊗ x``); v1 multiplies x itself and scales each
-chunk's product by ``e[:, d]`` as it adds it in, streaming over d.  On a
-CPU tensor each runs its plain version: v2 forms the [M, D·T] operand
-``e ⊗ x`` and multiplies it with W as [D·T, H]; v1 loops over d.
+chunk's product by ``e[:, d]`` as it adds it in, streaming over d.  In
+bf16 both run one kernel on the bf16 tensor cores (``wgmma``): for each d
+``y_d = x W_d`` over all of T (per 512-wide pass of t beyond that) with
+f32 sums, then ``acc += e[:, d] · y_d`` in f32, JAX's ``_kernel_v2``
+order.  On a CPU tensor each runs its plain version: v2 forms the [M, D·T]
+operand ``e ⊗ x`` and multiplies it with W as [D·T, H]; v1 loops over d.
 
 ``DeprelBilinear`` is the ``torch.autograd.Function``; its backward
 computes what JAX's ``_core_bwd`` computes,
@@ -33,9 +37,10 @@ x, e and W are f32 or bf16 (one dtype a call), and the output takes x's
 dtype, as the Pallas kernels' ``out_shape`` does.  In bf16 both kernels
 (their ``_bf16`` instances) and their plain versions sum in f32 and round
 the output once: the rounding of JAX's v2 (``_kernel_v2``: its product
-and gating in f32, one ``.astype``).  JAX's v1 adds each d's term into
-its bf16 output block and so rounds D times; the port's v1 rounds once,
-as its v2 (closer to f32, within the gap rule of
+and gating in f32, one ``.astype``; a bf16 × bf16 product is exact in
+f32, so only the sums round before it).  JAX's v1 adds each d's term
+into its bf16 output block and so rounds D times; the port's v1 rounds
+once, as its v2 (closer to f32, within the gap rule of
 ``tests/test_torch_port_bf16.py``).  The bias follows JAX's two roundings,
 ``out + (e @ b)`` with ``e @ b`` in the operands' dtype.  The backward runs
 its three products in the operands' dtype, G included (so G, 384 MB in

@@ -811,15 +811,54 @@ def test_sddmm_edge_lists_match_stable_sort(cuda_device, name):
 # M, T, D, H.  v2 and v1 take 128 x 208 output tiles, 32 rows of W a
 # chunk, and split D into SMs / (row and column tiles) slices (one d each
 # in the small cases, 1-2 in mixed_slices, 16-17 at the C-GCN's widths,
-# none for D = 1)
+# none for D = 1).  The bf16 kernel also keeps x resident for T <= 512
+# (wide_t and wide_t_ragged fold a pass of 512 at a time), takes row tiles
+# in pairs (m_past_tile: an odd count), multiplies two k-steps of 16 a
+# chunk (t_past_chunk: T not a multiple of the chunk) and copies by TMA
+# only rows and bases of 16 bytes (ragged, tiny, mixed_slices and
+# wide_t_ragged go through its copying threads)
 BILINEAR_SHAPES = {"ragged": (70, 37, 5, 70),    # no tile fits
                    "small": (130, 40, 9, 24),
                    "tiny": (129, 20, 3, 5),      # M = 128 + 1, T < 32, H < 8
                    "wide_h": (100, 64, 4, 300),  # two column tiles
                    "one_d": (300, 64, 1, 200),   # one slice: no partials
                    "mixed_slices": (4000, 37, 7, 70),
+                   "t_past_chunk": (256, 104, 6, 200),  # 3 chunks + 8
+                   "m_past_tile": (257, 64, 5, 200),    # 2 tiles + 1 row
+                   "wide_t": (300, 640, 6, 200),        # passes 512 + 128
+                   "wide_t_ragged": (130, 1084, 3, 200),  # T % 8 = 4
                    "c_gcn_layer0": (4800, 400, 50, 200),
                    "c_gcn_layer1": (4800, 200, 50, 200)}
+
+
+def check_bilinear_kernel(x, e, w, version):
+    """One call of ``version``'s kernel on x, e, w: within 1e-4 (f32) or
+    the plain version's bits but one rounding step (bf16), the same bits
+    on a second call, two launches of the dtype's instance, and one slice
+    sum a call exactly where the launcher splits K into slices."""
+    suffix = EDGE_DTYPES[x.dtype][1]
+    (m, t), (d, _, h) = x.shape, w.shape
+    kernel = bilinear_mod._KERNELS[version]
+    lib = kernel.load()
+    launches = kernel.launches_of(suffix)
+    sums = lib.deprel_bilinear_sum_launches()
+    got = bilinear_mod.bilinear_forward(x, e, w, version)
+    # the slice sums the launcher launched in that call, by its own count
+    sums = lib.deprel_bilinear_sum_launches() - sums
+    again = bilinear_mod.bilinear_forward(x, e, w, version)
+    assert kernel.launches_of(suffix) == launches + 2
+    assert got.dtype == x.dtype
+    assert torch.equal(got, again)
+    plain = getattr(bilinear_mod, f"bilinear_{version}_plain")
+    if x.dtype == torch.float32:
+        assert scaled_err(got, plain(x, e, w)) <= 1e-4
+    else:
+        print(f"bilinear {version} bf16 {m, t, d, h}: largest difference "
+              f"{bf16_flip(got, plain(x, e, w), 1e-4):.3g}")
+    # both versions split K into the same slices, and a call sums their
+    # partials by a second kernel exactly where there is more than one
+    slices = lib.deprel_bilinear_slices(m, d, h)
+    assert sums == (slices > 1)
 
 
 @pytest.mark.cuda
@@ -830,32 +869,28 @@ def test_deprel_bilinear_kernels_match_plain(cuda_device, shape, version,
                                              dtype):
     """Both instances of both versions: within 1e-4 (f32) or the plain
     version's bits but one rounding step (bf16)."""
-    suffix = EDGE_DTYPES[dtype][1]
     m, t, d, h = BILINEAR_SHAPES[shape]
     rng = np.random.RandomState(8)
     x, e, w = features(rng, cuda_device, (m, t), (m, d), (d, t, h))
     x, e, w = (a.to(dtype) for a in (x, e, w / np.sqrt(t)))
-    kernel = bilinear_mod._KERNELS[version]
-    lib = kernel.load()
-    launches = kernel.launches_of(suffix)
-    sums = lib.deprel_bilinear_sum_launches()
-    got = bilinear_mod.bilinear_forward(x, e, w, version)
-    # the slice sums the launcher launched in that call, by its own count
-    sums = lib.deprel_bilinear_sum_launches() - sums
-    again = bilinear_mod.bilinear_forward(x, e, w, version)
-    assert kernel.launches_of(suffix) == launches + 2
-    assert got.dtype == dtype
-    assert torch.equal(got, again)
-    plain = getattr(bilinear_mod, f"bilinear_{version}_plain")
-    if dtype == torch.float32:
-        assert scaled_err(got, plain(x, e, w)) <= 1e-4
-    else:
-        print(f"bilinear {version} bf16 {shape}: largest difference "
-              f"{bf16_flip(got, plain(x, e, w), 1e-4):.3g}")
-    # both versions split K into the same slices, and a call sums their
-    # partials by a second kernel exactly where there is more than one
-    slices = lib.deprel_bilinear_slices(m, d, h)
-    assert sums == (slices > 1)
+    check_bilinear_kernel(x, e, w, version)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("version", ["v2", "v1"])
+def test_deprel_bilinear_kernels_take_an_unaligned_x(cuda_device, version,
+                                                     dtype):
+    """x contiguous at an odd element offset of its storage (a base that
+    is not 16-byte aligned, which TMA refuses), at the C-GCN's second
+    layer's widths."""
+    m, t, d, h = 512, 200, 6, 200
+    rng = np.random.RandomState(9)
+    flat, e, w = features(rng, cuda_device, (m * t + 1,), (m, d), (d, t, h))
+    x = flat.to(dtype)[1:].view(m, t)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    check_bilinear_kernel(x, e.to(dtype), (w / np.sqrt(t)).to(dtype),
+                          version)
 
 
 @pytest.mark.cuda
