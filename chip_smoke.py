@@ -22,7 +22,8 @@ Phases, one JSON line each:
    one of a single call, and eagerly), the plain version's time, one
    PyTorch library call's time as a yardstick where one computes the
    same function (for the bilinear also one SGEMM on its prebuilt
-   [M, D*T] operand), and the kernel's
+   [M, D*T] operand; torch._grouped_mm by the same graph where the build
+   lets it be captured, eagerly beside it), and the kernel's
    bound at the card's peak rates (3xTF32 for the kernels that run it,
    with the f32 FMA bound beside); every kernel also in its bf16
    instance, on the same inputs rounded to bf16, each a row of its own
@@ -30,6 +31,9 @@ Phases, one JSON line each:
    bits twice, timed alike, its bound on bf16 bytes (and the bf16 tensor
    cores' peak where a product counts), its library call in bf16 (where
    the build takes a sparse bf16 product; else ``None`` and the reason);
+   the bf16 kernels on the tensor cores (grouped matmul forward, fused
+   layer forward, bilinear) with their TFLOP/s and ``ptxas`` registers
+   and spills, and a spill fails the first two;
    for the
    scans also their cluster
    partition and how many of its clusters fit the card at once, and the
@@ -600,20 +604,55 @@ def band_group_sizes(torch, synth_batch, dev):
     return make_group_plan(torch.cat([ids_f, ids_r]), r).group_sizes.to(dev)
 
 
-TIMING_GMM = ("ms: 20 calls in one CUDA graph, replayed 10 times, per "
-              "call, L2 warm; ms_one_call_graph: one call in a graph "
-              "replayed 50 times; plain_ms, eager_ms and library_ms: median "
-              "of one event pair around each eager call, the wrapper "
-              "included (the plain version and torch._grouped_mm read the "
-              "group sizes or offsets on the host, so no graph captures "
-              "them)")
+TIMING_GMM = ("ms and library_ms: 20 calls in one CUDA graph, replayed 10 "
+              "times, per call, L2 warm; ms_one_call_graph: one call in a "
+              "graph replayed 50 times; eager_ms, library_eager_ms and "
+              "plain_ms: median of one event pair around each eager call, "
+              "the wrapper included (the plain version reads the group "
+              "sizes on the host, so no graph captures it)")
 
 
-def check_gmm(torch, rng, dev, gs) -> list[dict]:
+def grouped_mm_yardstick(torch, fn, dtype: str, what: str):
+    """(library_ms by ``graph_ms``, library_eager_ms by ``time_ms``, note)
+    of a ``torch._grouped_mm`` call ``fn``: yardstick only (the port never
+    calls it).  A build without it, or one that refuses the dtype or the
+    capture, gives None and says why."""
+    if getattr(torch, "_grouped_mm", None) is None:
+        return None, None, "torch._grouped_mm is absent"
+    eager, note = library_or_none(torch, fn, "")
+    if eager is None:
+        return None, None, note
+    graph, note = library_or_none(
+        torch, fn, f"torch._grouped_mm {dtype} {what}", timer=graph_ms)
+    if graph is None:
+        note = f"the graph capture was refused ({note}); eager only"
+    return graph, eager, note
+
+
+def ptxas_of(ptxas: dict, tag: str) -> dict:
+    """The ``ptxas`` lines of the kernels whose mangled names hold tag."""
+    return {k: v for k, v in ptxas.items() if tag in k}
+
+
+def spill_free(lines: dict):
+    """Whether ``ptxas`` reported no spill for any of these kernels; None
+    where the build left no report (a library built by an earlier run)."""
+    if not lines:
+        return None
+    return all("0 bytes spill stores, 0 bytes spill loads" in v
+               for v in lines.values())
+
+
+def check_gmm(torch, rng, dev, gs, ptxas: dict) -> list[dict]:
+    """Kernel 3 at the C-GCN layer's shapes (M = 9600 stacked band rows,
+    R = 87 groups, H = 200, T = 400 and 200), in its f32 and its bf16
+    instance (the same inputs, rounded), each against torch._grouped_mm in
+    the row's dtype; the bf16 row with its TFLOP/s and ``ptxas`` lines."""
     from gcn_tpu_torch.ops import grouped_matmul as mod
 
     r = gs.shape[0]
     m, h = 2 * B * N_BUCKET, 200
+    offs = torch.cumsum(gs, 0, dtype=torch.int32)
     out = []
     for t in (400, 200):
         x = torch.tensor(rng.uniform(-1, 1, (m, t)), dtype=torch.float32,
@@ -629,28 +668,21 @@ def check_gmm(torch, rng, dev, gs) -> list[dict]:
         torch.cuda.synchronize()
         fn = functools.partial(mod.grouped_matmul, x, s, gs)
         plain_ms = time_ms(lambda: mod.grouped_matmul_plain(x, s, gs), 10)
-        # yardstick only (the port never calls it); absent or refusing f32
-        # in some PyTorch builds, and then not measured
-        offs = torch.cumsum(gs, 0, dtype=torch.int32)
-        grouped_mm = getattr(torch, "_grouped_mm", None)
-        library_ms, library_note = None, "torch._grouped_mm is absent"
-        if grouped_mm is not None:
-            try:
-                library_ms = time_ms(lambda: grouped_mm(x, s, offs=offs), 20)
-                library_note = "torch._grouped_mm f32 (eager)"
-            except RuntimeError as e:
-                library_note = f"not measured: {str(e)[:200]}"
+        library_ms, library_eager_ms, library_note = grouped_mm_yardstick(
+            torch, lambda: torch._grouped_mm(x, s, offs=offs), "f32",
+            "(offs = cumsum of the group sizes)")
         used = int((gs > 0).sum())
         n_bytes = 4 * (x.numel() + used * t * h + m * h + r)
-        # the bf16 instance, timed alike; torch._grouped_mm runs bf16
+        flops = 2.0 * m * t * h
+        # the bf16 instance, timed alike
         xb, sb = x.bfloat16(), s.bfloat16()
         got_b = mod.grouped_matmul(xb, sb, gs)
         same_b = bool(torch.equal(got_b, mod.grouped_matmul(xb, sb, gs)))
-        lib_b, lib_b_note = (None, "torch._grouped_mm is absent")
-        if grouped_mm is not None:
-            lib_b, lib_b_note = library_or_none(
-                torch, lambda: grouped_mm(xb, sb, offs=offs),
-                "torch._grouped_mm bf16 (eager)")
+        lib_b, lib_b_eager, lib_b_note = grouped_mm_yardstick(
+            torch, lambda: torch._grouped_mm(xb, sb, offs=offs), "bf16",
+            "(offs = cumsum of the group sizes)")
+        times_b = kernel_ms(functools.partial(mod.grouped_matmul, xb, sb, gs))
+        lines_b = ptxas_of(ptxas, "grouped_matmul_fwd_bf16_kernel")
         row_b = {
             "name": f"grouped_matmul_forward_bf16_T{t}", "route": "cuda",
             "source": "gcn_tpu_torch/csrc/grouped_matmul.cu",
@@ -660,13 +692,16 @@ def check_gmm(torch, rng, dev, gs) -> list[dict]:
             "max_abs_err": max_err(got_b, mod.grouped_matmul_plain(xb, sb, gs)),
             "errs": {"bf16": err_bf16}, "same_bits_twice": same_b,
             "tol": {"bf16": TOL_BF16},
-            "ok": err_bf16 <= TOL_BF16 and same_b,
-            **kernel_ms(functools.partial(mod.grouped_matmul, xb, sb, gs)),
+            "ok": (err_bf16 <= TOL_BF16 and same_b
+                   and spill_free(lines_b) is not False),
+            **times_b, "tflops": flops / (times_b["ms"] * 1e-3) / 1e12,
+            "ptxas": lines_b,
             "plain_ms": time_ms(lambda: mod.grouped_matmul_plain(xb, sb, gs),
                                 10),
             **bf16_bound(2 * (x.numel() + used * t * h + m * h) + 4 * r,
-                         2.0 * m * t * h),
-            "library_ms": lib_b, "library": lib_b_note, "timing": TIMING_GMM,
+                         flops),
+            "library_ms": lib_b, "library_eager_ms": lib_b_eager,
+            "library": lib_b_note, "timing": TIMING_GMM,
         }
         out.append({
             "name": f"grouped_matmul_forward_T{t}", "route": "cuda",
@@ -678,9 +713,9 @@ def check_gmm(torch, rng, dev, gs) -> list[dict]:
             "tol": {"f32": TOL_F32, "bf16": TOL_BF16},
             "ok": err <= TOL_F32 and err_bf16 <= TOL_BF16 and same,
             **kernel_ms(fn), "plain_ms": plain_ms,
-            **tf32x3_bound(n_bytes, 2.0 * m * t * h),
-            "library_ms": library_ms, "library": library_note,
-            "timing": TIMING_GMM,
+            **tf32x3_bound(n_bytes, flops),
+            "library_ms": library_ms, "library_eager_ms": library_eager_ms,
+            "library": library_note, "timing": TIMING_GMM,
         })
         out.append(row_b)
     return out
@@ -823,11 +858,31 @@ def check_lstm_backward(torch, rng, dev) -> list[dict]:
     }, row_b]
 
 
+def backward_yardstick(torch, x, s, g, offs, dtype: str):
+    """(library_ms, library_eager_ms, note) of torch._grouped_mm's autograd
+    backward on x, s with cotangent g: forward+backward minus forward, both
+    by ``graph_ms`` and by ``time_ms``."""
+    xr, sr = x.clone().requires_grad_(), s.clone().requires_grad_()
+    what = "(offs = cumsum of the group sizes)"
+    fwd = grouped_mm_yardstick(
+        torch, lambda: torch._grouped_mm(xr, sr, offs=offs), dtype, what)
+    both = grouped_mm_yardstick(
+        torch, lambda: torch.autograd.grad(
+            torch._grouped_mm(xr, sr, offs=offs), [xr, sr], g), dtype, what)
+    if fwd[1] is None or both[1] is None:
+        return None, None, (fwd if fwd[1] is None else both)[2]
+    graph = None if fwd[0] is None or both[0] is None else both[0] - fwd[0]
+    return graph, both[1] - fwd[1], (
+        f"torch._grouped_mm {dtype} autograd, forward+backward minus "
+        f"forward" + ("" if graph is not None else f"; {both[2]}"))
+
+
 def check_gmm_backward(torch, rng, dev, gs) -> list[dict]:
     from gcn_tpu_torch.ops import grouped_matmul as mod
 
     r = gs.shape[0]
     m, h = 2 * B * N_BUCKET, 200
+    offs = torch.cumsum(gs, 0, dtype=torch.int32)
     out = []
     for t in (400, 200):
         x = torch.tensor(rng.uniform(-1, 1, (m, t)), dtype=torch.float32,
@@ -857,24 +912,10 @@ def check_gmm_backward(torch, rng, dev, gs) -> list[dict]:
             k: v / 5 for k, v in split["top_kernels_ms"].items()
             if "grouped_matmul" in k}
         # yardstick only (the port never calls it): torch._grouped_mm's
-        # autograd backward, forward+backward minus forward, where it runs
-        # in f32
-        offs = torch.cumsum(gs, 0, dtype=torch.int32)
-        grouped_mm = getattr(torch, "_grouped_mm", None)
-        library_ms, library_note = None, "torch._grouped_mm is absent"
-        if grouped_mm is not None:
-            xr = x.clone().requires_grad_()
-            sr = s.clone().requires_grad_()
-            try:
-                fwd_ms = time_ms(lambda: grouped_mm(xr, sr, offs=offs), 20)
-                fwd_bwd_ms = time_ms(
-                    lambda: torch.autograd.grad(
-                        grouped_mm(xr, sr, offs=offs), [xr, sr], g), 20)
-                library_ms = fwd_bwd_ms - fwd_ms
-                library_note = ("torch._grouped_mm f32 autograd, "
-                                "forward+backward minus forward (eager)")
-            except (RuntimeError, NotImplementedError) as e:
-                library_note = f"not measured: {str(e)[:200]}"
+        # autograd backward, forward+backward minus forward, each timed as
+        # the forward rows time theirs
+        library_ms, library_eager_ms, library_note = backward_yardstick(
+            torch, x, s, g, offs, "f32")
         used = int((gs > 0).sum())
         # x, g and the used groups' S in; dx and every group's dS out (the
         # dS partials are scratch of this design, not of the function, and
@@ -888,20 +929,8 @@ def check_gmm_backward(torch, rng, dev, gs) -> list[dict]:
                         for _ in range(2))
         same_b = all(torch.equal(a, b) for a, b in zip(first, again))
         want_b = mod.grouped_matmul_backward_plain(*args_b)
-        lib_b, lib_b_note = None, "torch._grouped_mm is absent"
-        if grouped_mm is not None:
-            xb = args_b[0].clone().requires_grad_()
-            sb = args_b[2].clone().requires_grad_()
-            fwd_b, lib_b_note = library_or_none(
-                torch, lambda: grouped_mm(xb, sb, offs=offs), "")
-            if fwd_b is not None:
-                fwd_bwd_b, lib_b_note = library_or_none(
-                    torch, lambda: torch.autograd.grad(
-                        grouped_mm(xb, sb, offs=offs), [xb, sb], args_b[1]),
-                    "torch._grouped_mm bf16 autograd, forward+backward "
-                    "minus forward (eager)")
-                if fwd_bwd_b is not None:
-                    lib_b = fwd_bwd_b - fwd_b
+        lib_b, lib_b_eager, lib_b_note = backward_yardstick(
+            torch, args_b[0], args_b[2], args_b[1], offs, "bf16")
         row_b = {
             "name": f"grouped_matmul_backward_bf16_T{t}", "route": "cuda",
             "source": "gcn_tpu_torch/csrc/grouped_matmul_backward.cu",
@@ -919,7 +948,8 @@ def check_gmm_backward(torch, rng, dev, gs) -> list[dict]:
             # x, g, the used groups' S and dx bf16; every group's dS f32
             **bf16_bound(2 * (x.numel() + g.numel() + used * t * h + m * t)
                          + 4 * (r * t * h + r), 4.0 * m * t * h),
-            "library_ms": lib_b, "library": lib_b_note, "timing": TIMING_GMM,
+            "library_ms": lib_b, "library_eager_ms": lib_b_eager,
+            "library": lib_b_note, "timing": TIMING_GMM,
         }
         out.append({
             "name": f"grouped_matmul_backward_T{t}", "route": "cuda",
@@ -932,8 +962,8 @@ def check_gmm_backward(torch, rng, dev, gs) -> list[dict]:
             "ok": errs["f32"] <= TOL_BWD and errs["bf16"] <= TOL_BF16 and same,
             **kernel_ms(fn), "split_ms_profiler": split_ms,
             "plain_ms": plain_ms, **tf32x3_bound(n_bytes, 4.0 * m * t * h),
-            "library_ms": library_ms, "library": library_note,
-            "timing": TIMING_GMM,
+            "library_ms": library_ms, "library_eager_ms": library_eager_ms,
+            "library": library_note, "timing": TIMING_GMM,
         })
         out.append(row_b)
     return out
@@ -1047,10 +1077,11 @@ def check_band(torch, rng, dev, edges) -> list[dict]:
     return rows
 
 
-def check_spmm(torch, rng, dev, edges) -> list[dict]:
+def check_spmm(torch, rng, dev, edges, ptxas: dict) -> list[dict]:
     """Kernels 7 and 8 at the paper GCN's two layers' shapes (h [B, 96, T]
     with T = 360 and 200, W [T, 200]), each in its f32 and its bf16
-    instance (the same inputs, rounded)."""
+    instance (the same inputs, rounded); the bf16 forward with its TFLOP/s
+    and ``ptxas`` lines."""
     from gcn_tpu_torch.ops import spmm_fused as mod
     from gcn_tpu_torch.ops.adjacency import build_adjacency
 
@@ -1118,6 +1149,14 @@ def check_spmm(torch, rng, dev, edges) -> list[dict]:
                     bounds = tf32x3_bound(n_bytes, flops)
                 else:  # the W product of bf16 values
                     bounds = bf16_bound(n_bytes, flops)
+                times = kernel_ms(fn)
+                extra, spill_ok = {}, True
+                if "forward_bf16" in name:  # the bf16 kernel of its own
+                    extra = {"tflops": 2.0 * b * n * t * hd
+                             / (times["ms"] * 1e-3) / 1e12,
+                             "ptxas": ptxas_of(ptxas,
+                                               "spmm_fused_fwd_bf16_kernel")}
+                    spill_ok = spill_free(extra["ptxas"]) is not False
                 rows.append({
                     "name": name, "route": "cuda",
                     "source": "gcn_tpu_torch/csrc/spmm_fused.cu",
@@ -1127,8 +1166,8 @@ def check_spmm(torch, rng, dev, edges) -> list[dict]:
                               "T": t, "H": hd, "valid_edges": valid},
                     "max_abs_err": abs_err, "errs": {key: err},
                     "same_bits_twice": same,
-                    "tol": {key: tol}, "ok": err <= tol and same,
-                    **kernel_ms(fn), "plain_ms": graph_ms(plain), **bounds,
+                    "tol": {key: tol}, "ok": err <= tol and same and spill_ok,
+                    **times, **extra, "plain_ms": graph_ms(plain), **bounds,
                     "library_ms": graph_ms(lib), "library": lib_note,
                     "library_band_build_ms": build_ms,
                     "timing": TIMING_GRAPH,
@@ -1382,7 +1421,7 @@ def check_bilinear(torch, rng, dev, ptxas: dict) -> tuple[list[dict], dict]:
                     "same_bits_twice": same, "tol": {key: tol},
                     "ok": err <= tol and same,
                     **ms, "tflops": flops / (ms["ms"] * 1e-3) / 1e12,
-                    "ptxas": {k: v for k, v in ptxas.items() if tag in k},
+                    "ptxas": ptxas_of(ptxas, tag),
                     **({"registers_note": "ptxas counts a thread's "
                         "registers at launch (384 threads); setmaxnreg "
                         "gives the two consumer warpgroups 232 and the "
@@ -1764,13 +1803,15 @@ KERNEL_GROUPS = (  # device time by category, matched on kernel names
     ("scan forward kernel", ("lstm_scan_fwd_kernel",)),
     ("scan backward kernels", ("lstm_gates_kernel", "lstm_chain_kernel",
                                "lstm_dw_kernel")),
-    ("grouped matmul forward kernel", ("grouped_matmul_fwd_kernel",)),
+    ("grouped matmul forward kernel", ("grouped_matmul_fwd_kernel",
+                                       "grouped_matmul_fwd_bf16_kernel")),
     ("grouped matmul backward dx kernel", ("grouped_matmul_dx_kernel",)),
     ("grouped matmul backward dS kernels", ("grouped_matmul_ds_kernel",
                                             "grouped_matmul_ds_sum_kernel")),
     ("band aggregate forward kernel", ("band_aggregate_fwd_kernel",)),
     ("band aggregate pair kernel", ("band_pair_kernel",)),
-    ("fused GCN layer forward kernel", ("spmm_fused_fwd_kernel",)),
+    ("fused GCN layer forward kernel", ("spmm_fused_fwd_kernel",
+                                        "spmm_fused_fwd_bf16_kernel")),
     ("fused GCN layer sym pair kernel", ("spmm_sym_pair_kernel",)),
     ("sddmm forward kernel", ("sddmm_fwd_kernel",)),
     ("sddmm backward kernels", ("sddmm_lists_kernel",
@@ -2932,10 +2973,10 @@ def main() -> int:
     t0 = time.perf_counter()
     report = _cuda.build_all(list(kernel_table().values()))
     build_s = time.perf_counter() - t0
+    ptxas = {k: ptxas_by_function(v["log"]) for k, v in report.items()}
     emit({"phase": "build", "seconds": build_s,
           "per_source_s": {k: v["seconds"] for k, v in report.items()},
-          "ptxas": {k: ptxas_by_function(v["log"])
-                    for k, v in report.items()}})
+          "ptxas": ptxas})
 
     rng = np.random.RandomState(SEED)
     vocab = Vocab.load(os.path.join(HERE, "dataset", "vocab", "vocab.pkl"))
@@ -2949,14 +2990,15 @@ def main() -> int:
     edges = edge_lists(torch, synth[0], dev)
     # in row order from one generator, so no row's inputs depend on the
     # rows after it
-    rows = (check_lstm(torch, rng, dev) + check_gmm(torch, rng, dev, gs)
+    rows = (check_lstm(torch, rng, dev)
+            + check_gmm(torch, rng, dev, gs, ptxas["grouped_matmul"])
             + check_lstm_backward(torch, rng, dev)
             + check_gmm_backward(torch, rng, dev, gs)
             + check_band(torch, rng, dev, edges)
-            + check_spmm(torch, rng, dev, edges)
+            + check_spmm(torch, rng, dev, edges, ptxas["spmm_fused"])
             + check_sddmm(torch, rng, dev, edges))
     bilinear_rows, v1_launches = check_bilinear(
-        torch, rng, dev, ptxas_by_function(report["deprel_bilinear"]["log"]))
+        torch, rng, dev, ptxas["deprel_bilinear"])
     rows += bilinear_rows
     for row in rows:
         emit({"phase": "kernel", **row})

@@ -91,13 +91,16 @@
 // flight while it issues the next (wgmma.wait_group 2), hands each slot
 // back to both blocks' producers when its products are done, and waits
 // for all of them (wait_group 0) before each fold.  The output goes out
-// two columns a store.
+// two columns a store.  The swizzle, descriptors, wgmma, mbarriers, TMA
+// and cp.async copies, and the tensor-map encoder are hopper_tile.cuh's,
+// shared with the grouped matmul forward's bf16 kernel.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper_tile.cuh"
 #include "tf32x3_tile.cuh"
 
 namespace {
@@ -242,7 +245,8 @@ deprel_bilinear_kernel(const float* __restrict__ x,
 // --------------------------------------------------------------- bf16
 namespace wg {
 
-using bf16 = __nv_bfloat16;
+using namespace hopper;  // hopper_tile.cuh's helpers
+
 constexpr int kBM = 128, kBN = 208;  // the f32 tile's: one slice count
 constexpr int kThreads = 384;        // two consumer warpgroups of 64 rows,
                                      // then one producer warpgroup
@@ -261,196 +265,12 @@ constexpr int kPass = 64 * kXBlocks;  // t values a pass
 constexpr int kXBlockBytes = kBM * 128;   // [128 rows, 64 t], 16 KB
 constexpr int kWBlockBytes = kKC * 128;   // [32 t, 64 columns], 4 KB
 constexpr int kStageBytes = (kBN + 63) / 64 * kWBlockBytes;  // 16 KB
-constexpr int kWPieces = kBN / 8;    // 16-byte pieces of a chunk row
 constexpr int kBarBytes = 1024;      // the mbarriers, ahead of the ring
 static_assert(kBM == BTile::kBM && kBN == BTile::kBN,
               "deprel_bilinear_slices serves both types");
 static_assert(2 * 128 * kConsumerRegs + 128 * kProducerRegs <= 65536,
               "the register file");
-
-// Byte offset of 16-byte piece p of 128-byte row r in a block of rows
-// whose base is 1024-byte aligned, under the 128-byte swizzle (TMA's
-// SWIZZLE_128B, wgmma's layout type 1): the piece index XOR r mod 8.
-__device__ __forceinline__ int swizzled(int r, int p) {
-  return r * 128 + ((p ^ (r & 7)) << 4);
-}
-
-// wgmma shared-memory matrix descriptor with the 128-byte swizzle:
-// start address, leading and stride byte offsets (16-byte units).
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         (uint64_t)((lbo & 0x3FFFF) >> 4) << 16 |
-         (uint64_t)((sbo & 0x3FFFF) >> 4) << 32 | 1ull << 62;
-}
-
-#define WG_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-// d (+)= A B for a 64 x 16 bf16 A (K-major) and a 16 x 208 bf16 B
-// (MN-major, the transpose flag set), f32 d; accumulate 0 overwrites d.
-__device__ __forceinline__ void mma_208(float (&d)[kNVals], uint64_t a,
-                                        uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %106, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n208k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
-      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
-      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
-      "%98, %99, %100, %101, %102, %103}, %104, %105, p, 1, 1, 0, 1;\n}\n"
-      : WG_D4(0), WG_D4(4), WG_D4(8), WG_D4(12), WG_D4(16), WG_D4(20),
-        WG_D4(24), WG_D4(28), WG_D4(32), WG_D4(36), WG_D4(40), WG_D4(44),
-        WG_D4(48), WG_D4(52), WG_D4(56), WG_D4(60), WG_D4(64), WG_D4(68),
-        WG_D4(72), WG_D4(76), WG_D4(80), WG_D4(84), WG_D4(88), WG_D4(92),
-        WG_D4(96), WG_D4(100)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-#undef WG_D4
-
-// The compiler must not move reads or writes of d across the wgmma that
-// own it in flight: each register passes through an empty asm.
-__device__ __forceinline__ void fence_regs(float (&d)[kNVals]) {
-#pragma unroll
-  for (int i = 0; i < kNVals; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ void mma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void mma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int n>
-__device__ __forceinline__ void mma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(n) : "memory");
-}
-
-__device__ __forceinline__ void bar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-// one arrival, with release semantics: this thread's earlier writes are
-// seen by whoever waits for the phase
-__device__ __forceinline__ void bar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-// one arrival on the barrier at the same place in CTA `rank` of the
-// cluster.  CTA-scope release: what it orders is the caller's reads of the
-// slot, which its wgmma wait has already completed (a cluster-scope
-// release would fence all of device memory at every arrival)
-__device__ __forceinline__ void bar_arrive_remote(uint32_t bar,
-                                                  uint32_t rank) {
-  asm volatile(
-      "{\n.reg .b32 remote;\n"
-      "mapa.shared::cluster.u32 remote, %0, %1;\n"
-      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(bar),
-      "r"(rank)
-      : "memory");
-}
-// until the phase of this parity has completed (acquire)
-__device__ __forceinline__ void bar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-}
-
-// TMA: the box at coordinates c (innermost first) of the tensor map into
-// shared memory at dst; its bytes count against bar's expected bytes.
-__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map,
-                                       int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-// ... into the same place of every CTA of the cluster in `ctas` (a bit a
-// rank), each counting the bytes against its own barrier at bar
-__device__ __forceinline__ void tma_3d_multicast(uint32_t dst,
-                                                 const CUtensorMap* map,
-                                                 int c0, int c1, int c2,
-                                                 uint32_t bar,
-                                                 uint16_t ctas) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes.multicast::cluster [%0], [%1, {%2, %3, %4}], [%5], %6;\n" ::
-          "r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(bar), "h"(ctas)
-      : "memory");
-}
-// one arrival that also expects `bytes` more of asynchronous copies
-__device__ __forceinline__ void bar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-// Rows [0, kKC) of the W[d] rows at src (row stride h), columns
-// [n0, n0 + kBN), into a ring slot: MN-major blocks of 64 columns, each
-// [kKC t rows, 128 bytes] swizzled.  Rows at or past `rows` and columns at
-// or past h are zeros.  vec: h a multiple of 8 and src 16-byte aligned.
-// i0, step: this thread's first piece and the producer's thread count.
-__device__ __forceinline__ void load_w(unsigned char* dst, const bf16* src,
-                                       int h, int rows, int n0, bool vec,
-                                       int i0, int step) {
-  if (vec) {
-    for (int i = i0; i < kKC * kWPieces; i += step) {
-      const int r = i / kWPieces, p = i % kWPieces, col = n0 + p * 8;
-      const bool ok = r < rows && col < h;
-      tf32x3::cp_async16(dst + (p / 8) * kWBlockBytes + swizzled(r, p % 8),
-                         ok ? src + (size_t)r * h + col : src, ok);
-    }
-  } else {
-    for (int i = i0; i < kKC * kBN; i += step) {
-      const int r = i / kBN, c = i % kBN, col = n0 + c;
-      *reinterpret_cast<bf16*>(dst + (c / 64) * kWBlockBytes +
-                               swizzled(r, c % 64 / 8) + c % 8 * 2) =
-          r < rows && col < h ? src[(size_t)r * h + col]
-                              : __float2bfloat16_rn(0.0f);
-    }
-  }
-}
-
-// Columns [0, cols) of the kBM rows at src (row stride ld; rows at or
-// past `rows` are zeros) into K-major blocks of 64 columns, each [kBM
-// rows, 128 bytes] swizzled; columns past cols, up to the last block's
-// end, are zeros.  vec: ld a multiple of 8 and src 16-byte aligned.
-__device__ __forceinline__ void load_x(unsigned char* dst, const bf16* src,
-                                       int ld, int rows, int cols, bool vec,
-                                       int i0, int step) {
-  const int blocks = (cols + 63) / 64;
-  if (vec) {
-    const int pieces = blocks * 8;
-    for (int i = i0; i < kBM * pieces; i += step) {
-      const int r = i / pieces, p = i % pieces;
-      const bool ok = r < rows && p * 8 < cols;
-      tf32x3::cp_async16(dst + (p / 8) * kXBlockBytes + swizzled(r, p % 8),
-                         ok ? src + (size_t)r * ld + p * 8 : src, ok);
-    }
-  } else {
-    const int vals = blocks * 64;
-    for (int i = i0; i < kBM * vals; i += step) {
-      const int r = i / vals, c = i % vals;
-      *reinterpret_cast<bf16*>(dst + (c / 64) * kXBlockBytes +
-                               swizzled(r, c % 64 / 8) + c % 8 * 2) =
-          r < rows && c < cols ? src[(size_t)r * ld + c]
-                               : __float2bfloat16_rn(0.0f);
-    }
-  }
-}
+static_assert(kNVals == kN208Vals, "one m64n208k16 fragment");
 
 // Block (row tile, column tile, slice s) as the f32 kernel's; writes out
 // (S == 1, rounded to bf16) or the slice's f32 partial at part + s M H.
@@ -555,11 +375,11 @@ deprel_bilinear_bf16_kernel(const __grid_constant__ CUtensorMap map_x,
         if (it >= kStages) bar_wait(empty(it % kStages),
                                     (it / kStages - 1) & 1);
         const int d = d0 + c / per_d, tc = c % per_d * kKC;
-        load_w(ring + it % kStages * kStageBytes,
+        load_w<kKC, kBN>(ring + it % kStages * kStageBytes,
                w + ((size_t)d * t + tp0 + tc) * h, h, min(kKC, tp - tc),
                n0, vec_w, pt, 128);
         if (c == 0)  // the pass's x rides with its first chunk
-          load_x(xt, x + (size_t)m0 * t + tp0, t, m - m0, tp, vec_x, pt,
+          load_x<kBM>(xt, x + (size_t)m0 * t + tp0, t, m - m0, tp, vec_x, pt,
                  128);
         tf32x3::cp_async_commit();
         if (it + 1 - reported == kLag) {  // the oldest chunk has landed
@@ -755,33 +575,11 @@ int launch_f32(const void* x, const void* e, const void* w, void* out,
   return finish<float>(cudaGetLastError(), part, out, m, h, slices, st);
 }
 
-// cuTensorMapEncodeTiled from the driver, found through the runtime (the
-// library links no libcuda)
-decltype(&cuTensorMapEncodeTiled) tensor_map_encoder() {
-  static decltype(&cuTensorMapEncodeTiled) fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<decltype(&cuTensorMapEncodeTiled)>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // The tensor maps of x [M, T] (boxes of 128 rows x 64 t) and W [D, T, H]
 // (boxes of one d, kKC rows, 64 columns), 128-byte swizzled, zeros
 // outside; false where the driver refuses them.
 bool tensor_maps(CUtensorMap* map_x, CUtensorMap* map_w, const void* x,
                  const void* w, int m, int t, int d_dim, int h) {
-  const auto encode = tensor_map_encoder();
-  if (!encode) return false;
   const cuuint64_t x_dim[2] = {(cuuint64_t)t, (cuuint64_t)m};
   const cuuint64_t x_stride[1] = {(cuuint64_t)t * 2};
   const cuuint32_t x_box[2] = {64, wg::kBM};
@@ -789,17 +587,8 @@ bool tensor_maps(CUtensorMap* map_x, CUtensorMap* map_w, const void* x,
                                (cuuint64_t)d_dim};
   const cuuint64_t w_stride[2] = {(cuuint64_t)h * 2, (cuuint64_t)t * h * 2};
   const cuuint32_t w_box[3] = {64, wg::kKC, 1};
-  const cuuint32_t ones[3] = {1, 1, 1};
-  return encode(map_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                const_cast<void*>(x), x_dim, x_stride, x_box, ones,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS &&
-         encode(map_w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(w), w_dim, w_stride, w_box, ones,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return hopper::bf16_tensor_map(map_x, x, 2, x_dim, x_stride, x_box) &&
+         hopper::bf16_tensor_map(map_w, w, 3, w_dim, w_stride, w_box);
 }
 
 int launch_bf16(const void* x, const void* e, const void* w, void* out,
@@ -825,11 +614,11 @@ int launch_bf16(const void* x, const void* e, const void* w, void* out,
                    tensor_maps(&map_x, &map_w, x, w, m, t, d_dim, h);
   const cudaStream_t st = (cudaStream_t)stream;
   wg::deprel_bilinear_bf16_kernel<<<grid, wg::kThreads, smem, st>>>(
-      map_x, map_w, static_cast<const wg::bf16*>(x),
-      static_cast<const wg::bf16*>(e), static_cast<const wg::bf16*>(w),
-      static_cast<wg::bf16*>(out), static_cast<float*>(part), m, t, d_dim,
+      map_x, map_w, static_cast<const hopper::bf16*>(x),
+      static_cast<const hopper::bf16*>(e), static_cast<const hopper::bf16*>(w),
+      static_cast<hopper::bf16*>(out), static_cast<float*>(part), m, t, d_dim,
       h, slices, tma, vec_x, vec_w);
-  return finish<wg::bf16>(cudaGetLastError(), part, out, m, h, slices, st);
+  return finish<hopper::bf16>(cudaGetLastError(), part, out, m, h, slices, st);
 }
 
 }  // namespace

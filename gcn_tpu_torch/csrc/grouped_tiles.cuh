@@ -38,9 +38,10 @@
 // partials into dS[g] in chunk order.  No block walks more than kKC rows,
 // there are no float atomics, and two calls give the same bits.
 //
-// bf16 storage is converted to f32 on its way into shared memory (plain
-// loads; exact) and takes the same arithmetic: its lo parts are zero, so
-// two of the three products add exact zeros.
+// bf16 storage (the backward's; the bf16 forward is a wgmma kernel of its
+// own, grouped_matmul.cu) is converted to f32 on its way into shared
+// memory (plain loads; exact) and takes the same arithmetic: its lo parts
+// are zero, so two of the three products add exact zeros.
 
 #pragma once
 

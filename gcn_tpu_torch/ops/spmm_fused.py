@@ -7,8 +7,11 @@ Counterpart of ``gcn_tpu.ops.pallas.spmm_fused``:
 
 On a CUDA tensor ``gcn_spmm_forward`` launches the hand-written kernel in
 ``csrc/spmm_fused.cu``, which does the product with W in its own body on
-the tensor cores in 3xTF32 (``csrc/tf32x3_tile.cuh``: each operand split
-into two TF32 parts, three products a k-step, f32-level error), and
+the tensor cores: in f32 in 3xTF32 (``csrc/tf32x3_tile.cuh``: each operand
+split into two TF32 parts, three products a k-step, f32-level error), in
+bf16 by ``mma.sync.m16n8k16`` on bf16 fragments, f32 sums, while warps of
+its own gather ``S h`` (from the sentence's rows staged in shared memory)
+into a resident bf16 tile; and
 ``sym_pair`` (``(S x1, S x2)`` with ``S = A_f + A_fᵀ +
 diag(incident + 1)``, the backward's aggregation) its second kernel; both
 find each row's neighbours by warp ballots over the edge slots
@@ -50,10 +53,18 @@ SYM_PAIR_KERNEL = CudaKernel("spmm_fused.cu", {
     for t in ("f32", "bf16")}, name="spmm_fused_sym_pair")
 def forward_smem_bytes(n: int, e: int, itemsize: int = 4) -> int:
     """Shared memory of the forward for E edge slots and operands of
-    ``itemsize`` bytes (csrc/spmm_fused.cu ``fwd_tiles``): the slots'
-    parents and children, 16-byte aligned, 48 row degrees, the f32 (S h)
-    tile of 48 rows x (256 + 4), and three W chunks of 32 x (224 + 8) in
-    the operands' dtype."""
+    ``itemsize`` bytes (csrc/spmm_fused.cu).  f32: the slots' parents and
+    children, 16-byte aligned, then 48 row degrees, the f32 (S h) tile of
+    48 rows x (256 + 4) and three W chunks of 32 x (224 + 8).  bf16
+    (``fwd16``): the slots and the warps' neighbour lists, 4E + 48 ints,
+    8 barriers, 12 list lengths, 48 row degrees, the bf16 (S h) tile of
+    48 rows x (384 + 8), 1 KB of alignment and at least two swizzled W
+    chunks of 32 x 256 (up to six where they fit); the kernel also stages
+    the sentence's rows of h in shared memory where they fit beside these,
+    and reads them from device memory where not."""
+    if itemsize == 2:
+        return (4 * (4 * e + 48) + 8 * 8 + 4 * (12 + 48) + 2 * 48 * 392
+                + 1024 + 2 * 32 * 256 * 2)
     return (edges_bytes(n, e) + 4 * (48 + 48 * 260)
             + itemsize * 3 * 32 * 232)
 

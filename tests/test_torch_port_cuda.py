@@ -55,9 +55,13 @@ from gcn_tpu_torch.train.trainer import Trainer
 GMM_CASES = ["random", "empty_groups", "one_group", "straddle_tile",
              "rows_past_sum"]
 # the card's cases add the shapes of the CUDA kernels' work lists: groups
-# of many dS chunks beside small and empty ones, and the C-GCN's widths
+# of many dS chunks beside small and empty ones, and the C-GCN's widths;
+# and the bf16 forward's edges: groups of one row and starts off the
+# multiples of 8 (its TMA boxes), T = 37 and H = 5 (the copies TMA cannot
+# take), T past its four-stage ring (640, and 1084 with T % 8 = 4)
 GMM_CARD_CASES = GMM_CASES + ["padding_heavy", "path_widths_T400",
-                              "path_widths_T200"]
+                              "path_widths_T200", "ragged_starts",
+                              "t37_h5", "wide_t640", "wide_t1084"]
 JAX_TILE_M = 128  # the Pallas kernel's row tile (the CUDA kernel's too)
 GMM_DS_CHUNK = 256  # rows a dS chunk of the CUDA kernel at most
 EDGE_CASES = ["random", "duplicates", "self_edge", "all_masked", "isolated",
@@ -104,8 +108,18 @@ def gmm_case(name):
         gs = np.array([JAX_TILE_M - 3, 7, JAX_TILE_M + 5, 1])
     elif name == "rows_past_sum":
         gs, past = np.array([40, 0, 30, 0]), 30
+    elif name == "ragged_starts":
+        t, h = 64, 200
+        gs = np.array([1, 3, 7, 1, 0, 130, 5, 1, 61, 2])
+    elif name == "t37_h5":
+        t, h, past = 37, 5, 2
+        gs = np.array([1, 9, 0, 140, 3])
+    elif name.startswith("wide_t"):
+        t, h = int(name[len("wide_t"):]), 200
+        gs = np.array([100, 1, 50, 0, 200])
     m = int(gs.sum()) + past
-    if name.startswith("path_widths"):  # the chip smoke's scales
+    if name.startswith(("path_widths", "ragged_starts", "t37", "wide_t")):
+        # the chip smoke's scales
         x = rng.uniform(-1, 1, (m, t)).astype(np.float32)
         s = (rng.randn(gs.shape[0], t, h) / np.sqrt(t)).astype(np.float32)
     else:
@@ -353,10 +367,37 @@ def test_grouped_matmul_kernel_matches_plain(cuda_device, name):
     assert torch.equal(got, again)
     torch.testing.assert_close(got, gmm_mod.grouped_matmul_plain(x, s, gs),
                                atol=1e-4, rtol=1e-5)
-    got16 = gmm_mod.grouped_matmul(x.bfloat16(), s.bfloat16(), gs)
-    want16 = gmm_mod.grouped_matmul_plain(x.bfloat16(), s.bfloat16(), gs)
+    check_gmm_bf16(x.bfloat16(), s.bfloat16(), gs)
+
+
+def check_gmm_bf16(x, s, gs):
+    """The bf16 forward on x, s: two launches of its bf16 instance, the
+    same bits twice, within 1e-2 of max(1, max |plain|) of its plain
+    version (and its bits but one rounding step past 1e-4, bf16_flip)."""
+    launches = gmm_mod.KERNEL.launches_of("_bf16")
+    got16 = gmm_mod.grouped_matmul(x, s, gs)
+    again = gmm_mod.grouped_matmul(x, s, gs)
+    assert gmm_mod.KERNEL.launches_of("_bf16") == launches + 2
+    assert got16.dtype == torch.bfloat16 and torch.equal(got16, again)
+    want16 = gmm_mod.grouped_matmul_plain(x, s, gs)
     scale = max(1.0, float(want16.float().abs().max()))
     assert float((got16.float() - want16.float()).abs().max()) <= 1e-2 * scale
+    print(f"grouped matmul bf16 {tuple(x.shape)}: largest difference "
+          f"{bf16_flip(got16, want16, 1e-4):.3g}")
+
+
+@pytest.mark.cuda
+def test_grouped_matmul_bf16_takes_an_unaligned_x(cuda_device):
+    """x contiguous at an odd element offset of its storage (a base that
+    is not 16-byte aligned, which TMA refuses), at the C-GCN's second
+    layer's widths."""
+    x, s, gs = gmm_case("path_widths_T200")
+    flat = torch.from_numpy(np.concatenate([[0.0], x.ravel()]).astype(
+        np.float32)).to(cuda_device).bfloat16()
+    xb = flat[1:].view(x.shape)
+    assert xb.is_contiguous() and xb.data_ptr() % 16 != 0
+    check_gmm_bf16(xb, torch.from_numpy(s).to(cuda_device).bfloat16(),
+                   torch.from_numpy(gs).to(cuda_device))
 
 
 @pytest.mark.cuda
@@ -597,8 +638,11 @@ def tree_edges(rng, b, n):
     return parent, child, mask
 
 
-# The fused layer's forward on its 48-row, 208-column 3xTF32 tiles, which
-# gather (S h) 128 columns of T at a time: (B, N, T, H, edges).
+# The fused layer's forward on its tiles: in f32 48 rows by 224 columns,
+# gathering (S h) 256 columns of T at a time; in bf16 32 rows by 224
+# columns, (S h) resident in blocks of 128 columns, 384 a pass (wide_t*:
+# two and three passes; t37_h5: the element-wise copies):
+# (B, N, T, H, edges).
 SPMM_TILE_CASES = {
     "gcn_T360": (50, 96, 360, 200, "trees"),   # the paper GCN's layer 1
     "gcn_T200": (50, 96, 200, 200, "trees"),   # and layer 2, full widths
@@ -608,6 +652,10 @@ SPMM_TILE_CASES = {
     "one_node": (4, 1, 75, 70, "trees"),           # sentences of N = 1
     "no_valid_edge": (3, 20, 75, 70, "masked"),
     "h_past_tile": (2, 30, 140, 300, "random"),    # two column tiles
+    "rows_past_32": (3, 33, 75, 70, "random"),     # 32 rows + 1
+    "t37_h5": (3, 20, 37, 5, "random"),
+    "wide_t640": (2, 40, 640, 200, "trees"),
+    "wide_t1084": (2, 40, 1084, 200, "trees"),
 }
 
 
@@ -634,6 +682,30 @@ def test_spmm_fused_forward_on_its_tiles(cuda_device, name, dtype):
     assert torch.equal(got, again)
     assert scaled_err(got, spmm_mod.gcn_spmm_plain(*edges, x, w, bias)) \
         <= tol
+
+
+@pytest.mark.cuda
+def test_spmm_fused_bf16_forward_takes_an_unaligned_h(cuda_device):
+    """h contiguous at an odd element offset of its storage (its 8-byte
+    loads refused), at the paper GCN's second layer's widths."""
+    b, n, t, h = 6, 96, 200, 200
+    rng = np.random.RandomState(11)
+    edges = [torch.from_numpy(a).to(cuda_device)
+             for a in tree_edges(rng, b, n)]
+    flat, w, bias = features(rng, cuda_device, (b * n * t + 1,), (t, h),
+                             (h,))
+    x = flat.bfloat16()[1:].view(b, n, t)
+    assert x.is_contiguous() and x.data_ptr() % 8 != 0
+    w, bias = (w / np.sqrt(t)).bfloat16(), bias.bfloat16()
+    launches = spmm_mod.KERNEL.launches_of("_bf16")
+    got = spmm_mod.gcn_spmm_forward(*edges, x, w, bias)
+    again = spmm_mod.gcn_spmm_forward(*edges, x, w, bias)
+    assert spmm_mod.KERNEL.launches_of("_bf16") == launches + 2
+    assert torch.equal(got, again)
+    want = spmm_mod.gcn_spmm_plain(*edges, x, w, bias)
+    assert scaled_err(got, want) <= 1e-2
+    print(f"fused layer bf16, unaligned h: largest difference "
+          f"{bf16_flip(got, want, 1e-5):.3g}")
 
 
 @pytest.mark.cuda
