@@ -31,14 +31,15 @@ Phases, one JSON line each:
    bits twice, timed alike, its bound on bf16 bytes (and the bf16 tensor
    cores' peak where a product counts), its library call in bf16 (where
    the build takes a sparse bf16 product; else ``None`` and the reason);
-   the bf16 kernels on the tensor cores (grouped matmul forward, fused
-   layer forward, bilinear) with their TFLOP/s and ``ptxas`` registers
-   and spills, and a spill fails the first two;
+   the bf16 kernels on the tensor cores (grouped matmul forward and
+   backward, fused layer forward, bilinear) with their TFLOP/s and
+   ``ptxas`` registers and spills, and a spill fails the first three;
    for the
    scans also their cluster
    partition and how many of its clusters fit the card at once, and the
    backward's time by launch (gates, chain, dW; for the grouped matmul's,
-   dx, dS and the partials' sum); then the floor of the graph timings
+   in f32 and in bf16, dx, dS and the partials' sum); then the floor of
+   the graph timings
    (a one-element add, timed both ways);
 4. slice  — for each path, ``Evaluator`` at full widths (random weights
    from a seeded ``torch.Generator``) over B=50 batches of the in-repo
@@ -877,7 +878,20 @@ def backward_yardstick(torch, x, s, g, offs, dtype: str):
         f"forward" + ("" if graph is not None else f"; {both[2]}"))
 
 
-def check_gmm_backward(torch, rng, dev, gs) -> list[dict]:
+def split_by_launch(torch, fn) -> dict | None:
+    """ms a call of each grouped matmul kernel that ``fn`` launches, by the
+    profiler over five eager calls (None where it saw no device time)."""
+    split = device_time(torch, lambda: [fn() for _ in range(5)])
+    return None if split is None else {
+        k: v / 5 for k, v in split["top_kernels_ms"].items()
+        if "grouped_matmul" in k}
+
+
+def check_gmm_backward(torch, rng, dev, gs, ptxas: dict) -> list[dict]:
+    """Kernel 4 at kernel 3's shapes, f32 and bf16 (the same inputs,
+    rounded), each with its time by launch (dx, dS, the partials' sum)
+    and against torch._grouped_mm's autograd backward in the row's dtype;
+    the bf16 row with its TFLOP/s and ``ptxas`` lines (a spill fails it)."""
     from gcn_tpu_torch.ops import grouped_matmul as mod
 
     r = gs.shape[0]
@@ -907,10 +921,7 @@ def check_gmm_backward(torch, rng, dev, gs) -> list[dict]:
         fn = functools.partial(mod.grouped_matmul_backward, x, g, s, gs)
         plain_ms = time_ms(
             lambda: mod.grouped_matmul_backward_plain(x, g, s, gs), 10)
-        split = device_time(torch, lambda: [fn() for _ in range(5)])
-        split_ms = None if split is None else {
-            k: v / 5 for k, v in split["top_kernels_ms"].items()
-            if "grouped_matmul" in k}
+        split_ms = split_by_launch(torch, fn)
         # yardstick only (the port never calls it): torch._grouped_mm's
         # autograd backward, forward+backward minus forward, each timed as
         # the forward rows time theirs
@@ -931,6 +942,9 @@ def check_gmm_backward(torch, rng, dev, gs) -> list[dict]:
         want_b = mod.grouped_matmul_backward_plain(*args_b)
         lib_b, lib_b_eager, lib_b_note = backward_yardstick(
             torch, args_b[0], args_b[2], args_b[1], offs, "bf16")
+        fn_b = functools.partial(mod.grouped_matmul_backward, *args_b)
+        times_b = kernel_ms(fn_b)
+        lines_b = ptxas_of(ptxas, "_bf16_kernel")
         row_b = {
             "name": f"grouped_matmul_backward_bf16_T{t}", "route": "cuda",
             "source": "gcn_tpu_torch/csrc/grouped_matmul_backward.cu",
@@ -940,9 +954,12 @@ def check_gmm_backward(torch, rng, dev, gs) -> list[dict]:
             "max_abs_err": max(max_err(a, b) for a, b in zip(first, want_b)),
             "errs": {"bf16": errs["bf16"]}, "same_bits_twice": same_b,
             "tol": {"bf16": TOL_BF16},
-            "ok": errs["bf16"] <= TOL_BF16 and same_b,
-            **kernel_ms(functools.partial(mod.grouped_matmul_backward,
-                                          *args_b)),
+            "ok": (errs["bf16"] <= TOL_BF16 and same_b
+                   and spill_free(lines_b) is not False),
+            **times_b, "tflops": 4.0 * m * t * h / (times_b["ms"] * 1e-3)
+            / 1e12,
+            "ptxas": lines_b,
+            "split_ms_profiler": split_by_launch(torch, fn_b),
             "plain_ms": time_ms(
                 lambda: mod.grouped_matmul_backward_plain(*args_b), 10),
             # x, g, the used groups' S and dx bf16; every group's dS f32
@@ -1805,9 +1822,11 @@ KERNEL_GROUPS = (  # device time by category, matched on kernel names
                                "lstm_dw_kernel")),
     ("grouped matmul forward kernel", ("grouped_matmul_fwd_kernel",
                                        "grouped_matmul_fwd_bf16_kernel")),
-    ("grouped matmul backward dx kernel", ("grouped_matmul_dx_kernel",)),
-    ("grouped matmul backward dS kernels", ("grouped_matmul_ds_kernel",
-                                            "grouped_matmul_ds_sum_kernel")),
+    ("grouped matmul backward dx kernel", ("grouped_matmul_dx_kernel",
+                                           "grouped_matmul_dx_bf16_kernel")),
+    ("grouped matmul backward dS kernels", (
+        "grouped_matmul_ds_kernel", "grouped_matmul_ds_bf16_kernel",
+        "grouped_matmul_ds_sum_kernel", "grouped_matmul_ds_sum_bf16_kernel")),
     ("band aggregate forward kernel", ("band_aggregate_fwd_kernel",)),
     ("band aggregate pair kernel", ("band_pair_kernel",)),
     ("fused GCN layer forward kernel", ("spmm_fused_fwd_kernel",
@@ -2993,7 +3012,8 @@ def main() -> int:
     rows = (check_lstm(torch, rng, dev)
             + check_gmm(torch, rng, dev, gs, ptxas["grouped_matmul"])
             + check_lstm_backward(torch, rng, dev)
-            + check_gmm_backward(torch, rng, dev, gs)
+            + check_gmm_backward(torch, rng, dev, gs,
+                                 ptxas["grouped_matmul_backward"])
             + check_band(torch, rng, dev, edges)
             + check_spmm(torch, rng, dev, edges, ptxas["spmm_fused"])
             + check_sddmm(torch, rng, dev, edges))

@@ -74,8 +74,8 @@ grouped_matmul_fwd_kernel(const float* __restrict__ x,
                           const int* __restrict__ group_ends,
                           float* __restrict__ y, int m, int t, int h, int r,
                           bool vec_x, bool vec_s) {
-  gmm::tile_product<gmm::kFwd, float>(x, s, group_ends, y, nullptr, m, t, h,
-                                      r, vec_x, vec_s);
+  gmm::tile_product<gmm::kFwd>(x, s, group_ends, y, nullptr, m, t, h, r,
+                               vec_x, vec_s);
 }
 
 int launch_f32(const void* x, const void* s, const void* group_ends, void* y,

@@ -1,5 +1,5 @@
-// The grouped (ragged) matmul's three products on the 3xTF32 tensor-core
-// mainloop (tf32x3_tile.cuh), over work lists cut per group:
+// The grouped (ragged) matmul's work lists, and its three f32 products on
+// the 3xTF32 tensor-core mainloop (tf32x3_tile.cuh) over them:
 //   forward  y[rows of g]  = x[rows of g] S[g]         (grouped_matmul.cu)
 //   dx       dx[rows of g] = g[rows of g] S[g]ᵀ        (grouped_matmul_backward.cu)
 //   dS       dS[g]         = x[rows of g]ᵀ g[rows of g]
@@ -38,14 +38,15 @@
 // partials into dS[g] in chunk order.  No block walks more than kKC rows,
 // there are no float atomics, and two calls give the same bits.
 //
-// bf16 storage (the backward's; the bf16 forward is a wgmma kernel of its
-// own, grouped_matmul.cu) is converted to f32 on its way into shared
-// memory (plain loads; exact) and takes the same arithmetic: its lo parts
-// are zero, so two of the three products add exact zeros.
+// The bf16 instances are wgmma kernels of their own on the same lists
+// (grouped_matmul.cu's forward, grouped_matmul_backward.cu's dx and dS):
+// their products are bound by bytes on the bf16 tensor cores, where the
+// 3xTF32 mainloop over bf16 widened to f32 ran a quarter of the TF32 peak
+// with two of its three products adding exact zeros.  They share
+// find_piece, the partial slots and add_partials with the f32 instances.
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -79,55 +80,15 @@ struct Geo {
   static constexpr size_t kSmem = sizeof(float) * kStages * kStageFloats;
 };
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// tf32x3::copy_tile for T = float (cp.async; vec: 16 bytes a copy); for
-// bf16, plain loads converted to f32 (vec: 8 values a load), stored as
-// copy_tile lays them out.  Rows at or past valid_rows and columns at or
-// past cols read as zero.
-template <typename T, int kRows, int kCols, int kLd>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int ld,
-                                          int valid_rows, int c0, int cols,
-                                          bool vec) {
-  if constexpr (std::is_same_v<T, float>) {
-    tf32x3::copy_tile<kRows, kCols, kLd, Tl::kThreads>(dst, src, ld,
-                                                       valid_rows, c0, cols,
-                                                       vec);
-  } else if (vec) {
-    constexpr int kVecs = kCols / 8;
-    for (int i = threadIdx.x; i < kRows * kVecs; i += Tl::kThreads) {
-      const int r = i / kVecs, c = (i % kVecs) * 8;
-      float v[8] = {};
-      if (r < valid_rows && c0 + c < cols) {
-        const uint4 raw =
-            *reinterpret_cast<const uint4*>(src + (size_t)r * ld + c0 + c);
-        const __nv_bfloat16* b = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-        for (int k = 0; k < 8; ++k) v[k] = __bfloat162float(b[k]);
-      }
-      float4* d = reinterpret_cast<float4*>(dst + r * kLd + c);
-      d[0] = make_float4(v[0], v[1], v[2], v[3]);
-      d[1] = make_float4(v[4], v[5], v[6], v[7]);
-    }
-  } else {
-    for (int i = threadIdx.x; i < kRows * kCols; i += Tl::kThreads) {
-      const int r = i / kCols, c = i % kCols;
-      dst[r * kLd + c] = r < valid_rows && c0 + c < cols
-                             ? to_f32(src[(size_t)r * ld + c0 + c])
-                             : 0.0f;
-    }
-  }
+// tf32x3::copy_tile at the block's thread count (cp.async; vec: 16 bytes
+// a copy).  Rows at or past valid_rows and columns at or past cols read as
+// zero.
+template <int kRows, int kCols, int kLd>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          int ld, int valid_rows, int c0,
+                                          int cols, bool vec) {
+  tf32x3::copy_tile<kRows, kCols, kLd, Tl::kThreads>(dst, src, ld, valid_rows,
+                                                     c0, cols, vec);
 }
 
 // Rows [start, end) of group g (clamped to [0, m); the last group runs to
@@ -221,10 +182,10 @@ __device__ Piece find_piece(const int* __restrict__ ends, int r, int m,
 //   dx:  a = g [M, H], b = s [R, T, H], out = dx [M, T]
 //   dS:  a = x [M, T], b = g [M, H], out = ds [R, T, H] f32, part = the
 //        partials [slots, T, H] f32
-template <Mode kMode, typename T>
+template <Mode kMode>
 __device__ __forceinline__ void tile_product(
-    const T* __restrict__ a, const T* __restrict__ b,
-    const int* __restrict__ ends, void* __restrict__ out,
+    const float* __restrict__ a, const float* __restrict__ b,
+    const int* __restrict__ ends, float* __restrict__ out,
     float* __restrict__ part, int m, int t, int h, int r, bool vec_a,
     bool vec_b) {
   using G = Geo<kMode>;
@@ -250,21 +211,21 @@ __device__ __forceinline__ void tile_product(
       float* bs = as + G::kAFloats;
       const int k0 = c * kBK;
       if constexpr (kMode == kFwd) {
-        load_tile<T, kBM, kBK, G::kLda>(as, a + (size_t)p.row0 * t, t,
-                                        p.rows, k0, t, vec_a);
-        load_tile<T, kBK, Tl::kBN, G::kLdb>(
+        load_tile<kBM, kBK, G::kLda>(as, a + (size_t)p.row0 * t, t, p.rows,
+                                     k0, t, vec_a);
+        load_tile<kBK, Tl::kBN, G::kLdb>(
             bs, b + p.group * th + (size_t)k0 * h, h, t - k0, n0, h, vec_b);
       } else if constexpr (kMode == kDx) {
-        load_tile<T, kBM, kBK, G::kLda>(as, a + (size_t)p.row0 * h, h,
-                                        p.rows, k0, h, vec_a);
-        load_tile<T, Tl::kBN, kBK, G::kLdb>(
+        load_tile<kBM, kBK, G::kLda>(as, a + (size_t)p.row0 * h, h, p.rows,
+                                     k0, h, vec_a);
+        load_tile<Tl::kBN, kBK, G::kLdb>(
             bs, b + p.group * th + (size_t)n0 * h, h, t - n0, k0, h, vec_b);
       } else {
         const size_t row = (size_t)p.row0 + k0;
-        load_tile<T, kBK, kBM, G::kLda>(as, a + row * t, t, p.rows - k0, m0,
-                                        t, vec_a);
-        load_tile<T, kBK, Tl::kBN, G::kLdb>(bs, b + row * h, h, p.rows - k0,
-                                            n0, h, vec_b);
+        load_tile<kBK, kBM, G::kLda>(as, a + row * t, t, p.rows - k0, m0, t,
+                                     vec_a);
+        load_tile<kBK, Tl::kBN, G::kLdb>(bs, b + row * h, h, p.rows - k0, n0,
+                                         h, vec_b);
       }
     }
     tf32x3::cp_async_commit();
@@ -349,13 +310,11 @@ __device__ __forceinline__ void tile_product(
           if (col >= cols) continue;
           const float v = acc[mt][j][hf * 2 + i];
           if constexpr (kMode == kDs) {
-            float* dst = p.index == 0 ? static_cast<float*>(out) +
-                                            p.group * th
+            float* dst = p.index == 0 ? out + p.group * th
                                       : part + p.slot * th;
             dst[(size_t)(m0 + row) * ld + col] = v;
           } else {
-            static_cast<T*>(out)[(size_t)(p.row0 + row) * ld + col] =
-                from_f32<T>(v);
+            out[(size_t)(p.row0 + row) * ld + col] = v;
           }
         }
     }

@@ -58,7 +58,12 @@ GMM_CASES = ["random", "empty_groups", "one_group", "straddle_tile",
 # of many dS chunks beside small and empty ones, and the C-GCN's widths;
 # and the bf16 forward's edges: groups of one row and starts off the
 # multiples of 8 (its TMA boxes), T = 37 and H = 5 (the copies TMA cannot
-# take), T past its four-stage ring (640, and 1084 with T % 8 = 4)
+# take), T past its four-stage ring (640, and 1084 with T % 8 = 4).  The
+# bf16 backward's dS boxes, which bring the next group's rows, have a case
+# of their own, loud_neighbours (every other group's rows 1000 times
+# larger), held group by group (test_grouped_matmul_backward_keeps_groups_
+# apart): the forward's element-wise tolerance is set for rows of unit
+# scale
 GMM_CARD_CASES = GMM_CASES + ["padding_heavy", "path_widths_T400",
                               "path_widths_T200", "ragged_starts",
                               "t37_h5", "wide_t640", "wide_t1084"]
@@ -83,7 +88,9 @@ def gmm_case(name):
     (one a whole number of them), 60 groups of 1-100 rows, empty groups and
     a last group with rows past the sum, at odd T and H; ``path_widths_T*``
     the C-GCN layer's widths at a quarter of its rows, two padding groups
-    beside 80 groups of 5-30 rows."""
+    beside 80 groups of 5-30 rows; ``loud_neighbours`` groups that start
+    off the 64-row boxes, one of several dS chunks, the rows of every
+    other group (``loud_rows``) 1000 times larger."""
     rng = np.random.RandomState(sum(map(ord, name)))
     t, h = 24, 20
     past = 0  # rows past the sum, in the last group
@@ -117,15 +124,33 @@ def gmm_case(name):
     elif name.startswith("wide_t"):
         t, h = int(name[len("wide_t"):]), 200
         gs = np.array([100, 1, 50, 0, 200])
+    elif name == "loud_neighbours":
+        t, h, past = 128, 200, 3
+        gs = np.array([37, 70, 5, 130, 64, 1, 90, 2 * GMM_DS_CHUNK + 9, 0,
+                       45, 20])
     m = int(gs.sum()) + past
-    if name.startswith(("path_widths", "ragged_starts", "t37", "wide_t")):
+    if name.startswith(("path_widths", "ragged_starts", "t37", "wide_t",
+                        "loud")):
         # the chip smoke's scales
         x = rng.uniform(-1, 1, (m, t)).astype(np.float32)
         s = (rng.randn(gs.shape[0], t, h) / np.sqrt(t)).astype(np.float32)
+        x *= loud_rows(name, gs, m)[:, None]
     else:
         x = rng.randn(m, t).astype(np.float32)
         s = rng.randn(gs.shape[0], t, h).astype(np.float32)
     return x, s, gs.astype(np.int32)
+
+
+def loud_rows(name, gs, m):
+    """Each row's scale in case ``name``: 1000 in the groups of odd index
+    of ``loud_neighbours`` (and in the rows past the sum where the last
+    group is one), 1 elsewhere."""
+    scale = np.ones(m, np.float32)
+    if name == "loud_neighbours":
+        gid = np.minimum(np.searchsorted(np.cumsum(gs), np.arange(m),
+                                         side="right"), gs.shape[0] - 1)
+        scale[gid % 2 == 1] = 1000.0
+    return scale
 
 
 def edge_case(name, b=3, n=10, e=10):
@@ -468,6 +493,62 @@ def test_grouped_matmul_backward_kernel_matches_plain(cuda_device, name):
         assert scaled_err(dx, want_dx) <= tol
         assert scaled_err(ds, want_ds) <= tol
         assert not bool(ds[gs == 0].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_matmul_backward_keeps_groups_apart(cuda_device, dtype):
+    """``loud_neighbours`` with g's rows scaled as x's: each group's dS
+    within the tolerance of its own scale, so a row of the next (1000
+    times larger) group that leaked into a group's sum would fail it."""
+    x, s, gs = gmm_case("loud_neighbours")
+    m = x.shape[0]
+    g = np.random.RandomState(3).randn(m, s.shape[2]).astype(np.float32)
+    g *= loud_rows("loud_neighbours", gs, m)[:, None]
+    args = [torch.from_numpy(a).to(cuda_device, dtype) for a in (x, g, s)]
+    args.append(torch.from_numpy(gs).to(cuda_device))
+    dx, ds = gmm_mod.grouped_matmul_backward(*args)
+    want_dx, want_ds = gmm_mod.grouped_matmul_backward_plain(*args)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    assert scaled_err(dx, want_dx) <= tol
+    for grp in range(gs.shape[0]):
+        assert scaled_err(ds[grp], want_ds[grp]) <= tol, grp
+    assert not bool(ds[torch.from_numpy(gs) == 0].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("operand", ["x", "g"])
+def test_grouped_matmul_backward_bf16_takes_an_unaligned_operand(
+        cuda_device, operand):
+    """x (dS's operand) or g (both products') contiguous at an odd element
+    offset of its storage, a base that TMA refuses, at the C-GCN's second
+    layer's widths: the copying threads' path, the same bits twice, within
+    1e-2 of the plain version."""
+    x, s, gs = gmm_case("path_widths_T200")
+    g = np.random.RandomState(3).randn(x.shape[0], s.shape[2]).astype(
+        np.float32)
+
+    def on_card(a, shifted):
+        if not shifted:
+            return torch.from_numpy(a).to(cuda_device).bfloat16()
+        flat = torch.from_numpy(np.concatenate([[0.0], a.ravel()]).astype(
+            np.float32)).to(cuda_device).bfloat16()
+        out = flat[1:].view(a.shape)
+        assert out.is_contiguous() and out.data_ptr() % 16 != 0
+        return out
+
+    args = (on_card(x, operand == "x"), on_card(g, operand == "g"),
+            on_card(s, False), torch.from_numpy(gs).to(cuda_device))
+    launches = gmm_mod.BACKWARD_KERNEL.launches_of("_bf16")
+    dx, ds = gmm_mod.grouped_matmul_backward(*args)
+    again = gmm_mod.grouped_matmul_backward(*args)
+    assert gmm_mod.BACKWARD_KERNEL.launches_of("_bf16") == launches + 2
+    assert torch.equal(dx, again[0]) and torch.equal(ds, again[1])
+    want_dx, want_ds = gmm_mod.grouped_matmul_backward_plain(*args)
+    assert scaled_err(dx, want_dx) <= 1e-2
+    assert scaled_err(ds, want_ds) <= 1e-2
+    print(f"grouped matmul backward bf16, unaligned {operand}: dx's largest "
+          f"difference {bf16_flip(dx, want_dx, 1e-4):.3g}")
 
 
 @pytest.mark.cuda
