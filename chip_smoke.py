@@ -34,7 +34,10 @@ Phases, one JSON line each:
    the bf16 kernels on the tensor cores (grouped matmul forward and
    backward, fused layer forward, bilinear) with their TFLOP/s and
    ``ptxas`` registers and spills, and a spill fails the first three;
-   for the
+   the bf16 band forward and sym pair (5b, 8b: kernels of their own) with
+   their ``ptxas`` lines, a spill failing them too, and their blocks in a
+   wave; the edge-list kernels (5-8) with GB/s and their outputs'
+   SHA-256; for the
    scans also their cluster
    partition and how many of its clusters fit the card at once, and the
    backward's time by launch (gates, chain, dW; for the grouped matmul's,
@@ -164,6 +167,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import hashlib
 import io
 import json
 import os
@@ -316,6 +320,26 @@ def ptxas_by_function(log: str) -> dict:
             out[name] = (out.get(name, "") + " " + line.split(":", 1)[-1]
                          .strip()).strip()
     return out
+
+
+def out_sha256(torch, out) -> str:
+    """SHA-256 of a call's output tensors' bytes, in order: two trees'
+    kernels told apart on the same inputs (``tools/edge_timing.py``)."""
+    h = hashlib.sha256()
+    for t in out if isinstance(out, (tuple, list)) else (out,):
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def wave_facts(torch, blocks) -> dict:
+    """A launch's (blocks an SM, grid blocks) with the blocks in one wave
+    (SMs x blocks an SM) and the waves it takes."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    wave = blocks[0] * sms
+    return {"blocks_per_sm": blocks[0], "grid_blocks": blocks[1],
+            "wave_blocks": wave, "waves": blocks[1] / max(wave, 1)}
 
 
 def max_err(a, b) -> float:
@@ -1014,9 +1038,12 @@ TIMING_GRAPH = ("ms, plain_ms, library_ms: 20 calls in one CUDA graph, "
 DTYPE_TAG = {"float32": "", "bfloat16": "_bf16"}  # a bf16 row's name tag
 
 
-def check_band(torch, rng, dev, edges) -> list[dict]:
+def check_band(torch, rng, dev, edges, ptxas: dict) -> list[dict]:
     """Kernels 5 and 6 at the C-GCN layer's shapes (x [B, 96, 200]), each
-    in its f32 and its bf16 instance (the same inputs, rounded)."""
+    in its f32 and its bf16 instance (the same inputs, rounded), with
+    GB/s and the outputs' SHA-256; the bf16 forward (5b, a kernel of its
+    own) with its ``ptxas`` lines (a spill fails it) and its blocks in a
+    wave."""
     from gcn_tpu_torch.ops import band_aggregate as mod
     from gcn_tpu_torch.ops.adjacency import build_adjacency
 
@@ -1075,6 +1102,14 @@ def check_band(torch, rng, dev, edges) -> list[dict]:
         ):
             # sums of neighbour rows in f32 on the CUDA cores, either type
             bound_ms, bound_by = bound(n_bytes, flops)
+            times = kernel_ms(fn)
+            extra, spill_ok = {}, True
+            if name + tag == "band_aggregate_forward_bf16":
+                extra = {"ptxas": ptxas_of(ptxas,
+                                           "band_aggregate_fwd_bf16_kernel"),
+                         **wave_facts(torch, mod.forward_blocks(
+                             *edges, x_f, x_r, x_s))}
+                spill_ok = spill_free(extra["ptxas"]) is not False
             rows.append({
                 "name": name + tag, "route": "cuda",
                 "source": "gcn_tpu_torch/csrc/band_aggregate.cu",
@@ -1085,11 +1120,13 @@ def check_band(torch, rng, dev, edges) -> list[dict]:
                 "max_abs_err": abs_err,
                 "errs": fwd_errs if name.endswith("forward") else {key: err},
                 "same_bits_twice": same,
-                "tol": {key: tol}, "ok": err <= tol and same,
-                **kernel_ms(fn), "plain_ms": graph_ms(plain),
+                "tol": {key: tol}, "ok": err <= tol and same and spill_ok,
+                **times, **extra, "plain_ms": graph_ms(plain),
                 "bound_ms": bound_ms, "bound_by": bound_by,
+                "gb_per_s": n_bytes / (times["ms"] * 1e-3) / 1e9,
                 "library_ms": graph_ms(lib), "library": lib_note,
-                "library_band_build_ms": build_ms, "timing": TIMING_GRAPH,
+                "library_band_build_ms": build_ms,
+                "out_sha256": out_sha256(torch, fn()), "timing": TIMING_GRAPH,
             })
     return rows
 
@@ -1097,8 +1134,10 @@ def check_band(torch, rng, dev, edges) -> list[dict]:
 def check_spmm(torch, rng, dev, edges, ptxas: dict) -> list[dict]:
     """Kernels 7 and 8 at the paper GCN's two layers' shapes (h [B, 96, T]
     with T = 360 and 200, W [T, 200]), each in its f32 and its bf16
-    instance (the same inputs, rounded); the bf16 forward with its TFLOP/s
-    and ``ptxas`` lines."""
+    instance (the same inputs, rounded), with GB/s and the outputs'
+    SHA-256; the bf16 forward with its TFLOP/s and ``ptxas`` lines, the
+    bf16 sym pair (8b) with its ``ptxas`` lines and blocks in a wave (a
+    spill fails either)."""
     from gcn_tpu_torch.ops import spmm_fused as mod
     from gcn_tpu_torch.ops.adjacency import build_adjacency
 
@@ -1174,6 +1213,12 @@ def check_spmm(torch, rng, dev, edges, ptxas: dict) -> list[dict]:
                              "ptxas": ptxas_of(ptxas,
                                                "spmm_fused_fwd_bf16_kernel")}
                     spill_ok = spill_free(extra["ptxas"]) is not False
+                elif "sym_pair_bf16" in name:  # 8b, a kernel of its own
+                    extra = {"ptxas": ptxas_of(ptxas,
+                                               "spmm_sym_pair_bf16_kernel"),
+                             **wave_facts(torch, mod.sym_pair_blocks(
+                                 *edges, g, h))}
+                    spill_ok = spill_free(extra["ptxas"]) is not False
                 rows.append({
                     "name": name, "route": "cuda",
                     "source": "gcn_tpu_torch/csrc/spmm_fused.cu",
@@ -1185,8 +1230,10 @@ def check_spmm(torch, rng, dev, edges, ptxas: dict) -> list[dict]:
                     "same_bits_twice": same,
                     "tol": {key: tol}, "ok": err <= tol and same and spill_ok,
                     **times, **extra, "plain_ms": graph_ms(plain), **bounds,
+                    "gb_per_s": n_bytes / (times["ms"] * 1e-3) / 1e9,
                     "library_ms": graph_ms(lib), "library": lib_note,
                     "library_band_build_ms": build_ms,
+                    "out_sha256": out_sha256(torch, fn()),
                     "timing": TIMING_GRAPH,
                 })
     return rows
@@ -1827,11 +1874,13 @@ KERNEL_GROUPS = (  # device time by category, matched on kernel names
     ("grouped matmul backward dS kernels", (
         "grouped_matmul_ds_kernel", "grouped_matmul_ds_bf16_kernel",
         "grouped_matmul_ds_sum_kernel", "grouped_matmul_ds_sum_bf16_kernel")),
-    ("band aggregate forward kernel", ("band_aggregate_fwd_kernel",)),
+    ("band aggregate forward kernel", ("band_aggregate_fwd_kernel",
+                                       "band_aggregate_fwd_bf16_kernel")),
     ("band aggregate pair kernel", ("band_pair_kernel",)),
     ("fused GCN layer forward kernel", ("spmm_fused_fwd_kernel",
                                         "spmm_fused_fwd_bf16_kernel")),
-    ("fused GCN layer sym pair kernel", ("spmm_sym_pair_kernel",)),
+    ("fused GCN layer sym pair kernel", ("spmm_sym_pair_kernel",
+                                         "spmm_sym_pair_bf16_kernel")),
     ("sddmm forward kernel", ("sddmm_fwd_kernel",)),
     ("sddmm backward kernels", ("sddmm_lists_kernel",
                                 "sddmm_gather_kernel")),
@@ -3014,7 +3063,7 @@ def main() -> int:
             + check_lstm_backward(torch, rng, dev)
             + check_gmm_backward(torch, rng, dev, gs,
                                  ptxas["grouped_matmul_backward"])
-            + check_band(torch, rng, dev, edges)
+            + check_band(torch, rng, dev, edges, ptxas["band_aggregate"])
             + check_spmm(torch, rng, dev, edges, ptxas["spmm_fused"])
             + check_sddmm(torch, rng, dev, edges))
     bilinear_rows, v1_launches = check_bilinear(

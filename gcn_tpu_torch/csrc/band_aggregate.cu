@@ -42,16 +42,36 @@
 // its walk unrolled, timed faster than two or four rows a warp in
 // lockstep.  The pair walks the same ballots with the two directions
 // kept apart (gather_pair): (A_f x)[i] sums x over the children of i,
-// (A_f^T x)[i] over its parents, each in edge order.  The bf16 instances
-// are the same kernels on bf16 rows (edge_gather.cuh's typed loads and
-// stores: 8-byte loads where H % 4 == 0, f32 sums, a bf16 store): their
-// rows move half the bytes.
+// (A_f^T x)[i] over its parents, each in edge order.  The pair's bf16
+// instance (6b) is the same kernel on bf16 rows (edge_gather.cuh's typed
+// loads and stores: 8-byte loads where H % 4 == 0, f32 sums, a bf16
+// store): its rows move half the bytes.
+//
+// The bf16 forward (5b) is a kernel of its own
+// (band_aggregate_fwd_bf16_kernel).  At the main path's shapes its bytes
+// (7.7 MB) sit warm in L2, so its time is a warp's chain of serial waits
+// and the card's waves, not bandwidth: the template's warp waited on the
+// edge slots, then on one round trip for each ballot step that found a
+// neighbour (2-4 for a tree row), and its 4-column lanes left 14 of 32
+// idle in the second group at H = 200.  Here a warp loads its row of x_s
+// before the edge slots' barrier (4 slots a thread), walks all its ballot
+// steps into a queue of kFwdBatch neighbours (edge_gather.cuh
+// gather_groups), then issues the queued rows' loads together and adds
+// them in list order; its lanes take 8 columns each, one 16-byte load (25
+// lanes cover H = 200), where H % 8 == 0 and the bases are 16-byte
+// aligned, other shapes 4 (the template's map).  Loads take no bound
+// test (a lane past the row's end reads its last chunk and stores
+// nothing), so that a batch issues as one run of predicated loads, and
+// 48 registers hold five blocks an SM: the main path's 600 blocks in one
+// wave.  The sums, their order and the epilogue are the template's, and
+// so are its bits (tests/edge_order.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <stdint.h>
 
+#include <initializer_list>
 #include <type_traits>
 
 #include "edge_gather.cuh"
@@ -59,12 +79,16 @@
 namespace {
 
 using edge_gather::add4;
+using edge_gather::Chunks;
+using edge_gather::EdgeClock;
 using edge_gather::edges_bytes;
 using edge_gather::vec_bytes;
+using edge_gather::gather_groups;
 using edge_gather::gather_pair;
 using edge_gather::gather_row;
 using edge_gather::load4;
 using edge_gather::load_edges;
+using edge_gather::load_edges_wide;
 using edge_gather::set_smem;
 using edge_gather::store4;
 using edge_gather::zero4;
@@ -165,6 +189,76 @@ band_pair_kernel(const int* __restrict__ parent,
   }
 }
 
+// ------------------------------------------------- forward, bf16 (5b)
+using bf16 = __nv_bfloat16;
+constexpr int kFwdBatch = 4;  // 5b: listed rows whose loads are in flight
+constexpr int kFwdBlocksPerSm = 5;  // 600 blocks at B = 50, N = 96: a wave
+
+// Row blockIdx.y * kRows + warp of sentence blockIdx.x; lane l takes
+// chunks l + 32 u of kW columns (C: Chunks<kW>, kVec its 8-byte loads
+// where kW = 4), group u after group u - 1.  A row sums x_f over its
+// forward neighbours, x_r over its reverse ones, in list order, then x_s,
+// and divides by deg + [deg > 0] + 1.
+template <int kW, bool kVec>
+__global__ void __launch_bounds__(kThreads, kFwdBlocksPerSm)
+band_aggregate_fwd_bf16_kernel(const int* __restrict__ parent,
+                               const int* __restrict__ child,
+                               const unsigned char* __restrict__ mask,
+                               const bf16* __restrict__ xf,
+                               const bf16* __restrict__ xr,
+                               const bf16* __restrict__ xs,
+                               bf16* __restrict__ out, int n, int e, int h,
+                               int relu) {
+  using C = Chunks<kW>;
+  using Raw = typename C::Raw;
+  extern __shared__ int fwd16_smem[];
+  int* ep = fwd16_smem;
+  int* ec = ep + e;
+  EdgeClock clk;
+  clk.start();
+  const int b = blockIdx.x;
+  const int i = blockIdx.y * kRows + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int chunks = (h + kW - 1) / kW;
+  // the lane's column in group u, kept inside the row: a lane past the
+  // row's last chunk loads that chunk's columns and stores nothing
+  auto column = [&](int u) { return min(lane + 32 * u, chunks - 1) * kW; };
+  const size_t at = (size_t)b * n * h;
+  const bf16* own = xs + at + (size_t)i * h;
+  // group 0's own values before the edges' barrier: they need no edge
+  Raw self0{};
+  if (i < n) self0 = C::template load<kVec>(own, column(0), h);
+  clk.mark(edge_gather::kOwnRow);
+  load_edges_wide(parent + (size_t)b * e, child + (size_t)b * e,
+                  mask + (size_t)b * e, n, e, ep, ec);
+  clk.mark(edge_gather::kEdges);
+  if (i >= n) return;  // the whole warp; no barrier follows
+  const bf16* f = xf + at;
+  const bf16* r = xr + at;
+  gather_groups<kFwdBatch, false, C>(
+      ep, ec, e, i, (chunks + 31) / 32, self0,
+      [&](int ent, int u) {
+        const bf16* x = ent & edge_gather::kReverse ? r : f;
+        return C::template load<kVec>(
+            x + (size_t)(ent & (edge_gather::kReverse - 1)) * h, column(u),
+            h);
+      },
+      [&](int u) { return C::template load<kVec>(own, column(u), h); },
+      [&](int u, float (&z)[kW], const Raw& self, int deg) {
+        if (lane + 32 * u >= chunks) return;
+        const float denom = (float)deg + (deg > 0 ? 1.0f : 0.0f) + 1.0f;
+        C::add(z, self);
+#pragma unroll
+        for (int c = 0; c < kW; ++c) {
+          z[c] = z[c] / denom;
+          if (relu) z[c] = fmaxf(z[c], 0.0f);
+        }
+        C::template store<kVec>(out + at + (size_t)i * h, column(u), h, z);
+      },
+      clk);
+  clk.flush();
+}
+
 // Launches pick(kV, kVec) (the kernel instance; kV and kVec come as
 // std::integral_constant values) with args over rows of width h: blocks of
 // kRows rows of one sentence and 128 kV columns, kV = 1-3 so that one tile
@@ -217,6 +311,45 @@ int forward(const void* parent, const void* child, const void* mask,
       static_cast<T*>(out), n, e, h, relu);
 }
 
+// Launches 5b over rows of width h (occ null), or writes its blocks an SM
+// and its grid's blocks to occ[0], occ[1]: blocks of kRows rows of one
+// sentence, all of a row's columns.  Chunks of 8 columns where h % 8 == 0
+// and every base is 16-byte aligned, else of 4 (8-byte loads where h % 4
+// == 0 and the bases are 8-byte aligned).
+int forward_bf16(const void* parent, const void* child, const void* mask,
+                 const void* xf, const void* xr, const void* xs, void* out,
+                 int b, int n, int e, int h, int relu, void* stream,
+                 int* occ) {
+  auto all_aligned = [&](int bytes) {
+    for (const void* p : {xf, xr, xs, (const void*)out})
+      if ((uintptr_t)p % bytes != 0) return false;
+    return true;
+  };
+  const dim3 grid(b, (n + kRows - 1) / kRows);
+  const size_t smem = edges_bytes(e);
+  auto run = [&](auto kernel) {
+    const cudaError_t err = set_smem(kernel, smem, 0);
+    if (err != cudaSuccess) return (int)err;
+    if (occ != nullptr) {
+      occ[1] = (int)(grid.x * grid.y);
+      return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &occ[0], kernel, kThreads, smem);
+    }
+    kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+        static_cast<const int*>(parent), static_cast<const int*>(child),
+        static_cast<const unsigned char*>(mask),
+        static_cast<const bf16*>(xf), static_cast<const bf16*>(xr),
+        static_cast<const bf16*>(xs), static_cast<bf16*>(out), n, e, h,
+        relu);
+    return (int)cudaGetLastError();
+  };
+  if (h % 8 == 0 && all_aligned(16))
+    return run(band_aggregate_fwd_bf16_kernel<8, true>);
+  return h % 4 == 0 && all_aligned(8)
+             ? run(band_aggregate_fwd_bf16_kernel<4, true>)
+             : run(band_aggregate_fwd_bf16_kernel<4, false>);
+}
+
 template <typename T>
 int pair(const void* parent, const void* child, const void* mask,
          const void* x, void* out_t, void* out_f, int b, int n, int e, int h,
@@ -252,8 +385,20 @@ int band_aggregate_forward_bf16(const void* parent, const void* child,
                                 const void* xr, const void* xs, void* out,
                                 int b, int n, int e, int h, int relu,
                                 void* stream) {
-  return forward<__nv_bfloat16>(parent, child, mask, xf, xr, xs, out, b, n,
-                                e, h, relu, stream);
+  return forward_bf16(parent, child, mask, xf, xr, xs, out, b, n, e, h, relu,
+                      stream, nullptr);
+}
+
+// 5b's blocks an SM (occ[0]) and its grid's blocks (occ[1]) for these
+// operands: what band_aggregate_forward_bf16 would launch.
+int band_aggregate_forward_bf16_occupancy(const void* parent,
+                                          const void* child, const void* mask,
+                                          const void* xf, const void* xr,
+                                          const void* xs, void* out, int b,
+                                          int n, int e, int h, int relu,
+                                          void* occ) {
+  return forward_bf16(parent, child, mask, xf, xr, xs, out, b, n, e, h, relu,
+                      nullptr, static_cast<int*>(occ));
 }
 
 int band_aggregate_pair_f32(const void* parent, const void* child,

@@ -37,11 +37,30 @@
 // map (4 columns of each 128 a lane), so one kernel body serves both types
 // and a warp still reads 256 contiguous bytes a row and group; 8 columns
 // a 16-byte load would halve the loads but change the map.
+//
+// The bf16 band forward (5b) and the bf16 sym pair (8b) have kernels of
+// their own on the second half of this file: a warp walks all its row's
+// ballot steps first (walk_each), queueing the neighbours in summing
+// order (Queue: kB entries in registers), and then issues the queued
+// rows' loads together and adds them in list order (gather_groups), so
+// that a row of up to kB neighbours waits on one round trip for them
+// instead of one a ballot step that found one; a row wider than a warp's
+// 32 chunks takes its groups one after another, so that a lane's
+// registers do not grow with the width.  Their lanes take chunks of 8
+// bf16 columns, one 16-byte load each (Chunks<8>), where the widths are
+// multiples of 8 and the bases 16-byte aligned; other shapes take chunks
+// of 4 (Chunks<4>: the map above).  Their edge slots load 4 a thread
+// where the lists allow (load_edges_wide), and their own row's values are
+// loaded before that barrier.  (A list placed one entry a lane by each
+// ballot step and loads issued as the walk found the neighbours were
+// both timed slower: PERF.md §6.)
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <stdint.h>
 
 namespace edge_gather {
 
@@ -299,4 +318,341 @@ __device__ __forceinline__ void gather_rows(const int* __restrict__ ep,
   }
 }
 
+// ------------------------------------------------ bf16 5b and 8b: lists
+//
+// Phase clocks of 5b and 8b, compiled in only with -DEDGE_PHASES
+// (tools/edge_phases.py builds the two sources so): lane 0 of each warp
+// adds the SM cycles it spent in each phase into its block's
+// edge_phases[block][phase], 1 into [kPhases], its whole span into
+// [kPhases + 1] and raises [kPhases + 2] to its longest span (a block's
+// own slots, blocks past kPhaseBlocks folded over: one slot for all
+// warps made their atomics the kernel's longest phase).  The tool reads
+// them back through edge_phases_read.  A load's wait falls in the phase
+// that first uses its value.  Without the macro every member is empty and
+// the kernels compile as if it were not there.
+enum Phase { kOwnRow, kEdges, kWalk, kLoads, kEpilogue, kPhases };
+constexpr int kPhaseBlocks = 8192;
+#ifdef EDGE_PHASES
+__device__ unsigned long long edge_phases[kPhaseBlocks][kPhases + 3];
+#endif
+
+struct EdgeClock {
+#ifdef EDGE_PHASES
+  long long first = 0, last = 0, spent[kPhases] = {};
+  __device__ __forceinline__ static long long now() {
+    long long t;
+    asm volatile("mov.u64 %0, %%clock64;" : "=l"(t)::"memory");
+    return t;
+  }
+  __device__ __forceinline__ void start() { first = last = now(); }
+  // the cycles since the last mark or start go to phase
+  __device__ __forceinline__ void mark(int phase) {
+    const long long t = now();
+    spent[phase] += t - last;
+    last = t;
+  }
+  // lane 0 adds its warp's phases into its block's slots
+  __device__ __forceinline__ void flush() {
+    if (threadIdx.x % 32 != 0) return;
+    unsigned long long* slot = edge_phases[
+        (blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z)) %
+        kPhaseBlocks];
+    for (int i = 0; i < kPhases; ++i)
+      atomicAdd(&slot[i], (unsigned long long)spent[i]);
+    atomicAdd(&slot[kPhases], 1ull);
+    atomicAdd(&slot[kPhases + 1], (unsigned long long)(last - first));
+    atomicMax(&slot[kPhases + 2], (unsigned long long)(last - first));
+  }
+#else
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void mark(int) {}
+  __device__ __forceinline__ void flush() {}
+#endif
+};
+
+// load_edges with 4 slots a thread: 16-byte loads of parent and child and
+// a 4-byte load of the mask where e % 4 == 0 and the lists are aligned so
+// (the same slots, the same values); ends with a barrier.
+__device__ __forceinline__ void load_edges_wide(
+    const int* __restrict__ parent, const int* __restrict__ child,
+    const unsigned char* __restrict__ mask, int n, int e, int* ep, int* ec) {
+  const bool wide = e % 4 == 0 && (uintptr_t)parent % 16 == 0 &&
+                    (uintptr_t)child % 16 == 0 && (uintptr_t)mask % 4 == 0;
+  if (!wide) {
+    load_edges(parent, child, mask, n, e, ep, ec);
+    return;
+  }
+  auto keep = [n](int p, int c, unsigned m) {
+    return m != 0 && p >= 0 && p < n && c >= 0 && c < n;
+  };
+  for (int q = 4 * threadIdx.x; q < e; q += 4 * blockDim.x) {
+    const int4 p = *reinterpret_cast<const int4*>(parent + q);
+    const int4 c = *reinterpret_cast<const int4*>(child + q);
+    const uchar4 m = *reinterpret_cast<const uchar4*>(mask + q);
+    const bool k0 = keep(p.x, c.x, m.x), k1 = keep(p.y, c.y, m.y);
+    const bool k2 = keep(p.z, c.z, m.z), k3 = keep(p.w, c.w, m.w);
+    *reinterpret_cast<int4*>(ep + q) =
+        make_int4(k0 ? p.x : -1, k1 ? p.y : -1, k2 ? p.z : -1, k3 ? p.w : -1);
+    *reinterpret_cast<int4*>(ec + q) =
+        make_int4(k0 ? c.x : -1, k1 ? c.y : -1, k2 ? c.z : -1, k3 ? c.w : -1);
+  }
+  __syncthreads();
+}
+
+// A lane's chunk of kW bf16 columns of one row, as loaded (kW = 8: one
+// 16-byte load, 8 values, from a column the caller keeps inside the row;
+// kW = 4: one 8-byte load with kVec, else four of one value each, zero
+// past the row's width t).
+template <int kW>
+struct Chunks;
+
+template <>
+struct Chunks<8> {
+  static constexpr int kW = 8;
+  using Raw = uint4;
+  // columns k..k+7 of the row at p (k + 8 <= t): no bound to test, so
+  // that a batch of them issues as one run of predicated loads
+  template <bool>
+  __device__ __forceinline__ static Raw load(
+      const __nv_bfloat16* __restrict__ p, int k, int) {
+    return *reinterpret_cast<const uint4*>(p + k);
+  }
+  // a bf16 widens exactly: its bits are an f32's upper half
+  __device__ __forceinline__ static void widen(float (&a)[8], const Raw& r) {
+    const unsigned w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      a[2 * i] = __uint_as_float(w[i] << 16);
+      a[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+  __device__ __forceinline__ static void add(float (&a)[8], const Raw& r) {
+    float v[8];
+    widen(v, r);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) a[i] += v[i];
+  }
+  template <bool>
+  __device__ __forceinline__ static void store(__nv_bfloat16* __restrict__ p,
+                                               int k, int t,
+                                               const float (&a)[8]) {
+    if (k >= t) return;
+    auto pack = [](float lo, float hi) {
+      const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+      return *reinterpret_cast<const unsigned*>(&v);
+    };
+    *reinterpret_cast<uint4*>(p + k) =
+        make_uint4(pack(a[0], a[1]), pack(a[2], a[3]), pack(a[4], a[5]),
+                   pack(a[6], a[7]));
+  }
+};
+
+template <>
+struct Chunks<4> {
+  static constexpr int kW = 4;
+  using Raw = float4;
+  template <bool kVec>
+  __device__ __forceinline__ static Raw load(
+      const __nv_bfloat16* __restrict__ p, int k, int t) {
+    return load4<kVec>(p, 0, k, t);
+  }
+  __device__ __forceinline__ static void widen(float (&a)[4], const Raw& r) {
+    a[0] = r.x;
+    a[1] = r.y;
+    a[2] = r.z;
+    a[3] = r.w;
+  }
+  __device__ __forceinline__ static void add(float (&a)[4], const Raw& r) {
+    a[0] += r.x;
+    a[1] += r.y;
+    a[2] += r.z;
+    a[3] += r.w;
+  }
+  template <bool kVec>
+  __device__ __forceinline__ static void store(__nv_bfloat16* __restrict__ p,
+                                               int k, int t,
+                                               const float (&a)[4]) {
+    store4<kVec>(p, 0, k, t, make_float4(a[0], a[1], a[2], a[3]));
+  }
+};
+
+// A list entry: the neighbour row, kReverse set for a reverse neighbour.
+constexpr int kReverse = 1 << 30;
+
+// The walk of gather_row, calling visit(entry) for each neighbour of the
+// warp's row in summing order: its forward neighbours (its children),
+// then its reverse ones (its parents), each in edge order.  It takes
+// three 32-slot ballot words an iteration, their shared-memory loads and
+// ballots issued together (one word a step timed 10-25 % slower where a
+// sentence has hundreds of slots).  Returns the row's degree (the
+// ballots' popcounts).  Every lane of the warp calls it with the same
+// row.
+template <class Visit>
+__device__ __forceinline__ int walk_each(const int* __restrict__ ep,
+                                         const int* __restrict__ ec, int e,
+                                         int row, Visit&& visit,
+                                         EdgeClock& clk) {
+  const int lane = threadIdx.x % 32;
+  int deg = 0;
+#pragma unroll
+  for (int dir = 0; dir < 2; ++dir) {
+    const int* key = dir == 0 ? ep : ec;
+    const int* nbr = dir == 0 ? ec : ep;
+    for (int q0 = 0; q0 < e; q0 += 32 * 3) {
+      unsigned bits[3];
+#pragma unroll
+      for (int w = 0; w < 3; ++w) {
+        const int q = q0 + 32 * w + lane;
+        bits[w] = __ballot_sync(0xffffffffu, (q < e ? key[q] : -1) == row);
+        deg += __popc(bits[w]);
+      }
+#pragma unroll
+      for (int w = 0; w < 3; ++w) {
+        while (bits[w]) {
+          visit(nbr[q0 + 32 * w + __ffs(bits[w]) - 1] |
+                (dir == 0 ? 0 : kReverse));
+          bits[w] &= bits[w] - 1;
+        }
+      }
+    }
+  }
+  clk.mark(kWalk);
+  return deg;
+}
+
+// A queue of up to kB listed neighbours, q[0] the newest: the rows whose
+// loads go out together.
+template <int kB>
+struct Queue {
+  int q[kB];
+  int count = 0;
+  __device__ __forceinline__ void push(int entry) {
+#pragma unroll
+    for (int j = kB - 1; j > 0; --j) q[j] = q[j - 1];
+    q[0] = entry;
+    ++count;
+  }
+  // issues the loads of the queued rows' chunks (load(entry)) together
+  template <class Raw, class Load>
+  __device__ __forceinline__ void issue(Load&& load, Raw (&r)[kB]) const {
+#pragma unroll
+    for (int j = 0; j < kB; ++j)
+      if (j < count) r[j] = load(q[j]);
+  }
+  // adds loaded chunks to acc oldest first
+  template <class C>
+  __device__ __forceinline__ void sum(const typename C::Raw (&r)[kB],
+                                     float (&acc)[C::kW]) const {
+#pragma unroll
+    for (int j = kB - 1; j >= 0; --j)
+      if (j < count) C::add(acc, r[j]);
+  }
+  // both; the queue keeps its entries
+  template <class C, class Load>
+  __device__ __forceinline__ void add(Load&& load, float (&acc)[C::kW]) const {
+    typename C::Raw r[kB];
+    issue(load, r);
+    sum<C>(r, acc);
+  }
+};
+
+// A row's sums, group by group: the lane's chunk u of each of `groups`
+// (32 chunks a warp each) sums load(entry, u) over the row's neighbours
+// in summing order into a zeroed acc, then epilogue(u, acc, self, deg)
+// takes it, with self the row's own chunk u (group 0's `self0`, loaded by
+// the caller; the others by load_self(u) with the group's neighbours, so
+// that they arrive together).  The walk queues the neighbours kB at a
+// time, adding a full queue into group 0 before it takes the next; a row
+// of at most kB neighbours so issues all its loads at once after its
+// walk and keeps its queue for the other groups, whose loads go out a
+// group ahead (kPipe: group u + 1's while group u's are added), and a
+// longer row walks again for each of them.  A lane holds one group's sums
+// and kB rows' chunks of one group (two with kPipe) at a time whatever
+// the width.
+template <int kB, bool kPipe, class C, class Load, class LoadSelf,
+          class Epilogue>
+__device__ __forceinline__ void gather_groups(
+    const int* __restrict__ ep, const int* __restrict__ ec, int e, int row,
+    int groups, typename C::Raw self0, Load&& load, LoadSelf&& load_self,
+    Epilogue&& epilogue, EdgeClock& clk) {
+  using Raw = typename C::Raw;
+  Queue<kB> queue;
+  float acc[C::kW] = {};
+  auto group = [&](int u) { return [&, u](int ent) { return load(ent, u); }; };
+  bool refill = false;  // the queue overflowed: other groups walk again
+  const int deg = walk_each(ep, ec, e, row,
+                            [&](int ent) {
+                              if (queue.count == kB) {
+                                queue.template add<C>(group(0), acc);
+                                queue.count = 0;
+                                refill = true;
+                              }
+                              queue.push(ent);
+                            },
+                            clk);
+  if (kPipe && !refill) {  // group u + 1's loads out before group u's sum
+    Raw a[kB], b[kB], self_a = self0, self_b = self0;
+    queue.issue(group(0), a);
+    for (int u = 0; u < groups; u += 2) {
+      if (u + 1 < groups) {
+        self_b = load_self(u + 1);
+        queue.issue(group(u + 1), b);
+      }
+      float s[C::kW] = {};
+      queue.template sum<C>(a, s);
+      epilogue(u, s, self_a, deg);
+      if (u + 1 < groups) {
+        if (u + 2 < groups) {
+          self_a = load_self(u + 2);
+          queue.issue(group(u + 2), a);
+        }
+        float t[C::kW] = {};
+        queue.template sum<C>(b, t);
+        epilogue(u + 1, t, self_b, deg);
+      }
+    }
+    clk.mark(kEpilogue);
+    return;
+  }
+  queue.template add<C>(group(0), acc);
+  clk.mark(kLoads);
+  epilogue(0, acc, self0, deg);
+  clk.mark(kEpilogue);
+  for (int u = 1; u < groups; ++u) {
+    const Raw self = load_self(u);
+    float sum[C::kW] = {};
+    if (refill) {
+      queue.count = 0;
+      walk_each(ep, ec, e, row,
+                [&](int ent) {
+                  if (queue.count == kB) {
+                    queue.template add<C>(group(u), sum);
+                    queue.count = 0;
+                  }
+                  queue.push(ent);
+                },
+                clk);
+    }
+    queue.template add<C>(group(u), sum);
+    clk.mark(kLoads);
+    epilogue(u, sum, self, deg);
+    clk.mark(kEpilogue);
+  }
+}
+
 }  // namespace edge_gather
+
+#ifdef EDGE_PHASES
+// The phase slots, [kPhaseBlocks][kPhases + 3], read and zeroed by the
+// tool (one library a source, each with its own slots).
+extern "C" int edge_phases_read(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, edge_gather::edge_phases,
+                                   sizeof(edge_gather::edge_phases));
+}
+extern "C" int edge_phases_zero() {
+  void* at = nullptr;
+  const cudaError_t err = cudaGetSymbolAddress(&at, edge_gather::edge_phases);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaMemset(at, 0, sizeof(edge_gather::edge_phases));
+}
+#endif

@@ -44,7 +44,7 @@
 // tile (360 and 200 at the main path's layers): the ragged edges read as
 // zero.
 //
-// The sym pair's block owns 8 rows of one sentence, one a warp, and a
+// The f32 sym pair's block owns 8 rows of one sentence, one a warp, and a
 // warp covers a whole row of x1 or of x2, up to 384 columns (128 kV, kV =
 // 1-3 chosen from T1 and T2; wider takes more column blocks): x1's tiles
 // and x2's lie along the grid, 1200 blocks at B = 50, N = 96.  A lane
@@ -52,6 +52,28 @@
 // rows in flight.  That timed faster than both operands in one warp, which
 // shares the ballots but holds twice the registers, and than two or four
 // rows a warp in lockstep.
+//
+// The bf16 sym pair (8b) is a kernel of its own
+// (spmm_sym_pair_bf16_kernel).  Its bytes (13.9 MB at T = 360) sit warm
+// in L2 and the template's time was the same at T = 360 and 200: a
+// warp's chain of serial waits (the edge slots, then one round trip a
+// ballot step that found a neighbour) run over 1200 blocks, more than
+// one wave.  Here a warp takes one row of both operands, [x1 | x2] as one
+// row of chunks (600 blocks at B = 50, N = 96), so that one walk serves
+// both; it loads the row's own values before the edge slots' barrier,
+// walks all its ballot steps into a queue of kPairBatch neighbours
+// (edge_gather.cuh gather_groups), then issues the queued rows' loads
+// together and adds them in list order, group of 32 chunks after group,
+// each group's loads issued while the one before is added; its lanes
+// take 8 columns each, one 16-byte load (90 chunks at T = 360: three
+// groups; 50 at T = 200: two), where T1 and T2 are multiples of 8 and
+// every base is 16-byte aligned, other shapes chunks of 4 (the template's
+// map).  The sums, their order and the epilogue are the template's, and
+// so are its bits (tests/edge_order.py).  It gains at T = 200 and where
+// a sentence has hundreds of slots, and loses at T = 360 on short
+// sentences and on a star's centre, where a row's three groups still
+// wait on two round trips one after another against the template's one
+// (PERF.md §6-7).
 //
 // The bf16 instances round where the TPU kernel rounds: the forward sums
 // (S h) in f32, rounds it to bf16 once (the TPU kernel casts (S h) to h's
@@ -103,13 +125,17 @@
 namespace {
 
 using edge_gather::add4;
+using edge_gather::Chunks;
+using edge_gather::EdgeClock;
 using edge_gather::edges_bytes;
+using edge_gather::gather_groups;
 using edge_gather::to_f32;
 using edge_gather::vec_bytes;
 using edge_gather::gather_row;
 using edge_gather::gather_rows;
 using edge_gather::load4;
 using edge_gather::load_edges;
+using edge_gather::load_edges_wide;
 using edge_gather::set_smem;
 using edge_gather::store4;
 using edge_gather::zero4;
@@ -367,7 +393,131 @@ spmm_sym_pair_kernel(const int* __restrict__ parent,
   }
 }
 
+// ------------------------------------------------- sym pair, bf16 (8b)
+constexpr int kPairBatch = 4;  // 8b: listed rows whose loads are in flight
+constexpr int kPairBlocksPerSm = 4;  // registers for two groups' loads
+                                     // (chunks of 4, off the main path: 3,
+                                     // which they fit unspilled)
+
+// Row blockIdx.y * kPairRows + warp of sentence blockIdx.x of both x1 and
+// x2, taken as one row of chunks of kW columns (C: Chunks<kW>, kVec its
+// 8-byte loads where kW = 4): x1's ceil(t1 / kW), then x2's; lane l takes
+// chunks l + 32 u, group u after group u - 1.  A row sums its forward
+// neighbours, its reverse ones, in list order, then diag * self, diag =
+// [deg > 0] + 1.
+template <int kW, bool kVec>
+__global__ void __launch_bounds__(kPairThreads,
+                                  kW == 8 ? kPairBlocksPerSm
+                                          : kPairBlocksPerSm - 1)
+spmm_sym_pair_bf16_kernel(const int* __restrict__ parent,
+                          const int* __restrict__ child,
+                          const unsigned char* __restrict__ mask,
+                          const __nv_bfloat16* __restrict__ x1,
+                          const __nv_bfloat16* __restrict__ x2,
+                          __nv_bfloat16* __restrict__ o1,
+                          __nv_bfloat16* __restrict__ o2, int n, int e,
+                          int t1, int t2) {
+  using C = Chunks<kW>;
+  using Raw = typename C::Raw;
+  using bf16 = __nv_bfloat16;
+  extern __shared__ int pair16_smem[];
+  int* ep = pair16_smem;
+  int* ec = ep + e;
+  EdgeClock clk;
+  clk.start();
+  const int b = blockIdx.x;
+  const int i = blockIdx.y * kPairRows + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int c1 = (t1 + kW - 1) / kW;
+  const int chunks = c1 + (t2 + kW - 1) / kW;
+  x1 += (size_t)b * n * t1;
+  x2 += (size_t)b * n * t2;
+  o1 += (size_t)b * n * t1;
+  o2 += (size_t)b * n * t2;
+  // the lane's chunk in group u, kept inside the row (a lane past its last
+  // chunk loads that chunk's columns and stores nothing): its operand's
+  // rows, their width and its column there
+  struct Chunk {
+    const bf16* x;
+    bf16* o;
+    int t, k;
+  };
+  auto chunk = [&](int u) {
+    const int c = min(lane + 32 * u, chunks - 1);
+    return c < c1 ? Chunk{x1, o1, t1, c * kW}
+                  : Chunk{x2, o2, t2, (c - c1) * kW};
+  };
+  auto load = [&](int row, int u) {
+    const Chunk w = chunk(u);
+    return C::template load<kVec>(w.x + (size_t)row * w.t, w.k, w.t);
+  };
+  // group 0's own values before the edges' barrier: they need no edge
+  Raw self0{};
+  if (i < n) self0 = load(i, 0);
+  clk.mark(edge_gather::kOwnRow);
+  load_edges_wide(parent + (size_t)b * e, child + (size_t)b * e,
+                  mask + (size_t)b * e, n, e, ep, ec);
+  clk.mark(edge_gather::kEdges);
+  if (i >= n) return;  // the whole warp; no barrier follows
+  gather_groups<kPairBatch, true, C>(
+      ep, ec, e, i, (chunks + 31) / 32, self0,
+      [&](int ent, int u) {
+        return load(ent & (edge_gather::kReverse - 1), u);
+      },
+      [&](int u) { return load(i, u); },
+      [&](int u, float (&z)[kW], const Raw& self, int deg) {
+        if (lane + 32 * u >= chunks) return;
+        const float diag = (deg > 0 ? 1.0f : 0.0f) + 1.0f;
+        float s[kW];
+        C::widen(s, self);
+#pragma unroll
+        for (int c = 0; c < kW; ++c) z[c] += diag * s[c];
+        const Chunk w = chunk(u);
+        C::template store<kVec>(w.o + (size_t)i * w.t, w.k, w.t, z);
+      },
+      clk);
+  clk.flush();
+}
+
 bool aligned(const void* p, int bytes) { return (uintptr_t)p % bytes == 0; }
+
+// Launches 8b (occ null), or writes its blocks an SM and its grid's blocks
+// to occ[0], occ[1]: blocks of kPairRows rows of one sentence, all of a
+// row of [x1 | x2].  Chunks of 8 columns where t1 and t2 are multiples of
+// 8 and every base is 16-byte aligned, else of 4 (8-byte loads where both
+// are multiples of 4 and the bases 8-byte aligned).
+int sym_pair_bf16(const void* parent, const void* child, const void* mask,
+                  const void* x1, const void* x2, void* o1, void* o2, int b,
+                  int n, int e, int t1, int t2, void* stream, int* occ) {
+  auto all_aligned = [&](int bytes) {
+    return aligned(x1, bytes) && aligned(x2, bytes) && aligned(o1, bytes) &&
+           aligned(o2, bytes);
+  };
+  const dim3 grid(b, (n + kPairRows - 1) / kPairRows);
+  const size_t smem = edges_bytes(e);
+  auto run = [&](auto kernel) {
+    const cudaError_t err = set_smem(kernel, smem, 0);
+    if (err != cudaSuccess) return (int)err;
+    if (occ != nullptr) {
+      occ[1] = (int)(grid.x * grid.y);
+      return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &occ[0], kernel, kPairThreads, smem);
+    }
+    kernel<<<grid, kPairThreads, smem, (cudaStream_t)stream>>>(
+        static_cast<const int*>(parent), static_cast<const int*>(child),
+        static_cast<const unsigned char*>(mask),
+        static_cast<const __nv_bfloat16*>(x1),
+        static_cast<const __nv_bfloat16*>(x2),
+        static_cast<__nv_bfloat16*>(o1), static_cast<__nv_bfloat16*>(o2), n,
+        e, t1, t2);
+    return (int)cudaGetLastError();
+  };
+  if (t1 % 8 == 0 && t2 % 8 == 0 && all_aligned(16))
+    return run(spmm_sym_pair_bf16_kernel<8, true>);
+  return t1 % 4 == 0 && t2 % 4 == 0 && all_aligned(8)
+             ? run(spmm_sym_pair_bf16_kernel<4, true>)
+             : run(spmm_sym_pair_bf16_kernel<4, false>);
+}
 
 int forward_f32(const void* parent, const void* child, const void* mask,
                 const void* h, const void* w, const void* bias, void* out,
@@ -944,8 +1094,19 @@ int spmm_fused_sym_pair_bf16(const void* parent, const void* child,
                              const void* mask, const void* x1, const void* x2,
                              void* o1, void* o2, int b, int n, int e, int t1,
                              int t2, void* stream) {
-  return sym_pair<__nv_bfloat16>(parent, child, mask, x1, x2, o1, o2, b, n,
-                                 e, t1, t2, stream);
+  return sym_pair_bf16(parent, child, mask, x1, x2, o1, o2, b, n, e, t1, t2,
+                       stream, nullptr);
+}
+
+// 8b's blocks an SM (occ[0]) and its grid's blocks (occ[1]) for these
+// operands: what spmm_fused_sym_pair_bf16 would launch.
+int spmm_fused_sym_pair_bf16_occupancy(const void* parent, const void* child,
+                                       const void* mask, const void* x1,
+                                       const void* x2, void* o1, void* o2,
+                                       int b, int n, int e, int t1, int t2,
+                                       void* occ) {
+  return sym_pair_bf16(parent, child, mask, x1, x2, o1, o2, b, n, e, t1, t2,
+                       nullptr, static_cast<int*>(occ));
 }
 
 const char* spmm_fused_error_string(int code) {

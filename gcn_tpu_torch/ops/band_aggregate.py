@@ -37,8 +37,9 @@ from gcn_tpu_torch.ops.spmm import node_degrees
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("band_aggregate.cu", {
-    f"band_aggregate_forward_{t}": [_P] * 7 + [_I] * 5 + [_P]
-    for t in ("f32", "bf16")})
+    **{f"band_aggregate_forward_{t}": [_P] * 7 + [_I] * 5 + [_P]
+       for t in ("f32", "bf16")},
+    "band_aggregate_forward_bf16_occupancy": [_P] * 7 + [_I] * 5 + [_P]})
 PAIR_KERNEL = CudaKernel("band_aggregate.cu", {
     f"band_aggregate_pair_{t}": [_P] * 6 + [_I] * 4 + [_P]
     for t in ("f32", "bf16")}, name="band_aggregate_pair")
@@ -135,6 +136,24 @@ def band_aggregate_forward(parent, child, mask, x_f, x_r, x_s,
             x_r.data_ptr(), x_s.data_ptr(), out.data_ptr(), b, n, e, h,
             int(relu), torch.cuda.current_stream(x_f.device).cuda_stream)
     return out
+
+
+def forward_blocks(parent, child, mask, x_f, x_r, x_s, relu: bool = True):
+    """(blocks an SM holds at once, blocks of the grid) of the launch that
+    ``band_aggregate_forward`` makes for these bf16 CUDA operands (and a
+    fresh, aligned output): the card's SMs times the first is one
+    wave."""
+    b, n, e = check_edges("band_aggregate_forward", parent, child, mask,
+                          (x_f, x_r, x_s), edges_bytes)
+    if x_f.dtype != torch.bfloat16:
+        raise TypeError("forward_blocks: the bf16 instance's launch only")
+    occ = (ctypes.c_int * 2)()
+    with torch.cuda.device(x_f.device):
+        KERNEL.query("band_aggregate_forward_bf16_occupancy",
+                     parent.data_ptr(), child.data_ptr(), mask.data_ptr(),
+                     x_f.data_ptr(), x_r.data_ptr(), x_s.data_ptr(), 0, b,
+                     n, e, x_f.shape[2], int(relu), ctypes.addressof(occ))
+    return occ[0], occ[1]
 
 
 def pair_aggregate_plain(parent, child, mask, x):

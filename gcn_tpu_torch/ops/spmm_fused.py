@@ -49,8 +49,10 @@ KERNEL = CudaKernel("spmm_fused.cu", {
     f"spmm_fused_forward_{t}": [_P] * 7 + [_I] * 5 + [_P]
     for t in ("f32", "bf16")})
 SYM_PAIR_KERNEL = CudaKernel("spmm_fused.cu", {
-    f"spmm_fused_sym_pair_{t}": [_P] * 7 + [_I] * 5 + [_P]
-    for t in ("f32", "bf16")}, name="spmm_fused_sym_pair")
+    **{f"spmm_fused_sym_pair_{t}": [_P] * 7 + [_I] * 5 + [_P]
+       for t in ("f32", "bf16")},
+    "spmm_fused_sym_pair_bf16_occupancy": [_P] * 7 + [_I] * 5 + [_P]},
+    name="spmm_fused_sym_pair")
 def forward_smem_bytes(n: int, e: int, itemsize: int = 4) -> int:
     """Shared memory of the forward for E edge slots and operands of
     ``itemsize`` bytes (csrc/spmm_fused.cu).  f32: the slots' parents and
@@ -153,6 +155,23 @@ def sym_pair(parent, child, mask, x1, x2):
             o1.data_ptr(), o2.data_ptr(), bsz, n, e, t1, t2,
             torch.cuda.current_stream(x1.device).cuda_stream)
     return o1, o2
+
+
+def sym_pair_blocks(parent, child, mask, x1, x2):
+    """(blocks an SM holds at once, blocks of the grid) of the launch that
+    ``sym_pair`` makes for these bf16 CUDA operands (and fresh, aligned
+    outputs): the card's SMs times the first is one wave."""
+    bsz, n, e = check_edges("sym_pair", parent, child, mask, (x1, x2),
+                            edges_bytes)
+    if x1.dtype != torch.bfloat16:
+        raise TypeError("sym_pair_blocks: the bf16 instance's launch only")
+    occ = (ctypes.c_int * 2)()
+    with torch.cuda.device(x1.device):
+        SYM_PAIR_KERNEL.query(
+            "spmm_fused_sym_pair_bf16_occupancy", parent.data_ptr(),
+            child.data_ptr(), mask.data_ptr(), x1.data_ptr(), x2.data_ptr(),
+            0, 0, bsz, n, e, x1.shape[2], x2.shape[2], ctypes.addressof(occ))
+    return occ[0], occ[1]
 
 
 class FusedGcnSpmm(torch.autograd.Function):

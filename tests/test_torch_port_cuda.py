@@ -29,7 +29,11 @@ rounding step of the plain version's beyond the f32 instance's tolerance
 own difference they part only where the two sums straddle a rounding
 boundary; the largest difference is printed); the SDDMM's f32 scores
 within 1e-5.  Every edge-list and bilinear kernel gives the same bits
-when it is called twice (no float atomics).
+when it is called twice (no float atomics).  The bf16 band forward (5b)
+and the bf16 sym pair (8b) equal the exact-order reference of
+``tests/edge_order.py`` (f32 sums in the kernels' order, one rounding) in
+bits, on every edge case and on widths and alignments that take each of
+their lane maps.
 """
 
 import os
@@ -51,6 +55,9 @@ from gcn_tpu_torch.ops import spmm_fused as spmm_mod
 from gcn_tpu_torch.ops.spmm import valid_edges
 from gcn_tpu_torch.train.evaluator import Evaluator, batch_to_device
 from gcn_tpu_torch.train.trainer import Trainer
+# tests/ itself is on the path (pytest's rootdir insertion): a card's host
+# may have a ``tests`` package of its own installed
+from edge_order import band_forward_exact, sym_pair_exact
 
 GMM_CASES = ["random", "empty_groups", "one_group", "straddle_tile",
              "rows_past_sum"]
@@ -701,6 +708,71 @@ def test_spmm_fused_kernels_match_plain(cuda_device, name, widths, dtype):
         assert a.shape == want.shape and a.dtype == dtype
         assert torch.equal(a, a2)  # no float atomics
         assert scaled_err(a, want) <= tol
+
+
+# 5b's and 8b's shape choices: chunks of 8 columns (widths multiples of
+# 8, bases 16-byte aligned), chunks of 4 by 8-byte loads (multiples of 4,
+# or a base 8 bytes off 16: offset 4 values), chunks of 4 by single loads
+# (neither); the paper GCN's widths
+EXACT_BAND_WIDTHS = [200, 100, 70]
+EXACT_PAIR_WIDTHS = {"t360": (360, 360), "t200": (200, 200),
+                     "t100x36": (100, 36), "t75x40": (75, 40)}
+
+
+def bf16_at(x, offset):
+    """x in bf16, contiguous, ``offset`` values into a larger storage."""
+    flat = torch.empty(x.numel() + offset, dtype=torch.bfloat16,
+                       device=x.device)
+    out = flat[offset:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def bits_of(t):
+    """A bf16 tensor's bits as a uint16 array."""
+    return t.view(torch.int16).cpu().numpy().view(np.uint16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 4])
+@pytest.mark.parametrize("h", EXACT_BAND_WIDTHS)
+@pytest.mark.parametrize("name", EDGE_CARD_CASES)
+def test_band_aggregate_bf16_gives_the_exact_order_bits(cuda_device, name,
+                                                        h, offset):
+    """5b equals ``tests/edge_order.py``'s reference in bits."""
+    edges, b, n = edge_tensors(name, cuda_device)
+    xs = [bf16_at(x, offset) for x in features(
+        np.random.RandomState(7), cuda_device, *[(b, n, h)] * 3)]
+    assert xs[0].data_ptr() % 16 == 2 * offset
+    arrays = [a.cpu().numpy() for a in edges]
+    values = [x.float().cpu().numpy() for x in xs]
+    for relu in (True, False):
+        launches = band_mod.KERNEL.launches_of("_bf16")
+        got = band_mod.band_aggregate_forward(*edges, *xs, relu)
+        assert band_mod.KERNEL.launches_of("_bf16") == launches + 1
+        np.testing.assert_array_equal(
+            bits_of(got), band_forward_exact(*arrays, *values, relu))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 4])
+@pytest.mark.parametrize("widths", list(EXACT_PAIR_WIDTHS))
+@pytest.mark.parametrize("name", EDGE_CARD_CASES)
+def test_sym_pair_bf16_gives_the_exact_order_bits(cuda_device, name, widths,
+                                                  offset):
+    """8b equals ``tests/edge_order.py``'s reference in bits."""
+    edges, b, n = edge_tensors(name, cuda_device)
+    t1, t2 = EXACT_PAIR_WIDTHS[widths]
+    x1, x2 = (bf16_at(x, offset) for x in features(
+        np.random.RandomState(8), cuda_device, (b, n, t1), (b, n, t2)))
+    assert x2.data_ptr() % 16 == 2 * offset
+    launches = spmm_mod.SYM_PAIR_KERNEL.launches_of("_bf16")
+    got = spmm_mod.sym_pair(*edges, x1, x2)
+    assert spmm_mod.SYM_PAIR_KERNEL.launches_of("_bf16") == launches + 1
+    want = sym_pair_exact(*(a.cpu().numpy() for a in edges),
+                          x1.float().cpu().numpy(), x2.float().cpu().numpy())
+    for a, w in zip(got, want):
+        np.testing.assert_array_equal(bits_of(a), w)
 
 
 def tree_edges(rng, b, n):
