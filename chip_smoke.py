@@ -36,11 +36,14 @@ Phases, one JSON line each:
    ``ptxas`` registers and spills, and a spill fails the first three;
    the bf16 band forward and sym pair (5b, 8b: kernels of their own) with
    their ``ptxas`` lines, a spill failing them too, and their blocks in a
-   wave; the edge-list kernels (5-8) with GB/s and their outputs'
-   SHA-256; for the
+   wave; the bf16 scans (1b, 2b) with their ``ptxas`` lines, a spill in
+   an instance the paths launch failing them too, and their outputs'
+   SHA-256; the edge-list kernels
+   (5-8) with GB/s and their outputs' SHA-256; for the
    scans also their cluster
    partition and how many of its clusters fit the card at once, and the
-   backward's time by launch (gates, chain, dW; for the grouped matmul's,
+   backward's time by launch, f32 and bf16 (gates, chain, dW; for the
+   grouped matmul's,
    in f32 and in bf16, dx, dS and the partials' sum); then the floor of
    the graph timings
    (a one-element add, timed both ways);
@@ -515,7 +518,23 @@ def library_or_none(torch, fn, note: str, timer=None):
         return None, f"not measured: {str(e)[:200]}"
 
 
-def check_lstm(torch, rng, dev) -> list[dict]:
+def bf16_scan_ptxas(ptxas: dict, plan) -> tuple[dict, bool | None]:
+    """The ``ptxas`` lines of a scan source's bf16 kernels (their mangled
+    names carry ``__nv_bfloat16``) and whether the ones the plan launches
+    spill none (``spill_free``): its (rows per thread, resident) instance
+    of the cluster kernel, and the backward's gates pass and dW.  (The
+    streaming chain at two rows a thread, which no path launches, spills
+    20 bytes.)"""
+    lines = {k: v for k, v in ptxas.items() if "bfloat16" in k}
+    tag = f"Li{plan.rows_per_thread}ELb{int(plan.resident)}E"
+    return lines, spill_free({k: v for k, v in lines.items()
+                              if tag in k or "lstm_gates" in k
+                              or "lstm_dw" in k})
+
+
+def check_lstm(torch, rng, dev, ptxas: dict) -> list[dict]:
+    """Kernel 1 at the C-GCN's BiLSTM (f32, with and without keep) and
+    its bf16 instance (1b) with its ``ptxas`` lines (a spill fails it)."""
     from gcn_tpu_torch.ops import lstm_scan as mod
 
     g, t, h = 2, N_BUCKET, 200
@@ -576,6 +595,7 @@ def check_lstm(torch, rng, dev) -> list[dict]:
             torch, lambda: lstm_b(packed_b),
             "torch.nn.LSTM (cuDNN) bidirectional, packed, D=360, bf16 (eager: "
             "median of event pairs)")
+    lines_b, spills_ok = bf16_scan_ptxas(ptxas, plan)
     row_b = {
         "name": "lstm_scan_forward_bf16", "route": "cuda",
         "source": "gcn_tpu_torch/csrc/lstm_scan.cu",
@@ -583,7 +603,9 @@ def check_lstm(torch, rng, dev) -> list[dict]:
         "dtype": "bfloat16", "shape": {"T": t, "G": g, "B": B, "H": h},
         "max_abs_err": max(max_err(hk, hp), max_err(ck, cp)),
         "errs": {"bf16": errs["bf16"]}, "same_bits_twice": same_b,
-        "tol": {"bf16": TOL_BF16}, "ok": errs["bf16"] <= TOL_BF16 and same_b,
+        "tol": {"bf16": TOL_BF16},
+        "ok": errs["bf16"] <= TOL_BF16 and same_b and spills_ok is not False,
+        "ptxas": lines_b, "sha256": out_sha256(torch, first),
         **kernel_ms(fn_b), "plain_ms": graph_ms(functools.partial(
             mod.lstm_scan_plain, xb, lengths, wb), reps=5),
         **bf16_bound(2 * (xp.numel() + 2 * t * g * B * h + w_hh.numel())
@@ -746,7 +768,10 @@ def check_gmm(torch, rng, dev, gs, ptxas: dict) -> list[dict]:
     return out
 
 
-def check_lstm_backward(torch, rng, dev) -> list[dict]:
+def check_lstm_backward(torch, rng, dev, ptxas: dict) -> list[dict]:
+    """Kernel 2 at the C-GCN's BiLSTM (f32, with and without keep) and
+    its bf16 instance (2b), each with its time by launch (gates, chain,
+    dW); 2b with its ``ptxas`` lines (a spill fails it)."""
     from gcn_tpu_torch.ops import lstm_scan as mod
 
     g, t, h = 2, N_BUCKET, 200
@@ -843,6 +868,9 @@ def check_lstm_backward(torch, rng, dev) -> list[dict]:
         if fwd_bwd_b is not None:
             lib_b = fwd_bwd_b - fwd_b
     gy_n = args_b[0].numel()
+    fn_b = functools.partial(mod.lstm_scan_backward, *args_b)
+    split_b = device_time(torch, lambda: [fn_b() for _ in range(5)])
+    lines_b, spills_ok = bf16_scan_ptxas(ptxas, plan)
     row_b = {
         "name": "lstm_scan_backward_bf16", "route": "cuda",
         "source": "gcn_tpu_torch/csrc/lstm_scan_backward.cu",
@@ -851,8 +879,12 @@ def check_lstm_backward(torch, rng, dev) -> list[dict]:
         "shape": {"T": t, "G": g, "B": B, "H": h, "sum_len": steps},
         "max_abs_err": abs_errs["bf16"], "errs": {"bf16": errs["bf16"]},
         "same_bits_twice": same_b, "tol": {"bf16": TOL_BF16},
-        "ok": errs["bf16"] <= TOL_BF16 and same_b,
-        **kernel_ms(functools.partial(mod.lstm_scan_backward, *args_b)),
+        "ok": errs["bf16"] <= TOL_BF16 and same_b and spills_ok is not False,
+        "ptxas": lines_b, "sha256": out_sha256(torch, first),
+        **kernel_ms(fn_b),
+        "split_ms_profiler": None if split_b is None else {
+            k: v / 5 for k, v in split_b["top_kernels_ms"].items()
+            if "lstm_" in k},
         "plain_ms": graph_ms(functools.partial(mod.lstm_scan_backward_plain,
                                                *args_b), reps=3),
         # gy and dW f32; xp, w_hh, h, c and dxp bf16
@@ -1865,7 +1897,7 @@ def run_slice(torch, dev, real, synth, vocab_size: int, path: str) -> dict:
 # ----------------------------------------------------------------- train
 KERNEL_GROUPS = (  # device time by category, matched on kernel names
     ("scan forward kernel", ("lstm_scan_fwd_kernel",)),
-    ("scan backward kernels", ("lstm_gates_kernel", "lstm_chain_kernel",
+    ("scan backward kernels", ("lstm_gates_", "lstm_chain_kernel",
                                "lstm_dw_kernel")),
     ("grouped matmul forward kernel", ("grouped_matmul_fwd_kernel",
                                        "grouped_matmul_fwd_bf16_kernel")),
@@ -3058,9 +3090,10 @@ def main() -> int:
     edges = edge_lists(torch, synth[0], dev)
     # in row order from one generator, so no row's inputs depend on the
     # rows after it
-    rows = (check_lstm(torch, rng, dev)
+    rows = (check_lstm(torch, rng, dev, ptxas["lstm_scan"])
             + check_gmm(torch, rng, dev, gs, ptxas["grouped_matmul"])
-            + check_lstm_backward(torch, rng, dev)
+            + check_lstm_backward(torch, rng, dev,
+                                  ptxas["lstm_scan_backward"])
             + check_gmm_backward(torch, rng, dev, gs,
                                  ptxas["grouped_matmul_backward"])
             + check_band(torch, rng, dev, edges, ptxas["band_aggregate"])

@@ -23,7 +23,9 @@
 // waits for the slowest.
 //
 // The per-step products run on the tensor cores in 3xTF32
-// (tf32x3_tile.cuh: f32-level error): a CTA's step is a [rows x H] by
+// (tf32x3_tile.cuh: f32-level error; a resident bf16 slice's values are
+// exact in TF32, so its a_hi b_lo pass is left out, mma3's kExactB): a
+// CTA's step is a [rows x H] by
 // [H x 4·units] product, 0.7 MFLOP at the C-GCN's shapes.  On the CUDA
 // cores in f32, one FMA a term in k order, it is bound by shared-memory
 // loads: a 128-bit load takes four cycles of the SM's shared-memory pipe
@@ -140,7 +142,9 @@ __device__ __forceinline__ void st_async(uint32_t a, float v, uint32_t bar) {
 // builds the scan sources so): thread 0 of each CTA adds the SM cycles it
 // spent in each phase of its loop into lstm_phases[slot], its steps into
 // lstm_phases[steps_slot] and 1 into lstm_phases[steps_slot + 1]; the
-// tool reads them back through lstm_phases_read.  Without the macro every
+// tool reads them back through lstm_phases_read.  Slots: the forward's
+// and the chain's phases 0-3 (the chain's sends 14), steps 8-9; dW 4-5,
+// steps 10-11; the gates pass 6-7, steps 12-13.  Without the macro every
 // member is empty and the kernels compile as if it were not there.
 #ifdef LSTM_PHASES
 __device__ unsigned long long lstm_phases[16];
@@ -155,7 +159,7 @@ extern "C" int lstm_phases_zero() {
 
 struct PhaseClock {
 #ifdef LSTM_PHASES
-  long long last = 0, steps = 0, spent[8] = {};
+  long long last = 0, steps = 0, spent[16] = {};
   __device__ __forceinline__ static long long now() {
     long long t;
     asm volatile("mov.u64 %0, %%clock64;" : "=l"(t)::"memory");
@@ -171,7 +175,7 @@ struct PhaseClock {
   __device__ __forceinline__ void step(int n = 1) { steps += n; }
   __device__ __forceinline__ void flush(int steps_slot) {
     if (threadIdx.x != 0) return;
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < 16; ++i)
       if (spent[i] != 0) atomicAdd(&lstm_phases[i], (unsigned long long)spent[i]);
     atomicAdd(&lstm_phases[steps_slot], (unsigned long long)steps);
     atomicAdd(&lstm_phases[steps_slot + 1], 1ull);
@@ -335,15 +339,25 @@ __device__ __forceinline__ Frag split_frag(float a0, float a1, float a2,
 }
 
 // One 3xTF32 k-step (m16n8k8) into c: the small products first, as
-// tf32x3::mma_chunk orders them.
+// tf32x3::mma_chunk orders them.  With kExactB (a bf16 slice of w_hh,
+// widened: exact in TF32, so its lo is zero) B goes to the MMA unsplit
+// and the a_hi b_lo pass, which would add exact zeros, is left out: the
+// same sums in two passes.
+template <bool kExactB = false>
 __device__ __forceinline__ void mma3(float (&c)[4], const Frag& a, float b0,
                                      float b1) {
-  uint32_t bhi[2], blo[2];
-  tf32x3::split(b0, bhi[0], blo[0]);
-  tf32x3::split(b1, bhi[1], blo[1]);
-  tf32x3::mma_tf32(c, a.lo, bhi);
-  tf32x3::mma_tf32(c, a.hi, blo);
-  tf32x3::mma_tf32(c, a.hi, bhi);
+  if constexpr (kExactB) {
+    const uint32_t b[2] = {__float_as_uint(b0), __float_as_uint(b1)};
+    tf32x3::mma_tf32(c, a.lo, b);
+    tf32x3::mma_tf32(c, a.hi, b);
+  } else {
+    uint32_t bhi[2], blo[2];
+    tf32x3::split(b0, bhi[0], blo[0]);
+    tf32x3::split(b1, bhi[1], blo[1]);
+    tf32x3::mma_tf32(c, a.lo, bhi);
+    tf32x3::mma_tf32(c, a.hi, blo);
+    tf32x3::mma_tf32(c, a.hi, bhi);
+  }
 }
 
 }  // namespace lstm

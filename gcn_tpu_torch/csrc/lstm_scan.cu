@@ -46,10 +46,13 @@ using lstm::Layout;
 // r < rows_pad and c < cols, h_s [rows_pad][h_ld] zero past H, in 3xTF32
 // m16n8k8.  Each warp takes 16 x 8 tiles; each output sums 32-deep chunks
 // of k in a fresh accumulator, added in k order: the arithmetic of
-// tf32x3::mma_chunk, so the gates here are lstm_gates_kernel's bit for bit
-// (zero k-steps past H are skipped: they add exact zeros).  A tile's
-// chunks, kChunks at a time, run interleaved, so that their MMAs do not
-// wait for each other.
+// tf32x3::mma_chunk, so in f32 the gates here are the backward gates
+// pass's bit for bit (zero k-steps past H are skipped: they add exact
+// zeros).  A tile's chunks, kChunks at a time, run interleaved, so that
+// their MMAs do not wait for each other.  With bf16 w_hh the resident
+// slice goes to the MMAs unsplit in two passes (lstm::mma3's kExactB): the
+// same sums.  (The streaming route keeps three: in two, ptxas gave its
+// bf16 instance 64 registers and 172 bytes of spills.)
 template <bool kResident, typename T>
 __device__ __forceinline__ void gate_product(float* g_s, const float* h_s,
                                              const float* w_s,
@@ -76,7 +79,7 @@ __device__ __forceinline__ void gate_product(float* g_s, const float* h_s,
         for (int ch = 0; ch < kChunks; ++ch) {
           const int k0 = kg + ch * kBK + 8 * ks;
           if (k0 >= l.hp) continue;
-          lstm::mma3(
+          lstm::mma3<sizeof(T) == 2 && kResident>(
               c[ch],
               lstm::split_frag(a[k0], a[8 * l.h_ld + k0], a[k0 + 4],
                                a[8 * l.h_ld + k0 + 4]),

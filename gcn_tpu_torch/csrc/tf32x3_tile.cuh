@@ -206,6 +206,13 @@ __device__ __forceinline__ void ring_wait() {
 // the fresh accumulators' registers; within a group the three passes run
 // over all its fragments in turn, so neighbouring MMAs are independent.
 //
+// kExactA (default false) says that A's values are exact in TF32, as a
+// bf16 value widened to f32 is (its 8 significant bits fit TF32's 11, so
+// split gives lo == 0 exactly): A goes to the MMA unsplit, and the a_lo
+// b_hi pass, which would only add exact zeros to the accumulator, is left
+// out (a_hi b_lo, then a_hi b_hi), so the sums keep the three passes'
+// bits.
+//
 // mma_chunk_ab takes B's fragments from a functor too: b_frag(j, ks, b)
 // writes the f32 values B[q][g] and B[q + 4][g] of n-tile j at k-step ks
 // (rows within the k-step, column within the n-tile), so a kernel can
@@ -219,8 +226,8 @@ struct AddFold {
   }
 };
 
-template <int kMT, int kNT, int kG, class AFrag, class BFrag,
-          class Fold = AddFold>
+template <int kMT, int kNT, int kG, bool kExactA = false, class AFrag,
+          class BFrag, class Fold = AddFold>
 __device__ __forceinline__ void mma_chunk_ab(float (&acc)[kMT][kNT][4],
                                              AFrag a_frag, BFrag b_frag,
                                              Fold fold = Fold()) {
@@ -243,7 +250,12 @@ __device__ __forceinline__ void mma_chunk_ab(float (&acc)[kMT][kNT][4],
         float a[4];
         a_frag(mt, ks, a);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) split(a[i], ahi[mt][i], alo[mt][i]);
+        for (int i = 0; i < 4; ++i) {
+          if constexpr (kExactA)
+            ahi[mt][i] = __float_as_uint(a[i]);
+          else
+            split(a[i], ahi[mt][i], alo[mt][i]);
+        }
       }
       uint32_t bhi[kG][2], blo[kG][2];
 #pragma unroll
@@ -255,11 +267,13 @@ __device__ __forceinline__ void mma_chunk_ab(float (&acc)[kMT][kNT][4],
         split(b[1], bhi[j][1], blo[j][1]);
       }
       // the small products first, each pass over the whole group
+      if constexpr (!kExactA) {
 #pragma unroll
-      for (int j = 0; j < kG; ++j)
+        for (int j = 0; j < kG; ++j)
 #pragma unroll
-        for (int mt = 0; mt < kMT; ++mt)
-          if (j < gn) mma_tf32(c[mt][j], alo[mt], bhi[j]);
+          for (int mt = 0; mt < kMT; ++mt)
+            if (j < gn) mma_tf32(c[mt][j], alo[mt], bhi[j]);
+      }
 #pragma unroll
       for (int j = 0; j < kG; ++j)
 #pragma unroll
@@ -282,13 +296,13 @@ __device__ __forceinline__ void mma_chunk_ab(float (&acc)[kMT][kNT][4],
   }
 }
 
-template <int kMT, int kNT, int kG, int kLdw, class AFrag,
-          class Fold = AddFold>
+template <int kMT, int kNT, int kG, int kLdw, bool kExactA = false,
+          class AFrag, class Fold = AddFold>
 __device__ __forceinline__ void mma_chunk(float (&acc)[kMT][kNT][4],
                                           const float* __restrict__ ws,
                                           AFrag a_frag, Fold fold = Fold()) {
   const int lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
-  mma_chunk_ab<kMT, kNT, kG>(
+  mma_chunk_ab<kMT, kNT, kG, kExactA>(
       acc, a_frag,
       [&](int j, int ks, float (&b)[2]) {
         const float* w0 = ws + (ks * 8 + q) * kLdw + j * 8 + g;

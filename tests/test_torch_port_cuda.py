@@ -379,6 +379,66 @@ def test_lstm_cluster_kernels_match_plain(cuda_device, name, dtype,
         assert torch.equal(torch.where(past, frozen.expand_as(hs), hs), hs)
 
 
+# the bf16 backward's gates pass and dW against f64 products of the same
+# bf16 values: the C-GCN's BiLSTM, a width below 16-byte copies of h rows
+# (H = 30) and the streaming route (H = 480)
+LSTM_BF16_PRODUCT_CASES = ["full", "h30", "streaming"]
+DW_TOL = 1e-5  # test_torch_port_tf32x3.py's kernel2_lstm_dw bound (1e-4 / 10)
+
+
+def lstm_backward_with_gates(gy, xp, lengths, w_hh, hs, cs, keep):
+    """(gates, dxp, dw) of one backward launch: the wrapper's call with the
+    gates scratch (the first launch's output) kept."""
+    t, g, b, h4 = xp.shape
+    hd = h4 // 4
+    gates = torch.empty(t, g, b, h4, device=xp.device)
+    dxp, dw = torch.empty_like(gates), torch.empty(g, hd, h4,
+                                                   device=xp.device)
+    plan = lstm_mod.scan_plan(b, hd, backward=True)
+    lstm_mod.BACKWARD_KERNEL.launch(
+        lstm_mod._BACKWARD_SYMBOL[xp.dtype], gy.data_ptr(), xp.data_ptr(),
+        hs.data_ptr(), cs.data_ptr(), w_hh.data_ptr(),
+        keep.data_ptr() if keep is not None else None, lengths.data_ptr(),
+        gates.data_ptr(), dxp.data_ptr(), dw.data_ptr(), t, g, b, hd,
+        *plan.args(), torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    return gates, dxp, dw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_keep", [False, True])
+@pytest.mark.parametrize("name", LSTM_BF16_PRODUCT_CASES)
+def test_lstm_bf16_gates_and_dw_match_f64_products(cuda_device, name,
+                                                   with_keep):
+    """The bf16 backward's gates, xp + keep·(h[t-1] @ w_hh), within 1e-5 of
+    max(1, |ref|) of the f64 value from the same bf16 h, w_hh and xp (one
+    TF32 pass of exact products, f32 sums); its dW, Σ (keep·h[t-1])ᵀ dxp,
+    within the 3xTF32 bound of the f64 product of the same h and of the
+    kernel's own dxp; both the same bits as the wrapper's call."""
+    xp, lengths, w_hh, keep = lstm_case(name, cuda_device, torch.bfloat16,
+                                        with_keep)
+    t, b, h = LSTM_CASES[name]
+    hs, cs = lstm_mod.lstm_scan_forward(xp, lengths, w_hh, keep)
+    gy = torch.from_numpy(np.random.RandomState(5).randn(t, 2, b, h).astype(
+        np.float32)).to(cuda_device) * hs.float()
+    past = (torch.arange(t, device=cuda_device)[:, None, None, None]
+            >= lengths[None, None, :, None])
+    gy = torch.where(past, 0.0, gy).contiguous()
+    gates, dxp, dw = lstm_backward_with_gates(gy, xp, lengths, w_hh, hs, cs,
+                                              keep)
+    want = lstm_mod.lstm_scan_backward(gy, xp, lengths, w_hh, hs, cs, keep)
+    assert torch.equal(dxp, want[0]) and torch.equal(dw, want[1])
+
+    h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]]).double()
+    if keep is not None:
+        h_prev = h_prev * keep.double()[..., None]
+    ref = xp.double() + torch.einsum("tgbk,gkn->tgbn", h_prev,
+                                     w_hh.double())
+    assert scaled_err(gates, ref) <= 1e-5
+    ref_dw = torch.einsum("tgbk,tgbn->gkn", h_prev, dxp.double())
+    assert scaled_err(dw, ref_dw) <= DW_TOL
+
+
 @pytest.mark.cuda
 def test_lstm_plans_fit_the_card(cuda_device):
     """Every cluster of the C-GCN's scans can be resident at once."""
