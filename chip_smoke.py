@@ -38,7 +38,9 @@ Phases, one JSON line each:
    their ``ptxas`` lines, a spill failing them too, and their blocks in a
    wave; the bf16 scans (1b, 2b) with their ``ptxas`` lines, a spill in
    an instance the paths launch failing them too, and their outputs'
-   SHA-256; the edge-list kernels
+   SHA-256; the bf16 SDDMM backward (10b, one kernel) with its ``ptxas``
+   lines, a spill failing it, and both SDDMM backwards' ms by launch;
+   the edge-list kernels
    (5-8) with GB/s and their outputs' SHA-256; for the
    scans also their cluster
    partition and how many of its clusters fit the card at once, and the
@@ -934,13 +936,13 @@ def backward_yardstick(torch, x, s, g, offs, dtype: str):
         f"forward" + ("" if graph is not None else f"; {both[2]}"))
 
 
-def split_by_launch(torch, fn) -> dict | None:
-    """ms a call of each grouped matmul kernel that ``fn`` launches, by the
-    profiler over five eager calls (None where it saw no device time)."""
+def split_by_launch(torch, fn, tag: str = "grouped_matmul") -> dict | None:
+    """ms a call of each kernel whose name holds ``tag`` that ``fn``
+    launches, by the profiler over five eager calls (None where it saw no
+    device time)."""
     split = device_time(torch, lambda: [fn() for _ in range(5)])
     return None if split is None else {
-        k: v / 5 for k, v in split["top_kernels_ms"].items()
-        if "grouped_matmul" in k}
+        k: v / 5 for k, v in split["top_kernels_ms"].items() if tag in k}
 
 
 def check_gmm_backward(torch, rng, dev, gs, ptxas: dict) -> list[dict]:
@@ -1328,11 +1330,13 @@ def edge_csr(torch, edges, n: int, values, transpose: bool = False):
             pick)
 
 
-def check_sddmm(torch, rng, dev, edges) -> list[dict]:
+def check_sddmm(torch, rng, dev, edges, ptxas: dict) -> list[dict]:
     """Kernels 9 and 10 at the attention layer's shapes (q, k [B, 96, 200],
     the synthetic batch's edges) and on a forest at N = E = 1200, each in
     its f32 and its bf16 instance (the same inputs, rounded; the scores
-    and g f32 in both)."""
+    and g f32 in both); the bf16 backward (10b, one kernel of its own)
+    with its ``ptxas`` lines (a spill fails it) and, as the f32 one, its
+    ms by launch."""
     from gcn_tpu_torch.ops import sddmm as mod
 
     h = 200
@@ -1425,6 +1429,14 @@ def check_sddmm(torch, rng, dev, edges) -> list[dict]:
                 # is printed, and gated in f32 only
                 lib_ok = (lib_err is None or dtype != "float32"
                           or lib_err <= tol)
+                extra, spill_ok = {}, True
+                if kind == "backward":
+                    extra["split_ms_profiler"] = split_by_launch(torch, fn,
+                                                                 "sddmm")
+                    if dtype == "bfloat16":
+                        extra["ptxas"] = ptxas_of(ptxas,
+                                                  "sddmm_bwd_bf16_kernel")
+                        spill_ok = spill_free(extra["ptxas"]) is not False
                 rows.append({
                     "name": name, "route": "cuda",
                     "source": "gcn_tpu_torch/csrc/sddmm.cu",
@@ -1439,9 +1451,9 @@ def check_sddmm(torch, rng, dev, edges) -> list[dict]:
                     "tol": {key: tol},
                     **({"lists_equal_plain": lists_ok}
                        if kind == "backward" else {}),
-                    "ok": (err <= tol and same[kind] and lib_ok
+                    "ok": (err <= tol and same[kind] and lib_ok and spill_ok
                            and (lists_ok or kind != "backward")),
-                    **kernel_ms(fn), "plain_ms": graph_ms(plain),
+                    **kernel_ms(fn), **extra, "plain_ms": graph_ms(plain),
                     "bound_ms": bound_ms, "bound_by": bound_by,
                     "library_ms": lib_ms[k][0], "library": lib_ms[k][1],
                     "timing": TIMING_GRAPH,
@@ -1915,7 +1927,8 @@ KERNEL_GROUPS = (  # device time by category, matched on kernel names
                                          "spmm_sym_pair_bf16_kernel")),
     ("sddmm forward kernel", ("sddmm_fwd_kernel",)),
     ("sddmm backward kernels", ("sddmm_lists_kernel",
-                                "sddmm_gather_kernel")),
+                                "sddmm_gather_kernel",
+                                "sddmm_bwd_bf16_kernel")),
     ("deprel bilinear kernels", ("deprel_bilinear_kernel",
                                  "deprel_bilinear_bf16_kernel",
                                  "deprel_bilinear_sum_kernel")),
@@ -3098,7 +3111,7 @@ def main() -> int:
                                  ptxas["grouped_matmul_backward"])
             + check_band(torch, rng, dev, edges, ptxas["band_aggregate"])
             + check_spmm(torch, rng, dev, edges, ptxas["spmm_fused"])
-            + check_sddmm(torch, rng, dev, edges))
+            + check_sddmm(torch, rng, dev, edges, ptxas["sddmm"]))
     bilinear_rows, v1_launches = check_bilinear(
         torch, rng, dev, ptxas["deprel_bilinear"])
     rows += bilinear_rows

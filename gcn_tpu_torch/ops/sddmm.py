@@ -5,10 +5,12 @@ Counterpart of ``gcn_tpu.ops.pallas.sddmm``:
     s[b, e] = mask_e · Σ_h u[b, parent_e, h] · v[b, child_e, h]
 
 On a CUDA tensor ``sddmm_forward`` launches the hand-written kernel in
-``csrc/sddmm.cu`` and ``sddmm_backward`` its two others: one builds each
-sentence's adjacency lists with edge ids once (``edge_lists``, whose
-layout ``edge_lists_plain`` spells out), the other sums each node's
-neighbour rows over them in edge order; on a CPU tensor each runs its
+``csrc/sddmm.cu`` and ``sddmm_backward`` its others: in f32 two, one
+that builds each sentence's adjacency lists with edge ids once
+(``edge_lists``, whose layout ``edge_lists_plain`` spells out) and one
+that sums each node's neighbour rows over them in edge order; in bf16
+one, whose blocks build their nodes' lists in shared memory and sum over
+them in the same order; on a CPU tensor each runs its
 plain version (a gather and a product; a gather, a product and a
 ``scatter_add``).  ``sddmm`` ties them together as a
 ``torch.autograd.Function`` with the contract of JAX's ``_bwd_kernel``:
@@ -183,15 +185,17 @@ def sddmm_backward(parent, child, mask, g, u, v):
     du, dv = torch.empty_like(u), torch.empty_like(v)
     if u.numel() == 0:
         return du, dv
-    lists = torch.empty((b, list_ints(n, e)), dtype=torch.int32,
-                        device=u.device)
+    # the f32 instance's list build writes a scratch; the bf16 one builds
+    # each block's lists in shared memory and takes none
+    lists = None if u.dtype == torch.bfloat16 else torch.empty(
+        (b, list_ints(n, e)), dtype=torch.int32, device=u.device)
     with torch.cuda.device(u.device):
         BACKWARD_KERNEL.launch(
             f"sddmm_backward_{SUFFIX[u.dtype]}", parent.data_ptr(),
             child.data_ptr(), mask.data_ptr(), g.data_ptr(), u.data_ptr(),
-            v.data_ptr(), du.data_ptr(), dv.data_ptr(), lists.data_ptr(), b,
-            n, e, u.shape[2],
-            torch.cuda.current_stream(u.device).cuda_stream)
+            v.data_ptr(), du.data_ptr(), dv.data_ptr(),
+            None if lists is None else lists.data_ptr(), b, n, e,
+            u.shape[2], torch.cuda.current_stream(u.device).cuda_stream)
     return du, dv
 
 

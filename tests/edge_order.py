@@ -1,7 +1,8 @@
 """The edge-list kernels' exact summing order, in numpy (no JAX, no torch):
 the reference that the bf16 band aggregation forward (5b,
-``band_aggregate_forward_bf16``) and the bf16 sym pair (8b,
-``spmm_fused_sym_pair_bf16``) give bit for bit.
+``band_aggregate_forward_bf16``), the bf16 sym pair (8b,
+``spmm_fused_sym_pair_bf16``) and the bf16 SDDMM backward (10b,
+``sddmm_backward_bf16``: ``sddmm_backward_exact``) give bit for bit.
 
 Each row sums in f32, from a zero: its forward neighbours (its children)
 in edge order, then its reverse neighbours (its parents) in edge order,
@@ -81,3 +82,24 @@ def sym_pair_exact(parent, child, mask, x1, x2):
         diag = ((deg > 0) + 1).astype(np.float32)[..., None]
         out.append(bf16_bits(acc + diag * x))
     return tuple(out)
+
+
+def sddmm_backward_exact(parent, child, mask, g, u, v):
+    """bf16 bits [B, N, H] of (du, dv), the SDDMM backward in the bf16
+    kernel's order: for each node its counted edges in edge order (by
+    parent for du, through v[child]; by child for dv, through u[parent]),
+    each message g_e x rounded to bf16 (the f32 product, to nearest even),
+    summed in f32 from zero, the sum rounded once.  g is f32 [B, E]; u and
+    v float32 arrays of bf16 values."""
+    u, v = (np.asarray(a, np.float32) for a in (u, v))
+    g = np.asarray(g, np.float32)
+    b, n = u.shape[:2]
+    ok = valid_slots(parent, child, mask, n)
+    du, dv = np.zeros(u.shape, np.float32), np.zeros(v.shape, np.float32)
+    rows = np.arange(b)
+    for q in range(parent.shape[1]):  # slot by slot: edge order
+        s = rows[ok[:, q]]
+        p, c, gq = parent[s, q], child[s, q], g[s, q][:, None]
+        du[s, p] += bf16_values(bf16_bits(gq * v[s, c]))
+        dv[s, c] += bf16_values(bf16_bits(gq * u[s, p]))
+    return bf16_bits(du), bf16_bits(dv)

@@ -33,7 +33,8 @@ when it is called twice (no float atomics).  The bf16 band forward (5b)
 and the bf16 sym pair (8b) equal the exact-order reference of
 ``tests/edge_order.py`` (f32 sums in the kernels' order, one rounding) in
 bits, on every edge case and on widths and alignments that take each of
-their lane maps.
+their lane maps; so does the bf16 SDDMM backward (10b) on every SDDMM
+case, aligned and not.
 """
 
 import os
@@ -57,7 +58,8 @@ from gcn_tpu_torch.train.evaluator import Evaluator, batch_to_device
 from gcn_tpu_torch.train.trainer import Trainer
 # tests/ itself is on the path (pytest's rootdir insertion): a card's host
 # may have a ``tests`` package of its own installed
-from edge_order import band_forward_exact, sym_pair_exact
+from edge_order import band_forward_exact, sddmm_backward_exact, \
+    sym_pair_exact
 
 GMM_CASES = ["random", "empty_groups", "one_group", "straddle_tile",
              "rows_past_sum"]
@@ -673,7 +675,8 @@ FOREST = {"forest": (50, 1200, 1200), "more_edges": (4, 12, 30)}
 
 
 # one node the parent of every edge: one list spans the whole sentence
-STAR = {"star": (3, 1200, 1200)}
+# (star_slots: 7000 edges, more than the bf16 SDDMM backward holds at once)
+STAR = {"star": (3, 1200, 1200), "star_slots": (2, 300, 7000)}
 # edge slots above 48 KB of shared memory for the ballot-gather kernels
 SLOTS = {"slots_past_48kb": (2, 300, 7000)}
 
@@ -1032,10 +1035,13 @@ def test_bf16_fused_path_on_card_matches_cpu(cuda_device):
 
 
 # the SDDMM's cases and widths: H = 70 takes the backward's 4-byte
-# gather, H = 200 (the attention layer's) its 16-byte one
+# gather, H = 200 (the attention layer's) its 16-byte one; the slots
+# cases have E >> N, past the bf16 backward's window of edges and, in
+# star_slots, one list past its entries held at once
 SDDMM_CASES = {**{name: 70 for name in EDGE_CASES + list(EDGE_SIZES)
-                  + list(FOREST)},
-               "forest_h200": 200, "star": 200}
+                  + list(FOREST) + list(SLOTS)},
+               "forest_h200": 200, "star": 200, "slots_past_48kb_h200": 200,
+               "star_slots": 200}
 
 
 def sddmm_case(name, device):
@@ -1079,6 +1085,29 @@ def test_sddmm_kernels_match_plain(cuda_device, name, dtype):
         else:
             print(f"sddmm backward bf16 {name}: largest difference "
                   f"{bf16_flip(a, w, 1e-5):.3g}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 4])
+@pytest.mark.parametrize("name", list(SDDMM_CASES))
+def test_sddmm_backward_bf16_gives_the_exact_order_bits(cuda_device, name,
+                                                        offset):
+    """10b equals ``tests/edge_order.py``'s reference in bits, with u and
+    v 16-byte aligned and 8 bytes off (its 16-byte and 2-byte loads)."""
+    edges, b, n, h = sddmm_case(name, cuda_device)
+    rng = np.random.RandomState(9)
+    u, v = (bf16_at(x, offset) for x in features(rng, cuda_device,
+                                                 (b, n, h), (b, n, h)))
+    (g,) = features(rng, cuda_device, tuple(edges[0].shape))
+    assert u.data_ptr() % 16 == 2 * offset
+    launches = sddmm_mod.BACKWARD_KERNEL.launches_of("_bf16")
+    got = sddmm_mod.sddmm_backward(*edges, g, u, v)
+    assert sddmm_mod.BACKWARD_KERNEL.launches_of("_bf16") == launches + 1
+    want = sddmm_backward_exact(*(a.cpu().numpy() for a in edges),
+                                g.cpu().numpy(), u.float().cpu().numpy(),
+                                v.float().cpu().numpy())
+    for a, w in zip(got, want):
+        np.testing.assert_array_equal(bits_of(a), w)
 
 
 @pytest.mark.cuda
