@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the port's C-GCN, paper-GCN, attention, diagonal_deprel, BERT-input,
-SemEval, bf16 and cross-sentence-packed paths on one NVIDIA GPU, and score
-the reference's trained checkpoints.
+SemEval, bf16 and cross-sentence-packed paths on one NVIDIA GPU, score
+the reference's trained checkpoints, and drive the row-sparse word-table
+update and data-parallel training.
 
     python3 chip_smoke.py
 
@@ -140,6 +141,28 @@ Phases, one JSON line each:
    within 0.005 and the largest logit gap within twice gcn_tpu's own
    (0.66, 0.49).  Exported by ``compat.torch_export`` and imported again,
    the parameters keep their bits.
+9. sparse — row-sparse word-table updates (``train.sparse_emb``) on
+   ``cgcn`` at B=50 over the synthetic N=96 train batches, their words
+   drawn uniformly over a table of random f32 rows from the seed: at
+   300,000 rows (``SPARSE_EMB_AUTO_VOCAB``) "auto" takes the sparse
+   update, its steps launch exactly ``EXPECTED["cgcn"]``, a dense trainer
+   (``sparse_emb_grad`` false) on the same weights follows it within
+   TOL_TRAIN for 3 steps (and one adagrad step each way), and 3 steps
+   through graphs give the eager steps' bits, as two eager runs do; at
+   53,954 rows (TACRED's GloVe vocabulary), 10,000 and 1,000 "auto" stays
+   dense.  At each size the ms a step through graphs, sparse against
+   dense, and the device memory one eager step adds (at 300,000 the busy
+   ms and the top kernels too);
+10. parallel — ``DistributedTrainer`` on ``cgcn`` at B=50: a world of one
+   over NCCL (its all-reduces inside the step's CUDA graph) gives
+   ``Trainer``'s losses and parameters in bits over 3 steps and launches
+   exactly ``EXPECTED["cgcn"]``; a world of two on the one card over
+   gloo (two processes of this script, ``--parallel-rank``; gloo's
+   collectives cannot be captured, so their steps run eagerly), each rank
+   on its 25 rows of the same global batches, follows ``Trainer`` within
+   TOL_TRAIN for 3 steps, and its evaluation (gathered from both ranks)
+   gives ``Trainer``'s predictions but at near-ties.  ms a step of each
+   beside ``Trainer``'s (graphs, and eager for the gloo world).
 
 The paths: ``cgcn`` (``cgcn_preset``: BiLSTM, factored full_deprel on
 dense bands), ``cgcn_fused`` (the same with ``use_pallas=True``: the band
@@ -3027,6 +3050,315 @@ def run_reference(torch, dev) -> dict:
     return {"phase": "reference", "seeds": out}
 
 
+# ---------------------------------------------------------------- sparse
+# word tables the sparse phase times, sparse against dense: two small
+# ones for the crossover, TACRED's GloVe vocabulary and gcn_tpu's auto
+# threshold (SPARSE_EMB_AUTO_VOCAB), where the phase's gates run
+SPARSE_ROWS = (1_000, 10_000, 53_954, 300_000)
+
+
+def wide_batches(batches, rows: int, rng) -> list:
+    """``batches`` with every word drawn uniformly over a table of
+    ``rows`` rows (padding stays 0)."""
+    out = []
+    for b in batches:
+        words = b["words"]
+        out.append({**b, "words": np.where(
+            words > 0, rng.randint(2, rows, words.shape), 0).astype(
+                words.dtype)})
+    return out
+
+
+def step_peak_mib(torch, tr, batch) -> float:
+    """Device memory one eager step adds above what is allocated before
+    it (activations, saved tensors, gradients)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    with eager_dispatch():
+        tr.update(batch)
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - before) / 2**20
+
+
+def trainer_speed(torch, tr, batches, busy: bool = False) -> dict:
+    """ms a step through graphs (the best of 3 passes over ``batches``),
+    the memory one eager step adds and, with ``busy``, the device's busy
+    ms a step (profiler)."""
+    def epoch():
+        for b in batches:
+            tr.update(b)
+
+    epoch()
+    walls = epoch_walls(torch, epoch)
+    out = {"ms_per_step": min(walls) / len(batches) * 1e3, "walls_s": walls,
+           "step_peak_mib_eager": step_peak_mib(torch, tr, batches[0])}
+    if busy:
+        dt = device_time(torch, epoch)
+        out["device_busy_ms_per_step"] = (None if dt is None
+                                          else dt["busy_ms"] / len(batches))
+        out["device_top_kernels_ms_per_step"] = None if dt is None else {
+            k: v / len(batches) for k, v in dt["top_kernels_ms"].items()}
+    return out
+
+
+def run_sparse(torch, dev, synth_train) -> dict:
+    """The sparse phase (row-sparse word-table updates on ``cgcn`` at
+    B=50, N=96, sgd 0.3, word ids drawn over the whole table); fails on
+    any miss."""
+    from gcn_tpu_torch.models.gcn import GCNClassifier, init_params
+    from gcn_tpu_torch.train.trainer import SPARSE_EMB_AUTO_VOCAB, Trainer
+
+    rng = np.random.RandomState(SEED + 3)
+    out = {"phase": "sparse", "path": "cgcn", "optim": "sgd",
+           "by_rows": {}}
+    for rows in SPARSE_ROWS:
+        base = {"model.vocab_size": rows, "train.batch_size": B,
+                "train.effective_batch_size": B}
+        cfg = {mode: path_config("cgcn", **base,
+                                 **{"train.sparse_emb_grad": mode})
+               for mode in ("auto", "true", "false")}
+        model = GCNClassifier(cfg["auto"].model)
+        init_params(model, torch.Generator().manual_seed(SEED))
+        state = model.state_dict()
+        del model
+        batches = wide_batches(synth_train, rows, rng)
+        ids = np.concatenate([b["words"][b["words"] > 0] for b in batches])
+        row = {"ids_per_step": len(ids) / len(batches),
+               "distinct_ids_per_step": float(np.mean([
+                   len(np.unique(b["words"][b["words"] > 0]))
+                   for b in batches])),
+               "auto_sparse": Trainer(cfg["auto"], state,
+                                      device=dev).sparse_emb}
+        if row["auto_sparse"] != (rows >= SPARSE_EMB_AUTO_VOCAB):
+            fail(f"sparse: auto chose sparse={row['auto_sparse']} at "
+                 f"{rows} rows")
+        if rows >= SPARSE_EMB_AUTO_VOCAB:
+            # the main path: auto's sparse steps, counted
+            tr = Trainer(cfg["auto"], state, device=dev)
+            losses, launches = counted(
+                lambda: [tr.update(b) for b in batches])
+            row["launches_per_step"] = check_launches(
+                "cgcn sparse", "train step", launches, EXPECTED["cgcn"][1],
+                len(batches))
+            losses = [float(x) for x in losses]
+            if not all(np.isfinite(losses)):
+                fail(f"sparse: non-finite loss {losses}")
+            # the dense update on the same weights follows it (and one
+            # adagrad step each way)
+            a = Trainer(cfg["auto"], state, device=dev)
+            d = Trainer(cfg["false"], state, device=dev)
+            la = [float(a.update(b)) for b in batches[:3]]
+            ld = [float(d.update(b)) for b in batches[:3]]
+            loss_err = max(abs(x - y) / abs(y) for x, y in zip(la, ld))
+            param_err = params_err(a, d)
+            ada = {m: path_config("cgcn", **base, **{
+                "train.sparse_emb_grad": m, "train.optim": "adagrad"})
+                for m in ("true", "false")}
+            sa, sd = (Trainer(ada[m], state, device=dev)
+                      for m in ("true", "false"))
+            lsa, lsd = float(sa.update(batches[0])), float(sd.update(
+                batches[0]))
+            ada_err = max(abs(lsa - lsd) / abs(lsd), params_err(sa, sd))
+            row.update({"losses": losses, "against_dense": {
+                "steps": 3, "loss_rel_err": loss_err,
+                "param_err": param_err, "adagrad_one_step_err": ada_err,
+                "tol": TOL_TRAIN}})
+            if max(loss_err, param_err, ada_err) > TOL_TRAIN:
+                fail(f"sparse: the dense update disagrees: {row}")
+            # graphs against eager steps, and eager twice: the same bits
+            row["graphs_against_eager"] = graphs_against_eager(
+                torch, cfg["true"], state, dev, batches[:3], "cgcn")
+            if not row["graphs_against_eager"]["eager_against_eager"][
+                    "same_bits"]:
+                fail(f"sparse: two eager runs differ: {row}")
+        for mode, label in (("true", "sparse"), ("false", "dense")):
+            tr = Trainer(cfg[mode], state, device=dev)
+            row[label] = trainer_speed(torch, tr, batches,
+                                       busy=rows >= SPARSE_EMB_AUTO_VOCAB)
+            del tr
+            torch.cuda.empty_cache()
+        row["sparse_over_dense_ms"] = (row["sparse"]["ms_per_step"]
+                                       / row["dense"]["ms_per_step"])
+        out["by_rows"][rows] = row
+    return out
+
+
+# -------------------------------------------------------------- parallel
+class GlobalBatches:
+    """A list of global batches with a batcher's ``batch_size``, for
+    ``ShardedBatcher``."""
+
+    def __init__(self, batches: list, batch_size: int):
+        self.batches, self.batch_size = batches, batch_size
+
+    def __iter__(self):
+        return iter(self.batches)
+
+    def __len__(self) -> int:
+        return len(self.batches)
+
+
+DP_STEPS = 3  # steps held to Trainer's
+
+
+def parallel_rank(rank: int, tmp: str, port: int) -> int:
+    """One rank of the world of two over gloo on the one card (``python3
+    chip_smoke.py --parallel-rank R DIR PORT``, started by
+    ``run_parallel``): ``DP_STEPS`` steps on its rows of the inputs in
+    ``DIR``, timed steps, the evaluation; rank 0 writes the results."""
+    import pickle
+
+    import torch
+
+    sys.path.insert(0, HERE)
+    from gcn_tpu_torch.config import Config
+    from gcn_tpu_torch.data.sharding import ShardedBatcher
+    from gcn_tpu_torch.parallel import distributed
+    from gcn_tpu_torch.train.distributed_trainer import DistributedTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.initialize(f"localhost:{port}", 2, rank, backend="gloo")
+    with open(os.path.join(tmp, "inputs.pkl"), "rb") as f:
+        cfg, batches, evals = pickle.load(f)
+    cfg = Config.from_dict(cfg)
+    state = torch.load(os.path.join(tmp, "state.pt"), weights_only=True)
+    dev = torch.device("cuda", 0)
+    tr = DistributedTrainer(cfg, state, device=dev, backend="gloo")
+    local = list(ShardedBatcher(GlobalBatches(batches, B), rank, 2))
+    losses, launches = counted(
+        lambda: [float(tr.update(b)) for b in local[:DP_STEPS]])
+    params = {k: v.cpu() for k, v in tr.model.state_dict().items()}
+    preds, probs, eval_loss = tr.evaluate(
+        ShardedBatcher(GlobalBatches(evals, B), rank, 2))
+
+    def epoch():
+        for b in local:
+            tr.update(b)
+
+    epoch()
+    walls = epoch_walls(torch, epoch)
+    if rank == 0:
+        torch.save({"losses": losses, "launches": launches, "params": params,
+                    "preds": preds, "probs": np.asarray(probs),
+                    "eval_loss": eval_loss, "graphs_on": tr._graphs_on(),
+                    "backend": tr.backend, "world": tr.world,
+                    "ms_per_step": min(walls) / len(local) * 1e3,
+                    "walls_s": walls}, os.path.join(tmp, "rank0.pt"))
+    distributed.shutdown()
+    return 0
+
+
+def run_parallel(torch, dev, synth_train, synth, vocab_size) -> dict:
+    """The parallel phase (data parallelism on ``cgcn`` at B=50, N=96);
+    fails on any miss."""
+    import pickle
+
+    from gcn_tpu_torch.models.gcn import GCNClassifier, init_params
+    from gcn_tpu_torch.parallel import distributed
+    from gcn_tpu_torch.parallel.distributed import free_port
+    from gcn_tpu_torch.train.distributed_trainer import DistributedTrainer
+    from gcn_tpu_torch.train.trainer import Trainer
+
+    cfg = path_config("cgcn", **{"model.vocab_size": vocab_size,
+                                 "train.batch_size": B,
+                                 "train.effective_batch_size": B})
+    model = GCNClassifier(cfg.model)
+    init_params(model, torch.Generator().manual_seed(SEED))
+    state = model.state_dict()
+    batches = synth_train
+    out = {"phase": "parallel", "path": "cgcn", "batches": len(batches)}
+
+    # a world of one over NCCL: its all-reduces inside the step's graph
+    one = Trainer(cfg, state, device=dev)
+    dp = DistributedTrainer(cfg, state, device=dev)
+    if dp.backend != "nccl" or dp.world != 1 or not dp._graphs_on():
+        fail(f"parallel: a world of {dp.world} over {dp.backend}, graphs "
+             f"{dp._graphs_on()}")
+    want = [one.update(b) for b in batches[:DP_STEPS]]
+    got, launches = counted(lambda: [dp.update(b)
+                                     for b in batches[:DP_STEPS]])
+    nccl = {"backend": dp.backend, "world": dp.world, "graphs": True,
+            "launches_per_step": check_launches(
+                "cgcn parallel", "train step", launches,
+                EXPECTED["cgcn"][1], DP_STEPS),
+            **same_bits(torch, got, want, dp, one)}
+    if not nccl["same_bits"]:
+        fail(f"parallel: the NCCL world of one differs from Trainer: {nccl}")
+    nccl["ms_per_step"] = trainer_speed(torch, dp, batches)["ms_per_step"]
+    nccl["trainer_ms_per_step"] = trainer_speed(torch, one,
+                                                batches)["ms_per_step"]
+    out["nccl_world_1"] = nccl
+    del dp, one
+    distributed.shutdown()
+
+    # a world of two on the one card over gloo, stepping eagerly
+    ref = Trainer(cfg, state, device=dev)
+    ref_losses = [float(ref.update(b)) for b in batches[:DP_STEPS]]
+    ref_preds, ref_probs, ref_loss = ref.evaluate(synth)
+    ref_probs = np.asarray(ref_probs)
+    with eager_dispatch():
+        eager_ms = trainer_speed(torch, Trainer(cfg, state, device=dev),
+                                 batches)["ms_per_step"]
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(state, os.path.join(tmp, "state.pt"))
+        with open(os.path.join(tmp, "inputs.pkl"), "wb") as f:
+            pickle.dump((cfg.to_dict(), batches, synth), f)
+        port = str(free_port())
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--parallel-rank",
+             str(r), tmp, port], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=600))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for p, (o, e) in zip(procs, logs):
+            if p.returncode != 0:
+                fail(f"parallel: a gloo rank exited {p.returncode}: "
+                     f"{e[-3000:]}")
+        res = torch.load(os.path.join(tmp, "rank0.pt"), weights_only=False)
+    ref_params = ref.model.state_dict()
+    loss_err = max(abs(x - y) / abs(y)
+                   for x, y in zip(res["losses"], ref_losses))
+    param_err = max(max_err(res["params"][k], ref_params[k].cpu())
+                    / max(1.0, float(ref_params[k].abs().max()))
+                    for k in ref_params)
+    top2 = np.argsort(ref_probs, axis=1)[:, -2:]
+    flipped = [i for i, (a, b) in enumerate(zip(res["preds"], ref_preds))
+               if a != b]
+    ties = [i for i in flipped if res["preds"][i] == top2[i, 0]
+            and ref_probs[i, top2[i, 1]] - ref_probs[i, top2[i, 0]]
+            < NEAR_TIE]
+    gloo = {"backend": res["backend"], "world": res["world"],
+            "graphs": res["graphs_on"], "steps": DP_STEPS,
+            "launches_per_step_rank0": check_launches(
+                "cgcn parallel gloo", "train step", res["launches"],
+                EXPECTED["cgcn"][1], DP_STEPS),
+            "loss_rel_err": loss_err, "param_err": param_err,
+            "tol": TOL_TRAIN, "eval_rows": len(ref_preds),
+            "eval_predictions_unlike": len(flipped),
+            "eval_near_ties": len(ties),
+            "eval_probs_err": float(np.abs(res["probs"] - ref_probs).max()),
+            "eval_loss_rel_err": abs(res["eval_loss"] - ref_loss)
+            / abs(ref_loss),
+            "ms_per_step": res["ms_per_step"], "walls_s": res["walls_s"],
+            "trainer_eager_ms_per_step": eager_ms}
+    out["gloo_world_2_one_card"] = gloo
+    if (res["world"] != 2 or res["backend"] != "gloo" or res["graphs_on"]
+            or max(loss_err, param_err) > TOL_TRAIN
+            or len(ties) < len(flipped) or len(res["preds"]) != len(ref_preds)):
+        fail(f"parallel: the gloo world of two disagrees with Trainer: "
+             f"{gloo}")
+    return out
+
+
 # the path whose train run gives each kernel's "launches" in the kernels
 # line: the one that brought the kernel in; v1 is on no path, and its
 # launches are those of the kernel phase
@@ -3152,6 +3484,10 @@ def main() -> int:
     emit({**cli, "nvidia_smi": smi, "at_s": time.perf_counter() - t_start})
     emit({**run_reference(torch, dev), "nvidia_smi": smi,
           "at_s": time.perf_counter() - t_start})
+    emit({**run_sparse(torch, dev, synth_train), "nvidia_smi": smi,
+          "at_s": time.perf_counter() - t_start})
+    emit({**run_parallel(torch, dev, synth_train, synth, vocab_size),
+          "nvidia_smi": smi, "at_s": time.perf_counter() - t_start})
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -3183,4 +3519,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        sys.exit(parallel_rank(int(sys.argv[2]), sys.argv[3],
+                               int(sys.argv[4])))
     sys.exit(main())

@@ -44,6 +44,11 @@ and logits and ``h_out`` are [B·S, ...] in row-major slot order.  Their
 edges are offset into the row, so the bands are block-diagonal and
 nothing else changes.
 
+A batch may carry ``word_vecs`` [B, N, E], the word table's rows at
+``words`` gathered by the caller (the row-sparse embedding step): the
+model takes them in place of its lookup, then applies the embedding
+dropout and the padding-row zeroing to them as to looked-up rows.
+
 Parameters keep the flax names and layouts (``word_emb``,
 ``rnn.l0_fwd_w_ih [D, 4H]``, ``gcn_deprel_w0 [D, T, H]``,
 ``gcn_w0_kernel [T, H]``, ``attn_q0 [T, H]``, ``preprocessor.kernel
@@ -360,8 +365,11 @@ class GCNClassifier(nn.Module):
             # embedding dropout, no padding-row zeroing
             word_vecs = words.to(dt)
         else:
-            # embeddings (padding_idx=0 semantics for words)
-            word_vecs = lookup(self.word_emb, words)
+            # embeddings (padding_idx=0 semantics for words); the
+            # row-sparse step (train.sparse_emb) gathers the rows itself
+            # and passes them as word_vecs, so the table gets no gradient
+            word_vecs = (batch["word_vecs"] if "word_vecs" in batch
+                         else lookup(self.word_emb, words))
             mult = embedding_dropout_mask(words, cfg.vocab_size,
                                           cfg.emb_dropout, deterministic,
                                           generator)

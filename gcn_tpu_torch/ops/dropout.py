@@ -13,6 +13,11 @@ leaves nothing to drop, and then draws nothing.  ``generator`` lives on the
 tensor's device.  The draws are not JAX's bits: the two frameworks' streams
 differ, so the tests compare distributions and hand both sides the same
 masks where they compare values.
+
+Every mask's leading axis is the batch's rows.  A data-parallel rank
+passes a ``RowShard`` for ``generator``: it draws the whole global batch's
+mask from the wrapped generator and keeps its own rows, so that rank r's
+masks are the rows of the single-device step's.
 """
 
 from __future__ import annotations
@@ -20,8 +25,28 @@ from __future__ import annotations
 import torch
 
 
-def bernoulli(shape, p: float, generator: torch.Generator, device):
+class RowShard:
+    """A generator for rows ``[lo, hi)`` of a batch of ``rows`` rows: each
+    mask is drawn at the whole batch's shape from ``generator`` and cut to
+    those rows."""
+
+    def __init__(self, generator: torch.Generator, lo: int, hi: int,
+                 rows: int):
+        if not 0 <= lo <= hi <= rows:
+            raise ValueError(f"rows [{lo}, {hi}) of {rows}")
+        self.generator = generator
+        self.lo, self.hi, self.rows = lo, hi, rows
+
+
+def bernoulli(shape, p: float, generator, device):
     """Bool keep mask, True with probability ``p``."""
+    if isinstance(generator, RowShard):
+        if shape[0] != generator.hi - generator.lo:
+            raise ValueError(f"a mask of {shape[0]} rows from a RowShard of "
+                             f"{generator.hi - generator.lo}")
+        full = torch.rand((generator.rows, *shape[1:]),
+                          generator=generator.generator, device=device)
+        return full[generator.lo:generator.hi] < p
     return torch.rand(shape, generator=generator, device=device) < p
 
 

@@ -30,9 +30,8 @@ from gcn_tpu_torch.config import Config
 UNSUPPORTED = {
     "graph_partition": (lambda a: a.graph_partition != "none",
                         "graph partitioning: ROADMAP.md §1 item 8"),
-    "sparse_emb_grad": (lambda a: a.sparse_emb_grad == "true",
-                        "row-sparse embedding gradients: ROADMAP.md §1 "
-                        "item 6"),
+    "graph_axis": (lambda a: a.graph_axis > 1,
+                   "the mesh's model axis: ROADMAP.md §1 item 8"),
 }
 # flags that tune only JAX: its PRNG, its compilation cache, its NaN checks
 DISPATCH_ONLY = ("prng_impl", "compilation_cache_dir", "debug_nans")
@@ -207,12 +206,13 @@ def build_parser(dataset: str) -> argparse.ArgumentParser:
                         "(auto = when --steps_per_dispatch > 1).")
     p.add_argument("--sparse_emb_grad", type=str, default="auto",
                    choices=["auto", "true", "false"],
-                   help="Row-sparse word-embedding updates: true is not "
-                        "ported (raises); auto and false update the whole "
-                        "table.")
+                   help="Row-sparse word-embedding updates (sgd/adagrad, "
+                        "word ids, update_gap 1): auto = on from 300k "
+                        "vocabulary rows on one process, off under data "
+                        "parallelism.")
     p.add_argument("--pack_sentences", type=int, default=0,
-                   help="Cross-sentence packing: > 0 is not ported "
-                        "(raises).")
+                   help="Cross-sentence packing: > 0 packs up to this "
+                        "many sentences a row (batch_size counts rows).")
     p.add_argument("--pack_len", type=int, default=0,
                    help="Packed row length in tokens (0 = largest length "
                         "bucket).")
@@ -221,7 +221,8 @@ def build_parser(dataset: str) -> argparse.ArgumentParser:
                    help="Graph-parallel aggregation: edges and halo are "
                         "not ported (raise).")
     p.add_argument("--graph_axis", type=int, default=1,
-                   help="Mesh `model` axis size for graph partitioning.")
+                   help="Mesh `model` axis size for graph partitioning: "
+                        "above 1 is not ported (raises).")
     p.add_argument("--prng_impl", type=str, default="auto",
                    choices=["auto", "threefry", "rbg"],
                    help="gcn_tpu: JAX's PRNG backend. Stored only.")

@@ -19,10 +19,13 @@ and replays it.
   graph; ``StepGraph.replay`` reseeds them first, so a replayed step draws
   what a fresh generator of that seed draws in an eager step.  A capture
   that fails raises: nothing falls back to the eager step.
-* ``graphs_on`` decides from the device and the model's config, before
-  any capture: a model whose step reads the host
-  (``GCNClassifier.capturable`` false: the plain grouped matmul of
-  ``deprel_factored="ragged"``) runs eagerly on the card too.
+* ``graphs_on`` decides from the device, the model's config and the
+  backend of the step's collectives, before any capture: a model whose
+  step reads the host (``GCNClassifier.capturable`` false: the plain
+  grouped matmul of ``deprel_factored="ragged"``) runs eagerly on the
+  card too, and so does a data-parallel step over gloo, whose
+  collectives a graph cannot hold (NCCL's it can: they are captured into
+  the step's graph).
 * Launch counts: the launches made while a graph is captured are added to
   the kernels' counts at each replay (``ops._cuda.count_replay``); those
   of the eager warm-up call are not counted.
@@ -57,11 +60,13 @@ def eager_dispatch():
         _EAGER[0] -= 1
 
 
-def graphs_on(device: torch.device, model) -> bool:
+def graphs_on(device: torch.device, model, backend=None) -> bool:
     """Whether ``model``'s steps and forwards on ``device`` go through
     CUDA graphs here: on the card, outside ``eager_dispatch()``, for a
-    model a graph can hold."""
-    return device.type == "cuda" and _EAGER[0] == 0 and model.capturable
+    model a graph can hold, with no collectives (``backend`` None) or
+    NCCL's."""
+    return (device.type == "cuda" and _EAGER[0] == 0 and model.capturable
+            and backend in (None, "nccl"))
 
 
 def allowed_chunk_sizes(cap: int) -> list[int]:

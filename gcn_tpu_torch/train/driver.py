@@ -1,5 +1,5 @@
 """Epoch-loop driver shared by the TACRED and SemEval CLIs (counterpart of
-``gcn_tpu.train.driver``, one process on one device).
+``gcn_tpu.train.driver``).
 
 The same training policy and run directory as gcn_tpu's: per-epoch
 train/dev/test evaluation with the official scorer; best-model tracking on
@@ -23,6 +23,15 @@ dropout of the batches before the resume point (``advance``), and
 the checkpoint's meta carries the selection history that the plateau
 decay reads and, in a step checkpoint, the losses of the epoch's batches
 before it.  The epoch's losses are summed on the device and fetched once.
+
+Data parallelism, as gcn_tpu's driver: a job that
+``parallel.distributed.initialize`` finds in the environment
+(``GCN_TPU_COORDINATOR`` / ``GCN_TPU_NUM_PROCS`` / ``GCN_TPU_PROC_ID``, or
+``torchrun``'s) with more than one process trains a ``DistributedTrainer``
+on ``ShardedBatcher``s: every rank its rows of each batch (NCCL on the
+card, one card a rank; gloo with ``--cpu``).  Only rank 0 (the chief)
+writes the run directory, ``logs.txt`` and the artifacts; every rank
+scores the whole split.
 
 Dispatch, as gcn_tpu's driver: with ``steps_per_dispatch`` k > 1 (fused
 steps, packed batches) the train batches go to ``Trainer.update_chunk``
@@ -51,9 +60,12 @@ from gcn_tpu_torch.data.dataset import (
     RelationDataset,
     constants_for,
 )
+from gcn_tpu_torch.data.sharding import ShardedBatcher
 from gcn_tpu_torch.data.vocab import Vocab
+from gcn_tpu_torch.parallel import distributed
 from gcn_tpu_torch.train import checkpoint as ckpt
 from gcn_tpu_torch.train import scorer
+from gcn_tpu_torch.train.distributed_trainer import DistributedTrainer
 from gcn_tpu_torch.train.logger import FileLogger, ensure_dir, print_config
 from gcn_tpu_torch.train.profiling import ThroughputMeter, trace
 from gcn_tpu_torch.train.trainer import Trainer
@@ -154,6 +166,8 @@ def run_training(
     ``(wall s, sustained examples/s)``."""
     C = constants_for(cfg.model.dataset)
     np.random.seed(cfg.train.seed)
+    distributed.initialize(device=device)
+    is_chief = distributed.rank() == 0
 
     vocab = Vocab.load(os.path.join(cfg.data.vocab_dir, "vocab.pkl"))
     cfg.model.vocab_size = vocab.size
@@ -215,17 +229,31 @@ def run_training(
 
     model_id = cfg.id if len(cfg.id) > 1 else "0" + cfg.id
     run_dir = os.path.join(cfg.model_save_dir, model_id)
-    ensure_dir(run_dir)
-    cfg.save(os.path.join(run_dir, "config.json"))
-    vocab.save(os.path.join(run_dir, "vocab.pkl"))
-    file_logger = FileLogger(
-        os.path.join(run_dir, cfg.log),
-        header="# epoch\ttrain_loss\tdev_loss\tdev_score\tbest_dev_score",
-        append=resume,
-    )
-    print_config(cfg.to_dict())
+    if is_chief:
+        ensure_dir(run_dir)
+        cfg.save(os.path.join(run_dir, "config.json"))
+        vocab.save(os.path.join(run_dir, "vocab.pkl"))
+        print_config(cfg.to_dict())
+        file_logger = FileLogger(
+            os.path.join(run_dir, cfg.log),
+            header="# epoch\ttrain_loss\tdev_loss\tdev_score\t"
+                   "best_dev_score",
+            append=resume,
+        )
+    log = file_logger.log if is_chief else (lambda line: None)
 
-    trainer = Trainer(cfg, emb_matrix=emb_matrix, device=device)
+    if distributed.world_size() > 1:
+        # data parallel: every rank its rows of each batch
+        print(f"Data-parallel training: {distributed.runtime_info()}")
+        trainer = DistributedTrainer(cfg, emb_matrix=emb_matrix,
+                                     device=device)
+        train_batcher, train_eval_batcher, test_batcher = (
+            ShardedBatcher(b) for b in (train_batcher, train_eval_batcher,
+                                        test_batcher))
+        if dev_batcher is not None:
+            dev_batcher = ShardedBatcher(dev_batcher)
+    else:
+        trainer = Trainer(cfg, emb_matrix=emb_matrix, device=device)
     start_epoch = 1
     skip_batches = 0
     resumed: dict = {}
@@ -332,7 +360,7 @@ def run_training(
                         epoch_losses[:applied]).tolist() if applied else []),
                 })
                 ckpt.wait_for_async_saves()
-                for name in os.listdir(run_dir):
+                for name in os.listdir(run_dir) if is_chief else ():
                     if (name.startswith("checkpoint_step_")
                             and not name.endswith(".tmp")
                             and name != f"checkpoint_step_{global_step}"):
@@ -402,8 +430,10 @@ def run_training(
                   f"{xps:,.1f} ex/s over {wall:.2f}s wall")
 
         # deprel embedding snapshot (reference train.py:239-241)
-        with open(os.path.join(run_dir, "deprel_embs.pkl"), "wb") as f:
-            pickle.dump(trainer.model.deprel_emb.detach().cpu().numpy(), f)
+        if is_chief:
+            with open(os.path.join(run_dir, "deprel_embs.pkl"), "wb") as f:
+                pickle.dump(trainer.model.deprel_emb.detach().cpu().numpy(),
+                            f)
 
         print("Evaluating on train set...")
         train_labels, train_eval_loss, train_m = run_eval(train_eval_batcher)
@@ -421,7 +451,7 @@ def run_training(
             dev_labels, dev_loss, dev_m = train_labels, train_eval_loss, train_m
 
         selection_score = dev_m["f1"]
-        file_logger.log(
+        log(
             f"{epoch}\t{train_loss:.6f}\t{dev_loss:.6f}\t"
             f"{selection_score:.4f}\t"
             f"{max([selection_score] + selection_history):.4f}"
@@ -436,22 +466,23 @@ def run_training(
             trainer.save(os.path.join(run_dir, "best_model"), epoch=epoch,
                          extra_meta=run_meta())
             print("new best model saved.")
-            file_logger.log(
+            log(
                 "new best model saved at epoch {}: {:.2f}\t{:.2f}\t{:.2f}"
                 .format(epoch, test_m["precision"] * 100,
                         test_m["recall"] * 100, test_m["f1"] * 100)
             )
             # confusion matrices + misclassified dumps, into the run dir
             # unless --test_save_dir / --test_confusion_save_file redirect
-            art_dir = run_dir
-            if cfg.test_save_dir:
-                art_dir = os.path.join(cfg.test_save_dir, cfg.id)
-                os.makedirs(art_dir, exist_ok=True)
-            write_artifacts(art_dir, "test", test_labels, test_batcher,
-                            test_ds, cfg.test_confusion_save_file)
-            if dev_batcher is not None:
-                write_artifacts(art_dir, "dev", dev_labels, dev_batcher,
-                                dev_ds)
+            if is_chief:
+                art_dir = run_dir
+                if cfg.test_save_dir:
+                    art_dir = os.path.join(cfg.test_save_dir, cfg.id)
+                    os.makedirs(art_dir, exist_ok=True)
+                write_artifacts(art_dir, "test", test_labels, test_batcher,
+                                test_ds, cfg.test_confusion_save_file)
+                if dev_batcher is not None:
+                    write_artifacts(art_dir, "dev", dev_labels, dev_batcher,
+                                    dev_ds)
 
         print("Best Dev Metrics | F1: {} | Precision: {} | Recall: {}".format(
             best_metrics["f1"], best_metrics["precision"],
@@ -475,8 +506,9 @@ def run_training(
         trainer.save(os.path.join(run_dir, f"checkpoint_epoch_{epoch}"),
                      epoch=epoch, extra_meta=run_meta())
         ckpt.wait_for_async_saves()
-        prune_checkpoints(run_dir, epoch, cfg.train.save_epoch,
-                          keep_latest=cfg.train.keep_latest_checkpoints)
+        if is_chief:
+            prune_checkpoints(run_dir, epoch, cfg.train.save_epoch,
+                              keep_latest=cfg.train.keep_latest_checkpoints)
         print("")
 
     print(f"Training ended with {cfg.train.num_epoch} epochs.")

@@ -13,6 +13,11 @@ Counterpart of ``gcn_tpu.train.optim``: ``build_optimizer`` chains
    1e-3 and ``adamax`` at a fixed 2e-3, whatever the passed rate; and
    ``adadelta`` (ρ 0.9, ε 1e-6) at the passed rate.
 
+``external_clip=True`` skips the clip stage: the row-sparse embedding
+step (``train.sparse_emb``) clips itself, over a norm that counts rows this
+chain never sees.  The state keeps its layout either way.  A step updates
+the parameters it is given gradients for and leaves the others alone.
+
 ``torch.optim``'s rules differ from optax's in places (adamax puts its ε
 elsewhere, adagrad starts its accumulator at 0), so every rule is written
 here over plain tensors.  A step makes no host sync and touches only
@@ -45,13 +50,25 @@ _RHO, _ADADELTA_EPS = 0.9, 1e-6
 _ADAGRAD_INIT, _ADAGRAD_EPS = 0.1, 1e-10
 
 
+def clip_by_global_norm(tensors: dict[str, torch.Tensor],
+                        max_norm: float) -> dict[str, torch.Tensor]:
+    """optax ``clip_by_global_norm`` over the tensors, with no host sync:
+    all scaled by ``max_norm / norm`` only when ``norm >= max_norm``."""
+    norm = torch.stack([g.float().square().sum()
+                        for g in tensors.values()]).sum().sqrt()
+    trigger = norm < max_norm
+    return {k: torch.where(trigger, g, g / norm.to(g.dtype) * max_norm)
+            for k, g in tensors.items()}
+
+
 class Optimizer:
     """Freeze → clip → core over a dict of named parameters, updated in
     place.  State tensors live beside the parameters, on their device."""
 
     def __init__(self, name: str, learning_rate: float,
                  max_grad_norm: float = 5.0, topn: int = int(1e10),
-                 lr_decay: float = 0.0, word_emb_name: str = "word_emb"):
+                 lr_decay: float = 0.0, word_emb_name: str = "word_emb",
+                 external_clip: bool = False):
         if name not in CORES:
             raise ValueError(f"Unsupported optimizer: {name}")
         self.name = name
@@ -61,6 +78,7 @@ class Optimizer:
         self.topn = topn
         self.lr_decay = lr_decay
         self.word_emb_name = word_emb_name
+        self.external_clip = external_clip
         self.count = torch.zeros((), dtype=torch.int32)
         self.state: dict[str, dict[str, torch.Tensor]] = {}
 
@@ -96,12 +114,7 @@ class Optimizer:
 
     def clip(self, grads: dict[str, torch.Tensor]):
         """optax ``clip_by_global_norm``, with no host sync."""
-        norm = torch.stack([g.float().square().sum()
-                            for g in grads.values()]).sum().sqrt()
-        trigger = norm < self.max_grad_norm
-        return {k: torch.where(trigger, g,
-                               g / norm.to(g.dtype) * self.max_grad_norm)
-                for k, g in grads.items()}
+        return clip_by_global_norm(grads, self.max_grad_norm)
 
     def state_tensors(self) -> list[torch.Tensor]:
         """Every tensor a step changes: the count and the state."""
@@ -227,17 +240,24 @@ class Optimizer:
     @torch.no_grad()
     def step(self, params: dict[str, torch.Tensor],
              grads: dict[str, torch.Tensor]) -> None:
-        """Freeze, clip, and add the core rule's update to ``params``."""
-        for k, u in self.updates(self.clip(self.freeze(grads))).items():
+        """Freeze, clip (unless ``external_clip``), and add the core rule's
+        update to ``params``."""
+        grads = self.freeze(grads)
+        if not self.external_clip:
+            grads = self.clip(grads)
+        for k, u in self.updates(grads).items():
             params[k].add_(u)
 
 
 def build_optimizer(name: str, learning_rate: float,
                     max_grad_norm: float = 5.0, topn: int = int(1e10),
-                    lr_decay: float = 0.0) -> Optimizer:
-    """Freeze-mask → global-norm clip → optimizer (see ``Optimizer``)."""
+                    lr_decay: float = 0.0,
+                    external_clip: bool = False) -> Optimizer:
+    """Freeze-mask → global-norm clip → optimizer (see ``Optimizer``);
+    ``external_clip=True`` leaves the clip to the caller."""
     return Optimizer(name, learning_rate, max_grad_norm=max_grad_norm,
-                     topn=topn, lr_decay=lr_decay)
+                     topn=topn, lr_decay=lr_decay,
+                     external_clip=external_clip)
 
 
 def set_learning_rate(opt: Optimizer, new_lr: float) -> Optimizer:

@@ -5,11 +5,17 @@ Counterpart of the training half of ``gcn_tpu.train.trainer.Trainer``:
 * the loss is the f32 cross-entropy over the batch's valid rows
   (``example_mask``), plus ``conv_l2`` times the squared GCN transform
   weights and ``pooling_l2`` times the squared sentence pooling output of
-  the valid rows (``_loss``);
+  the valid rows (``parallel.train_step.make_loss_fn``);
 * ``update`` runs the stochastic forward and its backward (the CUDA
   backward kernels on the card) and, when ``update_gap <= 1``, one
   freeze → clip → optimizer step; otherwise it sums the gradients and
   steps in ``flush_gradients`` after ``update_gap`` batches;
+* row-sparse word-table updates (``train.sparse_emb``), as gcn_tpu's
+  ``sparse_emb_grad``: "true" (sgd or adagrad/myadagrad, word ids,
+  ``update_gap <= 1``; else ``ValueError``), "false", or "auto" = on for
+  those configurations from ``SPARSE_EMB_AUTO_VOCAB`` rows.  A fused step
+  then gathers the batch's rows outside the differentiated loss, the
+  table gets no gradient, and only its touched rows are updated;
 * ``update_chunk`` takes k same-shape batches as k fused steps in
   ``chunk_plan`` pieces of at most ``steps_per_dispatch`` (gcn_tpu's
   ``_chunk_step``): the same steps as k ``update`` calls;
@@ -45,12 +51,16 @@ from typing import Iterable, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from gcn_tpu_torch.config import Config
 from gcn_tpu_torch.convert import params_from_jax, params_to_jax
 from gcn_tpu_torch.models.gcn import GCNClassifier, init_params
+from gcn_tpu_torch.parallel.train_step import (  # noqa: F401 (re-exported)
+    conv_l2_penalty,
+    make_loss_fn,
+)
 from gcn_tpu_torch.train import checkpoint as ckpt
+from gcn_tpu_torch.train import sparse_emb
 from gcn_tpu_torch.train.dispatch import (
     GraphCache,
     allowed_chunk_sizes,
@@ -66,14 +76,9 @@ from gcn_tpu_torch.train.optim import build_optimizer, set_learning_rate
 from gcn_tpu_torch.train.transfer import Staging
 
 RING_SLOTS = 4  # pinned batch buffers: the host runs up to 4 steps ahead
-
-
-def conv_l2_penalty(model: torch.nn.Module) -> torch.Tensor:
-    """Σ‖W‖² over the GCN layer transforms (``gcn_w*``, ``gcn_deprel_*``),
-    as ``gcn_tpu.train.trainer.conv_l2_penalty`` scopes it."""
-    return sum(p.square().sum()
-               for name, p in model.named_parameters()
-               if name.startswith(("gcn_w", "gcn_deprel_")))
+# gcn_tpu's vocabulary size from which "auto" takes the row-sparse update
+# (its crossover measured on a TPU; the card's is in PERF.md)
+SPARSE_EMB_AUTO_VOCAB = 300_000
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -120,9 +125,25 @@ class Trainer:
                 model.word_emb.copy_(emb)
         self.model = model.to(self.device)
         self.params = dict(self.model.named_parameters())
+        self._loss_fn = make_loss_fn(self.model, cfg)
+        mode = str(cfg.train.sparse_emb_grad).lower()
+        eligible = (sparse_emb.supported(cfg.train.optim)
+                    and not cfg.model.use_bert_embeddings
+                    and cfg.train.update_gap <= 1)
+        if mode == "true" and not eligible:
+            raise ValueError(
+                "--sparse_emb_grad true requires a row-local optimizer "
+                "(sgd/adagrad), integer word inputs (not BERT) and "
+                f"update_gap == 1; got optim={cfg.train.optim}, "
+                f"bert={cfg.model.use_bert_embeddings}, "
+                f"update_gap={cfg.train.update_gap}")
+        self._sparse_emb = mode == "true" or (
+            mode == "auto" and eligible
+            and cfg.model.vocab_size >= SPARSE_EMB_AUTO_VOCAB)
         self.opt = build_optimizer(cfg.train.optim, cfg.train.lr,
                                    max_grad_norm=cfg.train.max_grad_norm,
-                                   topn=cfg.model.topn)
+                                   topn=cfg.model.topn,
+                                   external_clip=self._sparse_emb)
         self.opt.init(self.params)
         self.current_lr = cfg.train.lr
         self.global_step = 0
@@ -135,47 +156,90 @@ class Trainer:
         self._graphs = GraphCache(self.staging, self.device)
         self.graphs = self._graphs.graphs  # batch signature → StepGraph
 
+    @property
+    def sparse_emb(self) -> bool:
+        """Whether fused steps update the word table row-sparsely."""
+        return self._sparse_emb
+
+    def _set_sparse_emb(self, flag: bool) -> None:
+        """Turn the row-sparse update on or off before any step is
+        captured (the optimizer's state keeps its layout)."""
+        if flag == self._sparse_emb:
+            return
+        if self.graphs:
+            raise RuntimeError("the sparse mode changes after a capture")
+        self._sparse_emb = flag
+        self.opt.external_clip = flag
+
+    def _graphs_on(self) -> bool:
+        """Whether fused steps replay CUDA graphs (``dispatch.graphs_on``)."""
+        return graphs_on(self.device, self.model)
+
     def step_generator(self, step: int) -> torch.Generator:
         """The dropout stream of ``step``, on the trainer's device."""
         return torch.Generator(device=self.device).manual_seed(
             step_seed(self.seed, step))
 
-    def _loss(self, batch: dict, generator: torch.Generator):
+    def _loss(self, batch: dict, generator):
         """CE over the valid rows + conv and pooling L2 penalties."""
-        cfg = self.cfg.train
-        logits, pooled = self.model(batch, deterministic=False,
-                                    generator=generator)
-        em = batch["example_mask"].float()
-        denom = em.sum().clamp(min=1.0)
-        ce = F.cross_entropy(logits.float(), batch["labels"],
-                             reduction="none")
-        loss = (ce * em).sum() / denom
-        if cfg.conv_l2 > 0:
-            loss = loss + cfg.conv_l2 * conv_l2_penalty(self.model)
-        if cfg.pooling_l2 > 0:
-            pen = (pooled.float().square().sum(1) * em).sum() / denom
-            loss = loss + cfg.pooling_l2 * pen
-        return loss
+        return self._loss_fn(batch, generator)
 
-    def _grads(self, batch: dict, generator: torch.Generator):
-        """(loss, gradients by parameter name) of one device batch."""
+    def _grads(self, batch: dict, generator, rows=None):
+        """(loss, gradients by parameter name) of one device batch; with
+        ``rows`` (the word table's rows at the batch's words, a leaf that
+        requires grad) the model takes them for its lookup, and the
+        gradients leave out ``word_emb`` and add ``rows``' under
+        ``"rows"``."""
+        if rows is not None:
+            batch = dict(batch, word_vecs=rows)
         loss = self._loss(batch, generator)
         # every parameter but those the model names unused must reach the
         # loss (autograd raises otherwise); those get a zero gradient, as
         # under jax.grad
-        unused = self.model.unused_params
-        used = [k for k in self.params if k not in unused]
-        grads = dict(zip(used, torch.autograd.grad(
-            loss, [self.params[k] for k in used])))
-        return loss.detach(), {
-            k: grads[k] if k in grads else torch.zeros_like(p)
-            for k, p in self.params.items()}
+        skip = set(self.model.unused_params)
+        if rows is not None:
+            skip.add("word_emb")
+        used = [k for k in self.params if k not in skip]
+        inputs = [self.params[k] for k in used]
+        if rows is not None:
+            used.append("rows")
+            inputs.append(rows)
+        grads = dict(zip(used, torch.autograd.grad(loss, inputs)))
+        out = {k: grads[k] if k in grads else torch.zeros_like(p)
+               for k, p in self.params.items()
+               if rows is None or k != "word_emb"}
+        if rows is not None:
+            out["rows"] = grads["rows"]
+        return loss.detach(), out
+
+    def _reduce(self, loss, grads: dict, ids=None):
+        """The step's loss and gradients over every rank's rows (one
+        process: as they are), and the word ids of the rows' gradient."""
+        return loss, grads, ids
 
     def _loss_and_grads(self, batch: dict):
         step = self.global_step
         self.global_step += 1
-        return self._grads(batch_to_device(batch, self.device),
-                           self.step_generator(step))
+        loss, grads, _ = self._reduce(*self._grads(
+            batch_to_device(batch, self.device), self.step_generator(step)))
+        return loss, grads
+
+    def _step(self, batch: dict, generator) -> torch.Tensor:
+        """One fused optimizer step on a device batch; its loss."""
+        if not self._sparse_emb:
+            loss, grads, _ = self._reduce(*self._grads(batch, generator))
+            self.opt.step(self.params, grads)
+            return loss
+        words = batch["words"]
+        rows = self.params["word_emb"].detach().index_select(
+            0, words.reshape(-1)).view(*words.shape, -1).requires_grad_()
+        loss, grads, words = self._reduce(
+            *self._grads(batch, generator, rows), words)
+        g_rows = grads.pop("rows")
+        sparse_emb.sparse_step(self.opt, self.params, grads, words, g_rows,
+                               topn=self.cfg.model.topn,
+                               max_grad_norm=self.cfg.train.max_grad_norm)
+        return loss
 
     def _fused(self) -> bool:
         """Whether the next batch is one whole optimizer step."""
@@ -184,13 +248,9 @@ class Trainer:
     def _steps(self, static, generators) -> torch.Tensor:
         """Fused steps over a graph's static batches, one a generator (the
         function a train graph captures): their losses [k]."""
-        losses = []
-        for i, gen in enumerate(generators):
-            loss, grads = self._grads(self.staging.device_batch(static, i),
-                                      gen)
-            self.opt.step(self.params, grads)
-            losses.append(loss)
-        return torch.stack(losses)
+        return torch.stack([self._step(self.staging.device_batch(static, i),
+                                       gen)
+                            for i, gen in enumerate(generators)])
 
     def _state(self) -> list[torch.Tensor]:
         """Every tensor a fused step changes."""
@@ -210,12 +270,14 @@ class Trainer:
     def update(self, batch: dict) -> torch.Tensor:
         """Forward + backward on one numpy batch; steps the optimizer every
         ``update_gap`` batches.  Returns the loss as a device scalar."""
-        if self._fused() and graphs_on(self.device, self.model):
+        if self._fused() and self._graphs_on():
             return self._replay([batch])[0]
-        loss, grads = self._loss_and_grads(batch)
         if self._fused():
-            self.opt.step(self.params, grads)
-            return loss
+            step = self.global_step
+            self.global_step += 1
+            return self._step(batch_to_device(batch, self.device),
+                              self.step_generator(step))
+        loss, grads = self._loss_and_grads(batch)
         if self._accum is None:
             self._accum = grads
         else:
@@ -244,7 +306,7 @@ class Trainer:
         for size in chunk_plan(len(batches), cap):
             sub = batches[i:i + size]
             i += size
-            if size > 1 and graphs_on(self.device, self.model):
+            if size > 1 and self._graphs_on():
                 losses.extend(self._replay(sub))
             else:
                 losses.extend(self.update(b) for b in sub)
@@ -275,7 +337,7 @@ class Trainer:
             reps.setdefault(_signature(b), {"batch": b, "train": False,
                                             "eval": False})["eval"] = True
         before = len(self.graphs) + len(self._evaluator.graphs)
-        if graphs_on(self.device, self.model):
+        if self._graphs_on():
             cap = max(1, int(self.cfg.train.steps_per_dispatch))
             fused = self.cfg.train.update_gap <= 1
             for ent in reps.values():

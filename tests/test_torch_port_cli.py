@@ -14,7 +14,8 @@
 * The SemEval CLI selects on train F1 without a dev split;
   ``prepare_vocab`` writes gcn_tpu's files from a GloVe file the test
   writes; the parser has gcn_tpu's flags and defaults; unsupported flags
-  raise (``--pack_sentences`` runs: ``test_torch_port_sentence_packing``),
+  raise (``--pack_sentences`` runs: ``test_torch_port_sentence_packing``;
+  ``--sparse_emb_grad true`` runs, and with adam raises ``ValueError``),
   the JAX-only ones are stored and named, the dispatch flags act (chunked
   steps, warm-up), and no card without ``--cpu`` raises.
 """
@@ -307,7 +308,7 @@ def test_parser_has_gcn_tpu_flags_and_defaults():
 @pytest.mark.parametrize("flag", [
     (["--graph_partition", "edges"], "item 8"),
     (["--graph_partition", "halo"], "item 8"),
-    (["--sparse_emb_grad", "true"], "item 6"),
+    (["--graph_axis", "2"], "item 8"),
 ])
 def test_unsupported_flags_raise(flag, tmp_path):
     args, item = flag
@@ -315,6 +316,13 @@ def test_unsupported_flags_raise(flag, tmp_path):
         train.main([*SMALL, "--cpu", *args,
                     "--model_save_dir", str(tmp_path)])
     assert not os.listdir(tmp_path)
+
+
+def test_sparse_emb_grad_true_needs_a_row_local_optimizer(tmp_path):
+    """As gcn_tpu's trainer: --sparse_emb_grad true with adam raises."""
+    with pytest.raises(ValueError, match="sparse_emb_grad true requires"):
+        train.main([*SMALL, "--cpu", "--sparse_emb_grad", "true",
+                    "--optim", "adam", "--model_save_dir", str(tmp_path)])
 
 
 def test_dispatch_only_flags_are_stored_and_named(tmp_path, capsys):

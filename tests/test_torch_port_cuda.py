@@ -37,6 +37,7 @@ their lane maps; so does the bf16 SDDMM backward (10b) on every SDDMM
 case, aligned and not.
 """
 
+import contextlib
 import os
 
 import numpy as np
@@ -1698,3 +1699,89 @@ def test_packed_graph_steps_equal_eager_steps(cuda_device):
     with eager_dispatch():
         want = eager.evaluate(evals)
     assert got[0] == want[0] and got[1] == want[1] and got[2] == want[2]
+
+
+# ------------------------------------------- row-sparse update, data parallel
+@pytest.mark.cuda
+def test_coalesce_on_the_card_gives_the_cpus_bits(cuda_device):
+    """4800 ids with repeats (every id about 16 times): the card's
+    ``coalesce`` (a stable sort and a segmented scan of fixed order, no
+    atomics) gives the same bits twice and the CPU's bits."""
+    from gcn_tpu_torch.train.sparse_emb import coalesce
+
+    rng = np.random.RandomState(3)
+    ids = torch.from_numpy(rng.randint(0, 300, 4800))
+    rows = torch.from_numpy(rng.randn(4800, 300).astype(np.float32))
+    want = coalesce(ids, rows)
+    for _ in range(2):
+        got = coalesce(ids.to(cuda_device), rows.to(cuda_device))
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("optim", ["sgd", "adagrad"])
+def test_sparse_steps_same_bits_twice_and_through_graphs(cuda_device,
+                                                          optim):
+    """B=50, N=96: 4800 ids a batch over 2000 rows, with repeats.  Sparse
+    steps through graphs, eagerly, and eagerly again give the same losses
+    and parameters in bits, and follow the dense steps within 1e-5 of
+    max(1, max |p|)."""
+    from gcn_tpu_torch.train.dispatch import eager_dispatch
+
+    base = {"train.batch_size": 50, "train.effective_batch_size": 50,
+            "train.optim": optim, "model.vocab_size": 2000}
+    cfg = small_cfg(**base, **{"train.sparse_emb_grad": "true"})
+    model = GCNClassifier(cfg.model)
+    init_params(model, torch.Generator().manual_seed(0))
+    state = model.state_dict()
+    rng = np.random.RandomState(5)
+    batches = [loader_batch(rng, b=50, n=96) for _ in range(3)]
+    for b in batches:
+        b["words"] = np.where(b["words"] > 0,
+                              rng.randint(2, 2000, b["words"].shape), 0)
+    runs = []
+    for eager in (False, True, True):
+        tr = Trainer(cfg, state, device=cuda_device)
+        assert tr.sparse_emb
+        with eager_dispatch() if eager else contextlib.nullcontext():
+            runs.append(([float(tr.update(b)) for b in batches], tr))
+    for losses, tr in runs[1:]:
+        assert losses == runs[0][0]
+        _same_params(tr, runs[0][1])
+    dense = Trainer(small_cfg(**base, **{"train.sparse_emb_grad": "false"}),
+                    state, device=cuda_device)
+    assert not dense.sparse_emb
+    want = [float(dense.update(b)) for b in batches]
+    np.testing.assert_allclose(runs[0][0], want, rtol=1e-5)
+    for k, v in dense.model.state_dict().items():
+        assert scaled_err(runs[0][1].model.state_dict()[k], v) <= 1e-5, k
+
+
+@pytest.mark.cuda
+def test_nccl_world_of_one_steps_are_trainers_bits(cuda_device):
+    """A world-size-1 NCCL ``DistributedTrainer`` (its all-reduces inside
+    the step's CUDA graph) gives ``Trainer``'s losses and parameters in
+    bits, dropout on, and its evaluation's predictions and probs."""
+    from gcn_tpu_torch.parallel import distributed
+    from gcn_tpu_torch.train.distributed_trainer import DistributedTrainer
+
+    cfg = small_cfg(**{"train.batch_size": 6,
+                       "train.effective_batch_size": 6})
+    model = GCNClassifier(cfg.model)
+    init_params(model, torch.Generator().manual_seed(0))
+    state = model.state_dict()
+    rng = np.random.RandomState(6)
+    batches = [loader_batch(rng) for _ in range(3)]
+    try:
+        dp = DistributedTrainer(cfg, state, device=cuda_device)
+        assert dp.backend == "nccl" and dp.world == 1 and dp._graphs_on()
+        one = Trainer(cfg, state, device=cuda_device)
+        got = [float(dp.update(b)) for b in batches]
+        assert len(dp.graphs) == 1
+        assert got == [float(one.update(b)) for b in batches]
+        _same_params(dp, one)
+        mine, theirs = dp.evaluate(batches), one.evaluate(batches)
+        assert mine[0] == theirs[0] and mine[1] == theirs[1]
+    finally:
+        distributed.shutdown()
