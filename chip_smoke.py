@@ -2,7 +2,7 @@
 """Drive the port's C-GCN, paper-GCN, attention, diagonal_deprel, BERT-input,
 SemEval, bf16 and cross-sentence-packed paths on one NVIDIA GPU, score
 the reference's trained checkpoints, and drive the row-sparse word-table
-update and data-parallel training.
+update, data-parallel training and the edge-partitioned graph.
 
     python3 chip_smoke.py
 
@@ -162,7 +162,20 @@ Phases, one JSON line each:
    on its 25 rows of the same global batches, follows ``Trainer`` within
    TOL_TRAIN for 3 steps, and its evaluation (gathered from both ranks)
    gives ``Trainer``'s predictions but at near-ties.  ms a step of each
-   beside ``Trainer``'s (graphs, and eager for the gloo world).
+   beside ``Trainer``'s (graphs, and eager for the gloo world);
+11. partition — ``graph_partition="edges"`` on a 1 × 2 mesh: two gloo
+   ranks on the one card (``--partition-rank``), each on all 50 rows of
+   the synthetic N=96 batches and half of their edges, on ``cgcn`` (the
+   preset's dropouts on; ``edge_keep_prob`` 1.0, so the masks are the
+   dense path's) and on ``cgcn_attn``'s configuration (the cross-shard
+   edge softmax): 3 steps within TOL_TRAIN of ``Trainer`` unpartitioned
+   in loss and every parameter, the two ranks' parameters equal in bits,
+   rank 0's launches a step exactly ``PARTITION_EXPECTED`` (``cgcn``:
+   ``EXPECTED["cgcn"]``, kernels 1-4; ``cgcn_attn``: the scans only), and
+   the evaluation ``Trainer``'s predictions but at near-ties.  ms a step
+   of each world, eagerly, beside ``Trainer``'s eager ms and the gloo
+   data-parallel world's: both ranks share one card, so this shows no
+   speed-up.
 
 The paths: ``cgcn`` (``cgcn_preset``: BiLSTM, factored full_deprel on
 dense bands), ``cgcn_fused`` (the same with ``use_pallas=True``: the band
@@ -3202,6 +3215,43 @@ class GlobalBatches:
 DP_STEPS = 3  # steps held to Trainer's
 
 
+def spawn_ranks(flag: str, tmp: str) -> None:
+    """Run two processes of this script (``chip_smoke.py FLAG R DIR
+    PORT``), a gloo world on the one card; fail if either exits
+    non-zero."""
+    from gcn_tpu_torch.parallel.distributed import free_port
+
+    port = str(free_port())
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), flag, str(r), tmp, port],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (o, e) in zip(procs, logs):
+        if p.returncode != 0:
+            fail(f"{flag}: a gloo rank exited {p.returncode}: {e[-3000:]}")
+
+
+def flips(preds: list, ref_preds: list, ref_probs) -> tuple[list, list]:
+    """The rows whose prediction differs from the reference's, and those
+    of them at a near-tie (the reference's second label, its top two
+    within NEAR_TIE)."""
+    top2 = np.argsort(ref_probs, axis=1)[:, -2:]
+    flipped = [i for i, (a, b) in enumerate(zip(preds, ref_preds)) if a != b]
+    ties = [i for i in flipped if preds[i] == top2[i, 0]
+            and ref_probs[i, top2[i, 1]] - ref_probs[i, top2[i, 0]]
+            < NEAR_TIE]
+    return flipped, ties
+
+
 def parallel_rank(rank: int, tmp: str, port: int) -> int:
     """One rank of the world of two over gloo on the one card (``python3
     chip_smoke.py --parallel-rank R DIR PORT``, started by
@@ -3257,7 +3307,6 @@ def run_parallel(torch, dev, synth_train, synth, vocab_size) -> dict:
 
     from gcn_tpu_torch.models.gcn import GCNClassifier, init_params
     from gcn_tpu_torch.parallel import distributed
-    from gcn_tpu_torch.parallel.distributed import free_port
     from gcn_tpu_torch.train.distributed_trainer import DistributedTrainer
     from gcn_tpu_torch.train.trainer import Trainer
 
@@ -3305,24 +3354,7 @@ def run_parallel(torch, dev, synth_train, synth, vocab_size) -> dict:
         torch.save(state, os.path.join(tmp, "state.pt"))
         with open(os.path.join(tmp, "inputs.pkl"), "wb") as f:
             pickle.dump((cfg.to_dict(), batches, synth), f)
-        port = str(free_port())
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--parallel-rank",
-             str(r), tmp, port], stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True) for r in range(2)]
-        logs = []
-        try:
-            for p in procs:
-                logs.append(p.communicate(timeout=600))
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        for p, (o, e) in zip(procs, logs):
-            if p.returncode != 0:
-                fail(f"parallel: a gloo rank exited {p.returncode}: "
-                     f"{e[-3000:]}")
+        spawn_ranks("--parallel-rank", tmp)
         res = torch.load(os.path.join(tmp, "rank0.pt"), weights_only=False)
     ref_params = ref.model.state_dict()
     loss_err = max(abs(x - y) / abs(y)
@@ -3330,12 +3362,7 @@ def run_parallel(torch, dev, synth_train, synth, vocab_size) -> dict:
     param_err = max(max_err(res["params"][k], ref_params[k].cpu())
                     / max(1.0, float(ref_params[k].abs().max()))
                     for k in ref_params)
-    top2 = np.argsort(ref_probs, axis=1)[:, -2:]
-    flipped = [i for i, (a, b) in enumerate(zip(res["preds"], ref_preds))
-               if a != b]
-    ties = [i for i in flipped if res["preds"][i] == top2[i, 0]
-            and ref_probs[i, top2[i, 1]] - ref_probs[i, top2[i, 0]]
-            < NEAR_TIE]
+    flipped, ties = flips(res["preds"], ref_preds, ref_probs)
     gloo = {"backend": res["backend"], "world": res["world"],
             "graphs": res["graphs_on"], "steps": DP_STEPS,
             "launches_per_step_rank0": check_launches(
@@ -3356,6 +3383,165 @@ def run_parallel(torch, dev, synth_train, synth, vocab_size) -> dict:
             or len(ties) < len(flipped) or len(res["preds"]) != len(ref_preds)):
         fail(f"parallel: the gloo world of two disagrees with Trainer: "
              f"{gloo}")
+    return out
+
+
+# ------------------------------------------------------------- partition
+PARTITION_PATHS = ("cgcn", "cgcn_attn")  # configurations the world trains
+# launches a step of a partitioned world's rank: the scans and the grouped
+# matmul where the configuration runs them; the aggregation is gathers,
+# scatters and the model group's all-reduces (``parallel.edge_partition``)
+PARTITION_EXPECTED = {"cgcn": EXPECTED["cgcn"][1],
+                      "cgcn_attn": {"lstm_scan_forward": 1,
+                                    "lstm_scan_backward": 1}}
+
+
+def partition_cfg(path: str, vocab_size: int, graph_partition: str):
+    """``path``'s configuration at B=50 with ``graph_partition`` over a
+    model axis of 2."""
+    return path_config(path, **{"model.vocab_size": vocab_size,
+                                "model.graph_partition": graph_partition,
+                                "mesh.graph_axis": 2, "train.batch_size": B,
+                                "train.effective_batch_size": B})
+
+
+def partition_rank(rank: int, tmp: str, port: int) -> int:
+    """One rank of the 1 × 2 world over gloo on the one card (``python3
+    chip_smoke.py --partition-rank R DIR PORT``, started by
+    ``run_partition``): for each of ``PARTITION_PATHS``, ``DP_STEPS``
+    steps on all rows of the inputs in ``DIR`` and half of their edges,
+    the evaluation, timed steps; each rank writes its results."""
+    import pickle
+
+    import torch
+
+    sys.path.insert(0, HERE)
+    from gcn_tpu_torch.config import Config
+    from gcn_tpu_torch.data.sharding import ShardedBatcher
+    from gcn_tpu_torch.parallel import distributed
+    from gcn_tpu_torch.train.distributed_trainer import DistributedTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.initialize(f"localhost:{port}", 2, rank, backend="gloo")
+    with open(os.path.join(tmp, "inputs.pkl"), "rb") as f:
+        cfgs, batches, evals, dev = pickle.load(f)
+    dev = torch.device(dev)
+    out = {}
+    for path, cfg in cfgs.items():
+        state = torch.load(os.path.join(tmp, f"{path}.pt"),
+                           weights_only=True)
+        tr = DistributedTrainer(Config.from_dict(cfg), state, device=dev,
+                                backend="gloo")
+        d, size = tr.groups.data_index, tr.mesh.data
+        local = list(ShardedBatcher(GlobalBatches(batches, B), d, size))
+        losses, launches = counted(
+            lambda: [float(tr.update(b)) for b in local[:DP_STEPS]])
+        params = {k: v.cpu().clone() for k, v in
+                  tr.model.state_dict().items()}
+        preds, probs, eval_loss = tr.evaluate(
+            ShardedBatcher(GlobalBatches(evals, B), d, size))
+
+        def epoch():
+            for b in local:
+                tr.update(b)
+
+        epoch()
+        walls = epoch_walls(torch, epoch)
+        out[path] = {"losses": losses, "launches": launches,
+                     "params": params, "preds": preds,
+                     "probs": np.asarray(probs), "eval_loss": eval_loss,
+                     "mesh": tr.mesh.shape, "graphs_on": tr._graphs_on(),
+                     "backend": tr.backend,
+                     "ms_per_step": min(walls) / len(local) * 1e3,
+                     "walls_s": walls}
+        del tr
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    distributed.shutdown()
+    return 0
+
+
+def run_partition(torch, dev, synth_train, synth, vocab_size,
+                  parallel: dict) -> dict:
+    """The partition phase (``graph_partition="edges"`` on a 1 × 2 mesh of
+    two gloo ranks sharing the card, ``cgcn`` and ``cgcn_attn`` at B=50,
+    N=96) against ``Trainer`` unpartitioned; fails on any miss.  Both
+    ranks share one card, so its ms show no speed-up: a correctness
+    gate."""
+    import pickle
+
+    from gcn_tpu_torch.models.gcn import GCNClassifier, init_params
+    from gcn_tpu_torch.train.trainer import Trainer
+
+    batches = synth_train
+    out = {"phase": "partition", "mesh": {"data": 1, "model": 2},
+           "backend": "gloo", "batches": len(batches),
+           "gloo_data_parallel_ms_per_step":
+           parallel["gloo_world_2_one_card"]["ms_per_step"]}
+    cfgs, states, refs = {}, {}, {}
+    for path in PARTITION_PATHS:
+        cfg = partition_cfg(path, vocab_size, "edges")
+        model = GCNClassifier(cfg.model)
+        init_params(model, torch.Generator().manual_seed(SEED))
+        cfgs[path], states[path] = cfg.to_dict(), model.state_dict()
+        # Trainer never partitions: the dense path, whatever the config
+        ref = Trainer(cfg, states[path], device=dev)
+        losses = [float(ref.update(b)) for b in batches[:DP_STEPS]]
+        preds, probs, loss = ref.evaluate(synth)
+        with eager_dispatch():
+            eager_ms = trainer_speed(torch, Trainer(cfg, states[path],
+                                                    device=dev),
+                                     batches)["ms_per_step"]
+        refs[path] = (losses, {k: v.cpu().clone() for k, v in
+                               ref.model.state_dict().items()},
+                      preds, np.asarray(probs), loss, eager_ms)
+        del ref
+    with tempfile.TemporaryDirectory() as tmp:
+        for path, state in states.items():
+            torch.save(state, os.path.join(tmp, f"{path}.pt"))
+        with open(os.path.join(tmp, "inputs.pkl"), "wb") as f:
+            pickle.dump((cfgs, batches, synth, str(dev)), f)
+        spawn_ranks("--partition-rank", tmp)
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(2)]
+    bad = []
+    for path in PARTITION_PATHS:
+        ref_losses, ref_params, ref_preds, ref_probs, ref_loss, eager_ms = \
+            refs[path]
+        res = ranks[0][path]
+        loss_err = max(abs(x - y) / abs(y)
+                       for x, y in zip(res["losses"], ref_losses))
+        param_err = max(max_err(res["params"][k], ref_params[k])
+                        / max(1.0, float(ref_params[k].abs().max()))
+                        for k in ref_params)
+        same = all(torch.equal(v, ranks[1][path]["params"][k])
+                   for k, v in res["params"].items())
+        flipped, ties = flips(res["preds"], ref_preds, ref_probs)
+        row = {"mesh": res["mesh"], "backend": res["backend"],
+               "graphs": res["graphs_on"], "steps": DP_STEPS,
+               "launches_per_step_rank0": check_launches(
+                   f"{path} partition", "train step", res["launches"],
+                   PARTITION_EXPECTED[path], DP_STEPS),
+               "loss_rel_err": loss_err, "param_err": param_err,
+               "tol": TOL_TRAIN, "ranks_same_bits": same,
+               "eval_rows": len(ref_preds),
+               "eval_predictions_unlike": len(flipped),
+               "eval_near_ties": len(ties),
+               "eval_probs_err": float(np.abs(res["probs"]
+                                              - ref_probs).max()),
+               "eval_loss_rel_err": abs(res["eval_loss"] - ref_loss)
+               / abs(ref_loss),
+               "ms_per_step": res["ms_per_step"], "walls_s": res["walls_s"],
+               "trainer_eager_ms_per_step": eager_ms}
+        out[path] = row
+        if (res["mesh"] != out["mesh"] or res["backend"] != "gloo"
+                or res["graphs_on"] or max(loss_err, param_err) > TOL_TRAIN
+                or not same or len(ties) < len(flipped)
+                or len(res["preds"]) != len(ref_preds)):
+            bad.append(path)
+    if bad:
+        fail(f"partition: the 1 x 2 world disagrees with Trainer on {bad}: "
+             f"{out}")
     return out
 
 
@@ -3486,7 +3672,11 @@ def main() -> int:
           "at_s": time.perf_counter() - t_start})
     emit({**run_sparse(torch, dev, synth_train), "nvidia_smi": smi,
           "at_s": time.perf_counter() - t_start})
-    emit({**run_parallel(torch, dev, synth_train, synth, vocab_size),
+    parallel = run_parallel(torch, dev, synth_train, synth, vocab_size)
+    emit({**parallel, "nvidia_smi": smi,
+          "at_s": time.perf_counter() - t_start})
+    emit({**run_partition(torch, dev, synth_train, synth, vocab_size,
+                          parallel),
           "nvidia_smi": smi, "at_s": time.perf_counter() - t_start})
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -3522,4 +3712,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--parallel-rank"]:
         sys.exit(parallel_rank(int(sys.argv[2]), sys.argv[3],
                                int(sys.argv[4])))
+    if sys.argv[1:2] == ["--partition-rank"]:
+        sys.exit(partition_rank(int(sys.argv[2]), sys.argv[3],
+                                int(sys.argv[4])))
     sys.exit(main())

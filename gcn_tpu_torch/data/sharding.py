@@ -1,9 +1,11 @@
 """Each rank's rows of every batch (counterpart of
 ``gcn_tpu.data.sharding``).
 
-In a data-parallel job every process loads the dataset and builds the same
-batches; ``ShardedBatcher`` hands rank r rows ``[r·B/W, (r+1)·B/W)`` of
-each (W ranks, B rows a batch; B % W must be 0, as in gcn_tpu).  A
+In a distributed job every process loads the dataset and builds the same
+batches; ``ShardedBatcher`` hands the ranks of data index d rows
+``[d·B/D, (d+1)·B/D)`` of each (D data indices, B rows a batch; B % D must
+be 0, as in gcn_tpu).  The ranks of one data index (a ``model`` group of
+the mesh) take the same rows.  A
 cross-sentence-packed batch (``PackedBatcher``: ``slot_mask`` [B, S, N])
 has per-slot leaves of B·S (``labels``, ``example_mask``), which are cut at
 ``[lo·S, hi·S)`` so that they stay with their rows.  Everything else
@@ -19,20 +21,21 @@ from gcn_tpu_torch.parallel import distributed
 
 
 class ShardedBatcher:
-    """Wraps a ``Batcher`` or ``PackedBatcher``, yielding this rank's rows
-    of each of its batches."""
+    """Wraps a ``Batcher`` or ``PackedBatcher``, yielding the rows of data
+    index ``data_index`` of ``data_size`` of each of its batches (by
+    default the rank and the world size: a mesh whose model axis is 1)."""
 
-    def __init__(self, batcher, process_index: Optional[int] = None,
-                 process_count: Optional[int] = None):
+    def __init__(self, batcher, data_index: Optional[int] = None,
+                 data_size: Optional[int] = None):
         self.batcher = batcher
-        self.process_index = (distributed.rank() if process_index is None
-                              else process_index)
-        self.process_count = (distributed.world_size()
-                              if process_count is None else process_count)
-        if batcher.batch_size % self.process_count:
+        self.data_index = (distributed.rank() if data_index is None
+                           else data_index)
+        self.data_size = (distributed.world_size() if data_size is None
+                          else data_size)
+        if batcher.batch_size % self.data_size:
             raise ValueError(f"batch size {batcher.batch_size} not divisible "
-                             f"by {self.process_count} processes")
-        self.local_rows = batcher.batch_size // self.process_count
+                             f"by {self.data_size} data indices")
+        self.local_rows = batcher.batch_size // self.data_size
 
     @property
     def order(self):
@@ -57,7 +60,7 @@ class ShardedBatcher:
         if rows != self.batcher.batch_size:
             raise ValueError(f"a batch of {rows} rows, expected "
                              f"{self.batcher.batch_size}")
-        lo = self.process_index * self.local_rows
+        lo = self.data_index * self.local_rows
         hi = lo + self.local_rows
         slots = batch["slot_mask"].shape[1] if "slot_mask" in batch else 1
         out = {}

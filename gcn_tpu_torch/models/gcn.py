@@ -32,8 +32,21 @@ factored tables, the MLP and classifier; every kernel runs its bf16
 instance, the attention scores (the SDDMM's output, its scale and the
 softmax, on either backend) stay f32 and their weights meet the messages
 in bf16, and logits and ``h_out`` come back f32.  Settings the port
-cannot build (``graph_partition``, unknown modes) raise
+cannot build (``graph_partition="halo"``, unknown modes) raise
 ``NotImplementedError``.
+
+Under an active graph partition (``utils.shard_ctx.active_partition``:
+a ``DistributedTrainer`` whose mesh has a ``model`` axis above 1, with
+``graph_partition="edges"``) every mode aggregates over this model rank's
+share of the edge lists and the group's all-reduce
+(``parallel.edge_partition``), as gcn_tpu's edges mode does: the fused
+path is off, the degrees, denominator and pooling mask come from
+``node_degrees`` on the whole edge list, the non-factored full_deprel
+transform is ``bilinear_traverse``, and full_deprel's edge dropout draws
+[B, E] keep masks on the whole edge list (at the global batch's shape
+under a ``RowShard``), so the masks depend neither on the model axis nor
+on the data axis.  A plain ``Trainer`` never activates one: its forward is
+the dense path whatever ``graph_partition`` says.
 
 Cross-sentence-packed batches (``data.dataset.PackedBatcher``: several
 sentences share a row) carry ``seg_start`` [B, N], which resets the
@@ -77,6 +90,7 @@ from gcn_tpu_torch.ops.dropout import (
     forget_ids,
 )
 from gcn_tpu_torch.ops.gcn_layers import (
+    bilinear_traverse,
     compose_relation_transforms,
     diagonal_deprel_layer,
     full_deprel_layer,
@@ -95,6 +109,13 @@ from gcn_tpu_torch.ops.spmm import (
     valid_edges,
 )
 from gcn_tpu_torch.ops.spmm_fused import fused_gcn_spmm
+from gcn_tpu_torch.parallel.edge_partition import (
+    local_edges,
+    partitioned_aggregate,
+    partitioned_aggregate_pair,
+    partitioned_attention_layer,
+)
+from gcn_tpu_torch.utils.shard_ctx import active_partition
 
 # attention_impl="auto": the largest [B, N, N] f32 score buffer the dense
 # backend may allocate before auto takes the edge backend (JAX's budget)
@@ -131,19 +152,22 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a configuration the port cannot
     build (``GCNClassifier`` calls it first)."""
     resolve_attention_impl(cfg.attention_impl, 0, 0)
+    if cfg.graph_partition == "halo":
+        raise NotImplementedError(
+            "graph_partition='halo' (node slabs and a boundary all_to_all) "
+            "is ROADMAP.md §1 item 8b, not ported to gcn_tpu_torch yet")
     unsupported = {
         "adj_type": cfg.adj_type not in ("regular", "full_deprel",
                                          "attention", "diagonal_deprel"),
         "dataset": cfg.dataset not in ("tacred", "semeval"),
         "compute_dtype": cfg.compute_dtype not in COMPUTE_DTYPES,
         "use_pallas": cfg.use_pallas not in (True, False, "auto"),
-        "graph_partition": cfg.graph_partition != "none",
+        "graph_partition": cfg.graph_partition not in ("none", "edges"),
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
-            f"the port runs on one device; unsupported settings: "
-            f"{', '.join(bad)}")
+            f"unsupported settings: {', '.join(bad)}")
 
 
 class TorchDense(nn.Module):
@@ -342,13 +366,25 @@ class GCNClassifier(nn.Module):
             raise ValueError("use_bert_embeddings needs float words "
                              f"[B, N, D], got {tuple(words.shape)}")
         n = words.shape[1]
-        fused = self.use_fused(deterministic)
+        part = active_partition()
+        if part is not None and cfg.graph_partition == "none":
+            part = None
+        fused = part is None and self.use_fused(deterministic)
         dt = self.dtype
         attn_impl = None
         if cfg.adj_type == "attention":
             attn_impl = resolve_attention_impl(cfg.attention_impl,
                                                words.shape[0], n)
-        if fused or attn_impl == "edge":
+        if part is not None:
+            # the whole edge list's degrees on every model rank; each rank
+            # aggregates over its share of the edges (``local``)
+            whole = (batch["edge_parent"], batch["edge_child"],
+                     batch["edge_mask"].bool())
+            deg_out, deg_in, incident = node_degrees(*whole, n, dt)
+            denom = (deg_out + deg_in + incident.to(dt) + 1.0)[:, :, None]
+            local = tuple(local_edges(part, t) for t in whole)
+            adj, pool_exclude = None, ~incident
+        elif fused or attn_impl == "edge":
             # the kernels' operand types; no band is built on these paths
             edges = (batch["edge_parent"].to(torch.int32).contiguous(),
                      batch["edge_child"].to(torch.int32).contiguous(),
@@ -396,7 +432,13 @@ class GCNClassifier(nn.Module):
         for l in range(cfg.num_layers):
             if cfg.adj_type == "regular":
                 w, b = self._cast(*self.gcn_weights(l))
-                if fused:
+                if part is not None:
+                    # A_f h + A_fᵀ h + diag(incident) h + h, as regular_layer
+                    ax = h if cfg.no_adj else (
+                        self._part_agg_pair(part, local, h, h)
+                        + incident.to(dt)[:, :, None] * h + h)
+                    h = torch.relu((ax @ w + 2.0 * b) / denom)
+                elif fused:
                     # the kernel applies the denominator and the ReLU
                     h = fused_gcn_spmm(*edges, h.contiguous(), w, b)
                 else:
@@ -404,11 +446,16 @@ class GCNClassifier(nn.Module):
                                                  cfg.no_adj) / adj.denom)
             elif cfg.adj_type == "attention":
                 agg, hw, b = self._attention(
-                    h, l, adj, None if attn_impl == "dense" else edges)
+                    h, l, adj, local if part is not None
+                    else None if attn_impl == "dense" else edges, part)
                 # the self connection is unnormalized, and no denominator
                 h = torch.relu(agg + hw + b)
             elif cfg.adj_type == "diagonal_deprel":
-                if fused:
+                if part is not None:
+                    h = torch.relu((self._part_agg_pair(
+                        part, local, e_fwd * h, e_rev * h) + e_self * h)
+                        / denom)
+                elif fused:
                     # the kernel applies the denominator and the ReLU; the
                     # self gate's broadcast is materialized for it, and
                     # autograd sums its gradient back to the table's row
@@ -417,6 +464,11 @@ class GCNClassifier(nn.Module):
                 else:
                     h = torch.relu(diagonal_deprel_layer(
                         h, adj.forward, e_fwd, e_rev, e_self) / adj.denom)
+            elif part is not None:
+                axw = self._full_deprel_part(h, part, local, whole[2], deprel,
+                                             l, plans, deterministic,
+                                             generator)
+                h = torch.relu(axw / denom)
             elif fused:
                 x_f, x_r, x_s = self._full_deprel_components(
                     h, deprel, l, plans, deterministic, generator)
@@ -449,12 +501,13 @@ class GCNClassifier(nn.Module):
         return logits.float(), h_out.float()
 
     # ----------------------------------------------------------- attention
-    def _attention(self, h, l, adj, edges):
+    def _attention(self, h, l, adj, edges, part=None):
         """One attention layer's aggregate, ``h @ W`` and bias: scaled
         dot-product scores ``q[dst]·k[src]/√H`` per tree edge, normalized
         over each destination's edges, weighting the ``h @ W`` messages of
         both bands.  The edge backend takes the edge lists ``edges``, the
-        dense one (``edges`` None) the ``Adjacency``."""
+        dense one (``edges`` None) the ``Adjacency``; under a partition
+        ``edges`` are the rank's local edges."""
         w, b, wq, wk = self._cast(*self.gcn_weights(l),
                                   getattr(self, f"attn_q{l}"),
                                   getattr(self, f"attn_k{l}"))
@@ -462,6 +515,9 @@ class GCNClassifier(nn.Module):
         k = h @ wk
         hw = h @ w
         scale = 1.0 / math.sqrt(self.cfg.hidden_dim)
+        if part is not None:
+            return (partitioned_attention_layer(part, q * scale, k, hw,
+                                                *edges), hw, b)
         if edges is None:
             return self._attention_dense(q, k, hw, adj, scale), hw, b
         ep, ec, em = edges
@@ -561,25 +617,27 @@ class GCNClassifier(nn.Module):
             return torch.full_like(ids, ones_id)
         return ids
 
-    def _band_inputs(self, adj, deprel, l, deterministic, generator):
-        """(a_f, ids_f, a_r, ids_r): each band's (edge-dropped) adjacency
-        and relation ids, drawn in JAX's order (edge drop forward, forget
-        forward, edge drop reverse, forget reverse), so that the factored
-        and the non-factored paths consume one generator alike.  The
-        bands are None without ``adj`` (the fused path, where edge
-        dropout is inactive), the reverse ones for a directed model."""
+    def _band_inputs(self, bands, deprel, l, deterministic, generator):
+        """(a_f, ids_f, a_r, ids_r): each band's edge-dropped ``bands``
+        entry (the forward and reverse adjacency bands [B, N, N], or under
+        a partition the whole edge mask [B, E] twice) and relation ids,
+        drawn in JAX's order (edge drop forward, forget forward, edge drop
+        reverse, forget reverse), so that the factored and the
+        non-factored paths consume one generator alike.  The bands are
+        None without ``bands`` (the fused path, where edge dropout is
+        inactive), the reverse ones for a directed model."""
         cfg = self.cfg
         zero_id = self.deprel_emb.shape[0] + 1
         a_f = a_r = ids_r = None
-        if adj is not None:
-            a_f = drop_edges(adj.forward, cfg.edge_keep_prob, deterministic,
+        if bands is not None:
+            a_f = drop_edges(bands[0], cfg.edge_keep_prob, deterministic,
                              generator)
         # forward band: id 0 (padding) takes the all-zeros row
         ids_f = self._band_ids(torch.where(deprel == 0, zero_id, deprel), l,
                                deterministic, generator)
         if not cfg.deprel_directed:
-            if adj is not None:
-                a_r = drop_edges(adj.reverse, cfg.edge_keep_prob,
+            if bands is not None:
+                a_r = drop_edges(bands[1], cfg.edge_keep_prob,
                                  deterministic, generator)
             ids_r = self._band_ids(deprel + constants.DEPREL_FORWARD_BOUND,
                                    l, deterministic, generator)
@@ -620,8 +678,8 @@ class GCNClassifier(nn.Module):
                            generator):
         """The dense-band full_deprel layer before its denominator:
         factored (grouped matmul) or the einsum ``full_deprel_layer``."""
-        a_f, ids_f, a_r, ids_r = self._band_inputs(adj, deprel, l,
-                                                   deterministic, generator)
+        a_f, ids_f, a_r, ids_r = self._band_inputs(
+            (adj.forward, adj.reverse), deprel, l, deterministic, generator)
         w, b = self._cast(*self.deprel_weights(l))
         e_self = self._self_loop_emb(l)
         if not self._use_factored():
@@ -636,6 +694,51 @@ class GCNClassifier(nn.Module):
         if e_self is not None:
             out = out + self_loop_traverse(h, e_self, w, b)
         return out
+
+    def _full_deprel_part(self, h, part, local, edge_mask, deprel, l, plans,
+                          deterministic, generator):
+        """The partitioned full_deprel layer before its denominator:
+        each band's messages (the grouped matmul, or ``bilinear_traverse``
+        where not factored) aggregated over the rank's local edges, each
+        band on its edge-dropped mask (drawn on the whole [B, E]
+        ``edge_mask``, then cut), plus the self loop."""
+        em_f, ids_f, em_r, ids_r = self._band_inputs(
+            (edge_mask, edge_mask), deprel, l, deterministic, generator)
+        w, b = self._cast(*self.deprel_weights(l))
+        if self._use_factored():
+            x_f, x_r = self._band_messages(h, ids_f, ids_r, l, plans,
+                                           deterministic)
+        else:
+            x_f = bilinear_traverse(h, self._relation_rows(ids_f), w, b)
+            x_r = (None if ids_r is None else bilinear_traverse(
+                h, self._relation_rows(ids_r), w, b))
+        if x_r is None:
+            out = self._part_agg(part, local, x_f, local_edges(part, em_f))
+        else:
+            out = self._part_agg_pair(part, local, x_f, x_r,
+                                      em_f=local_edges(part, em_f),
+                                      em_r=local_edges(part, em_r))
+        e_self = self._self_loop_emb(l)
+        if e_self is not None:
+            out = out + self_loop_traverse(h, e_self, w, b)
+        return out
+
+    # -------------------------------------------------------- partitioning
+    @staticmethod
+    def _part_agg(part, local, x, em):
+        """``A_f @ x`` over the whole edge list, from the rank's local
+        edges ``local`` on the local mask ``em`` (edge-dropped)."""
+        ep, ec, _ = local
+        return partitioned_aggregate(part, x, ep, ec, em)
+
+    @staticmethod
+    def _part_agg_pair(part, local, x_f, x_r, em_f=None, em_r=None):
+        """``A_f @ x_f + A_fᵀ @ x_r`` likewise, one all-reduce for both
+        bands."""
+        ep, ec, em0 = local
+        return partitioned_aggregate_pair(
+            part, x_f, x_r, ep, ec, em0 if em_f is None else em_f,
+            em0 if em_r is None else em_r)
 
     def _full_deprel_components(self, h, deprel, l, plans, deterministic,
                                 generator):

@@ -5,7 +5,7 @@ Counterpart of ``gcn_tpu.ops.dropout``:
 * inverted dropout (input, rnn, gcn and inter-layer LSTM dropout),
 * variational dropout (one mask per sequence, shared over time),
 * type-level embedding dropout (one draw per (row, word type)),
-* edge dropout on a 0/1 adjacency band,
+* edge dropout on a 0/1 adjacency band or an edge mask,
 * deprel forgetting (a token's deprel embedding → the all-ones vector).
 
 Every function is the identity when ``deterministic`` is set or its rate
@@ -86,7 +86,8 @@ def embedding_dropout_mask(token_ids, vocab_size: int, rate: float,
 
 def drop_edges(adj_band, keep_prob: float, deterministic: bool,
                generator=None):
-    """Bernoulli-mask a 0/1 adjacency band [B, N, N]."""
+    """Bernoulli-mask a 0/1 adjacency band [B, N, N], or a bool edge mask
+    [B, E] (the partitioned full_deprel layer's)."""
     if deterministic or keep_prob >= 1.0:
         return adj_band
     keep = bernoulli(adj_band.shape, keep_prob, generator, adj_band.device)

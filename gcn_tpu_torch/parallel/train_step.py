@@ -7,14 +7,15 @@ the batch's valid rows (``example_mask``) over their count, plus
 times the valid rows' squared pooling output over the same count.  Under
 data parallelism each rank computes it on its rows with
 
-* ``count`` summing the valid rows over the ranks, so every rank divides
-  by the global batch's count, as one device does;
-* ``conv_l2`` on rank 0 only (``penalties=False`` elsewhere): the penalty
-  depends on the parameters alone, and the gradients are summed over the
-  ranks, so it must be counted once;
+* ``count`` summing the valid rows over the ``data`` group, so every rank
+  divides by the global batch's count, as one device does;
+* ``conv_l2`` on data index 0 only (``penalties=False`` elsewhere): the
+  penalty depends on the parameters alone, and the gradients are summed
+  over the ``data`` group, so it must be counted once;
 
-so that the sum over the ranks of their losses and of their gradients is
-the single-device step's.  ``all_reduce_flat`` sums a list of tensors in
+so that the sum over the ``data`` group of the losses and of the
+gradients is the single-device step's (the ranks of one data index, a
+``model`` group, each hold that index's whole loss and gradients).  ``all_reduce_flat`` sums a list of tensors in
 one collective over one flat buffer (gcn_tpu's GSPMD inserts the same
 reduction); ``gather_rows`` sums zero-padded slots, so every rank gets
 each rank's rows in rank order.

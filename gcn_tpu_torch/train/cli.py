@@ -28,10 +28,8 @@ from gcn_tpu_torch.config import Config
 
 # flag → (the value it is unsupported at, as a test of args; the message)
 UNSUPPORTED = {
-    "graph_partition": (lambda a: a.graph_partition != "none",
-                        "graph partitioning: ROADMAP.md §1 item 8"),
-    "graph_axis": (lambda a: a.graph_axis > 1,
-                   "the mesh's model axis: ROADMAP.md §1 item 8"),
+    "graph_partition": (lambda a: a.graph_partition == "halo",
+                        "the halo graph partition: ROADMAP.md §1 item 8b"),
 }
 # flags that tune only JAX: its PRNG, its compilation cache, its NaN checks
 DISPATCH_ONLY = ("prng_impl", "compilation_cache_dir", "debug_nans")

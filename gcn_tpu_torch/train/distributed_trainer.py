@@ -1,35 +1,45 @@
-"""Data-parallel training over ``torch.distributed``, one process a device
-(counterpart of gcn_tpu's ``DistributedTrainer`` and ``MultiHostTrainer``,
-which torch's one-process-a-card idiom makes one class).
+"""Training over ``torch.distributed`` on a (data × model) mesh, one
+process a device (counterpart of gcn_tpu's ``DistributedTrainer`` and
+``MultiHostTrainer``, which torch's one-process-a-card idiom makes one
+class).
 
 ``DistributedTrainer`` is a ``Trainer`` whose every rank holds the whole
-model and optimizer state (``parallel.mesh``: the ``data`` axis; a
-``model`` axis above 1 raises, ``ROADMAP.md`` §1 item 8) and steps on its
-rows of each global batch (``data.sharding.ShardedBatcher``).  A step:
+model and optimizer state (``parallel.mesh``) on a ``make_mesh(world,
+data_axis, graph_axis)`` layout.  The ranks of one data index (its
+``model`` group) hold the same rows of each global batch
+(``data.sharding.ShardedBatcher`` by data index and data size); with
+``graph_partition="edges"`` and a model axis above 1 they split the edge
+lists and run the GCN layers' aggregation together
+(``utils.shard_ctx.graph_partition``, ``parallel.edge_partition``), so
+each of them ends a backward with the whole gradients of its rows.  A
+step:
 
-1. the valid rows are counted over the ranks (one all-reduce), and each
-   rank's loss divides by that global count; ``conv_l2`` is added on rank
-   0 only (``parallel.train_step.make_loss_fn``);
+1. the valid rows are counted over the ``data`` group (one all-reduce),
+   and each rank's loss divides by that global count; ``conv_l2`` is added
+   on data index 0 only (``parallel.train_step.make_loss_fn``);
 2. each dropout mask is drawn at the global batch's shape from the step's
-   stream and cut to the rank's rows (``ops.dropout.RowShard``), so the
-   ranks draw the single-device step's masks;
-3. the gradients and the loss are summed over the ranks by one all-reduce
-   of a flat buffer (``torch.autograd.grad`` bypasses DDP's reducer, so
-   the step reduces explicitly); the row-sparse word update
+   stream and cut to the data index's rows (``ops.dropout.RowShard``), so
+   the ranks draw the single-device step's masks, and a model group's
+   ranks the same ones;
+3. the gradients and the loss are summed over the ``data`` group by one
+   all-reduce of a flat buffer (``torch.autograd.grad`` bypasses DDP's
+   reducer, so the step reduces explicitly); the row-sparse word update
    (``sparse_emb_grad true``; "auto" is off here, as in gcn_tpu) also
-   gathers every rank's rows and word ids, so each rank coalesces the
-   global batch's rows;
+   gathers every data index's rows and word ids, so each rank coalesces
+   the global batch's rows;
 4. freeze, clip and update run on every rank as on one device, on the same
    sums, so the replicas stay equal.
 
 On the card with NCCL a fused step, collectives included, is a replay of a
 CUDA graph, as ``Trainer``'s; gloo's collectives cannot be captured, so
-under gloo (the CPU, or two ranks sharing one card) the steps run eagerly
-(``_graphs_on``).  ``evaluate`` and ``predict_batch`` run each rank's rows
-and all-gather the predictions, probabilities and losses, so every rank
-scores the whole split.  ``save`` writes on rank 0 and then waits for
-every rank; ``load`` reads on every rank.  The parameters and state are
-broadcast from rank 0 when the trainer is built.
+under gloo (the CPU, or ranks sharing one card) the steps run eagerly
+(``_graphs_on``), and so does a partitioned evaluation, whose forward
+holds the model group's collectives.  ``evaluate`` and ``predict_batch``
+run each rank's rows and all-gather the predictions, probabilities and
+losses over the ``data`` group (the ranks of a model group hold the same
+rows), so every rank scores the whole split.  ``save`` writes on rank 0
+and then waits for every rank; ``load`` reads on every rank.  The
+parameters and state are broadcast from rank 0 when the trainer is built.
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ from gcn_tpu_torch.ops.dropout import RowShard
 from gcn_tpu_torch.parallel import distributed
 from gcn_tpu_torch.parallel.mesh import (
     REPLICATED,
+    make_groups,
     make_mesh,
     opt_shardings,
     param_shardings,
@@ -60,6 +71,7 @@ from gcn_tpu_torch.train import checkpoint as ckpt
 from gcn_tpu_torch.train.dispatch import graphs_on
 from gcn_tpu_torch.train.evaluator import resolve_device
 from gcn_tpu_torch.train.trainer import Trainer
+from gcn_tpu_torch.utils.shard_ctx import graph_partition
 
 
 class DistributedTrainer(Trainer):
@@ -82,6 +94,7 @@ class DistributedTrainer(Trainer):
         self.backend = dist.get_backend()
         self.mesh = make_mesh(self.world, cfg.mesh.data_axis,
                               max(1, cfg.mesh.graph_axis))
+        self.groups = make_groups(self.mesh, self.rank)
         dev = distributed.local_device(dev)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
@@ -91,10 +104,19 @@ class DistributedTrainer(Trainer):
         # gcn_tpu; "true" forces them
         if str(cfg.train.sparse_emb_grad).lower() == "auto":
             self._set_sparse_emb(False)
-        self._loss_fn = make_loss_fn(self.model, cfg,
-                                     count=all_reduce_sum,
-                                     penalties=self.rank == 0)
+        data = self.groups.data
+        self._loss_fn = make_loss_fn(
+            self.model, cfg, count=lambda n: all_reduce_sum(n, data),
+            penalties=self.groups.data_index == 0)
+        if self.mesh.model > 1:
+            # the partitioned forward holds the model group's collectives
+            self._evaluator.backend = self.backend
         self._place_state()
+
+    def partition(self):
+        """The context a step's or an evaluation's forward runs in."""
+        return graph_partition(self.cfg.model.graph_partition, self.mesh,
+                               self.groups)
 
     def _place_state(self) -> None:
         """Each tensor where ``parallel.mesh`` places it: on the data axis
@@ -116,40 +138,50 @@ class DistributedTrainer(Trainer):
 
     def _loss(self, batch: dict, generator):
         rows = batch["words"].shape[0]
-        return self._loss_fn(batch, RowShard(
-            generator, self.rank * rows, (self.rank + 1) * rows,
-            self.world * rows))
+        d, size = self.groups.data_index, self.mesh.data
+        with self.partition():
+            return self._loss_fn(batch, RowShard(
+                generator, d * rows, (d + 1) * rows, size * rows))
 
     def _reduce(self, loss, grads: dict, ids=None):
-        """Loss and gradients summed over the ranks in one all-reduce; with
-        ``ids`` (the row-sparse step) every rank's rows and ids too, in
-        rank order."""
+        """Loss and gradients summed over the ``data`` group in one
+        all-reduce; with ``ids`` (the row-sparse step) every data index's
+        rows and ids too, in data order."""
         names = list(grads)
         tensors = [grads[k] for k in names]
+        d, size, group = (self.groups.data_index, self.mesh.data,
+                          self.groups.data)
         if ids is not None:
             rows = grads["rows"]
-            tensors[names.index("rows")] = row_slots(rows, self.rank,
-                                                     self.world)
-        *summed, total = all_reduce_flat(tensors + [loss.reshape(1)])
+            tensors[names.index("rows")] = row_slots(rows, d, size)
+        *summed, total = all_reduce_flat(tensors + [loss.reshape(1)],
+                                         group=group)
         out = dict(zip(names, summed))
         if ids is not None:
-            out["rows"] = out["rows"].reshape(self.world * rows.shape[0],
+            out["rows"] = out["rows"].reshape(size * rows.shape[0],
                                               *rows.shape[1:])
-            ids = gather_rows(ids, self.rank, self.world)
+            ids = gather_rows(ids, d, size, group)
         return total.reshape(()), out, ids
+
+    def warmup(self, batches, *, eval_batches=None) -> dict:
+        with self.partition():
+            return super().warmup(batches, eval_batches=eval_batches)
 
     def _scores(self, batches: Iterable[dict]):
         """Predictions, probabilities, and each global batch's loss, valid
         count and whether it is off ``batch_size`` rows or packed, in the
-        global batches' row order."""
+        global batches' row order; each data index's rows from this rank's
+        ``data`` group."""
         local = []
-        for b in batches:
-            _, probs, loss = self._evaluator.predict_batch(b)
-            mask = np.asarray(b["example_mask"])
-            local.append((probs, loss, int(mask.sum()), len(mask),
-                          "slot_mask" in b))
-        parts: list = [None] * self.world  # each rank's list, by rank
-        dist.all_gather_object(parts, local)
+        with self.partition():
+            for b in batches:
+                _, probs, loss = self._evaluator.predict_batch(b)
+                mask = np.asarray(b["example_mask"])
+                local.append((probs, loss, int(mask.sum()), len(mask),
+                              "slot_mask" in b))
+        # each data index's list, in data order
+        parts: list = [None] * self.mesh.data
+        dist.all_gather_object(parts, local, group=self.groups.data)
         preds, probs, per_batch = [], [], []
         bs = self.cfg.train.batch_size
         for i in range(len(local)):

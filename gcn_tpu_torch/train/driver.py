@@ -28,8 +28,10 @@ Data parallelism, as gcn_tpu's driver: a job that
 ``parallel.distributed.initialize`` finds in the environment
 (``GCN_TPU_COORDINATOR`` / ``GCN_TPU_NUM_PROCS`` / ``GCN_TPU_PROC_ID``, or
 ``torchrun``'s) with more than one process trains a ``DistributedTrainer``
-on ``ShardedBatcher``s: every rank its rows of each batch (NCCL on the
-card, one card a rank; gloo with ``--cpu``).  Only rank 0 (the chief)
+on ``ShardedBatcher``s over a (data × ``graph_axis``) mesh: every data
+index its rows of each batch, and with ``--graph_partition edges`` the
+ranks of a data index split its edge lists (NCCL on the card, one card a
+rank; gloo with ``--cpu``).  Only rank 0 (the chief)
 writes the run directory, ``logs.txt`` and the artifacts; every rank
 scores the whole split.
 
@@ -243,15 +245,23 @@ def run_training(
     log = file_logger.log if is_chief else (lambda line: None)
 
     if distributed.world_size() > 1:
-        # data parallel: every rank its rows of each batch
-        print(f"Data-parallel training: {distributed.runtime_info()}")
+        # a (data × graph_axis) mesh: every data index its rows of each
+        # batch, shared by the ranks of its model group
+        print(f"Distributed training: {distributed.runtime_info()}")
         trainer = DistributedTrainer(cfg, emb_matrix=emb_matrix,
                                      device=device)
+        print(f"Mesh: {trainer.mesh.shape}, graph_partition "
+              f"{cfg.model.graph_partition}")
+
+        def shard(b):
+            return ShardedBatcher(b, trainer.groups.data_index,
+                                  trainer.mesh.data)
+
         train_batcher, train_eval_batcher, test_batcher = (
-            ShardedBatcher(b) for b in (train_batcher, train_eval_batcher,
-                                        test_batcher))
+            shard(b) for b in (train_batcher, train_eval_batcher,
+                               test_batcher))
         if dev_batcher is not None:
-            dev_batcher = ShardedBatcher(dev_batcher)
+            dev_batcher = shard(dev_batcher)
     else:
         trainer = Trainer(cfg, emb_matrix=emb_matrix, device=device)
     start_epoch = 1

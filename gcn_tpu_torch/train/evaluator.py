@@ -91,6 +91,9 @@ class Evaluator:
                                cfg.train.pack_format, WINDOW + 2)
         self._graphs = GraphCache(self.staging, self.device)
         self.graphs = self._graphs.graphs  # batch signature → StepGraph
+        # the backend of collectives inside the forward (a partitioned
+        # model's), None for none: a graph holds NCCL's, not gloo's
+        self.backend = None
 
     @torch.no_grad()
     def _eval_core(self, batch: dict):
@@ -123,7 +126,7 @@ class Evaluator:
         """Start the forwards of ``batches`` (one shape; several only
         where they pack): (probs [k, B, C] on the host, an event to wait
         on before reading them or None, losses [k] on the device)."""
-        if not graphs_on(self.device, self.model):
+        if not graphs_on(self.device, self.model, self.backend):
             out = [self._eval_core(batch_to_device(b, self.device))
                    for b in batches]
             probs = torch.stack([p for p, _ in out]).cpu()

@@ -306,9 +306,10 @@ def test_parser_has_gcn_tpu_flags_and_defaults():
 
 
 @pytest.mark.parametrize("flag", [
-    (["--graph_partition", "edges"], "item 8"),
-    (["--graph_partition", "halo"], "item 8"),
-    (["--graph_axis", "2"], "item 8"),
+    (["--graph_partition", "halo"], "item 8b"),
+    (["--graph_partition", "halo", "--graph_axis", "2"], "item 8b"),
+    (["--graph_partition", "halo", "--graph_axis", "2", "--adj_type",
+      "attention"], "item 8b"),
 ])
 def test_unsupported_flags_raise(flag, tmp_path):
     args, item = flag

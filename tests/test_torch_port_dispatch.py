@@ -280,8 +280,10 @@ def card_path_on_the_cpu(monkeypatch):
         return 0, torch.empty(nbytes, dtype=torch.uint8)
 
     for mod in (trainer_mod, evaluator):
-        monkeypatch.setattr(mod, "graphs_on", lambda device, model: (
-            dispatch._EAGER[0] == 0 and model.capturable))
+        monkeypatch.setattr(mod, "graphs_on", lambda device, model,
+                            backend=None: (
+            dispatch._EAGER[0] == 0 and model.capturable
+            and backend in (None, "nccl")))
     monkeypatch.setattr(dispatch, "capture", capture)
     monkeypatch.setattr(transfer.PinnedRing, "take", take)
     monkeypatch.setattr(transfer.PinnedRing, "release", lambda self, s: None)

@@ -39,9 +39,15 @@ from gcn_tpu_torch.convert import params_from_jax
 from gcn_tpu_torch.data.sharding import ShardedBatcher
 from gcn_tpu_torch.ops.dropout import RowShard, dropout
 from gcn_tpu_torch.parallel.distributed import free_port
-from gcn_tpu_torch.parallel.mesh import make_mesh
+from gcn_tpu_torch.parallel.mesh import (
+    MeshGroups,
+    group_ranks,
+    make_groups,
+    make_mesh,
+)
 from gcn_tpu_torch.train.checkpoint import load_checkpoint
 from gcn_tpu_torch.train.trainer import SPARSE_EMB_AUTO_VOCAB, Trainer
+from gcn_tpu_torch.utils.shard_ctx import graph_partition
 from tests import dp_worker
 from tests.test_torch_port_cuda import one_torch_thread  # noqa: F401
 from tests.test_torch_port_model import REPO
@@ -49,9 +55,9 @@ from tests.test_torch_port_model import REPO
 TOL = 1e-4
 
 
-def _env(rank: int, port: int) -> dict:
+def _env(rank: int, port: int, procs: int = 2) -> dict:
     env = dict(os.environ, GCN_TPU_COORDINATOR=f"localhost:{port}",
-               GCN_TPU_NUM_PROCS="2", GCN_TPU_PROC_ID=str(rank),
+               GCN_TPU_NUM_PROCS=str(procs), GCN_TPU_PROC_ID=str(rank),
                OMP_NUM_THREADS="1")
     env.pop("XLA_FLAGS", None)
     return env
@@ -184,12 +190,26 @@ def test_sharded_batcher_keeps_slot_leaves_with_their_rows():
 
 
 def test_mesh_model_axis_names_item_8():
+    """The model axis lays out (item 8a); the halo partition names item
+    8b.  The groups' ranks as the worlds of
+    ``tests/test_torch_port_partition.py`` build them."""
     assert make_mesh(4).shape == {"data": 4, "model": 1}
     assert make_mesh(4).coords(3) == (3, 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 8"):
-        make_mesh(4, model=2)
+    mesh = make_mesh(4, model=2)
+    assert mesh.shape == {"data": 2, "model": 2}
+    assert [mesh.coords(r) for r in range(4)] == [(0, 0), (0, 1), (1, 0),
+                                                  (1, 1)]
+    assert group_ranks(mesh) == ([[0, 1], [2, 3]], [[0, 2], [1, 3]])
+    assert group_ranks(make_mesh(3, data=1, model=3)) == ([[0, 1, 2]],
+                                                          [[0], [1], [2]])
+    assert make_groups(make_mesh(4), 2) == MeshGroups(2, 0)  # no group made
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 8b"):
+        with graph_partition("halo", mesh, make_groups(make_mesh(4), 0)):
+            pass
     with pytest.raises(ValueError):
         make_mesh(4, data=3)
+    with pytest.raises(ValueError):
+        make_mesh(4, model=3)
 
 
 CLI = ["--cpu", "--no-rnn", "--hidden_dim", "16", "--emb_dim", "300",
