@@ -2,7 +2,8 @@
 """Drive the port's C-GCN, paper-GCN, attention, diagonal_deprel, BERT-input,
 SemEval, bf16 and cross-sentence-packed paths on one NVIDIA GPU, score
 the reference's trained checkpoints, and drive the row-sparse word-table
-update, data-parallel training and the edge-partitioned graph.
+update, data-parallel training and the partitioned graph (edges and
+halo).
 
     python3 chip_smoke.py
 
@@ -163,18 +164,26 @@ Phases, one JSON line each:
    TOL_TRAIN for 3 steps, and its evaluation (gathered from both ranks)
    gives ``Trainer``'s predictions but at near-ties.  ms a step of each
    beside ``Trainer``'s (graphs, and eager for the gloo world);
-11. partition — ``graph_partition="edges"`` on a 1 × 2 mesh: two gloo
-   ranks on the one card (``--partition-rank``), each on all 50 rows of
-   the synthetic N=96 batches and half of their edges, on ``cgcn`` (the
-   preset's dropouts on; ``edge_keep_prob`` 1.0, so the masks are the
-   dense path's) and on ``cgcn_attn``'s configuration (the cross-shard
-   edge softmax): 3 steps within TOL_TRAIN of ``Trainer`` unpartitioned
-   in loss and every parameter, the two ranks' parameters equal in bits,
-   rank 0's launches a step exactly ``PARTITION_EXPECTED`` (``cgcn``:
-   ``EXPECTED["cgcn"]``, kernels 1-4; ``cgcn_attn``: the scans only), and
-   the evaluation ``Trainer``'s predictions but at near-ties.  ms a step
-   of each world, eagerly, beside ``Trainer``'s eager ms and the gloo
-   data-parallel world's: both ranks share one card, so this shows no
+11. partition — ``graph_partition`` "edges" and "halo" on a 1 × 2 mesh:
+   two gloo ranks on the one card (``--partition-rank``), each on all 50
+   rows of the synthetic N=96 batches, with half of their edges
+   (``edges``) or half of their nodes (``halo``: slabs of 48, the
+   batches' ``hplan_*`` exchange plans, one boundary ``all_to_all`` a
+   layer), on ``cgcn`` (the preset's dropouts on; ``edge_keep_prob``
+   1.0, so the masks are the dense path's) and on ``cgcn_attn``'s
+   configuration (the cross-shard or the slab-local edge softmax): 3
+   steps within TOL_TRAIN of ``Trainer`` unpartitioned in loss and every
+   parameter, the two ranks' parameters equal in bits, rank 0's launches
+   a step exactly ``PARTITION_EXPECTED`` / ``HALO_EXPECTED`` (``cgcn``:
+   ``EXPECTED["cgcn"]``, kernels 1-4, under halo 3-4 on the slab's rows;
+   ``cgcn_attn``: the scans only), under halo exactly one exchange a
+   layer forward and one backward, and the evaluation ``Trainer``'s
+   predictions but at near-ties.  Rank 0 also holds one slab-shaped
+   grouped-matmul call (M = 50·48, the slab's ragged groups, empty ones
+   included) against its plain version.  ms a step of each world,
+   eagerly, beside ``Trainer``'s eager ms and the gloo data-parallel
+   world's, the exchange's bytes a step and each rank's
+   ``max_memory_allocated``: both ranks share one card, so this shows no
    speed-up.
 
 The paths: ``cgcn`` (``cgcn_preset``: BiLSTM, factored full_deprel on
@@ -3388,12 +3397,16 @@ def run_parallel(torch, dev, synth_train, synth, vocab_size) -> dict:
 
 # ------------------------------------------------------------- partition
 PARTITION_PATHS = ("cgcn", "cgcn_attn")  # configurations the world trains
+PARTITION_MODES = ("edges", "halo")
 # launches a step of a partitioned world's rank: the scans and the grouped
 # matmul where the configuration runs them; the aggregation is gathers,
-# scatters and the model group's all-reduces (``parallel.edge_partition``)
+# scatters and the model group's collectives (``parallel.edge_partition``,
+# ``parallel.halo``)
 PARTITION_EXPECTED = {"cgcn": EXPECTED["cgcn"][1],
                       "cgcn_attn": {"lstm_scan_forward": 1,
                                     "lstm_scan_backward": 1}}
+# under halo the same kernels, the grouped matmul on the slab's rows
+HALO_EXPECTED = PARTITION_EXPECTED
 
 
 def partition_cfg(path: str, vocab_size: int, graph_partition: str):
@@ -3405,12 +3418,43 @@ def partition_cfg(path: str, vocab_size: int, graph_partition: str):
                                 "train.effective_batch_size": B})
 
 
+def slab_gmm(torch, batch: dict, dev, k: int) -> dict:
+    """Kernel 3 at rank 0's slab of ``batch`` under halo: M = B·S rows of
+    the forward band's relation ids (the all-zeros row for padding), R =
+    87 groups, some empty, T = 400, H = 200, against its plain version."""
+    from gcn_tpu_torch import constants as C
+    from gcn_tpu_torch.ops import grouped_matmul as mod
+    from gcn_tpu_torch.ops.gcn_layers import make_group_plan
+
+    deprel = torch.tensor(batch["deprel"], dtype=torch.long)
+    r = len(C.DEPREL_TO_ID) + 2
+    s = -(-deprel.shape[1] // k)
+    ids = torch.where(deprel == 0, r - 1, deprel)[:, :s]
+    gs = make_group_plan(ids, r).group_sizes.to(dev)
+    m, t, h = ids.numel(), 400, 200
+    rng = np.random.RandomState(SEED)
+    x = torch.tensor(rng.uniform(-1, 1, (m, t)), dtype=torch.float32,
+                     device=dev)
+    w = torch.tensor(rng.randn(r, t, h) / np.sqrt(t), dtype=torch.float32,
+                     device=dev)
+    err = max_err(mod.grouped_matmul(x, w, gs),
+                  mod.grouped_matmul_plain(x, w, gs))
+    empty = int((gs == 0).sum())
+    return {"shape": {"M": m, "T": t, "H": h, "R": r,
+                      "groups_used": r - empty, "groups_empty": empty},
+            "max_abs_err": err, "tol": TOL_F32,
+            "ms": time_ms(lambda: mod.grouped_matmul(x, w, gs), 10),
+            "ok": err <= TOL_F32 and empty > 0}
+
+
 def partition_rank(rank: int, tmp: str, port: int) -> int:
     """One rank of the 1 × 2 world over gloo on the one card (``python3
     chip_smoke.py --partition-rank R DIR PORT``, started by
-    ``run_partition``): for each of ``PARTITION_PATHS``, ``DP_STEPS``
-    steps on all rows of the inputs in ``DIR`` and half of their edges,
-    the evaluation, timed steps; each rank writes its results."""
+    ``run_partition``): for each mode and path, ``DP_STEPS`` steps on all
+    rows of the inputs in ``DIR`` (with their halo plans under halo), the
+    evaluation, timed steps, the exchanges and the peak memory; rank 0
+    also ``slab_gmm``.  Each rank writes its results."""
+    import gc
     import pickle
 
     import torch
@@ -3419,6 +3463,7 @@ def partition_rank(rank: int, tmp: str, port: int) -> int:
     from gcn_tpu_torch.config import Config
     from gcn_tpu_torch.data.sharding import ShardedBatcher
     from gcn_tpu_torch.parallel import distributed
+    from gcn_tpu_torch.parallel.halo import EXCHANGES, attach_halo_plans
     from gcn_tpu_torch.train.distributed_trainer import DistributedTrainer
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3428,19 +3473,32 @@ def partition_rank(rank: int, tmp: str, port: int) -> int:
         cfgs, batches, evals, dev = pickle.load(f)
     dev = torch.device(dev)
     out = {}
-    for path, cfg in cfgs.items():
+    for (mode, path), cfg in cfgs.items():
         state = torch.load(os.path.join(tmp, f"{path}.pt"),
                            weights_only=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         tr = DistributedTrainer(Config.from_dict(cfg), state, device=dev,
                                 backend="gloo")
-        d, size = tr.groups.data_index, tr.mesh.data
-        local = list(ShardedBatcher(GlobalBatches(batches, B), d, size))
+        d, size, k = tr.groups.data_index, tr.mesh.data, tr.mesh.model
+
+        def planned(bs):
+            if mode != "halo":
+                return bs
+            return [attach_halo_plans(b, b["words"].shape[1], k) for b in bs]
+
+        local = list(ShardedBatcher(GlobalBatches(planned(batches), B), d,
+                                    size))
+        EXCHANGES.reset()
         losses, launches = counted(
             lambda: [float(tr.update(b)) for b in local[:DP_STEPS]])
+        exchanges = {"calls_per_step": EXCHANGES.calls / DP_STEPS,
+                     "bytes_per_step": EXCHANGES.bytes / DP_STEPS}
         params = {k: v.cpu().clone() for k, v in
                   tr.model.state_dict().items()}
         preds, probs, eval_loss = tr.evaluate(
-            ShardedBatcher(GlobalBatches(evals, B), d, size))
+            ShardedBatcher(GlobalBatches(planned(evals), B), d, size))
 
         def epoch():
             for b in local:
@@ -3448,13 +3506,18 @@ def partition_rank(rank: int, tmp: str, port: int) -> int:
 
         epoch()
         walls = epoch_walls(torch, epoch)
-        out[path] = {"losses": losses, "launches": launches,
-                     "params": params, "preds": preds,
-                     "probs": np.asarray(probs), "eval_loss": eval_loss,
-                     "mesh": tr.mesh.shape, "graphs_on": tr._graphs_on(),
-                     "backend": tr.backend,
-                     "ms_per_step": min(walls) / len(local) * 1e3,
-                     "walls_s": walls}
+        torch.cuda.synchronize()
+        out[mode, path] = {
+            "losses": losses, "launches": launches, "params": params,
+            "preds": preds, "probs": np.asarray(probs),
+            "eval_loss": eval_loss, "mesh": tr.mesh.shape,
+            "graphs_on": tr._graphs_on(), "backend": tr.backend,
+            "ms_per_step": min(walls) / len(local) * 1e3, "walls_s": walls,
+            "exchange": exchanges,
+            "max_memory_allocated_mib":
+            torch.cuda.max_memory_allocated() / 2**20}
+        if mode == "halo" and path == "cgcn" and rank == 0:
+            out["slab_gmm"] = slab_gmm(torch, batches[0], dev, k)
         del tr
     torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
     distributed.shutdown()
@@ -3463,11 +3526,11 @@ def partition_rank(rank: int, tmp: str, port: int) -> int:
 
 def run_partition(torch, dev, synth_train, synth, vocab_size,
                   parallel: dict) -> dict:
-    """The partition phase (``graph_partition="edges"`` on a 1 × 2 mesh of
-    two gloo ranks sharing the card, ``cgcn`` and ``cgcn_attn`` at B=50,
-    N=96) against ``Trainer`` unpartitioned; fails on any miss.  Both
-    ranks share one card, so its ms show no speed-up: a correctness
-    gate."""
+    """The partition phase (``graph_partition`` "edges" and "halo" on a
+    1 × 2 mesh of two gloo ranks sharing the card, ``cgcn`` and
+    ``cgcn_attn`` at B=50, N=96) against ``Trainer`` unpartitioned; fails
+    on any miss.  Both ranks share one card, so its ms show no speed-up:
+    a correctness gate."""
     import pickle
 
     from gcn_tpu_torch.models.gcn import GCNClassifier, init_params
@@ -3483,7 +3546,10 @@ def run_partition(torch, dev, synth_train, synth, vocab_size,
         cfg = partition_cfg(path, vocab_size, "edges")
         model = GCNClassifier(cfg.model)
         init_params(model, torch.Generator().manual_seed(SEED))
-        cfgs[path], states[path] = cfg.to_dict(), model.state_dict()
+        states[path] = model.state_dict()
+        for mode in PARTITION_MODES:
+            cfgs[mode, path] = partition_cfg(path, vocab_size,
+                                             mode).to_dict()
         # Trainer never partitions: the dense path, whatever the config
         ref = Trainer(cfg, states[path], device=dev)
         losses = [float(ref.update(b)) for b in batches[:DP_STEPS]]
@@ -3505,40 +3571,67 @@ def run_partition(torch, dev, synth_train, synth, vocab_size,
         ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
                             weights_only=False) for r in range(2)]
     bad = []
-    for path in PARTITION_PATHS:
-        ref_losses, ref_params, ref_preds, ref_probs, ref_loss, eager_ms = \
-            refs[path]
-        res = ranks[0][path]
-        loss_err = max(abs(x - y) / abs(y)
-                       for x, y in zip(res["losses"], ref_losses))
-        param_err = max(max_err(res["params"][k], ref_params[k])
-                        / max(1.0, float(ref_params[k].abs().max()))
-                        for k in ref_params)
-        same = all(torch.equal(v, ranks[1][path]["params"][k])
-                   for k, v in res["params"].items())
-        flipped, ties = flips(res["preds"], ref_preds, ref_probs)
-        row = {"mesh": res["mesh"], "backend": res["backend"],
-               "graphs": res["graphs_on"], "steps": DP_STEPS,
-               "launches_per_step_rank0": check_launches(
-                   f"{path} partition", "train step", res["launches"],
-                   PARTITION_EXPECTED[path], DP_STEPS),
-               "loss_rel_err": loss_err, "param_err": param_err,
-               "tol": TOL_TRAIN, "ranks_same_bits": same,
-               "eval_rows": len(ref_preds),
-               "eval_predictions_unlike": len(flipped),
-               "eval_near_ties": len(ties),
-               "eval_probs_err": float(np.abs(res["probs"]
-                                              - ref_probs).max()),
-               "eval_loss_rel_err": abs(res["eval_loss"] - ref_loss)
-               / abs(ref_loss),
-               "ms_per_step": res["ms_per_step"], "walls_s": res["walls_s"],
-               "trainer_eager_ms_per_step": eager_ms}
-        out[path] = row
-        if (res["mesh"] != out["mesh"] or res["backend"] != "gloo"
-                or res["graphs_on"] or max(loss_err, param_err) > TOL_TRAIN
-                or not same or len(ties) < len(flipped)
-                or len(res["preds"]) != len(ref_preds)):
-            bad.append(path)
+    n_layers = cfgs["halo", "cgcn"]["model"]["num_layers"]
+    for mode in PARTITION_MODES:
+        out[mode] = {}
+        expected = PARTITION_EXPECTED if mode == "edges" else HALO_EXPECTED
+        for path in PARTITION_PATHS:
+            (ref_losses, ref_params, ref_preds, ref_probs, ref_loss,
+             eager_ms) = refs[path]
+            res = ranks[0][mode, path]
+            loss_err = max(abs(x - y) / abs(y)
+                           for x, y in zip(res["losses"], ref_losses))
+            param_err = max(max_err(res["params"][k], ref_params[k])
+                            / max(1.0, float(ref_params[k].abs().max()))
+                            for k in ref_params)
+            same = all(torch.equal(v, ranks[1][mode, path]["params"][k])
+                       for k, v in res["params"].items())
+            flipped, ties = flips(res["preds"], ref_preds, ref_probs)
+            calls = res["exchange"]["calls_per_step"]
+            row = {"mesh": res["mesh"], "backend": res["backend"],
+                   "graphs": res["graphs_on"], "steps": DP_STEPS,
+                   "launches_per_step_rank0": check_launches(
+                       f"{path} {mode} partition", "train step",
+                       res["launches"], expected[path], DP_STEPS),
+                   "loss_rel_err": loss_err, "param_err": param_err,
+                   "tol": TOL_TRAIN, "ranks_same_bits": same,
+                   "eval_rows": len(ref_preds),
+                   "eval_predictions_unlike": len(flipped),
+                   "eval_near_ties": len(ties),
+                   "eval_probs_err": float(np.abs(res["probs"]
+                                                  - ref_probs).max()),
+                   "eval_loss_rel_err": abs(res["eval_loss"] - ref_loss)
+                   / abs(ref_loss),
+                   "ms_per_step": res["ms_per_step"],
+                   "walls_s": res["walls_s"],
+                   "trainer_eager_ms_per_step": eager_ms,
+                   "exchanges_per_step": calls,
+                   "exchange_bytes_per_step_rank0":
+                   res["exchange"]["bytes_per_step"],
+                   "max_memory_allocated_mib": [
+                       r[mode, path]["max_memory_allocated_mib"]
+                       for r in ranks]}
+            out[mode][path] = row
+            if (res["mesh"] != out["mesh"] or res["backend"] != "gloo"
+                    or res["graphs_on"]
+                    or max(loss_err, param_err) > TOL_TRAIN or not same
+                    or len(ties) < len(flipped)
+                    or len(res["preds"]) != len(ref_preds)
+                    or calls != (2 * n_layers if mode == "halo" else 0)):
+                bad.append((mode, path))
+    out["halo_slab_gmm_rank0"] = ranks[0]["slab_gmm"]
+    if not ranks[0]["slab_gmm"]["ok"]:
+        bad.append(("halo", "slab_gmm"))
+    out["summary"] = {path: {
+        "trainer_eager_ms_per_step": out["edges"][path][
+            "trainer_eager_ms_per_step"],
+        **{f"{mode}_ms_per_step": out[mode][path]["ms_per_step"]
+           for mode in PARTITION_MODES},
+        "halo_exchange_bytes_per_step":
+        out["halo"][path]["exchange_bytes_per_step_rank0"],
+        **{f"{mode}_max_memory_allocated_mib":
+           out[mode][path]["max_memory_allocated_mib"]
+           for mode in PARTITION_MODES}} for path in PARTITION_PATHS}
     if bad:
         fail(f"partition: the 1 x 2 world disagrees with Trainer on {bad}: "
              f"{out}")

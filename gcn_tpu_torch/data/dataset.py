@@ -31,12 +31,19 @@ sentences, over one shuffle of the order; edges offset into the row,
 masks, and ``labels`` / ``example_mask`` flattened [B·S] in row-major slot
 order.  It has ``Batcher``'s iteration surface (``advance``,
 ``warmup_batches``, the evaluation cache), and takes word ids only.
+
+With ``halo_devices`` K > 1 (set by the driver under
+``graph_partition="halo"``) both batchers add each batch's halo exchange
+plans for K node slabs (``parallel.halo.attach_halo_plans``, the
+``hplan_*`` arrays), cached by a hash of the edge arrays up to a byte
+budget.
 """
 
 from __future__ import annotations
 
 import json
 import random
+import sys
 from dataclasses import dataclass
 from typing import Iterator, Optional
 
@@ -46,6 +53,7 @@ from gcn_tpu_torch import constants, constants_semeval
 from gcn_tpu_torch.config import Config
 from gcn_tpu_torch.data.vocab import Vocab, map_to_ids
 from gcn_tpu_torch.graph.prune import PrunedGraph, prune_graph
+from gcn_tpu_torch.parallel.halo import attach_halo_plans, is_plan_key
 
 
 def get_positions(start_idx: int, end_idx: int, length: int) -> list[int]:
@@ -143,8 +151,14 @@ class RelationDataset:
 class _Batches:
     """The iteration surface of ``Batcher`` and ``PackedBatcher``: each has
     ``ds``, ``evaluation``, ``rng``, ``chunks``, ``gold_labels``,
-    ``_cache``, ``materialize(chunk)`` and ``_examples(chunk)`` (the
-    chunk's example indices in the order its word dropout is drawn)."""
+    ``_cache``, ``halo_devices``, ``materialize(chunk)`` and
+    ``_examples(chunk)`` (the chunk's example indices in the order its word
+    dropout is drawn)."""
+
+    # A chunk's plans depend only on its edges, which no epoch changes, so
+    # they are cached across epochs by a hash of the edge arrays, up to
+    # this many bytes; past it a chunk rebuilds its plans every epoch.
+    _HALO_CACHE_BUDGET = 256 << 20
 
     def gold(self) -> list[str]:
         """Gold labels in iteration order."""
@@ -166,6 +180,45 @@ class _Batches:
                 cache.append(batch)
                 yield batch
             self._cache = cache
+
+    def _attach_halo(self, batch: dict, n: int) -> dict:
+        """``batch`` with the ``hplan_*`` exchange plans of ``halo_devices``
+        node slabs over its ``n`` nodes (as it is for 1 slab or none)."""
+        if self.halo_devices <= 1:
+            return batch
+        from hashlib import blake2b
+
+        hsh = blake2b(digest_size=16)
+        for f in ("edge_parent", "edge_child", "edge_mask"):
+            a = np.ascontiguousarray(batch[f])
+            hsh.update(str(a.shape).encode())
+            hsh.update(a.tobytes())
+        key = (hsh.hexdigest(), n, self.halo_devices)
+        cache = getattr(self, "_halo_plan_cache", None)
+        if cache is None:
+            cache = self._halo_plan_cache = {}
+            self._halo_cache_bytes = 0
+        hit = cache.get(key)
+        if hit is not None:
+            out = dict(batch)
+            out.update(hit)
+            return out
+        full = attach_halo_plans(batch, n, self.halo_devices)
+        plans = {k: v for k, v in full.items() if is_plan_key(k)}
+        size = sum(v.nbytes for v in plans.values())
+        if self._halo_cache_bytes + size <= self._HALO_CACHE_BUDGET:
+            cache[key] = plans
+            self._halo_cache_bytes += size
+        else:
+            # said once: from here on these chunks rebuild their plans
+            self._halo_cache_misses = getattr(
+                self, "_halo_cache_misses", 0) + 1
+            if self._halo_cache_misses == 1:
+                print(f"[gcn_tpu_torch] halo-plan cache budget "
+                      f"({self._HALO_CACHE_BUDGET >> 20} MB) exhausted at "
+                      f"{len(cache)} chunks; further chunks rebuild plans "
+                      f"each epoch", file=sys.stderr, flush=True)
+        return full
 
     def word_dropout(self) -> float:
         """The word→UNK rate of this batcher's batches."""
@@ -217,6 +270,7 @@ class Batcher(_Batches):
             order[i : i + batch_size] for i in range(0, len(order), batch_size)
         ]
         self._cache: Optional[list] = None
+        self.halo_devices = 0
 
     @staticmethod
     def _examples(chunk: list[int]) -> list[int]:
@@ -320,7 +374,7 @@ class Batcher(_Batches):
         }
         if self.ds.dataset == "tacred":
             batch["ner"] = ner
-        return batch
+        return self._attach_halo(batch, n)
 
 
 class PackedBatcher(_Batches):
@@ -373,6 +427,7 @@ class PackedBatcher(_Batches):
         self.num_examples = len(self.order)
         self.batch_size = rows_per_batch  # rows, not examples
         self._cache: Optional[list] = None
+        self.halo_devices = 0
 
     @staticmethod
     def _examples(chunk: list[list[int]]) -> list[int]:
@@ -463,4 +518,4 @@ class PackedBatcher(_Batches):
         }
         if self.ds.dataset == "tacred":
             batch["ner"] = ner
-        return batch
+        return self._attach_halo(batch, n)

@@ -8,9 +8,12 @@ be 0, as in gcn_tpu).  The ranks of one data index (a ``model`` group of
 the mesh) take the same rows.  A
 cross-sentence-packed batch (``PackedBatcher``: ``slot_mask`` [B, S, N])
 has per-slot leaves of B·S (``labels``, ``example_mask``), which are cut at
-``[lo·S, hi·S)`` so that they stay with their rows.  Everything else
-(``gold``, ``order``, ``chunks``, ``advance``) is the wrapped batcher's:
-the scores are of the whole split, gathered from the ranks in rank order.
+``[lo·S, hi·S)`` so that they stay with their rows.  The halo plans
+(``hplan_*``, ``parallel.halo``) put their batch axis after the slab
+axes: they are cut on dim 2 ([K, K, B, Hp]) or dim 1 ([K, B, E]).
+Everything else (``gold``, ``order``, ``chunks``, ``advance``,
+``halo_devices``) is the wrapped batcher's: the scores are of the whole
+split, gathered from the ranks in rank order.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from __future__ import annotations
 from typing import Iterator, Optional
 
 from gcn_tpu_torch.parallel import distributed
+from gcn_tpu_torch.parallel.halo import is_plan_key
 
 
 class ShardedBatcher:
@@ -54,6 +58,16 @@ class ShardedBatcher:
     def __len__(self) -> int:
         return len(self.batcher)
 
+    @property
+    def halo_devices(self) -> int:
+        return self.batcher.halo_devices
+
+    @halo_devices.setter
+    def halo_devices(self, value: int) -> None:
+        # the wrapped batcher builds the plans on the global batch (and
+        # caches them); ``slice`` cuts them
+        self.batcher.halo_devices = value
+
     def slice(self, batch: dict) -> dict:
         """This rank's rows of a global batch."""
         rows = batch["words"].shape[0]
@@ -65,7 +79,9 @@ class ShardedBatcher:
         slots = batch["slot_mask"].shape[1] if "slot_mask" in batch else 1
         out = {}
         for k, v in batch.items():
-            if v.shape[0] == rows:
+            if is_plan_key(k):  # the batch axis after the slab axes
+                out[k] = v[:, :, lo:hi] if v.ndim == 4 else v[:, lo:hi]
+            elif v.shape[0] == rows:
                 out[k] = v[lo:hi]
             elif v.shape[0] == rows * slots:  # per slot, row-major
                 out[k] = v[lo * slots:hi * slots]

@@ -32,21 +32,29 @@ factored tables, the MLP and classifier; every kernel runs its bf16
 instance, the attention scores (the SDDMM's output, its scale and the
 softmax, on either backend) stay f32 and their weights meet the messages
 in bf16, and logits and ``h_out`` come back f32.  Settings the port
-cannot build (``graph_partition="halo"``, unknown modes) raise
-``NotImplementedError``.
+cannot build (unknown modes) raise ``NotImplementedError``.
 
 Under an active graph partition (``utils.shard_ctx.active_partition``:
 a ``DistributedTrainer`` whose mesh has a ``model`` axis above 1, with
-``graph_partition="edges"``) every mode aggregates over this model rank's
-share of the edge lists and the group's all-reduce
-(``parallel.edge_partition``), as gcn_tpu's edges mode does: the fused
-path is off, the degrees, denominator and pooling mask come from
-``node_degrees`` on the whole edge list, the non-factored full_deprel
-transform is ``bilinear_traverse``, and full_deprel's edge dropout draws
-[B, E] keep masks on the whole edge list (at the global batch's shape
-under a ``RowShard``), so the masks depend neither on the model axis nor
-on the data axis.  A plain ``Trainer`` never activates one: its forward is
-the dense path whatever ``graph_partition`` says.
+``graph_partition`` "edges" or "halo") the fused path is off, the
+degrees, denominator and pooling mask come from ``node_degrees`` on the
+whole edge list, the non-factored full_deprel transform is
+``bilinear_traverse``, and full_deprel's edge dropout draws [B, E] keep
+masks on the whole edge list (at the global batch's shape under a
+``RowShard``), so the masks depend neither on the model axis nor on the
+data axis.  In "edges" every mode aggregates over this model rank's share
+of the edge lists and the group's all-reduce (``parallel.edge_partition``),
+as gcn_tpu's edges mode does.  In "halo" (``_halo_layers``) the GCN stack
+runs on this rank's slab of the nodes (``parallel.halo``): the features
+enter it by ``scatter_to_slab`` and leave it, before pooling, by
+``gather_from_slabs``; each layer aggregates both bands with one boundary
+exchange; the per-token transforms (the grouped matmul on the slab's
+tokens, the bilinear, attention's projections) run on the slab; the
+parameters a layer reads there pass through ``copy_to_model``
+(``_read``); the dropout masks, relation ids and denominators are drawn
+or computed whole and cut to the slab; edge dropout's keep masks fold into
+the plan's slot masks.  A plain ``Trainer`` never activates a partition:
+its forward is the dense path whatever ``graph_partition`` says.
 
 Cross-sentence-packed batches (``data.dataset.PackedBatcher``: several
 sentences share a row) carry ``seg_start`` [B, N], which resets the
@@ -110,10 +118,23 @@ from gcn_tpu_torch.ops.spmm import (
 )
 from gcn_tpu_torch.ops.spmm_fused import fused_gcn_spmm
 from gcn_tpu_torch.parallel.edge_partition import (
+    copy_to_model,
     local_edges,
     partitioned_aggregate,
     partitioned_aggregate_pair,
     partitioned_attention_layer,
+)
+from gcn_tpu_torch.parallel.halo import (
+    edge_slots_from_batch,
+    gather_from_slabs,
+    halo_aggregate,
+    halo_aggregate_pair,
+    halo_attention_pair,
+    layout_of,
+    masks_with_edge_keep,
+    plans_from_batch,
+    scatter_to_slab,
+    slab_dropout,
 )
 from gcn_tpu_torch.utils.shard_ctx import active_partition
 
@@ -152,17 +173,14 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a configuration the port cannot
     build (``GCNClassifier`` calls it first)."""
     resolve_attention_impl(cfg.attention_impl, 0, 0)
-    if cfg.graph_partition == "halo":
-        raise NotImplementedError(
-            "graph_partition='halo' (node slabs and a boundary all_to_all) "
-            "is ROADMAP.md §1 item 8b, not ported to gcn_tpu_torch yet")
     unsupported = {
         "adj_type": cfg.adj_type not in ("regular", "full_deprel",
                                          "attention", "diagonal_deprel"),
         "dataset": cfg.dataset not in ("tacred", "semeval"),
         "compute_dtype": cfg.compute_dtype not in COMPUTE_DTYPES,
         "use_pallas": cfg.use_pallas not in (True, False, "auto"),
-        "graph_partition": cfg.graph_partition not in ("none", "edges"),
+        "graph_partition": cfg.graph_partition not in ("none", "edges",
+                                                       "halo"),
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
@@ -237,6 +255,9 @@ class GCNClassifier(nn.Module):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
+        # this rank's node slab while a halo forward runs its GCN stack,
+        # and the parameters read there so far (``_read``)
+        self._halo_layout, self._halo_reads = None, {}
         # the forward's compute dtype; parameters and their gradients stay
         # f32, cast where JAX casts them (inside the forward, as in flax)
         self.dtype = COMPUTE_DTYPES[cfg.compute_dtype]
@@ -315,13 +336,25 @@ class GCNClassifier(nn.Module):
         return (getattr(self, f"gcn_w{l}_kernel"),
                 getattr(self, f"gcn_w{l}_bias"))
 
+    def _read(self, p):
+        """A GCN layer's parameter as the layer reads it: inside a halo
+        forward's GCN stack through ``copy_to_model``, once a forward, so
+        that the slab's share of its gradient is summed over the model
+        group by one all-reduce."""
+        if self._halo_layout is None:
+            return p
+        if id(p) not in self._halo_reads:
+            self._halo_reads[id(p)] = copy_to_model(p,
+                                                    self._halo_layout.group)
+        return self._halo_reads[id(p)]
+
     def _cast(self, *params):
         """The parameters in the compute dtype (f32 ones as they are)."""
-        return tuple(p.to(self.dtype) for p in params)
+        return tuple(self._read(p).to(self.dtype) for p in params)
 
     def _table(self):
         """The deprel table in the compute dtype."""
-        return self.deprel_emb.to(self.dtype)
+        return self._read(self.deprel_emb).to(self.dtype)
 
     def _use_factored(self) -> bool:
         v = self.cfg.deprel_factored
@@ -369,6 +402,8 @@ class GCNClassifier(nn.Module):
         part = active_partition()
         if part is not None and cfg.graph_partition == "none":
             part = None
+        halo = (layout_of(part, n) if part is not None
+                and part.mode == "halo" else None)
         fused = part is None and self.use_fused(deterministic)
         dt = self.dtype
         attn_impl = None
@@ -382,7 +417,8 @@ class GCNClassifier(nn.Module):
                      batch["edge_mask"].bool())
             deg_out, deg_in, incident = node_degrees(*whole, n, dt)
             denom = (deg_out + deg_in + incident.to(dt) + 1.0)[:, :, None]
-            local = tuple(local_edges(part, t) for t in whole)
+            if halo is None:
+                local = tuple(local_edges(part, t) for t in whole)
             adj, pool_exclude = None, ~incident
         elif fused or attn_impl == "edge":
             # the kernels' operand types; no band is built on these paths
@@ -427,58 +463,64 @@ class GCNClassifier(nn.Module):
         deprel = batch["deprel"]
         if cfg.adj_type == "diagonal_deprel":
             h = self.preprocessor(h)
-            e_fwd, e_rev, e_self = self._diagonal_gates(deprel)
+            if halo is None:
+                e_fwd, e_rev, e_self = self._diagonal_gates(deprel)
         plans: dict = {}
-        for l in range(cfg.num_layers):
-            if cfg.adj_type == "regular":
-                w, b = self._cast(*self.gcn_weights(l))
-                if part is not None:
-                    # A_f h + A_fᵀ h + diag(incident) h + h, as regular_layer
-                    ax = h if cfg.no_adj else (
-                        self._part_agg_pair(part, local, h, h)
-                        + incident.to(dt)[:, :, None] * h + h)
-                    h = torch.relu((ax @ w + 2.0 * b) / denom)
+        if halo is not None:
+            h = self._halo_layers(h, batch, halo, incident, denom,
+                                  deterministic, generator)
+        else:
+            for l in range(cfg.num_layers):
+                if cfg.adj_type == "regular":
+                    w, b = self._cast(*self.gcn_weights(l))
+                    if part is not None:
+                        # A_f h + A_fᵀ h + diag(incident) h + h, as
+                        # regular_layer
+                        ax = h if cfg.no_adj else (
+                            self._part_agg_pair(part, local, h, h)
+                            + incident.to(dt)[:, :, None] * h + h)
+                        h = torch.relu((ax @ w + 2.0 * b) / denom)
+                    elif fused:
+                        # the kernel applies the denominator and the ReLU
+                        h = fused_gcn_spmm(*edges, h.contiguous(), w, b)
+                    else:
+                        h = torch.relu(regular_layer(h, adj.combined, w, b,
+                                                     cfg.no_adj) / adj.denom)
+                elif cfg.adj_type == "attention":
+                    agg, hw, b = self._attention(
+                        h, l, adj, local if part is not None
+                        else None if attn_impl == "dense" else edges, part)
+                    # the self connection is unnormalized, and no denominator
+                    h = torch.relu(agg + hw + b)
+                elif cfg.adj_type == "diagonal_deprel":
+                    if part is not None:
+                        h = torch.relu((self._part_agg_pair(
+                            part, local, e_fwd * h, e_rev * h) + e_self * h)
+                            / denom)
+                    elif fused:
+                        # the kernel applies the denominator and the ReLU; the
+                        # self gate's broadcast is materialized for it, and
+                        # autograd sums its gradient back to the table's row
+                        h = fused_band_aggregate(*edges, e_fwd * h, e_rev * h,
+                                                 e_self * h)
+                    else:
+                        h = torch.relu(diagonal_deprel_layer(
+                            h, adj.forward, e_fwd, e_rev, e_self) / adj.denom)
+                elif part is not None:
+                    axw = self._full_deprel_part(h, part, local, whole[2],
+                                                 deprel, l, plans,
+                                                 deterministic, generator)
+                    h = torch.relu(axw / denom)
                 elif fused:
-                    # the kernel applies the denominator and the ReLU
-                    h = fused_gcn_spmm(*edges, h.contiguous(), w, b)
+                    x_f, x_r, x_s = self._full_deprel_components(
+                        h, deprel, l, plans, deterministic, generator)
+                    h = fused_band_aggregate(*edges, x_f, x_r, x_s)
                 else:
-                    h = torch.relu(regular_layer(h, adj.combined, w, b,
-                                                 cfg.no_adj) / adj.denom)
-            elif cfg.adj_type == "attention":
-                agg, hw, b = self._attention(
-                    h, l, adj, local if part is not None
-                    else None if attn_impl == "dense" else edges, part)
-                # the self connection is unnormalized, and no denominator
-                h = torch.relu(agg + hw + b)
-            elif cfg.adj_type == "diagonal_deprel":
-                if part is not None:
-                    h = torch.relu((self._part_agg_pair(
-                        part, local, e_fwd * h, e_rev * h) + e_self * h)
-                        / denom)
-                elif fused:
-                    # the kernel applies the denominator and the ReLU; the
-                    # self gate's broadcast is materialized for it, and
-                    # autograd sums its gradient back to the table's row
-                    h = fused_band_aggregate(*edges, e_fwd * h, e_rev * h,
-                                             e_self * h)
-                else:
-                    h = torch.relu(diagonal_deprel_layer(
-                        h, adj.forward, e_fwd, e_rev, e_self) / adj.denom)
-            elif part is not None:
-                axw = self._full_deprel_part(h, part, local, whole[2], deprel,
-                                             l, plans, deterministic,
-                                             generator)
-                h = torch.relu(axw / denom)
-            elif fused:
-                x_f, x_r, x_s = self._full_deprel_components(
-                    h, deprel, l, plans, deterministic, generator)
-                h = fused_band_aggregate(*edges, x_f, x_r, x_s)
-            else:
-                axw = self._full_deprel_dense(h, adj, deprel, l, plans,
-                                              deterministic, generator)
-                h = torch.relu(axw / adj.denom)
-            if l < cfg.num_layers - 1:
-                h = dropout(h, cfg.gcn_dropout, deterministic, generator)
+                    axw = self._full_deprel_dense(h, adj, deprel, l, plans,
+                                                  deterministic, generator)
+                    h = torch.relu(axw / adj.denom)
+                if l < cfg.num_layers - 1:
+                    h = dropout(h, cfg.gcn_dropout, deterministic, generator)
 
         if "slot_mask" in batch:
             # packed rows: every head quantity is per slot, [B, S, H],
@@ -739,6 +781,111 @@ class GCNClassifier(nn.Module):
         return partitioned_aggregate_pair(
             part, x_f, x_r, ep, ec, em0 if em_f is None else em_f,
             em0 if em_r is None else em_r)
+
+    @staticmethod
+    def _halo_plans(batch, lay, tag, edge_keep=None):
+        """One band's plan arrays (``parallel.halo.plans_from_batch``),
+        with a whole [B, E] keep mask folded into the slot masks."""
+        if "hplan_f_req" not in batch:
+            raise ValueError(
+                "graph_partition=halo requires hplan_* plan arrays in the "
+                "batch: attach them with parallel.halo.attach_halo_plans "
+                "(the batchers do when halo_devices is set)")
+        arrs = plans_from_batch(batch, tag)
+        if arrs[0].shape[0] != lay.k:
+            raise ValueError(f"halo plans for {arrs[0].shape[0]} slabs on "
+                             f"a model axis of {lay.k}")
+        if edge_keep is not None:
+            arrs = masks_with_edge_keep(arrs, edge_slots_from_batch(
+                batch, tag), edge_keep)
+        return arrs
+
+    def _halo_layers(self, h, batch, lay, incident, denom, deterministic,
+                     generator):
+        """The GCN stack under ``graph_partition="halo"``: ``h`` [B, N, T]
+        (whole on every rank of the model group) enters as this rank's
+        slab [B, S, T], each layer runs on the slab with one boundary
+        exchange for both bands, and the whole [B, N, H] leaves for
+        pooling.  The degrees and ``denom`` come whole and are cut."""
+        cfg = self.cfg
+        dt = self.dtype
+        plans_f, plans_r = (self._halo_plans(batch, lay, t) for t in "fr")
+        inc = lay.cut(incident.to(dt))[:, :, None]
+        den = lay.cut(denom, 1.0)
+        self._halo_layout, self._halo_reads = lay, {}
+        try:
+            h = scatter_to_slab(h, lay)
+            if cfg.adj_type == "diagonal_deprel":
+                e_fwd, e_rev, e_self = self._diagonal_gates(
+                    lay.cut(batch["deprel"]))
+            plans: dict = {}
+            for l in range(cfg.num_layers):
+                if cfg.adj_type == "regular":
+                    w, b = self._cast(*self.gcn_weights(l))
+                    ax = h if cfg.no_adj else (
+                        halo_aggregate_pair(lay, h, h, plans_f, plans_r)
+                        + inc * h + h)
+                    h = torch.relu((ax @ w + 2.0 * b) / den)
+                elif cfg.adj_type == "attention":
+                    w, b, wq, wk = self._cast(*self.gcn_weights(l),
+                                              getattr(self, f"attn_q{l}"),
+                                              getattr(self, f"attn_k{l}"))
+                    q, k, hw = h @ wq, h @ wk, h @ w
+                    agg = halo_attention_pair(
+                        lay, q * (1.0 / math.sqrt(cfg.hidden_dim)),
+                        torch.cat([k, hw], dim=-1), k.shape[-1], plans_f,
+                        plans_r)
+                    h = torch.relu(agg + hw + b)
+                elif cfg.adj_type == "diagonal_deprel":
+                    h = torch.relu((halo_aggregate_pair(
+                        lay, e_fwd * h, e_rev * h, plans_f, plans_r)
+                        + e_self * h) / den)
+                else:
+                    h = torch.relu(self._full_deprel_halo(
+                        h, batch, lay, l, plans, deterministic, generator)
+                        / den)
+                if l < cfg.num_layers - 1:
+                    h = slab_dropout(h, lay, cfg.gcn_dropout, deterministic,
+                                     generator)
+            return gather_from_slabs(h, lay)
+        finally:
+            self._halo_layout, self._halo_reads = None, {}
+
+    def _full_deprel_halo(self, h, batch, lay, l, plans, deterministic,
+                          generator):
+        """The full_deprel layer on the slab ``h`` [B, S, T] before its
+        denominator: the relation ids and edge-dropout masks drawn on the
+        whole batch (``_band_inputs``), the ids cut to the slab (its
+        padding nodes take the all-zeros row), each band's messages by the
+        grouped matmul over the slab's tokens (or ``bilinear_traverse``),
+        both bands aggregated with one exchange, plus the self loop."""
+        cfg = self.cfg
+        em = batch["edge_mask"].bool()
+        em_f, ids_f, em_r, ids_r = self._band_inputs(
+            (em, em), batch["deprel"], l, deterministic, generator)
+        dropped = not deterministic and cfg.edge_keep_prob < 1.0
+        zero_id = self.deprel_emb.shape[0] + 1
+        ids_f = lay.cut(ids_f, zero_id)
+        ids_r = None if ids_r is None else lay.cut(ids_r, zero_id)
+        w, b = self._cast(*self.deprel_weights(l))
+        if self._use_factored():
+            x_f, x_r = self._band_messages(h, ids_f, ids_r, l, plans,
+                                           deterministic)
+        else:
+            x_f = bilinear_traverse(h, self._relation_rows(ids_f), w, b)
+            x_r = (None if ids_r is None else bilinear_traverse(
+                h, self._relation_rows(ids_r), w, b))
+        plans_f = self._halo_plans(batch, lay, "f", em_f if dropped else None)
+        if x_r is None:
+            out = halo_aggregate(lay, x_f, plans_f)
+        else:
+            out = halo_aggregate_pair(
+                lay, x_f, x_r, plans_f,
+                self._halo_plans(batch, lay, "r", em_r if dropped else None))
+        e_self = self._self_loop_emb(l)
+        if e_self is not None:
+            out = out + self_loop_traverse(h, e_self, w, b)
+        return out
 
     def _full_deprel_components(self, h, deprel, l, plans, deterministic,
                                 generator):

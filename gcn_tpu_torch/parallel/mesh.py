@@ -5,7 +5,8 @@ A ``Mesh`` lays the process group's ranks out as ``data`` × ``model``,
 one device a rank, the model index fastest.  ``make_groups`` builds the
 groups of both axes: for each data index the ``model`` group of its ranks
 (they hold the same rows of each batch and, under a graph partition,
-share the edge lists: ``parallel.edge_partition``), and for each model
+share the edge lists, ``parallel.edge_partition``, or the nodes,
+``parallel.halo``), and for each model
 index the ``data`` group (each of its ranks holds other rows, and the
 gradients, the valid-row count and the evaluation are summed or gathered
 over it).
@@ -14,8 +15,10 @@ Every rank holds a whole copy of every parameter and optimizer state
 tensor on both axes (``param_shardings`` / ``opt_shardings`` say
 ``REPLICATED`` for each).  gcn_tpu places the same values, only sharded
 (a vocabulary-sharded word table, hidden-sharded bilinear weights and MLP
-outputs along ``model``); those layouts come with the halo partition,
-``ROADMAP.md`` §1 item 8b.
+outputs along ``model``, ``gcn_tpu/parallel/mesh.py``'s
+``param_shardings`` and ``opt_shardings``); those layouts, which need a
+model-parallel lookup, column-parallel linears and shard-aware
+checkpoints and optimizer state, are ``ROADMAP.md`` §1 item 8c.
 """
 
 from __future__ import annotations

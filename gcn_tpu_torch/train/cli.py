@@ -26,11 +26,9 @@ import argparse
 
 from gcn_tpu_torch.config import Config
 
-# flag → (the value it is unsupported at, as a test of args; the message)
-UNSUPPORTED = {
-    "graph_partition": (lambda a: a.graph_partition == "halo",
-                        "the halo graph partition: ROADMAP.md §1 item 8b"),
-}
+# flag → (the value it is unsupported at, as a test of args; the message):
+# every flag of gcn_tpu's is ported
+UNSUPPORTED: dict = {}
 # flags that tune only JAX: its PRNG, its compilation cache, its NaN checks
 DISPATCH_ONLY = ("prng_impl", "compilation_cache_dir", "debug_nans")
 

@@ -7,11 +7,14 @@ class).
 model and optimizer state (``parallel.mesh``) on a ``make_mesh(world,
 data_axis, graph_axis)`` layout.  The ranks of one data index (its
 ``model`` group) hold the same rows of each global batch
-(``data.sharding.ShardedBatcher`` by data index and data size); with
-``graph_partition="edges"`` and a model axis above 1 they split the edge
-lists and run the GCN layers' aggregation together
-(``utils.shard_ctx.graph_partition``, ``parallel.edge_partition``), so
-each of them ends a backward with the whole gradients of its rows.  A
+(``data.sharding.ShardedBatcher`` by data index and data size); with a
+model axis above 1 and ``graph_partition="edges"`` they split the edge
+lists, with ``"halo"`` the nodes (each rank its slab, the batch's
+``hplan_*`` exchange plans cut to the data index's rows and moved to the
+rank's device with the rest of the batch), and run the GCN layers
+together (``utils.shard_ctx.graph_partition``,
+``parallel.edge_partition``, ``parallel.halo``), so each of them ends a
+backward with the whole gradients of its rows.  A
 step:
 
 1. the valid rows are counted over the ``data`` group (one all-reduce),

@@ -30,8 +30,10 @@ Data parallelism, as gcn_tpu's driver: a job that
 ``torchrun``'s) with more than one process trains a ``DistributedTrainer``
 on ``ShardedBatcher``s over a (data × ``graph_axis``) mesh: every data
 index its rows of each batch, and with ``--graph_partition edges`` the
-ranks of a data index split its edge lists (NCCL on the card, one card a
-rank; gloo with ``--cpu``).  Only rank 0 (the chief)
+ranks of a data index split its edge lists, with ``--graph_partition
+halo`` its nodes, every batcher then adding the halo exchange plans for
+the model axis (``halo_devices``); NCCL on the card, one card a rank,
+gloo with ``--cpu``.  Only rank 0 (the chief)
 writes the run directory, ``logs.txt`` and the artifacts; every rank
 scores the whole split.
 
@@ -262,6 +264,14 @@ def run_training(
                                test_batcher))
         if dev_batcher is not None:
             dev_batcher = shard(dev_batcher)
+        if (cfg.model.graph_partition == "halo"
+                and trainer.mesh.model > 1):
+            # every batch carries static-shape exchange plans for the
+            # mesh's model axis (parallel.halo.attach_halo_plans)
+            for b in (train_batcher, train_eval_batcher, dev_batcher,
+                      test_batcher):
+                if b is not None:
+                    b.halo_devices = trainer.mesh.model
     else:
         trainer = Trainer(cfg, emb_matrix=emb_matrix, device=device)
     start_epoch = 1

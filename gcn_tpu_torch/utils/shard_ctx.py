@@ -4,8 +4,10 @@ half of ``gcn_tpu.utils.shard_ctx``).
 A ``DistributedTrainer`` whose mesh has a ``model`` axis above 1 runs its
 steps and evaluation inside ``graph_partition(mode, mesh, groups)``; the
 model reads ``active_partition()`` once a forward and, while one is
-active, aggregates its GCN layers through ``parallel.edge_partition`` over
-the ``model`` group.  The context lives in a ``contextvars.ContextVar``,
+active, aggregates its GCN layers over the ``model`` group: through
+``parallel.edge_partition`` in mode "edges" (each rank a share of the
+edge lists), through ``parallel.halo`` in mode "halo" (each rank a slab
+of the nodes, one boundary exchange a layer).  The context lives in a ``contextvars.ContextVar``,
 so nested and concurrent uses each see their own.
 
 gcn_tpu's other context, ``local_grouping``, has no counterpart: it moves
@@ -21,7 +23,7 @@ import contextvars
 from typing import Any, NamedTuple, Optional
 
 class Partition(NamedTuple):
-    mode: str     # "edges"
+    mode: str     # "edges" or "halo"
     mesh: Any     # parallel.mesh.Mesh, its model axis above 1
     groups: Any   # parallel.mesh.MeshGroups of this rank
 
@@ -34,18 +36,15 @@ _part_ctx: contextvars.ContextVar = contextvars.ContextVar(
 def graph_partition(mode: str, mesh, groups):
     """Partition the GCN layers' aggregation over ``mesh``'s ``model``
     axis (``mode`` "edges": each model rank its contiguous share of the
-    edge lists).  A no-op for "none" (or an empty mode), for no mesh and
-    for a ``model`` axis of 1, where the dense path is the same math.
-    "halo" raises ``NotImplementedError``; any other mode ``ValueError``."""
+    edge lists; "halo": each model rank its slab of the nodes).  A no-op
+    for "none" (or an empty mode), for no mesh and for a ``model`` axis of
+    1, where the dense path is the same math; any other mode raises
+    ``ValueError``."""
     if (not mode or mode == "none" or mesh is None
             or mesh.shape["model"] <= 1):
         yield
         return
-    if mode == "halo":
-        raise NotImplementedError(
-            "graph_partition='halo' (node slabs and a boundary all_to_all) "
-            "is ROADMAP.md §1 item 8b, not ported to gcn_tpu_torch yet")
-    if mode != "edges":
+    if mode not in ("edges", "halo"):
         raise ValueError(f"unknown graph_partition mode: {mode!r}")
     token = _part_ctx.set(Partition(mode, mesh, groups))
     try:

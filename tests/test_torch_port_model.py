@@ -148,16 +148,16 @@ def test_init_params_match_jax_distributions():
 
 
 def test_unsupported_modes_raise():
-    """The halo partition names ROADMAP §1 item 8b, an unknown mode is
-    refused; "edges" builds (a plain model runs the dense path)."""
-    for ov, match in (({"model.graph_partition": "halo"}, "item 8b"),
-                      ({"model.graph_partition": "nodes"}, "graph_partition"),
+    """An unknown mode is refused; "edges" and "halo" build (a plain model
+    runs the dense path)."""
+    for ov, match in (({"model.graph_partition": "nodes"}, "graph_partition"),
                       ({"model.adj_type": "spectral"}, "adj_type")):
         _, tcfg = _configs(**ov)
         with pytest.raises(NotImplementedError, match=match):
             GCNClassifier(tcfg.model)
-    _, tcfg = _configs(**{"model.graph_partition": "edges"})
-    GCNClassifier(tcfg.model)
+    for mode in ("edges", "halo"):
+        _, tcfg = _configs(**{"model.graph_partition": mode})
+        GCNClassifier(tcfg.model)
 
 
 def test_copied_modules_match_originals():

@@ -47,7 +47,7 @@ from gcn_tpu_torch.parallel.mesh import (
 )
 from gcn_tpu_torch.train.checkpoint import load_checkpoint
 from gcn_tpu_torch.train.trainer import SPARSE_EMB_AUTO_VOCAB, Trainer
-from gcn_tpu_torch.utils.shard_ctx import graph_partition
+from gcn_tpu_torch.utils.shard_ctx import active_partition, graph_partition
 from tests import dp_worker
 from tests.test_torch_port_cuda import one_torch_thread  # noqa: F401
 from tests.test_torch_port_model import REPO
@@ -190,8 +190,8 @@ def test_sharded_batcher_keeps_slot_leaves_with_their_rows():
 
 
 def test_mesh_model_axis_names_item_8():
-    """The model axis lays out (item 8a); the halo partition names item
-    8b.  The groups' ranks as the worlds of
+    """The model axis lays out (item 8a); the halo partition (item 8b)
+    activates.  The groups' ranks as the worlds of
     ``tests/test_torch_port_partition.py`` build them."""
     assert make_mesh(4).shape == {"data": 4, "model": 1}
     assert make_mesh(4).coords(3) == (3, 0)
@@ -203,9 +203,10 @@ def test_mesh_model_axis_names_item_8():
     assert group_ranks(make_mesh(3, data=1, model=3)) == ([[0, 1, 2]],
                                                           [[0], [1], [2]])
     assert make_groups(make_mesh(4), 2) == MeshGroups(2, 0)  # no group made
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 8b"):
-        with graph_partition("halo", mesh, make_groups(make_mesh(4), 0)):
-            pass
+    groups = make_groups(make_mesh(4), 0)
+    with graph_partition("halo", mesh, groups):
+        assert active_partition() == ("halo", mesh, groups)
+    assert active_partition() is None
     with pytest.raises(ValueError):
         make_mesh(4, data=3)
     with pytest.raises(ValueError):

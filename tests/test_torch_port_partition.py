@@ -19,9 +19,9 @@ meshes, each spawned once.
   such an edge whole; gcn_tpu clamps its gather).
 * A plain ``Trainer`` with ``graph_partition="edges"`` gives the dense
   path's bits, and a 2 × 1 mesh follows ``Trainer``.
-* The partition context and the edge shares; the train CLI as two
-  processes with ``--graph_partition edges --graph_axis 2`` against one
-  process unpartitioned.
+* The partition context (both modes) and the edge shares; the train CLI
+  as two processes with ``--graph_partition edges --graph_axis 2`` against
+  one process unpartitioned.
 """
 
 import os
@@ -305,15 +305,15 @@ def test_partition_context():
         with graph_partition("none", mesh, groups):
             assert active_partition() == part
     assert active_partition() is None
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 8b"):
-        with graph_partition("halo", mesh, groups):
-            pass
+    with graph_partition("halo", mesh, groups):
+        part = active_partition()
+        assert (part.mode, part.mesh, part.groups) == ("halo", mesh, groups)
+    assert active_partition() is None
     with pytest.raises(ValueError, match="unknown graph_partition"):
         with graph_partition("nodes", mesh, groups):
             pass
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 8b"):
-        GCNClassifier(dp_worker.tiny_cfg(
-            **{"model.graph_partition": "halo"}).model)
+    GCNClassifier(dp_worker.tiny_cfg(
+        **{"model.graph_partition": "halo"}).model)
 
 
 @pytest.mark.parametrize("k,e", [(2, 15), (2, 16), (3, 16), (4, 5)])
