@@ -2,8 +2,8 @@
 """Drive the port's C-GCN, paper-GCN, attention, diagonal_deprel, BERT-input,
 SemEval, bf16 and cross-sentence-packed paths on one NVIDIA GPU, score
 the reference's trained checkpoints, and drive the row-sparse word-table
-update, data-parallel training and the partitioned graph (edges and
-halo).
+update, data-parallel training and the mesh's model axis (the sharded
+parameter layouts, and the partitioned graph: edges and halo).
 
     python3 chip_smoke.py
 
@@ -164,27 +164,40 @@ Phases, one JSON line each:
    TOL_TRAIN for 3 steps, and its evaluation (gathered from both ranks)
    gives ``Trainer``'s predictions but at near-ties.  ms a step of each
    beside ``Trainer``'s (graphs, and eager for the gloo world);
-11. partition — ``graph_partition`` "edges" and "halo" on a 1 × 2 mesh:
-   two gloo ranks on the one card (``--partition-rank``), each on all 50
-   rows of the synthetic N=96 batches, with half of their edges
-   (``edges``) or half of their nodes (``halo``: slabs of 48, the
-   batches' ``hplan_*`` exchange plans, one boundary ``all_to_all`` a
-   layer), on ``cgcn`` (the preset's dropouts on; ``edge_keep_prob``
-   1.0, so the masks are the dense path's) and on ``cgcn_attn``'s
-   configuration (the cross-shard or the slab-local edge softmax): 3
-   steps within TOL_TRAIN of ``Trainer`` unpartitioned in loss and every
-   parameter, the two ranks' parameters equal in bits, rank 0's launches
-   a step exactly ``PARTITION_EXPECTED`` / ``HALO_EXPECTED`` (``cgcn``:
+11. partition — the mesh's ``model`` axis on a 1 × 2 mesh: two gloo
+   ranks on the one card (``--partition-rank``), each on all 50 rows of
+   the synthetic N=96 batches, their words drawn over a
+   ``PARTITION_VOCAB``-row table (TACRED's GloVe vocabulary, random
+   rows), with gcn_tpu's parameter layouts: the table sharded by
+   vocabulary (26,977 rows a rank), the MLP and classifier kernels by
+   columns and, on ``cgcn`` outside halo, ``gcn_deprel_w0`` / ``w1`` by
+   columns (kernels 3-4 on H = 100).  ``cgcn`` (the preset's dropouts
+   on; ``edge_keep_prob`` 1.0, so the masks are the dense path's) under
+   ``graph_partition`` "none" (tensor parallelism alone), "edges" (half
+   the edges a rank) and "halo" (slabs of 48, the batches' ``hplan_*``
+   exchange plans, one boundary ``all_to_all`` a layer), and
+   ``cgcn_attn``'s configuration (the cross-shard or the slab-local edge
+   softmax) under the latter two: 3 steps within TOL_TRAIN of ``Trainer``
+   unpartitioned in loss and in every whole parameter (gathered), the
+   two ranks' whole parameters equal in bits, a checkpoint the world
+   writes within TOL_TRAIN of ``Trainer``'s in every tensor and loaded
+   back into the world in bits, rank 0's launches a step exactly
+   ``PARTITION_EXPECTED`` / ``HALO_EXPECTED`` (``cgcn``:
    ``EXPECTED["cgcn"]``, kernels 1-4, under halo 3-4 on the slab's rows;
    ``cgcn_attn``: the scans only), under halo exactly one exchange a
    layer forward and one backward, and the evaluation ``Trainer``'s
-   predictions but at near-ties.  Rank 0 also holds one slab-shaped
-   grouped-matmul call (M = 50·48, the slab's ragged groups, empty ones
-   included) against its plain version.  ms a step of each world,
-   eagerly, beside ``Trainer``'s eager ms and the gloo data-parallel
-   world's, the exchange's bytes a step and each rank's
-   ``max_memory_allocated``: both ranks share one card, so this shows no
-   speed-up.
+   predictions but at near-ties.  Each run again with every tensor whole
+   on every rank (``replicated_placement``, the layout before): each
+   rank's ``max_memory_allocated``, the model group's collective bytes a
+   step (``edge_partition.TRAFFIC``: all-reduced tensors and gathered
+   wholes) and the ms a step, eagerly, of both layouts beside
+   ``Trainer``'s eager ms and the gloo data-parallel world's: both ranks
+   share one card, so this shows no speed-up.  Rank 0 also holds one
+   slab-shaped grouped-matmul call (M = 50·48, the slab's ragged groups,
+   empty ones included) and kernels 3 and 4, f32 and bf16, at the shard
+   widths H = 100 and 50 (M = 9600, R = 87, T = 400 and 200) against
+   their plain versions, with their bounds, ``torch._grouped_mm``'s ms
+   and each operand's load path (``shard_width_gmm``).
 
 The paths: ``cgcn`` (``cgcn_preset``: BiLSTM, factored full_deprel on
 dense bands), ``cgcn_fused`` (the same with ``use_pallas=True``: the band
@@ -3397,25 +3410,55 @@ def run_parallel(torch, dev, synth_train, synth, vocab_size) -> dict:
 
 # ------------------------------------------------------------- partition
 PARTITION_PATHS = ("cgcn", "cgcn_attn")  # configurations the world trains
-PARTITION_MODES = ("edges", "halo")
+PARTITION_MODES = ("none", "edges", "halo")
+# (mode, path) the world trains: cgcn_attn has no deprel weights to shard
+PARTITION_RUNS = (("none", "cgcn"), ("edges", "cgcn"), ("edges", "cgcn_attn"),
+                  ("halo", "cgcn"), ("halo", "cgcn_attn"))
+# TACRED's GloVe vocabulary, random rows: 26,977 a rank on a 2-way axis
+PARTITION_VOCAB = 53_954
+# each run with gcn_tpu's placement, then with every tensor whole on every
+# rank (the placement before the parameter layouts), for its memory, bytes
+# and ms
+PLACEMENTS = ("sharded", "replicated")
 # launches a step of a partitioned world's rank: the scans and the grouped
 # matmul where the configuration runs them; the aggregation is gathers,
 # scatters and the model group's collectives (``parallel.edge_partition``,
-# ``parallel.halo``)
+# ``parallel.halo``); under "none" the dense path's
 PARTITION_EXPECTED = {"cgcn": EXPECTED["cgcn"][1],
                       "cgcn_attn": {"lstm_scan_forward": 1,
                                     "lstm_scan_backward": 1}}
 # under halo the same kernels, the grouped matmul on the slab's rows
 HALO_EXPECTED = PARTITION_EXPECTED
+# the deprel transforms' columns a rank on a 2- and a 4-way axis (H = 200)
+SHARD_WIDTHS = (100, 50)
 
 
-def partition_cfg(path: str, vocab_size: int, graph_partition: str):
+def partition_cfg(path: str, graph_partition: str):
     """``path``'s configuration at B=50 with ``graph_partition`` over a
-    model axis of 2."""
-    return path_config(path, **{"model.vocab_size": vocab_size,
+    model axis of 2, on a ``PARTITION_VOCAB``-row word table."""
+    return path_config(path, **{"model.vocab_size": PARTITION_VOCAB,
                                 "model.graph_partition": graph_partition,
                                 "mesh.graph_axis": 2, "train.batch_size": B,
                                 "train.effective_batch_size": B})
+
+
+@contextlib.contextmanager
+def replicated_placement():
+    """``DistributedTrainer`` places every tensor whole on every rank
+    inside the block (the layout before the model axis's parameter
+    layouts), for the memory and bytes to compare."""
+    from gcn_tpu_torch.parallel.mesh import REPLICATED
+    from gcn_tpu_torch.train import distributed_trainer as dt
+
+    keep = dt.param_shardings, dt.opt_shardings
+    dt.param_shardings = lambda mesh, params, replicate_deprel=False: {
+        n: REPLICATED for n in params}
+    dt.opt_shardings = lambda mesh, state, params, replicate_deprel=False: {
+        n: {s: REPLICATED for s in st} for n, st in state.items()}
+    try:
+        yield
+    finally:
+        dt.param_shardings, dt.opt_shardings = keep
 
 
 def slab_gmm(torch, batch: dict, dev, k: int) -> dict:
@@ -3447,23 +3490,149 @@ def slab_gmm(torch, batch: dict, dev, k: int) -> dict:
             "ok": err <= TOL_F32 and empty > 0}
 
 
+def load_path(t, ld: int) -> str:
+    """How kernels 3-4 load an operand of rows ``ld`` wide at ``t``'s
+    address, by the launchers' rule (``gmm::vec_ok``,
+    ``csrc/grouped_tiles.cuh``): 16-byte copies (TMA in the bf16
+    kernels) where the rows and the base allow, else the f32 kernels'
+    element loads or the bf16 producer's copy."""
+    per = 16 // t.element_size()
+    vec = ld % per == 0 and t.data_ptr() % 16 == 0
+    if t.element_size() == 2:
+        return "tma" if vec else "producer copy"
+    return "16-byte" if vec else "element"
+
+
+def shard_width_gmm(torch, dev, gs) -> list[dict]:
+    """Kernels 3 and 4, f32 and bf16, at a rank's columns of the C-GCN's
+    deprel transforms (H = 100 and 50; M = 9600 stacked band rows, R = 87,
+    T = 400 and 200) against their plain versions: ms by ``graph_ms``,
+    the bound, ``torch._grouped_mm``'s ms (yardstick) and each operand's
+    load path."""
+    from gcn_tpu_torch.ops import grouped_matmul as mod
+
+    rng = np.random.RandomState(SEED + 5)
+    r = gs.shape[0]
+    m = 2 * B * N_BUCKET
+    offs = torch.cumsum(gs, 0, dtype=torch.int32)
+    used = int((gs > 0).sum())
+    out = []
+    for h in SHARD_WIDTHS:
+        for t in (400, 200):
+            x = torch.tensor(rng.uniform(-1, 1, (m, t)), dtype=torch.float32,
+                             device=dev)
+            s = torch.tensor(rng.randn(r, t, h) / np.sqrt(t),
+                             dtype=torch.float32, device=dev)
+            g = torch.tensor(rng.randn(m, h) * 0.1, dtype=torch.float32,
+                             device=dev)
+            for dtype in (torch.float32, torch.bfloat16):
+                xd, sd, gd = x.to(dtype), s.to(dtype), g.to(dtype)
+                f32 = dtype == torch.float32
+                size = 4 if f32 else 2
+                tol = TOL_F32 if f32 else TOL_BF16
+                name = "" if f32 else "_bf16"
+                fwd = functools.partial(mod.grouped_matmul, xd, sd, gs)
+                err_f = scaled_err(fwd(), mod.grouped_matmul_plain(xd, sd,
+                                                                   gs))
+                flops = 2.0 * m * t * h
+                nb = size * (x.numel() + used * t * h + m * h) + 4 * r
+                lib_f, lib_f_eager, lib_note = grouped_mm_yardstick(
+                    torch, lambda: torch._grouped_mm(xd, sd, offs=offs),
+                    "f32" if f32 else "bf16", "")
+                out.append({
+                    "name": f"grouped_matmul_forward{name}_T{t}_H{h}",
+                    "dtype": str(dtype).split(".")[1],
+                    "shape": {"M": m, "T": t, "H": h, "R": r,
+                              "groups_used": used},
+                    "loads": {"x": load_path(xd, t), "s": load_path(sd, h)},
+                    "scaled_err": err_f, "tol": tol, "ok": err_f <= tol,
+                    "ms": graph_ms(fwd),
+                    "plain_ms": time_ms(lambda: mod.grouped_matmul_plain(
+                        xd, sd, gs), 5),
+                    **(tf32x3_bound(nb, flops) if f32
+                       else bf16_bound(nb, flops)),
+                    "library_ms": lib_f, "library_eager_ms": lib_f_eager,
+                    "library": lib_note})
+                bwd = functools.partial(mod.grouped_matmul_backward, xd, gd,
+                                        sd, gs)
+                err_b = max(scaled_err(a, b) for a, b in zip(
+                    bwd(), mod.grouped_matmul_backward_plain(xd, gd, sd,
+                                                             gs)))
+                # x, g, the used groups' S, dx in the dtype; dS f32
+                nb = (size * (x.numel() + g.numel() + used * t * h + m * t)
+                      + 4 * (r * t * h + r))
+                lib_b, lib_b_eager, lib_note = backward_yardstick(
+                    torch, xd, sd, gd, offs, "f32" if f32 else "bf16")
+                tol_b = TOL_BWD if f32 else TOL_BF16
+                out.append({
+                    "name": f"grouped_matmul_backward{name}_T{t}_H{h}",
+                    "dtype": str(dtype).split(".")[1],
+                    "shape": {"M": m, "T": t, "H": h, "R": r,
+                              "groups_used": used},
+                    "loads": {"x": load_path(xd, t), "g": load_path(gd, h),
+                              "s": load_path(sd, h)},
+                    "scaled_err": err_b, "tol": tol_b, "ok": err_b <= tol_b,
+                    "ms": graph_ms(bwd),
+                    "plain_ms": time_ms(
+                        lambda: mod.grouped_matmul_backward_plain(
+                            xd, gd, sd, gs), 5),
+                    **(tf32x3_bound(nb, 2 * flops) if f32
+                       else bf16_bound(nb, 2 * flops)),
+                    "library_ms": lib_b, "library_eager_ms": lib_b_eager,
+                    "library": lib_note})
+    return out
+
+
+def tree_err(a, b) -> float:
+    """Largest difference of two checkpoint trees' leaves, each over
+    max(1, max |leaf|); inf where their keys or shapes differ."""
+    if isinstance(a, dict) != isinstance(b, dict):
+        return float("inf")
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            return float("inf")
+        return max([tree_err(a[k], b[k]) for k in a] or [0.0])
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    if a.shape != b.shape:
+        return float("inf")
+    return float(np.abs(a - b).max(initial=0.0)
+                 / max(1.0, np.abs(b).max(initial=0.0)))
+
+
+def state_sha256(state: dict) -> str:
+    h = hashlib.sha256()
+    for k in sorted(state):
+        h.update(k.encode())
+        h.update(state[k].detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
 def partition_rank(rank: int, tmp: str, port: int) -> int:
     """One rank of the 1 × 2 world over gloo on the one card (``python3
     chip_smoke.py --partition-rank R DIR PORT``, started by
-    ``run_partition``): for each mode and path, ``DP_STEPS`` steps on all
-    rows of the inputs in ``DIR`` (with their halo plans under halo), the
-    evaluation, timed steps, the exchanges and the peak memory; rank 0
-    also ``slab_gmm``.  Each rank writes its results."""
+    ``run_partition``): for each of ``PARTITION_RUNS`` and
+    ``PLACEMENTS``, ``DP_STEPS`` steps on all rows of the inputs in
+    ``DIR`` (with their halo plans under halo), the evaluation, timed
+    steps, the model group's collective bytes and the peak memory; with
+    gcn_tpu's placement also the parts' shapes, the whole parameters
+    against ``Trainer``'s, a checkpoint against ``Trainer``'s and loaded
+    back.  Rank 0 also ``slab_gmm`` and ``shard_width_gmm``.  Each rank
+    writes its results."""
     import gc
     import pickle
 
     import torch
 
     sys.path.insert(0, HERE)
+    import torch.distributed as dist
+
     from gcn_tpu_torch.config import Config
+    from gcn_tpu_torch.convert import params_from_jax
     from gcn_tpu_torch.data.sharding import ShardedBatcher
     from gcn_tpu_torch.parallel import distributed
+    from gcn_tpu_torch.parallel.edge_partition import TRAFFIC
     from gcn_tpu_torch.parallel.halo import EXCHANGES, attach_halo_plans
+    from gcn_tpu_torch.train.checkpoint import load_checkpoint
     from gcn_tpu_torch.train.distributed_trainer import DistributedTrainer
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3472,166 +3641,236 @@ def partition_rank(rank: int, tmp: str, port: int) -> int:
     with open(os.path.join(tmp, "inputs.pkl"), "rb") as f:
         cfgs, batches, evals, dev = pickle.load(f)
     dev = torch.device(dev)
-    out = {}
+    out, refs = {}, {}
     for (mode, path), cfg in cfgs.items():
         state = torch.load(os.path.join(tmp, f"{path}.pt"),
                            weights_only=True)
+        if path not in refs:
+            refs[path] = load_checkpoint(os.path.join(tmp, f"ref_{path}"),
+                                         True)
+        ref = refs[path]
+        ref_params = params_from_jax(ref[0])
+        for placement in PLACEMENTS:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            with (replicated_placement() if placement == "replicated"
+                  else contextlib.nullcontext()):
+                tr = DistributedTrainer(Config.from_dict(cfg), state,
+                                        device=dev, backend="gloo")
+            d, size, k = tr.groups.data_index, tr.mesh.data, tr.mesh.model
+
+            def planned(bs):
+                if mode != "halo":
+                    return bs
+                return [attach_halo_plans(b, b["words"].shape[1], k)
+                        for b in bs]
+
+            local = list(ShardedBatcher(GlobalBatches(planned(batches), B),
+                                        d, size))
+            EXCHANGES.reset()
+            TRAFFIC.reset()
+            losses, launches = counted(
+                lambda: [float(tr.update(b)) for b in local[:DP_STEPS]])
+            traffic = {"collectives_per_step": TRAFFIC.calls / DP_STEPS,
+                       "collective_bytes_per_step": TRAFFIC.bytes / DP_STEPS,
+                       "exchanges_per_step": EXCHANGES.calls / DP_STEPS,
+                       "exchange_bytes_per_step": EXCHANGES.bytes / DP_STEPS}
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            row = {"losses": losses, "launches": launches,
+                   "mesh": tr.mesh.shape, "graphs_on": tr._graphs_on(),
+                   "backend": tr.backend, **traffic,
+                   "placement": dict(tr.placement),
+                   "parts": {n: list(p.shape) for n, p in tr.params.items()
+                             if tr.placement[n] != "replicated"}}
+            ck = os.path.join(tmp, f"ckpt_{mode}_{path}")
+            if placement == "sharded":
+                whole = tr.full_state_dict()
+                row["params_sha256"] = state_sha256(whole)
+                row["param_err"] = max(
+                    max_err(whole[n].cpu(), v)
+                    / max(1.0, float(v.abs().max()))
+                    for n, v in ref_params.items())
+                del whole
+                tr.save(ck, epoch=1)
+                mine = load_checkpoint(ck, True)
+                row["ckpt_err"] = max(tree_err(mine[0], ref[0]),
+                                      tree_err(mine[1], ref[1]))
+                row["ckpt_global_step"] = mine[2]["meta"]["global_step"]
+                del mine
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            preds, probs, eval_loss = tr.evaluate(ShardedBatcher(
+                GlobalBatches(planned(evals), B), d, size))
+
+            def epoch():
+                for b in local:
+                    tr.update(b)
+
+            epoch()
+            walls = epoch_walls(torch, epoch)
+            torch.cuda.synchronize()
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            if placement == "sharded":
+                tr.load(ck)
+                back = tr.full_state_dict()
+                saved = params_from_jax(load_checkpoint(ck, False)[0])
+                row["loads_back_bits"] = all(
+                    torch.equal(back[n].cpu(), v) for n, v in saved.items())
+                del back, saved
+                shutil.rmtree(ck, ignore_errors=True)
+            row.update({
+                "preds": preds, "probs": np.asarray(probs),
+                "eval_loss": eval_loss,
+                "ms_per_step": min(walls) / len(local) * 1e3,
+                "walls_s": walls, "max_memory_allocated_mib": peak / 2**20})
+            out[mode, path, placement] = row
+            if (mode == "halo" and path == "cgcn" and rank == 0
+                    and placement == "sharded"):
+                out["slab_gmm"] = slab_gmm(torch, batches[0], dev, k)
+            del tr
+    if rank == 0:
         gc.collect()
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        tr = DistributedTrainer(Config.from_dict(cfg), state, device=dev,
-                                backend="gloo")
-        d, size, k = tr.groups.data_index, tr.mesh.data, tr.mesh.model
-
-        def planned(bs):
-            if mode != "halo":
-                return bs
-            return [attach_halo_plans(b, b["words"].shape[1], k) for b in bs]
-
-        local = list(ShardedBatcher(GlobalBatches(planned(batches), B), d,
-                                    size))
-        EXCHANGES.reset()
-        losses, launches = counted(
-            lambda: [float(tr.update(b)) for b in local[:DP_STEPS]])
-        exchanges = {"calls_per_step": EXCHANGES.calls / DP_STEPS,
-                     "bytes_per_step": EXCHANGES.bytes / DP_STEPS}
-        params = {k: v.cpu().clone() for k, v in
-                  tr.model.state_dict().items()}
-        preds, probs, eval_loss = tr.evaluate(
-            ShardedBatcher(GlobalBatches(planned(evals), B), d, size))
-
-        def epoch():
-            for b in local:
-                tr.update(b)
-
-        epoch()
-        walls = epoch_walls(torch, epoch)
-        torch.cuda.synchronize()
-        out[mode, path] = {
-            "losses": losses, "launches": launches, "params": params,
-            "preds": preds, "probs": np.asarray(probs),
-            "eval_loss": eval_loss, "mesh": tr.mesh.shape,
-            "graphs_on": tr._graphs_on(), "backend": tr.backend,
-            "ms_per_step": min(walls) / len(local) * 1e3, "walls_s": walls,
-            "exchange": exchanges,
-            "max_memory_allocated_mib":
-            torch.cuda.max_memory_allocated() / 2**20}
-        if mode == "halo" and path == "cgcn" and rank == 0:
-            out["slab_gmm"] = slab_gmm(torch, batches[0], dev, k)
-        del tr
+        out["shard_width_gmm"] = shard_width_gmm(
+            torch, dev, band_group_sizes(torch, batches[0], dev))
+    dist.barrier()
     torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
     distributed.shutdown()
     return 0
 
 
-def run_partition(torch, dev, synth_train, synth, vocab_size,
-                  parallel: dict) -> dict:
-    """The partition phase (``graph_partition`` "edges" and "halo" on a
-    1 × 2 mesh of two gloo ranks sharing the card, ``cgcn`` and
-    ``cgcn_attn`` at B=50, N=96) against ``Trainer`` unpartitioned; fails
-    on any miss.  Both ranks share one card, so its ms show no speed-up:
-    a correctness gate."""
+def run_partition(torch, dev, synth_train, synth, parallel: dict) -> dict:
+    """The partition phase (the model axis on a 1 × 2 mesh of two gloo
+    ranks sharing the card: ``cgcn`` under ``graph_partition`` "none",
+    "edges" and "halo" and ``cgcn_attn`` under the latter two, at B=50,
+    N=96, on a ``PARTITION_VOCAB``-row table sharded by vocabulary, the
+    deprel and MLP kernels by columns) against ``Trainer`` unpartitioned;
+    fails on any miss.  Both ranks share one card, so its ms show no
+    speed-up: a correctness gate, with each rank's memory and the model
+    group's bytes beside the replicated layout's."""
     import pickle
 
     from gcn_tpu_torch.models.gcn import GCNClassifier, init_params
     from gcn_tpu_torch.train.trainer import Trainer
 
-    batches = synth_train
+    rng = np.random.RandomState(SEED + 4)
+    batches = wide_batches(synth_train, PARTITION_VOCAB, rng)
+    evals = wide_batches(synth, PARTITION_VOCAB, rng)
     out = {"phase": "partition", "mesh": {"data": 1, "model": 2},
            "backend": "gloo", "batches": len(batches),
+           "vocab_rows": PARTITION_VOCAB,
            "gloo_data_parallel_ms_per_step":
            parallel["gloo_world_2_one_card"]["ms_per_step"]}
-    cfgs, states, refs = {}, {}, {}
-    for path in PARTITION_PATHS:
-        cfg = partition_cfg(path, vocab_size, "edges")
-        model = GCNClassifier(cfg.model)
-        init_params(model, torch.Generator().manual_seed(SEED))
-        states[path] = model.state_dict()
-        for mode in PARTITION_MODES:
-            cfgs[mode, path] = partition_cfg(path, vocab_size,
-                                             mode).to_dict()
-        # Trainer never partitions: the dense path, whatever the config
-        ref = Trainer(cfg, states[path], device=dev)
-        losses = [float(ref.update(b)) for b in batches[:DP_STEPS]]
-        preds, probs, loss = ref.evaluate(synth)
-        with eager_dispatch():
-            eager_ms = trainer_speed(torch, Trainer(cfg, states[path],
-                                                    device=dev),
-                                     batches)["ms_per_step"]
-        refs[path] = (losses, {k: v.cpu().clone() for k, v in
-                               ref.model.state_dict().items()},
-                      preds, np.asarray(probs), loss, eager_ms)
-        del ref
+    cfgs = {run: partition_cfg(run[1], run[0]).to_dict()
+            for run in PARTITION_RUNS}
+    refs = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for path, state in states.items():
-            torch.save(state, os.path.join(tmp, f"{path}.pt"))
+        for path in PARTITION_PATHS:
+            cfg = partition_cfg(path, "none")
+            model = GCNClassifier(cfg.model)
+            init_params(model, torch.Generator().manual_seed(SEED))
+            torch.save(model.state_dict(), os.path.join(tmp, f"{path}.pt"))
+            state = model.state_dict()
+            del model
+            # Trainer never partitions: the dense path, whatever the config
+            ref = Trainer(cfg, state, device=dev)
+            losses = [float(ref.update(b)) for b in batches[:DP_STEPS]]
+            ref.save(os.path.join(tmp, f"ref_{path}"), epoch=1)
+            preds, probs, loss = ref.evaluate(evals)
+            with eager_dispatch():
+                eager_ms = trainer_speed(torch, Trainer(cfg, state,
+                                                        device=dev),
+                                         batches)["ms_per_step"]
+            refs[path] = (losses, preds, np.asarray(probs), loss, eager_ms)
+            del ref, state
+            torch.cuda.empty_cache()
         with open(os.path.join(tmp, "inputs.pkl"), "wb") as f:
-            pickle.dump((cfgs, batches, synth, str(dev)), f)
+            pickle.dump((cfgs, batches, evals, str(dev)), f)
         spawn_ranks("--partition-rank", tmp)
         ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
                             weights_only=False) for r in range(2)]
     bad = []
     n_layers = cfgs["halo", "cgcn"]["model"]["num_layers"]
-    for mode in PARTITION_MODES:
-        out[mode] = {}
-        expected = PARTITION_EXPECTED if mode == "edges" else HALO_EXPECTED
-        for path in PARTITION_PATHS:
-            (ref_losses, ref_params, ref_preds, ref_probs, ref_loss,
-             eager_ms) = refs[path]
-            res = ranks[0][mode, path]
-            loss_err = max(abs(x - y) / abs(y)
-                           for x, y in zip(res["losses"], ref_losses))
-            param_err = max(max_err(res["params"][k], ref_params[k])
-                            / max(1.0, float(ref_params[k].abs().max()))
-                            for k in ref_params)
-            same = all(torch.equal(v, ranks[1][mode, path]["params"][k])
-                       for k, v in res["params"].items())
-            flipped, ties = flips(res["preds"], ref_preds, ref_probs)
-            calls = res["exchange"]["calls_per_step"]
-            row = {"mesh": res["mesh"], "backend": res["backend"],
-                   "graphs": res["graphs_on"], "steps": DP_STEPS,
-                   "launches_per_step_rank0": check_launches(
-                       f"{path} {mode} partition", "train step",
-                       res["launches"], expected[path], DP_STEPS),
-                   "loss_rel_err": loss_err, "param_err": param_err,
-                   "tol": TOL_TRAIN, "ranks_same_bits": same,
-                   "eval_rows": len(ref_preds),
-                   "eval_predictions_unlike": len(flipped),
-                   "eval_near_ties": len(ties),
-                   "eval_probs_err": float(np.abs(res["probs"]
-                                                  - ref_probs).max()),
-                   "eval_loss_rel_err": abs(res["eval_loss"] - ref_loss)
-                   / abs(ref_loss),
-                   "ms_per_step": res["ms_per_step"],
-                   "walls_s": res["walls_s"],
-                   "trainer_eager_ms_per_step": eager_ms,
-                   "exchanges_per_step": calls,
-                   "exchange_bytes_per_step_rank0":
-                   res["exchange"]["bytes_per_step"],
-                   "max_memory_allocated_mib": [
-                       r[mode, path]["max_memory_allocated_mib"]
-                       for r in ranks]}
-            out[mode][path] = row
-            if (res["mesh"] != out["mesh"] or res["backend"] != "gloo"
-                    or res["graphs_on"]
-                    or max(loss_err, param_err) > TOL_TRAIN or not same
-                    or len(ties) < len(flipped)
-                    or len(res["preds"]) != len(ref_preds)
-                    or calls != (2 * n_layers if mode == "halo" else 0)):
-                bad.append((mode, path))
+    half = PARTITION_VOCAB // 2
+    for mode, path in PARTITION_RUNS:
+        out.setdefault(mode, {})
+        expected = PARTITION_EXPECTED if mode != "halo" else HALO_EXPECTED
+        ref_losses, ref_preds, ref_probs, ref_loss, eager_ms = refs[path]
+        res = ranks[0][mode, path, "sharded"]
+        rep = ranks[0][mode, path, "replicated"]
+        loss_err = max(abs(x - y) / abs(y)
+                       for x, y in zip(res["losses"], ref_losses))
+        same = (res["params_sha256"]
+                == ranks[1][mode, path, "sharded"]["params_sha256"])
+        flipped, ties = flips(res["preds"], ref_preds, ref_probs)
+        calls = res["exchanges_per_step"]
+        # the parts gcn_tpu's placement gives: the table by vocabulary,
+        # the deprel weights by columns (not under halo), the MLP and
+        # classifier kernels by columns
+        want_parts = {"word_emb", "mlp0.kernel", "mlp1.kernel",
+                      "classifier.kernel"}
+        if path == "cgcn" and mode != "halo":
+            want_parts |= {"gcn_deprel_w0", "gcn_deprel_w1"}
+        parts_ok = (set(res["parts"]) == want_parts
+                    and res["parts"]["word_emb"][0] == half
+                    and not rep["parts"])
+        row = {"mesh": res["mesh"], "backend": res["backend"],
+               "graphs": res["graphs_on"], "steps": DP_STEPS,
+               "launches_per_step_rank0": check_launches(
+                   f"{path} {mode} partition", "train step",
+                   res["launches"], expected[path], DP_STEPS),
+               "sharded_parts_rank0": res["parts"],
+               "loss_rel_err": loss_err, "param_err": res["param_err"],
+               "ckpt_err": res["ckpt_err"],
+               "ckpt_loads_back_bits": res["loads_back_bits"],
+               "tol": TOL_TRAIN, "ranks_same_bits": same,
+               "eval_rows": len(ref_preds),
+               "eval_predictions_unlike": len(flipped),
+               "eval_near_ties": len(ties),
+               "eval_probs_err": float(np.abs(res["probs"]
+                                              - ref_probs).max()),
+               "eval_loss_rel_err": abs(res["eval_loss"] - ref_loss)
+               / abs(ref_loss),
+               "trainer_eager_ms_per_step": eager_ms,
+               "exchanges_per_step": calls,
+               "exchange_bytes_per_step_rank0":
+               res["exchange_bytes_per_step"],
+               **{f"{p}_{key}": [r[mode, path, p][key] for r in ranks]
+                  for p in PLACEMENTS
+                  for key in ("max_memory_allocated_mib", "ms_per_step")},
+               **{f"{p}_collective_bytes_per_step_rank0":
+                  ranks[0][mode, path, p]["collective_bytes_per_step"]
+                  for p in PLACEMENTS},
+               **{f"{p}_collectives_per_step_rank0":
+                  ranks[0][mode, path, p]["collectives_per_step"]
+                  for p in PLACEMENTS},
+               "walls_s": res["walls_s"]}
+        out[mode][path] = row
+        if (res["mesh"] != out["mesh"] or res["backend"] != "gloo"
+                or res["graphs_on"] or not parts_ok
+                or max(loss_err, res["param_err"], res["ckpt_err"])
+                > TOL_TRAIN
+                or res["ckpt_global_step"] != DP_STEPS
+                or not res["loads_back_bits"] or not same
+                or len(ties) < len(flipped)
+                or len(res["preds"]) != len(ref_preds)
+                or calls != (2 * n_layers if mode == "halo" else 0)):
+            bad.append((mode, path))
     out["halo_slab_gmm_rank0"] = ranks[0]["slab_gmm"]
     if not ranks[0]["slab_gmm"]["ok"]:
         bad.append(("halo", "slab_gmm"))
-    out["summary"] = {path: {
-        "trainer_eager_ms_per_step": out["edges"][path][
-            "trainer_eager_ms_per_step"],
-        **{f"{mode}_ms_per_step": out[mode][path]["ms_per_step"]
-           for mode in PARTITION_MODES},
-        "halo_exchange_bytes_per_step":
-        out["halo"][path]["exchange_bytes_per_step_rank0"],
-        **{f"{mode}_max_memory_allocated_mib":
-           out[mode][path]["max_memory_allocated_mib"]
-           for mode in PARTITION_MODES}} for path in PARTITION_PATHS}
+    out["shard_width_gmm_rank0"] = ranks[0]["shard_width_gmm"]
+    bad += [r["name"] for r in ranks[0]["shard_width_gmm"] if not r["ok"]]
+    out["summary"] = {f"{mode} {path}": {
+        key: out[mode][path][key] for key in (
+            "trainer_eager_ms_per_step", "sharded_ms_per_step",
+            "replicated_ms_per_step", "sharded_max_memory_allocated_mib",
+            "replicated_max_memory_allocated_mib",
+            "sharded_collective_bytes_per_step_rank0",
+            "replicated_collective_bytes_per_step_rank0",
+            "exchange_bytes_per_step_rank0")} for mode, path in PARTITION_RUNS}
     if bad:
         fail(f"partition: the 1 x 2 world disagrees with Trainer on {bad}: "
              f"{out}")
@@ -3768,8 +4007,7 @@ def main() -> int:
     parallel = run_parallel(torch, dev, synth_train, synth, vocab_size)
     emit({**parallel, "nvidia_smi": smi,
           "at_s": time.perf_counter() - t_start})
-    emit({**run_partition(torch, dev, synth_train, synth, vocab_size,
-                          parallel),
+    emit({**run_partition(torch, dev, synth_train, synth, parallel),
           "nvidia_smi": smi, "at_s": time.perf_counter() - t_start})
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

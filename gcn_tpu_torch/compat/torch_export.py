@@ -89,8 +89,10 @@ def params_to_torch_state(params: dict, cfg: ModelConfig) -> dict:
 
 
 def state_dict_to_torch_state(state_dict: Mapping, cfg: ModelConfig) -> dict:
-    """The reference state dict of the port's ``state_dict`` (a model's,
-    or ``convert.params_from_jax``'s): ``params_to_torch_state`` of
+    """The reference state dict of the port's ``state_dict`` (a model's, a
+    trainer's ``full_state_dict()``, which is whole where a
+    ``DistributedTrainer``'s model holds parts on a ``model`` axis, or
+    ``convert.params_from_jax``'s): ``params_to_torch_state`` of
     ``convert.params_to_jax``, so that ``torch_state_to_params`` and
     ``params_from_jax`` give the ``state_dict`` back."""
     return params_to_torch_state(params_to_jax(state_dict), cfg)

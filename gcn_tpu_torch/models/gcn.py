@@ -56,6 +56,20 @@ or computed whole and cut to the slab; edge dropout's keep masks fold into
 the plan's slot masks.  A plain ``Trainer`` never activates a partition:
 its forward is the dense path whatever ``graph_partition`` says.
 
+On a mesh whose ``model`` axis is above 1 the trainer cuts the sharded
+parameters (``parallel.mesh.param_shardings``) and sets ``shards``, a
+``parallel.tensor_parallel.ModelShards`` (None otherwise, the whole
+parameters).  Then the word lookup is ``vocab_lookup``; the MLP and
+classifier layers whose kernels are cut are ``column_dense``; and where
+the full_deprel weights are cut (not under halo), each layer's
+per-token transforms (the grouped matmul or the bilinear, and the self
+loop) compute this rank's H/K columns of their messages from ``h``
+through ``copy_to_model`` (``_tp_in``), the relation table and the bias
+through ``copy_to_model`` once a forward (``_tp_read``, the bias cut to
+the rank's columns), and the messages leave whole through
+``gather_columns`` (``_tp_out``), so the aggregation after them is the
+replicated path's (``parallel.tensor_parallel``'s rule).
+
 Cross-sentence-packed batches (``data.dataset.PackedBatcher``: several
 sentences share a row) carry ``seg_start`` [B, N], which resets the
 BiLSTM's carry at each sentence's first token (and, in the reverse
@@ -123,6 +137,12 @@ from gcn_tpu_torch.parallel.edge_partition import (
     partitioned_aggregate,
     partitioned_aggregate_pair,
     partitioned_attention_layer,
+)
+from gcn_tpu_torch.parallel.tensor_parallel import (
+    column_dense,
+    columns,
+    gather_columns,
+    vocab_lookup,
 )
 from gcn_tpu_torch.parallel.halo import (
     edge_slots_from_batch,
@@ -258,6 +278,10 @@ class GCNClassifier(nn.Module):
         # this rank's node slab while a halo forward runs its GCN stack,
         # and the parameters read there so far (``_read``)
         self._halo_layout, self._halo_reads = None, {}
+        # this rank's share of the sharded parameters (set by the trainer
+        # on a model axis above 1), and the replicated parameters that the
+        # sharded products read through copy_to_model in this forward
+        self.shards, self._tp_reads = None, {}
         # the forward's compute dtype; parameters and their gradients stay
         # f32, cast where JAX casts them (inside the forward, as in flax)
         self.dtype = COMPUTE_DTYPES[cfg.compute_dtype]
@@ -353,8 +377,63 @@ class GCNClassifier(nn.Module):
         return tuple(self._read(p).to(self.dtype) for p in params)
 
     def _table(self):
-        """The deprel table in the compute dtype."""
-        return self._read(self.deprel_emb).to(self.dtype)
+        """The deprel table in the compute dtype (through ``_tp_read``
+        where the deprel transforms are sharded: every read of it is
+        then inside their products)."""
+        p = self.deprel_emb
+        p = self._tp_read(p) if self._tp_deprel() else self._read(p)
+        return p.to(self.dtype)
+
+    # ------------------------------------------------- tensor parallelism
+    def _tp_dim(self, name: str):
+        return None if self.shards is None else self.shards.dim(name)
+
+    def _tp_deprel(self) -> bool:
+        """Whether the full_deprel weights are cut to H/K columns."""
+        name = "gcn_deprel_w" if self.cfg.deprel_shared_w else "gcn_deprel_w0"
+        return (self.cfg.adj_type == "full_deprel"
+                and self._tp_dim(name) is not None)
+
+    def _tp_read(self, p):
+        """A replicated parameter as a sharded product reads it: through
+        ``copy_to_model``, once a forward."""
+        if id(p) not in self._tp_reads:
+            self._tp_reads[id(p)] = copy_to_model(p, self.shards.group)
+        return self._tp_reads[id(p)]
+
+    def _tp_in(self, h):
+        """A full_deprel layer's input as its sharded transforms read it."""
+        return copy_to_model(h, self.shards.group) if self._tp_deprel() else h
+
+    def _tp_out(self, x):
+        """A sharded transform's H/K columns → the whole messages."""
+        return gather_columns(x, self.shards) if self._tp_deprel() else x
+
+    def _deprel_cast(self, l: int):
+        """Layer ``l``'s deprel weight and bias in the compute dtype: this
+        rank's columns where they are sharded."""
+        w, b = self.deprel_weights(l)
+        if self._tp_deprel():
+            return (w.to(self.dtype),
+                    columns(self._tp_read(b), self.shards, w.shape[2]).to(
+                        self.dtype))
+        return self._cast(w, b)
+
+    def _dense(self, name: str, x):
+        """The dense layer ``name`` (``mlp{i}`` or ``classifier``):
+        column-parallel where its kernel is sharded."""
+        layer = getattr(self, name)
+        if self._tp_dim(f"{name}.kernel") is None:
+            return layer(x)
+        return column_dense(x, layer.kernel, layer.bias, self.shards,
+                            layer.dtype)
+
+    def _words(self, words):
+        """The word table's rows at ``words``: the vocabulary-parallel
+        lookup where the table is sharded."""
+        if self._tp_dim("word_emb") is None:
+            return lookup(self.word_emb, words)
+        return vocab_lookup(self.word_emb, words, self.shards, lookup)
 
     def _use_factored(self) -> bool:
         v = self.cfg.deprel_factored
@@ -391,6 +470,13 @@ class GCNClassifier(nn.Module):
                 generator=None):
         """``deterministic=False`` draws every dropout mask from
         ``generator`` (a ``torch.Generator`` on the batch's device)."""
+        self._tp_reads = {}
+        try:
+            return self._forward(batch, deterministic, generator)
+        finally:
+            self._tp_reads = {}
+
+    def _forward(self, batch: dict, deterministic: bool, generator):
         cfg = self.cfg
         if not deterministic and generator is None:
             raise ValueError("a stochastic forward needs a generator")
@@ -441,7 +527,7 @@ class GCNClassifier(nn.Module):
             # row-sparse step (train.sparse_emb) gathers the rows itself
             # and passes them as word_vecs, so the table gets no gradient
             word_vecs = (batch["word_vecs"] if "word_vecs" in batch
-                         else lookup(self.word_emb, words))
+                         else self._words(words))
             mult = embedding_dropout_mask(words, cfg.vocab_size,
                                           cfg.emb_dropout, deterministic,
                                           generator)
@@ -538,8 +624,8 @@ class GCNClassifier(nn.Module):
             obj_out = pool(h, ~batch["obj_mask"], cfg.pooling)
             out = torch.cat([h_out, subj_out, obj_out], dim=1)
         for i in range(cfg.mlp_layers):
-            out = torch.relu(getattr(self, f"mlp{i}")(out))
-        logits = self.classifier(out)
+            out = torch.relu(self._dense(f"mlp{i}", out))
+        logits = self._dense("classifier", out)
         return logits.float(), h_out.float()
 
     # ----------------------------------------------------------- attention
@@ -688,21 +774,22 @@ class GCNClassifier(nn.Module):
     def _band_messages(self, h, ids_f, ids_r, l, plans, deterministic):
         """(x_f, x_r): h through each band's relation transforms, by one
         grouped matmul over the stacked bands (they share S); x_r is None
-        for a directed model (``ids_r`` None)."""
-        w, b = self._cast(*self.deprel_weights(l))
+        for a directed model (``ids_r`` None).  Sharded, ``h`` comes
+        through ``_tp_in`` and the messages leave whole."""
+        w, b = self._deprel_cast(l)
         s, bs = self._factored_tables(w, b)
         past_depth = l >= self.cfg.deprel_max_depth
         impl = self._bilinear_impl()
         if ids_r is None:
             plan = self._group_plan(plans, ("fwd", past_depth), ids_f,
                                     s.shape[0], deterministic)
-            return grouped_bilinear(h, ids_f, s, bs, impl=impl,
-                                    plan=plan), None
+            return self._tp_out(grouped_bilinear(h, ids_f, s, bs, impl=impl,
+                                                 plan=plan)), None
         ids2 = torch.cat([ids_f, ids_r], dim=0)
         plan = self._group_plan(plans, ("stk", past_depth), ids2,
                                 s.shape[0], deterministic)
-        x2 = grouped_bilinear(torch.cat([h, h], dim=0), ids2, s, bs,
-                              impl=impl, plan=plan)
+        x2 = self._tp_out(grouped_bilinear(torch.cat([h, h], dim=0), ids2, s,
+                                           bs, impl=impl, plan=plan))
         bsz = h.shape[0]
         return x2[:bsz], x2[bsz:]
 
@@ -722,19 +809,21 @@ class GCNClassifier(nn.Module):
         factored (grouped matmul) or the einsum ``full_deprel_layer``."""
         a_f, ids_f, a_r, ids_r = self._band_inputs(
             (adj.forward, adj.reverse), deprel, l, deterministic, generator)
-        w, b = self._cast(*self.deprel_weights(l))
+        h = self._tp_in(h)
+        w, b = self._deprel_cast(l)
         e_self = self._self_loop_emb(l)
         if not self._use_factored():
             e_rev = None if ids_r is None else self._relation_rows(ids_r)
-            return full_deprel_layer(h, a_f, self._relation_rows(ids_f),
-                                     e_rev, e_self, w, b, adj_reverse=a_r)
+            return self._tp_out(full_deprel_layer(
+                h, a_f, self._relation_rows(ids_f), e_rev, e_self, w, b,
+                adj_reverse=a_r))
         x_f, x_r = self._band_messages(h, ids_f, ids_r, l, plans,
                                        deterministic)
         out = a_f @ x_f
         if x_r is not None:
             out = out + a_r @ x_r
         if e_self is not None:
-            out = out + self_loop_traverse(h, e_self, w, b)
+            out = out + self._tp_out(self_loop_traverse(h, e_self, w, b))
         return out
 
     def _full_deprel_part(self, h, part, local, edge_mask, deprel, l, plans,
@@ -746,14 +835,16 @@ class GCNClassifier(nn.Module):
         ``edge_mask``, then cut), plus the self loop."""
         em_f, ids_f, em_r, ids_r = self._band_inputs(
             (edge_mask, edge_mask), deprel, l, deterministic, generator)
-        w, b = self._cast(*self.deprel_weights(l))
+        h = self._tp_in(h)
+        w, b = self._deprel_cast(l)
         if self._use_factored():
             x_f, x_r = self._band_messages(h, ids_f, ids_r, l, plans,
                                            deterministic)
         else:
-            x_f = bilinear_traverse(h, self._relation_rows(ids_f), w, b)
-            x_r = (None if ids_r is None else bilinear_traverse(
-                h, self._relation_rows(ids_r), w, b))
+            x_f = self._tp_out(bilinear_traverse(
+                h, self._relation_rows(ids_f), w, b))
+            x_r = (None if ids_r is None else self._tp_out(bilinear_traverse(
+                h, self._relation_rows(ids_r), w, b)))
         if x_r is None:
             out = self._part_agg(part, local, x_f, local_edges(part, em_f))
         else:
@@ -762,7 +853,7 @@ class GCNClassifier(nn.Module):
                                       em_r=local_edges(part, em_r))
         e_self = self._self_loop_emb(l)
         if e_self is not None:
-            out = out + self_loop_traverse(h, e_self, w, b)
+            out = out + self._tp_out(self_loop_traverse(h, e_self, w, b))
         return out
 
     # -------------------------------------------------------- partitioning
@@ -867,7 +958,7 @@ class GCNClassifier(nn.Module):
         zero_id = self.deprel_emb.shape[0] + 1
         ids_f = lay.cut(ids_f, zero_id)
         ids_r = None if ids_r is None else lay.cut(ids_r, zero_id)
-        w, b = self._cast(*self.deprel_weights(l))
+        w, b = self._deprel_cast(l)
         if self._use_factored():
             x_f, x_r = self._band_messages(h, ids_f, ids_r, l, plans,
                                            deterministic)
@@ -897,19 +988,22 @@ class GCNClassifier(nn.Module):
         kernel (``deprel_factored=False``)."""
         _, ids_f, _, ids_r = self._band_inputs(None, deprel, l,
                                                deterministic, generator)
-        w, b = self._cast(*self.deprel_weights(l))
+        h = self._tp_in(h)
+        w, b = self._deprel_cast(l)
         if self._use_factored():
             x_f, x_r = self._band_messages(h, ids_f, ids_r, l, plans,
                                            deterministic)
         else:
-            x_f = deprel_bilinear_batched(h, self._relation_rows(ids_f), w, b)
-            x_r = (None if ids_r is None else deprel_bilinear_batched(
-                h, self._relation_rows(ids_r), w, b))
+            x_f = self._tp_out(deprel_bilinear_batched(
+                h, self._relation_rows(ids_f), w, b))
+            x_r = (None if ids_r is None else self._tp_out(
+                deprel_bilinear_batched(h, self._relation_rows(ids_r), w,
+                                        b)))
         if x_r is None:
             x_r = torch.zeros_like(x_f)
         e_self = self._self_loop_emb(l)
         if e_self is not None:
-            x_s = self_loop_traverse(h, e_self, w, b)
+            x_s = self._tp_out(self_loop_traverse(h, e_self, w, b))
         else:
             x_s = torch.zeros_like(x_f)
         return x_f.contiguous(), x_r.contiguous(), x_s.contiguous()

@@ -26,6 +26,10 @@ the tensor-parallel pair:
 
 Every rank then ends the backward with the whole parameter gradients, and
 the trainer sums them over the ``data`` group only.
+
+``TRAFFIC`` counts the model group's all-reduces and all-gathers (these,
+``parallel.tensor_parallel``'s and ``parallel.halo``'s slab gathers) and
+their payload bytes: an all-reduced tensor's, a gathered whole's.
 """
 
 from __future__ import annotations
@@ -38,9 +42,29 @@ from gcn_tpu_torch.ops.spmm import spmm_forward, spmm_reverse, valid_edges
 EDGE_KEYS = ("edge_parent", "edge_child", "edge_deprel", "edge_mask")
 
 
+class TrafficCounter:
+    """Collectives over the model group and their payload bytes."""
+
+    def __init__(self):
+        self.calls = 0
+        self.bytes = 0
+
+    def add(self, n_bytes: int) -> None:
+        self.calls += 1
+        self.bytes += n_bytes
+
+    def reset(self) -> None:
+        self.calls = 0
+        self.bytes = 0
+
+
+TRAFFIC = TrafficCounter()
+
+
 def _all_reduce(x, group, op=dist.ReduceOp.SUM):
     out = x.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(out, op=op, group=group)
+    TRAFFIC.add(out.numel() * out.element_size())
     return out
 
 

@@ -64,6 +64,8 @@ import torch.distributed as dist
 
 from gcn_tpu_torch.ops.dropout import bernoulli
 from gcn_tpu_torch.ops.spmm import gather_rows, scatter_rows
+from gcn_tpu_torch.parallel.edge_partition import TRAFFIC
+from gcn_tpu_torch.parallel.mesh import unshard
 
 
 @dataclass
@@ -316,10 +318,9 @@ def layout_of(part, n: int) -> SlabLayout:
 
 def _all_gather_slabs(x: torch.Tensor, lay: SlabLayout) -> torch.Tensor:
     """Every rank's [B, S, ...] slab → the whole [B, N, ...] tensor."""
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(lay.k)]
-    dist.all_gather(parts, x, group=lay.group)
-    return torch.cat(parts, dim=1)[:, :lay.n]
+    out = unshard(x, 1, lay.group, lay.k)
+    TRAFFIC.add(out.numel() * out.element_size())
+    return out[:, :lay.n]
 
 
 class _ScatterToSlab(torch.autograd.Function):

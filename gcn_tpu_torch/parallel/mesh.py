@@ -11,14 +11,16 @@ index the ``data`` group (each of its ranks holds other rows, and the
 gradients, the valid-row count and the evaluation are summed or gathered
 over it).
 
-Every rank holds a whole copy of every parameter and optimizer state
-tensor on both axes (``param_shardings`` / ``opt_shardings`` say
-``REPLICATED`` for each).  gcn_tpu places the same values, only sharded
-(a vocabulary-sharded word table, hidden-sharded bilinear weights and MLP
-outputs along ``model``, ``gcn_tpu/parallel/mesh.py``'s
-``param_shardings`` and ``opt_shardings``); those layouts, which need a
-model-parallel lookup, column-parallel linears and shard-aware
-checkpoints and optimizer state, are ``ROADMAP.md`` §1 item 8c.
+On the ``data`` axis every tensor is replicated.  On the ``model`` axis
+``param_shardings`` and ``opt_shardings`` place the parameters and the
+optimizer state as gcn_tpu's do: the word table by vocabulary, the
+full_deprel weights by output hidden (not under halo), the MLP and
+classifier kernels by output, each optimizer slot with its parameter,
+everything else whole.  A placement is the sharded dimension, or
+``REPLICATED``; a dimension that does not divide the axis stays
+replicated.  ``shard`` cuts a whole tensor to a model rank's part and
+``unshard`` gathers the parts back; ``parallel.tensor_parallel`` computes
+with the parts.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Optional
 
+import torch
 import torch.distributed as dist
 
 REPLICATED = "replicated"
@@ -104,15 +107,69 @@ def make_groups(mesh: Mesh, rank: int) -> MeshGroups:
     return MeshGroups(d, m, data=data_groups[m], model=model_groups[d])
 
 
-def param_shardings(mesh: Mesh, params: dict) -> dict:
-    """Each parameter's placement: a whole copy a rank."""
-    del mesh
-    return {name: REPLICATED for name in params}
+def _sharded(shape, dim: int, axis: int):
+    """``dim``, or ``REPLICATED`` where that dimension does not divide the
+    axis (a 42-class head on a 4-way axis; GSPMD would refuse the uneven
+    split)."""
+    return dim if shape[dim] % axis == 0 else REPLICATED
 
 
-def opt_shardings(mesh: Mesh, state: dict) -> dict:
+def param_shardings(mesh: Mesh, params: dict,
+                    replicate_deprel: bool = False) -> dict:
+    """Each parameter's placement on the ``model`` axis, by gcn_tpu's
+    rules on the port's names: ``word_emb`` [V, D] by vocabulary (dim 0),
+    ``gcn_deprel_w*`` [D, T, H] by output hidden (dim 2; replicated with
+    ``replicate_deprel``, which the trainer sets under
+    ``graph_partition="halo"``), the ``mlp*`` and ``classifier`` kernels
+    [in, out] by output (dim 1); every other tensor, and a dimension that
+    does not divide the axis, ``REPLICATED``.  ``params`` maps names to
+    tensors (or anything with a ``shape``)."""
+    axis = mesh.model
+
+    def rule(name: str, shape) -> Any:
+        nd = len(shape)
+        if "word_emb" in name and nd == 2:
+            return _sharded(shape, 0, axis)
+        if "gcn_deprel_w" in name and nd == 3:
+            return REPLICATED if replicate_deprel else _sharded(shape, 2,
+                                                               axis)
+        if ("mlp" in name or "classifier" in name) and nd == 2:
+            return _sharded(shape, 1, axis)
+        return REPLICATED
+
+    return {name: rule(name, tuple(p.shape)) for name, p in params.items()}
+
+
+def opt_shardings(mesh: Mesh, state: dict, params: dict,
+                  replicate_deprel: bool = False) -> dict:
     """Each optimizer state tensor (``{param: {slot: tensor}}``) placed
-    with its parameter: replicated."""
-    del mesh
-    return {name: {slot: REPLICATED for slot in slots}
+    with its parameter where its shape is the parameter's, else
+    ``REPLICATED`` (gcn_tpu places a slot by its path and shape, so a
+    vocabulary-sharded table shards its accumulator too)."""
+    place = param_shardings(mesh, params, replicate_deprel)
+    return {name: {slot: place[name]
+                   if tuple(t.shape) == tuple(params[name].shape)
+                   else REPLICATED
+                   for slot, t in slots.items()}
             for name, slots in state.items()}
+
+
+def shard(t: torch.Tensor, dim, size: int, index: int) -> torch.Tensor:
+    """Model rank ``index``'s contiguous part of the whole ``t`` along
+    ``dim`` (of ``size`` equal parts), a tensor of its own; ``t`` itself
+    where ``dim`` is ``REPLICATED``."""
+    if dim == REPLICATED:
+        return t
+    n = t.shape[dim] // size
+    return t.narrow(dim, index * n, n).contiguous()
+
+
+def unshard(t: torch.Tensor, dim, group, size: int) -> torch.Tensor:
+    """The whole tensor from every model rank's part ``t`` along ``dim``
+    (an all-gather over ``group``, no gradient); ``t`` where ``dim`` is
+    ``REPLICATED``."""
+    if dim == REPLICATED:
+        return t
+    parts = [torch.empty_like(t) for _ in range(size)]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)

@@ -30,14 +30,24 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from gcn_tpu_torch.config import Config
+from gcn_tpu_torch.parallel.edge_partition import reduce_from_model
 
 
 def conv_l2_penalty(model: torch.nn.Module) -> torch.Tensor:
     """Σ‖W‖² over the GCN layer transforms (``gcn_w*``, ``gcn_deprel_*``),
-    as ``gcn_tpu.train.trainer.conv_l2_penalty`` scopes it."""
-    return sum(p.square().sum()
-               for name, p in model.named_parameters()
-               if name.startswith(("gcn_w", "gcn_deprel_")))
+    as ``gcn_tpu.train.trainer.conv_l2_penalty`` scopes it.  A part of a
+    weight sharded on the model axis (``model.shards``) adds its sum over the
+    model group (``reduce_from_model``), so every rank holds the whole
+    penalty and each part its own gradient."""
+    shards = getattr(model, "shards", None)
+    total = 0.0
+    for name, p in model.named_parameters():
+        if name.startswith(("gcn_w", "gcn_deprel_")):
+            sq = p.square().sum()
+            if shards is not None and shards.dim(name) is not None:
+                sq = reduce_from_model(sq, shards.group)
+            total = total + sq
+    return total
 
 
 def make_loss_fn(model: torch.nn.Module, cfg: Config,

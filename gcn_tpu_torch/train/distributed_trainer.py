@@ -3,9 +3,15 @@ process a device (counterpart of gcn_tpu's ``DistributedTrainer`` and
 ``MultiHostTrainer``, which torch's one-process-a-card idiom makes one
 class).
 
-``DistributedTrainer`` is a ``Trainer`` whose every rank holds the whole
-model and optimizer state (``parallel.mesh``) on a ``make_mesh(world,
-data_axis, graph_axis)`` layout.  The ranks of one data index (its
+``DistributedTrainer`` is a ``Trainer`` on a ``make_mesh(world,
+data_axis, graph_axis)`` layout.  Its parameters and optimizer state are
+placed as gcn_tpu places them (``parallel.mesh.param_shardings`` /
+``opt_shardings``): whole on every rank of the ``data`` axis, and on a
+``model`` axis of K > 1 the word table, the full_deprel weights (not
+under halo) and the MLP and classifier kernels cut into K parts, a rank
+holding its part of each and of its optimizer slots; the model computes
+with the parts (``parallel.tensor_parallel``, the ``ModelShards`` handle
+``shards`` on the model and the optimizer).  The ranks of one data index (its
 ``model`` group) hold the same rows of each global batch
 (``data.sharding.ShardedBatcher`` by data index and data size); with a
 model axis above 1 and ``graph_partition="edges"`` they split the edge
@@ -40,9 +46,13 @@ under gloo (the CPU, or ranks sharing one card) the steps run eagerly
 holds the model group's collectives.  ``evaluate`` and ``predict_batch``
 run each rank's rows and all-gather the predictions, probabilities and
 losses over the ``data`` group (the ranks of a model group hold the same
-rows), so every rank scores the whole split.  ``save`` writes on rank 0
-and then waits for every rank; ``load`` reads on every rank.  The
-parameters and state are broadcast from rank 0 when the trainer is built.
+rows), so every rank scores the whole split.  ``save`` gathers the whole
+state on every rank (``full_state_dict``, ``full_opt_state``), writes it
+on rank 0 in gcn_tpu's format and then waits for every rank; ``load``
+reads the whole checkpoint on every rank and copies each rank's part
+into the tensors it has, so that captured graphs stay valid.  The
+parameters and state are broadcast from rank 0 when the trainer is built,
+then cut.
 """
 
 from __future__ import annotations
@@ -62,7 +72,10 @@ from gcn_tpu_torch.parallel.mesh import (
     make_mesh,
     opt_shardings,
     param_shardings,
+    shard,
+    unshard,
 )
+from gcn_tpu_torch.parallel.tensor_parallel import ModelShards, vocab_lookup
 from gcn_tpu_torch.parallel.train_step import (
     all_reduce_flat,
     all_reduce_sum,
@@ -122,18 +135,63 @@ class DistributedTrainer(Trainer):
                                self.groups)
 
     def _place_state(self) -> None:
-        """Each tensor where ``parallel.mesh`` places it: on the data axis
-        all are replicated, so every rank takes rank 0's values."""
-        params = param_shardings(self.mesh, self.params)
-        state = opt_shardings(self.mesh, self.opt.state)
-        placed = [(params[n], p) for n, p in self.params.items()] + [
-            (state[n][s], t) for n, slots in self.opt.state.items()
-            for s, t in slots.items()]
+        """Each tensor where ``parallel.mesh`` places it: every rank takes
+        rank 0's whole values, then keeps its model index's part of each
+        sharded parameter and optimizer slot (on a model axis of 1 the
+        part is the whole)."""
+        halo = self.cfg.model.graph_partition == "halo"
+        self.placement = param_shardings(self.mesh, self.params,
+                                         replicate_deprel=halo)
+        slots = opt_shardings(self.mesh, self.opt.state, self.params,
+                              replicate_deprel=halo)
+        k, m = self.mesh.model, self.groups.model_index
+        if k == 1:
+            self.placement = {n: REPLICATED for n in self.placement}
+            slots = {n: {s: REPLICATED for s in st}
+                     for n, st in slots.items()}
         with torch.no_grad():
-            for place, t in placed:
-                if place != REPLICATED:
-                    raise NotImplementedError(f"placement {place}")
+            for t in [*self.params.values(), *(
+                    t for st in self.opt.state.values()
+                    for t in st.values())]:
                 dist.broadcast(t.detach(), 0)
+            for name, p in self.params.items():
+                p.data = shard(p.data, self.placement[name], k, m)
+            for name, st in self.opt.state.items():
+                for slot, t in st.items():
+                    st[slot] = shard(t, slots[name][slot], k, m)
+        self.slot_placement = slots
+        self.shards = (ModelShards(self.groups.model, k, m, self.placement)
+                       if any(d != REPLICATED
+                              for d in self.placement.values()) else None)
+        self.model.shards = self.opt.shards = self.shards
+
+    def _word_rows(self, words: torch.Tensor) -> torch.Tensor:
+        """The whole table's rows at ``words``, by the vocabulary-parallel
+        lookup where the table is sharded."""
+        if self.shards is None or self.shards.dim("word_emb") is None:
+            return super()._word_rows(words)
+        with torch.no_grad():
+            return vocab_lookup(self.params["word_emb"].detach(), words,
+                                self.shards)
+
+    def full_state_dict(self) -> dict:
+        """The whole parameters (every rank of the model group gathers its
+        parts: call it on every rank)."""
+        return {k: unshard(v, self.placement[k], self.groups.model,
+                           self.mesh.model)
+                for k, v in self.model.state_dict().items()}
+
+    def full_opt_state(self) -> dict:
+        """The whole optimizer state tensors (gathered, as
+        ``full_state_dict``)."""
+        return {n: {s: unshard(t, self.slot_placement[n][s],
+                               self.groups.model, self.mesh.model)
+                    for s, t in st.items()}
+                for n, st in self.opt.state.items()}
+
+    def _cut(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        return shard(t, self.placement[name], self.mesh.model,
+                     self.groups.model_index)
 
     def _graphs_on(self) -> bool:
         """Graphs hold a step's NCCL collectives, not gloo's."""
@@ -221,8 +279,10 @@ class DistributedTrainer(Trainer):
 
     def save(self, directory: str, epoch: Optional[int] = None,
              extra_meta: Optional[dict] = None) -> None:
-        """Rank 0 writes the checkpoint; every rank waits for it."""
+        """Every rank gathers the whole state, rank 0 writes the checkpoint,
+        and every rank waits for it."""
+        params, slots = self.full_state_dict(), self.full_opt_state()
         if self.rank == 0:
-            super().save(directory, epoch=epoch, extra_meta=extra_meta)
+            self._write(directory, params, slots, epoch, extra_meta)
             ckpt.wait_for_async_saves()
         dist.barrier()

@@ -15,7 +15,16 @@ Counterpart of ``gcn_tpu.train.optim``: ``build_optimizer`` chains
 
 ``external_clip=True`` skips the clip stage: the row-sparse embedding
 step (``train.sparse_emb``) clips itself, over a norm that counts rows this
-chain never sees.  The state keeps its layout either way.  A step updates
+chain never sees.  The state keeps its layout either way.
+
+On a mesh whose ``model`` axis is above 1 the trainer sets ``shards`` (a
+``parallel.tensor_parallel.ModelShards``): the parameters it names are a
+rank's parts, and so are their state tensors.  The freeze then compares
+each word-table row's global index (the part's offset plus the local row)
+with ``topn``, and the clip's squared norm sums the parts' squares over
+the model group and counts every replicated gradient once, so its scale
+is the whole model's.  The core rule is elementwise and runs on the parts
+as they are.  A step updates
 the parameters it is given gradients for and leaves the others alone.
 
 ``torch.optim``'s rules differ from optax's in places (adamax puts its ε
@@ -42,6 +51,7 @@ import numpy as np
 import torch
 
 from gcn_tpu_torch.convert import params_from_jax, params_to_jax
+from gcn_tpu_torch.parallel.tensor_parallel import model_sum
 
 CORES = ("sgd", "adagrad", "myadagrad", "adam", "adamax", "adadelta")
 _FIXED_LR = {"adam": 1e-3, "adamax": 2e-3}
@@ -50,12 +60,29 @@ _RHO, _ADADELTA_EPS = 0.9, 1e-6
 _ADAGRAD_INIT, _ADAGRAD_EPS = 0.1, 1e-10
 
 
+def global_norm(tensors: dict[str, torch.Tensor],
+                shards=None) -> torch.Tensor:
+    """The f32 norm of all the tensors together; with ``shards``, the
+    squares of the tensors it names sharded summed over the model
+    group."""
+    sq = {k: g.float().square().sum() for k, g in tensors.items()}
+    split = [k for k in sq if shards is not None
+             and shards.dim(k) is not None]
+    whole = [v for k, v in sq.items() if k not in split]
+    total = torch.stack(whole).sum() if whole else None
+    if split:
+        parts = model_sum(torch.stack([sq[k] for k in split]).sum(), shards)
+        total = parts if total is None else total + parts
+    return total.sqrt()
+
+
 def clip_by_global_norm(tensors: dict[str, torch.Tensor],
-                        max_norm: float) -> dict[str, torch.Tensor]:
+                        max_norm: float,
+                        shards=None) -> dict[str, torch.Tensor]:
     """optax ``clip_by_global_norm`` over the tensors, with no host sync:
-    all scaled by ``max_norm / norm`` only when ``norm >= max_norm``."""
-    norm = torch.stack([g.float().square().sum()
-                        for g in tensors.values()]).sum().sqrt()
+    all scaled by ``max_norm / norm`` only when ``norm >= max_norm``;
+    ``shards`` as ``global_norm``."""
+    norm = global_norm(tensors, shards)
     trigger = norm < max_norm
     return {k: torch.where(trigger, g, g / norm.to(g.dtype) * max_norm)
             for k, g in tensors.items()}
@@ -81,6 +108,7 @@ class Optimizer:
         self.external_clip = external_clip
         self.count = torch.zeros((), dtype=torch.int32)
         self.state: dict[str, dict[str, torch.Tensor]] = {}
+        self.shards = None  # the model axis's parts (module docstring)
 
     def init(self, params: dict[str, torch.Tensor]) -> None:
         """Fresh state for ``params`` (name → tensor), the count and the
@@ -99,22 +127,33 @@ class Optimizer:
                 self.state[k] = {"e_g": torch.zeros_like(p),
                                  "e_x": torch.zeros_like(p)}
 
+    def vocab_span(self, rows: int) -> tuple[int, int]:
+        """(the global index of this rank's first word-table row, the
+        whole table's rows) for a table part of ``rows`` rows."""
+        if self.shards is None or self.shards.dim(self.word_emb_name) is None:
+            return 0, rows
+        return self.shards.span(rows)[0], rows * self.shards.size
+
     def freeze(self, grads: dict[str, torch.Tensor]):
-        """Zero the word-embedding gradient rows ``>= topn``."""
+        """Zero the word-embedding gradient rows ``>= topn`` (global row
+        indices where the table is sharded)."""
         g = grads.get(self.word_emb_name)
-        if g is None or self.topn >= g.shape[0]:
+        if g is None:
+            return grads
+        lo, whole = self.vocab_span(g.shape[0])
+        if self.topn >= whole:
             return grads
         out = dict(grads)
         if self.topn <= 0:
             out[self.word_emb_name] = torch.zeros_like(g)
         else:
-            row = torch.arange(g.shape[0], device=g.device)[:, None]
+            row = torch.arange(lo, lo + g.shape[0], device=g.device)[:, None]
             out[self.word_emb_name] = torch.where(row < self.topn, g, 0.0)
         return out
 
     def clip(self, grads: dict[str, torch.Tensor]):
         """optax ``clip_by_global_norm``, with no host sync."""
-        return clip_by_global_norm(grads, self.max_grad_norm)
+        return clip_by_global_norm(grads, self.max_grad_norm, self.shards)
 
     def state_tensors(self) -> list[torch.Tensor]:
         """Every tensor a step changes: the count and the state."""
@@ -174,17 +213,19 @@ class Optimizer:
                     "1": {}}, "count"
         return {"0": {}, "1": {"e_g": "e_g", "e_x": "e_x"}, "2": {}}, None
 
-    def state_tree(self) -> dict:
-        """The state as an optax tree of numpy arrays (see the module's
+    def state_tree(self, state: dict | None = None) -> dict:
+        """The state (``state`` in its place: the whole tensors of a
+        sharded one) as an optax tree of numpy arrays (see the module's
         docstring); keys in optax's order."""
         layout, _ = self._core_layout()
         count = np.asarray(int(self.count), np.int32)
+        state = self.state if state is None else state
 
         def fill(node):
             return {k: fill(v) if isinstance(v, dict)
                     else count if v is None
                     else params_to_jax({n: st[v]
-                                        for n, st in self.state.items()})
+                                        for n, st in state.items()})
                     for k, v in node.items()}
 
         return {"count": count,
@@ -194,11 +235,14 @@ class Optimizer:
                 "inner_state": {"0": {}, "1": {}, "2": fill(layout)}}
 
     def load_state_tree(self, tree: dict,
-                        params: dict[str, torch.Tensor]) -> None:
+                        params: dict[str, torch.Tensor],
+                        cut=None) -> None:
         """Take the state from an optax tree of ``state_tree``'s layout,
         each tensor onto its parameter's device and dtype; state tensors
         that exist already are overwritten in place (a captured step
-        reads them where they are)."""
+        reads them where they are).  ``cut(name, tensor)`` gives this
+        rank's part of a whole tensor of parameter ``name`` (a sharded
+        state's)."""
         layout, count_key = self._core_layout()
         core = tree["inner_state"]["2"]
         state: dict[str, dict[str, torch.Tensor]] = {}
@@ -218,6 +262,8 @@ class Optimizer:
                                          f"{sorted(set(flat) ^ set(params))} "
                                          f"differ")
                     for n, t in flat.items():
+                        if cut is not None:
+                            t = cut(n, t)
                         if t.shape != params[n].shape:
                             raise ValueError(f"{self.name} state {v} of {n}: "
                                              f"{tuple(t.shape)}, expected "

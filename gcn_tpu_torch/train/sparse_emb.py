@@ -27,6 +27,14 @@ sparse step:
    their squares into the accumulator: each id has one nonzero row, so
    the sums are the same whatever order the adds land in.
 
+On a model axis above 1 with the table sharded by vocabulary
+(``Optimizer.shards``) the trainer gathers the rows through the
+vocabulary-parallel lookup, every rank of the model group coalesces and
+clips the same whole rows (the clip's norm adds the sharded dense
+gradients' squares over the group), and ``index_add_`` adds into the
+rank's part of the table and of the accumulator at local offsets only
+the rows whose ids lie in its range [lo, hi) (zeros at the others).
+
 Only the row-local optimizers are supported (``supported``): adam's
 family moves every row every step.  The optimizer is built with
 ``external_clip=True`` (its clip stage skipped); its state keeps the dense
@@ -85,16 +93,22 @@ def sparse_step(opt: Optimizer, params: dict, grads: dict,
     ``external_clip=True``: the clip is here, so that its norm counts the
     rows."""
     emb = params["word_emb"]
+    lo, vocab = opt.vocab_span(emb.shape[0])
     # 1. the partial-finetune freeze, before the clip (as the dense chain)
     if topn <= 0:
         g_rows = torch.zeros_like(g_rows)
-    elif topn < emb.shape[0]:
+    elif topn < vocab:
         g_rows = torch.where((word_ids < topn)[..., None], g_rows, 0.0)
     # 2. repeated ids summed (the dense lookup backward's sums)
     sids, crows = coalesce(word_ids, g_rows)
     # 3. the global-norm clip over the dense gradients and the rows
-    grads = clip_by_global_norm({**grads, "rows": crows}, max_grad_norm)
+    grads = clip_by_global_norm({**grads, "rows": crows}, max_grad_norm,
+                                opt.shards)
     crows = grads.pop("rows")
+    # the rows of this rank's part, at local offsets; zeros for the rest
+    local = sids - lo
+    inside = ((local >= 0) & (local < emb.shape[0]))[:, None]
+    local = torch.where(inside[:, 0], local, 0)
     # 4. the dense chain on every other parameter (it counts the step),
     #    then the row rule on the touched rows
     opt.step(params, grads)
@@ -105,7 +119,7 @@ def sparse_step(opt: Optimizer, params: dict, grads: dict,
         accum = opt.state["word_emb"]["accum"]
         decay = 1.0 / (1.0 + (opt.count.float() - 1.0) * opt.lr_decay)
         sq = crows * crows
-        acc_rows = accum.index_select(0, sids) + sq
+        acc_rows = accum.index_select(0, local) + sq
         upd = decay * crows / (acc_rows.sqrt() + _EPS) * -lr
-        accum.index_add_(0, sids, sq)
-    emb.index_add_(0, sids, upd.to(emb.dtype))
+        accum.index_add_(0, local, torch.where(inside, sq, 0.0))
+    emb.index_add_(0, local, torch.where(inside, upd, 0.0).to(emb.dtype))

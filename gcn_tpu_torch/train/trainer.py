@@ -231,8 +231,7 @@ class Trainer:
             self.opt.step(self.params, grads)
             return loss
         words = batch["words"]
-        rows = self.params["word_emb"].detach().index_select(
-            0, words.reshape(-1)).view(*words.shape, -1).requires_grad_()
+        rows = self._word_rows(words).requires_grad_()
         loss, grads, words = self._reduce(
             *self._grads(batch, generator, rows), words)
         g_rows = grads.pop("rows")
@@ -240,6 +239,12 @@ class Trainer:
                                topn=self.cfg.model.topn,
                                max_grad_norm=self.cfg.train.max_grad_norm)
         return loss
+
+    def _word_rows(self, words: torch.Tensor) -> torch.Tensor:
+        """The word table's rows at ``words`` [...] → [..., E], outside
+        autograd."""
+        return self.params["word_emb"].detach().index_select(
+            0, words.reshape(-1)).view(*words.shape, -1)
 
     def _fused(self) -> bool:
         """Whether the next batch is one whole optimizer step."""
@@ -381,10 +386,32 @@ class Trainer:
         ``Evaluator.evaluate``."""
         return self._evaluator.evaluate(batches)
 
+    def full_state_dict(self) -> dict:
+        """The model's whole parameters by name (a ``state_dict``): what a
+        checkpoint, an export or ``convert.params_to_jax`` takes."""
+        return self.model.state_dict()
+
+    def full_opt_state(self) -> dict:
+        """The optimizer's whole state tensors, ``{param: {slot:
+        tensor}}``."""
+        return self.opt.state
+
+    def _cut(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This trainer's part of parameter ``name``'s whole tensor ``t``
+        (or of a state tensor of its shape): all of it."""
+        return t
+
     def save(self, directory: str, epoch: Optional[int] = None,
              extra_meta: Optional[dict] = None) -> None:
         """Write a checkpoint: meta ``epoch``, ``global_step`` (batches
         applied to the parameters), ``current_lr`` and ``extra_meta``."""
+        self._write(directory, self.full_state_dict(), self.full_opt_state(),
+                    epoch, extra_meta)
+
+    def _write(self, directory: str, params: dict, slots: dict,
+               epoch: Optional[int], extra_meta: Optional[dict]) -> None:
+        """``save``'s checkpoint of the whole ``params`` and optimizer state
+        ``slots``."""
         meta = {"epoch": epoch,
                 "global_step": self.global_step - self.pending_batches,
                 "current_lr": self.current_lr}
@@ -392,8 +419,8 @@ class Trainer:
             meta.update(extra_meta)
         ckpt.save_checkpoint(
             directory,
-            params_to_jax(self.model.state_dict()),
-            self.opt.state_tree(),
+            params_to_jax(params),
+            self.opt.state_tree(slots),
             config=self.cfg.to_dict(),
             meta=meta,
             async_save=self.cfg.train.async_save,
@@ -405,9 +432,10 @@ class Trainer:
         ckpt.wait_for_async_saves()
         params, opt_state, blob = ckpt.load_checkpoint(directory,
                                                        load_opt_state)
-        self.model.load_state_dict(params_from_jax(params))
+        self.model.load_state_dict({k: self._cut(k, v) for k, v in
+                                    params_from_jax(params).items()})
         if opt_state is not None:
-            self.opt.load_state_tree(opt_state, self.params)
+            self.opt.load_state_tree(opt_state, self.params, cut=self._cut)
         self._accum = None
         self._accum_count = 0
         meta = blob.get("meta", {})

@@ -12,7 +12,8 @@ every scenario through ``DistributedTrainer`` over gloo on their rows
     GCN_TPU_PROC_ID=R python tests/dp_worker.py OUT_DIR [STATE_FILE]
 
 Each rank saves its results to ``OUT_DIR/rank{R}.pt``: per scenario the
-losses, the parameters after the steps and the evaluation's output.
+losses, the whole parameters after the steps (``full_state_dict``) and
+the evaluation's output.
 ``STATE_FILE`` (a ``torch.save``d state dict) starts the ``jax`` scenario.
 """
 
@@ -153,7 +154,7 @@ def run(trainer, batches, evals) -> dict:
     preds, probs, loss = trainer.evaluate(evals)
     return {"losses": losses,
             "params": {k: v.detach().clone() for k, v in
-                       trainer.model.state_dict().items()},
+                       trainer.full_state_dict().items()},
             "preds": preds, "probs": np.asarray(probs), "eval_loss": loss,
             "sparse_emb": trainer.sparse_emb}
 

@@ -100,7 +100,9 @@ def gmm_case(name):
     the C-GCN layer's widths at a quarter of its rows, two padding groups
     beside 80 groups of 5-30 rows; ``loud_neighbours`` groups that start
     off the 64-row boxes, one of several dS chunks, the rows of every
-    other group (``loud_rows``) 1000 times larger."""
+    other group (``loud_rows``) 1000 times larger; ``shard_T*_H*`` the
+    ``path_widths`` groups at a model rank's columns of the deprel
+    transforms (H = 100 on a 2-way axis, 50 on a 4-way one)."""
     rng = np.random.RandomState(sum(map(ord, name)))
     t, h = 24, 20
     past = 0  # rows past the sum, in the last group
@@ -109,8 +111,11 @@ def gmm_case(name):
         small = rng.randint(1, 101, 60)
         gs = np.concatenate([[0], small[:30], [5 * GMM_DS_CHUNK + 17, 0],
                              small[30:], [3 * GMM_DS_CHUNK, 0, 0, 30]])
-    elif name.startswith("path_widths"):
-        t, h = int(name[len("path_widths_T"):]), 200
+    elif name.startswith(("path_widths", "shard_T")):
+        if name.startswith("shard_T"):
+            t, h = (int(v) for v in name[len("shard_T"):].split("_H"))
+        else:
+            t, h = int(name[len("path_widths_T"):]), 200
         small = rng.randint(5, 31, 80)
         gs = np.concatenate([[0, 0], small[:40], [520, 0], small[40:],
                              [0, 520]])
@@ -560,6 +565,36 @@ def test_grouped_matmul_backward_kernel_matches_plain(cuda_device, name):
         assert torch.equal(dx, again[0]) and torch.equal(ds, again[1])
         want_dx, want_ds = gmm_mod.grouped_matmul_backward_plain(*args)
         assert dx.dtype == dtype and ds.dtype == torch.float32
+        assert scaled_err(dx, want_dx) <= tol
+        assert scaled_err(ds, want_ds) <= tol
+        assert not bool(ds[gs == 0].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [100, 50])
+@pytest.mark.parametrize("t", [400, 200])
+def test_grouped_matmul_at_shard_widths_matches_plain(cuda_device, t, h):
+    """Kernels 3 and 4, f32 and bf16, at a model rank's columns of the
+    C-GCN's deprel transforms: H = 100 (bf16 rows of 200 bytes, which TMA
+    cannot take: the producer's copies) and 50 (f32 rows of 200 bytes too:
+    element loads), against their plain versions."""
+    x, s, gs = (torch.from_numpy(a).to(cuda_device)
+                for a in gmm_case(f"shard_T{t}_H{h}"))
+    assert s.shape[2] == h
+    g = torch.from_numpy(np.random.RandomState(5).randn(
+        x.shape[0], h).astype(np.float32)).to(cuda_device)
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+        xd, sd, gd = x.to(dtype), s.to(dtype), g.to(dtype)
+        launches = (gmm_mod.KERNEL.launches,
+                    gmm_mod.BACKWARD_KERNEL.launches)
+        y = gmm_mod.grouped_matmul(xd, sd, gs)
+        dx, ds = gmm_mod.grouped_matmul_backward(xd, gd, sd, gs)
+        assert (gmm_mod.KERNEL.launches, gmm_mod.BACKWARD_KERNEL.launches
+                ) == (launches[0] + 1, launches[1] + 1)
+        assert torch.equal(y, gmm_mod.grouped_matmul(xd, sd, gs))
+        assert scaled_err(y, gmm_mod.grouped_matmul_plain(xd, sd, gs)) <= tol
+        want_dx, want_ds = gmm_mod.grouped_matmul_backward_plain(xd, gd, sd,
+                                                                 gs)
         assert scaled_err(dx, want_dx) <= tol
         assert scaled_err(ds, want_ds) <= tol
         assert not bool(ds[gs == 0].any())
