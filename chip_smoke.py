@@ -2,8 +2,9 @@
 """Drive the port's C-GCN, paper-GCN, attention, diagonal_deprel, BERT-input,
 SemEval, bf16 and cross-sentence-packed paths on one NVIDIA GPU, score
 the reference's trained checkpoints, and drive the row-sparse word-table
-update, data-parallel training and the mesh's model axis (the sharded
-parameter layouts, and the partitioned graph: edges and halo).
+update, data-parallel training, the mesh's model axis (the sharded
+parameter layouts, and the partitioned graph: edges and halo) and the
+accumulating train step (``update_gap`` > 1) through CUDA graphs.
 
     python3 chip_smoke.py
 
@@ -163,7 +164,10 @@ Phases, one JSON line each:
    on its 25 rows of the same global batches, follows ``Trainer`` within
    TOL_TRAIN for 3 steps, and its evaluation (gathered from both ranks)
    gives ``Trainer``'s predictions but at near-ties.  ms a step of each
-   beside ``Trainer``'s (graphs, and eager for the gloo world);
+   beside ``Trainer``'s (graphs, and eager for the gloo world).  The NCCL
+   world of one at ``update_gap`` 5 over the accum phase's 12 B=10
+   micro-batches (the rate halved mid-group, a flush of 2) gives
+   ``Trainer``'s losses, parameters and optimizer state in bits;
 11. partition — the mesh's ``model`` axis on a 1 × 2 mesh: two gloo
    ranks on the one card (``--partition-rank``), each on all 50 rows of
    the synthetic N=96 batches, their words drawn over a
@@ -197,7 +201,22 @@ Phases, one JSON line each:
    empty ones included) and kernels 3 and 4, f32 and bf16, at the shard
    widths H = 100 and 50 (M = 9600, R = 87, T = 400 and 200) against
    their plain versions, with their bounds, ``torch._grouped_mm``'s ms
-   and each operand's load path (``shard_width_gmm``).
+   and each operand's load path (``shard_width_gmm``);
+12. accum — ``cgcn`` at full width in f32 at the flagship runs' batches
+   (``batch_size`` 10, ``effective_batch_size`` 50: ``update_gap`` 5) over
+   12 train micro-batches (``load_micro_batches``: the in-repo train
+   split's 40 sentences and 80 synthetic ones up to N=96, two signatures
+   or more), the rate halved before the eighth, a flush of 2 at the end:
+   through graphs (a micro-batch graph a signature, one apply graph) the
+   losses, parameters and optimizer state equal the eager steps' in bits,
+   and two eager runs equal each other; each micro-batch launches exactly
+   ``EXPECTED["cgcn"]``'s train step, an apply none of the kernels;
+   ``warmup`` captures every signature's graph and the apply graph
+   (programs, seconds, pool MiB), leaves the state as it was, and the
+   warmed run gives the eager bits.  ms a micro-batch and an optimizer
+   step (five micro-batches and the apply) through graphs and eagerly,
+   best of 3 passes of 10, and the busy ms and idle share over graph
+   replays (profiler).
 
 The paths: ``cgcn`` (``cgcn_preset``: BiLSTM, factored full_deprel on
 dense bands), ``cgcn_fused`` (the same with ``use_pallas=True``: the band
@@ -3322,9 +3341,10 @@ def parallel_rank(rank: int, tmp: str, port: int) -> int:
     return 0
 
 
-def run_parallel(torch, dev, synth_train, synth, vocab_size) -> dict:
-    """The parallel phase (data parallelism on ``cgcn`` at B=50, N=96);
-    fails on any miss."""
+def run_parallel(torch, dev, synth_train, synth, vocab_size,
+                 micro: list) -> dict:
+    """The parallel phase (data parallelism on ``cgcn`` at B=50, N=96, and
+    at update_gap 5 on the B=10 ``micro`` batches); fails on any miss."""
     import pickle
 
     from gcn_tpu_torch.models.gcn import GCNClassifier, init_params
@@ -3361,7 +3381,23 @@ def run_parallel(torch, dev, synth_train, synth, vocab_size) -> dict:
     nccl["trainer_ms_per_step"] = trainer_speed(torch, one,
                                                 batches)["ms_per_step"]
     out["nccl_world_1"] = nccl
-    del dp, one
+    # the same world accumulating (update_gap 5): its all-reduce inside
+    # each micro-batch graph, the apply graph after every fifth
+    cfg5 = accum_config(vocab_size)
+    dp5 = DistributedTrainer(cfg5, state, device=dev)
+    one5 = Trainer(cfg5, state, device=dev)
+    got5, want5 = accum_run(dp5, micro), accum_run(one5, micro)
+    accum = {"update_gap": cfg5.train.update_gap,
+             "micro_batches": len(micro),
+             "micro_graphs": sum(k[0] == "micro" for k in dp5.graphs),
+             **same_bits(torch, got5, want5, dp5, one5),
+             "opt_same_bits": opt_same_bits(torch, dp5, one5)}
+    out["nccl_world_1_update_gap_5"] = accum
+    if not (accum["same_bits"] and accum["opt_same_bits"]
+            and accum["micro_graphs"] and ("apply",) in dp5.graphs):
+        fail(f"parallel: the NCCL world of one at update_gap 5 differs "
+             f"from Trainer: {accum}")
+    del dp, one, dp5, one5
     distributed.shutdown()
 
     # a world of two on the one card over gloo, stepping eagerly
@@ -3877,6 +3913,177 @@ def run_partition(torch, dev, synth_train, synth, parallel: dict) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- accum
+# the flagship runs' batches (.campaign_r5/flagship/seed*/
+# gcn_tpu_full_deprel_models/cmp/config.json): batch_size 10,
+# effective_batch_size 50, so update_gap 5
+ACCUM_B, ACCUM_EFFECTIVE = 10, 50
+ACCUM_SYNTH = 80  # synthetic sentences (8 micro-batches) at N <= 96
+ACCUM_LR_AT = 7   # micro-batch before which the rate changes (mid-group)
+ACCUM_TIMED = 10  # micro-batches a timed pass: two whole optimizer steps
+
+
+def load_micro_batches(cfg, vocab) -> list:
+    """12 train micro-batches of ``ACCUM_B`` through the port's loader:
+    the in-repo train split's 40 sentences (4) and ``ACCUM_SYNTH``
+    synthetic ones up to the N=96 bucket (8), the preset's word
+    dropout."""
+    from gcn_tpu_torch.data.dataset import Batcher, RelationDataset
+
+    path = os.path.join(HERE, "dataset", "tacred", "train.json")
+    with open(path) as f:
+        recs = json.load(f)
+    freq: dict = {}
+    for rec in recs:
+        for d in rec["stanford_deprel"]:
+            freq[d] = freq.get(d, 0) + 1
+    out = list(Batcher(RelationDataset(path, cfg, vocab), ACCUM_B,
+                       seed=SEED))
+    synth = synthetic_records(np.random.RandomState(SEED + 5), ACCUM_SYNTH,
+                              N_BUCKET, freq)
+    with tempfile.TemporaryDirectory() as tmp:
+        spath = os.path.join(tmp, "synthetic.json")
+        with open(spath, "w") as f:
+            json.dump(synth, f)
+        out += list(Batcher(RelationDataset(spath, cfg, vocab), ACCUM_B,
+                            seed=SEED))
+    return out
+
+
+def accum_config(vocab_size: int, **extra):
+    """``cgcn`` at full width, f32, B=10 micro-batches of an effective
+    batch of 50."""
+    return path_config("cgcn", **{"model.vocab_size": vocab_size,
+                                  "train.batch_size": ACCUM_B,
+                                  "train.effective_batch_size":
+                                  ACCUM_EFFECTIVE, **extra})
+
+
+def accum_run(tr, batches) -> list:
+    """The micro-batches through ``tr`` (the rate changed before
+    ``ACCUM_LR_AT``), then a flush; the losses."""
+    losses = []
+    for i, b in enumerate(batches):
+        if i == ACCUM_LR_AT:
+            tr.update_lr(tr.current_lr * 0.5)
+        losses.append(tr.update(b))
+    tr.flush_gradients()
+    return losses
+
+
+def opt_same_bits(torch, a, b) -> bool:
+    """Optimizer count and state of trainers ``a`` and ``b`` equal in
+    bits."""
+    return torch.equal(a.opt.count, b.opt.count) and all(
+        torch.equal(t, b.opt.state[k][slot])
+        for k, st in a.opt.state.items() for slot, t in st.items())
+
+
+def run_accum(torch, dev, micro: list, vocab_size: int) -> dict:
+    """The accum phase (module docstring, 12) on ``cgcn`` at update_gap 5;
+    fails on any miss."""
+    from gcn_tpu_torch.models.gcn import GCNClassifier, init_params
+    from gcn_tpu_torch.train.trainer import Trainer
+
+    cfg = accum_config(vocab_size)
+    if cfg.train.update_gap != 5:
+        fail(f"accum: update_gap {cfg.train.update_gap}")
+    model = GCNClassifier(cfg.model)
+    init_params(model, torch.Generator().manual_seed(SEED))
+    state = model.state_dict()
+    signatures = sorted({b["words"].shape for b in micro})
+    out = {"phase": "accum", "path": "cgcn", "update_gap": 5,
+           "batch_size": ACCUM_B, "micro_batches": len(micro),
+           "signatures": [list(s) for s in signatures]}
+    if len(signatures) < 2:
+        fail(f"accum: the micro-batches have one signature {signatures}")
+
+    # graphs against eager and eager against eager: 12 micro-batches, two
+    # applies, the rate changed mid-group, a flush of 2; the graph run's
+    # launches a micro-batch as a cgcn train step's, an apply none
+    g, e, e2 = (Trainer(cfg, state, device=dev) for _ in range(3))
+    got, launches = counted(lambda: accum_run(g, micro[:-2]) + [
+        g.update(b) for b in micro[-2:]])
+    out["launches_per_micro_batch"] = check_launches(
+        "cgcn accum", "micro-batch", launches, EXPECTED["cgcn"][1],
+        len(micro))
+    if g.pending_batches != 2:
+        fail(f"accum: {g.pending_batches} micro-batches pending, not 2")
+    _, apply_launches = counted(g.flush_gradients)
+    out["launches_per_apply"] = check_launches(
+        "cgcn accum", "apply", apply_launches, {}, 1)
+    kinds = sorted(k[0] for k in g.graphs)
+    out["graphs"] = {"micro": kinds.count("micro"),
+                     "apply": kinds.count("apply")}
+    if out["graphs"] != {"micro": len(signatures), "apply": 1}:
+        fail(f"accum: graphs {kinds} for {len(signatures)} signatures")
+    with eager_dispatch():
+        want = accum_run(e, micro)
+        again = accum_run(e2, micro)
+    gates = {"graphs_against_eager": same_bits(torch, got, want, g, e),
+             "eager_against_eager": same_bits(torch, again, want, e2, e)}
+    gates["graphs_against_eager"]["opt_same_bits"] = opt_same_bits(
+        torch, g, e)
+    gates["eager_against_eager"]["opt_same_bits"] = opt_same_bits(
+        torch, e2, e)
+
+    # warm-up first: every signature's graph and the apply graph, the
+    # state (the sums zero) as it was, then the unwarmed run's bits
+    warm = Trainer(cfg, state, device=dev)
+    warm._grad_sums()
+    before = [t.detach().clone() for t in warm._state()]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    stats = warm.warmup(micro, eval_batches=[])
+    torch.cuda.empty_cache()
+    pool_mib = (torch.cuda.memory_reserved() - reserved) / 2**20
+    unchanged = (warm.pending_batches == 0 and warm.global_step == 0
+                 and all(torch.equal(a, b)
+                         for a, b in zip(warm._state(), before)))
+    out["warmup"] = {"programs": stats["programs"],
+                     "seconds": stats["seconds"], "pool_mib": pool_mib,
+                     "state_unchanged": unchanged}
+    if not unchanged or stats["programs"] != len(signatures) + 1:
+        fail(f"accum: warm-up {out['warmup']}")
+    gates["warmed_run"] = same_bits(torch, accum_run(warm, micro), want,
+                                    warm, e)
+    gates["warmed_run"]["opt_same_bits"] = opt_same_bits(torch, warm, e)
+    out["gates"] = gates
+    for name, gate in gates.items():
+        if not (gate["same_bits"] and gate["opt_same_bits"]):
+            fail(f"accum: {name} differs: {gate}")
+
+    # ms a micro-batch and an optimizer step (5 micro-batches and the
+    # apply), through graphs and eagerly, best of 3 passes of two whole
+    # steps; the device's busy ms and idle share over graph replays
+    timed = micro[:ACCUM_TIMED]
+    speed = {}
+    for name, tr in (("graphs", g), ("eager", e)):
+        ctx = eager_dispatch if name == "eager" else contextlib.nullcontext
+
+        def epoch(tr=tr):
+            for b in timed:
+                tr.update(b)
+
+        with ctx():
+            epoch()
+            walls = epoch_walls(torch, epoch)
+            busy = device_time(torch, epoch) if name == "graphs" else None
+        ms = min(walls) * 1e3
+        speed[name] = {"ms_per_micro_batch": ms / len(timed),
+                       "ms_per_optimizer_step": ms / (len(timed) // 5),
+                       "walls_s": walls}
+        if busy is not None:
+            speed[name]["busy_ms_per_micro_batch"] = (
+                busy["busy_ms"] / len(timed))
+            speed[name]["idle_share"] = 1 - busy["busy_ms"] / ms
+            speed[name]["busy_by_category_ms_per_micro_batch"] = {
+                k: v / len(timed) for k, v in busy["by_category_ms"].items()}
+    out["speed"] = speed
+    return out
+
+
 # the path whose train run gives each kernel's "launches" in the kernels
 # line: the one that brought the kernel in; v1 is on no path, and its
 # launches are those of the kernel phase
@@ -4004,11 +4211,15 @@ def main() -> int:
           "at_s": time.perf_counter() - t_start})
     emit({**run_sparse(torch, dev, synth_train), "nvidia_smi": smi,
           "at_s": time.perf_counter() - t_start})
-    parallel = run_parallel(torch, dev, synth_train, synth, vocab_size)
+    micro = load_micro_batches(accum_config(vocab_size), vocab)
+    parallel = run_parallel(torch, dev, synth_train, synth, vocab_size,
+                            micro)
     emit({**parallel, "nvidia_smi": smi,
           "at_s": time.perf_counter() - t_start})
     emit({**run_partition(torch, dev, synth_train, synth, parallel),
           "nvidia_smi": smi, "at_s": time.perf_counter() - t_start})
+    accum = run_accum(torch, dev, micro, vocab_size)
+    emit({**accum, "nvidia_smi": smi, "at_s": time.perf_counter() - t_start})
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -4025,6 +4236,10 @@ def main() -> int:
                    slices[path]["launches_per_forward"][kernel],
                    "train_step": trains[path]["launches_per_step"][kernel]}
             for path in PATHS if path_dtype(path) == dtype}
+        if dtype == "float32":
+            by_path["accum"] = {
+                "micro_batch": accum["launches_per_micro_batch"][kernel],
+                "apply": accum["launches_per_apply"][kernel]}
         line.append({**{k: row[k] for k in keys}, "dtype": dtype,
                      **{k: row[k] for k in ("bound_f32_ms", "library_sgemm_ms")
                         if k in row},

@@ -2,15 +2,21 @@
 dispatch size, replayed from one host call.
 
 The port's counterpart of gcn_tpu's jitted programs (``_fused_step``,
-``_chunk_step``, ``_forward_eval``, ``_forward_eval_chunk``): where JAX
-compiles a program per shape and a ``lax.scan`` over k steps, the port
-captures a CUDA graph per (batch signature, k), k steps unrolled in it,
-and replays it.
+``_chunk_step``, ``_forward_eval``, ``_forward_eval_chunk``, and for
+``update_gap > 1`` ``_loss_and_grads`` with ``_accum_add``, and
+``_apply_grads``): where JAX compiles a program per shape and a
+``lax.scan`` over k steps, the port captures a CUDA graph per (batch
+signature, k), k steps unrolled in it, and replays it; an accumulating
+micro-batch is a graph per batch signature of its own kind, and the
+optimizer step on the sums one graph that takes no batch.
 
 * ``GraphCache`` keeps a consumer's graphs by batch signature and
-  dispatch size (``train.transfer.Staging.signature``), one memory pool
-  for all of them, and moves each dispatch's batches into its graph's
-  static inputs before the replay.
+  dispatch size (``train.transfer.Staging.signature``), prefixed by a
+  ``kind`` where one batch shape has graphs of two functions, one memory
+  pool for all of them, and moves each dispatch's batches into its
+  graph's static inputs before the replay.  Tensors that outlive a
+  replay and are not its outputs (a trainer's gradient sums) are
+  allocated outside the pool.
 * ``capture`` runs the function once eagerly on a side stream (cuBLAS,
   autograd and the allocator set themselves up there), puts back the
   tensors it names as state (parameters, optimizer state), then captures
@@ -153,28 +159,35 @@ class GraphCache:
         self._pool = None
 
     def get(self, batches: list, fn: Callable, slots: int = 0,
-            state: Sequence[torch.Tensor] = ()) -> tuple[StepGraph, bool]:
-        """(the graph of ``fn`` for ``batches``' signature, whether it was
-        captured now, with ``batches`` in its static inputs)."""
-        key = self.staging.signature(batches)
+            state: Sequence[torch.Tensor] = (), kind: str | None = None
+            ) -> tuple[StepGraph, bool]:
+        """(the graph of ``fn`` for ``batches``' signature, ``kind``
+        before it where given, whether it was captured now, with
+        ``batches`` in its static inputs; no batches: no static
+        inputs)."""
+        key = self.staging.signature(batches) if batches else ()
+        if kind is not None:
+            key = (kind, *key)
         graph = self.graphs.get(key)
         if graph is not None:
             return graph, False
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        static = self.staging.allocate(batches)
-        self.staging.send(batches, static)
+        static = None
+        if batches:
+            static = self.staging.allocate(batches)
+            self.staging.send(batches, static)
         graph = capture(fn, static, self.device, self._pool, slots, state)
         self.graphs[key] = graph
         return graph, True
 
     def replay(self, batches: list, fn: Callable, seeds: Sequence[int] = (),
-               state: Sequence[torch.Tensor] = ()):
+               state: Sequence[torch.Tensor] = (), kind: str | None = None):
         """Move ``batches`` in and replay their graph (captured first if
         new), its step slots seeded with ``seeds``; the graph's outputs,
         valid until its next replay."""
-        graph, loaded = self.get(batches, fn, len(seeds), state)
-        if not loaded:
+        graph, loaded = self.get(batches, fn, len(seeds), state, kind)
+        if not loaded and batches:
             self.staging.send(batches, graph.static)
         graph.replay(seeds)
         return graph.outputs

@@ -8,8 +8,14 @@ Counterpart of the training half of ``gcn_tpu.train.trainer.Trainer``:
   the valid rows (``parallel.train_step.make_loss_fn``);
 * ``update`` runs the stochastic forward and its backward (the CUDA
   backward kernels on the card) and, when ``update_gap <= 1``, one
-  freeze → clip → optimizer step; otherwise it sums the gradients and
-  steps in ``flush_gradients`` after ``update_gap`` batches;
+  freeze → clip → optimizer step; otherwise it adds the gradients into
+  the accumulator (one gradient-sum tensor a parameter, allocated once a
+  trainer and zero while nothing is pending: ``_accumulate``, gcn_tpu's
+  ``_loss_and_grads`` + ``_accum_add``) and ``flush_gradients`` steps
+  on the sums and zeroes them (``_apply``, gcn_tpu's ``_apply_grads``)
+  after ``update_gap`` batches.  A sum starts from zeros where gcn_tpu's
+  starts from the first gradient: ``0 + g`` is ``g`` in bits but for
+  ``g = -0.0``;
 * row-sparse word-table updates (``train.sparse_emb``), as gcn_tpu's
   ``sparse_emb_grad``: "true" (sgd or adagrad/myadagrad, word ids,
   ``update_gap <= 1``; else ``ValueError``), "false", or "auto" = on for
@@ -24,14 +30,18 @@ Counterpart of the training half of ``gcn_tpu.train.trainer.Trainer``:
   (``train.dispatch``), its batch moved in by ``train.transfer`` (one
   pinned copy where it packs, a cross-sentence-packed batch in the
   sentence format, one step a replay); a piece of k is one replay of a
-  k-step graph.  Accumulating steps, the CPU, ``eager_dispatch()`` and a model
-  that a graph cannot hold (``GCNClassifier.capturable``) run step by
-  step;
+  k-step graph.  With ``update_gap > 1`` a micro-batch is one replay of
+  a graph captured per batch signature (``kind="micro"``, one step slot)
+  and an optimizer step one replay of the shape-independent apply graph
+  (``kind="apply"``).  The CPU, ``eager_dispatch()`` and a model that a
+  graph cannot hold (``GCNClassifier.capturable``) run the same
+  functions eagerly;
 * the dropout stream of step s is a ``torch.Generator`` seeded from
   ``(seed, s)``, as JAX folds the step into its key, so a run restarted at
   step s draws the same masks (a graph's step slot is reseeded so);
-* ``warmup`` captures the graphs a run will need before it starts and
-  leaves the trainer's state as it was;
+* ``warmup`` captures the graphs a run will need before it starts (with
+  ``update_gap > 1`` each train signature's micro-batch graph and the
+  apply graph) and leaves the trainer's state as it was;
 * ``predict_batch`` and ``evaluate`` run the ``Evaluator`` code on the same
   module;
 * ``save`` and ``load`` write and read checkpoints in gcn_tpu's format
@@ -147,6 +157,8 @@ class Trainer:
         self.opt.init(self.params)
         self.current_lr = cfg.train.lr
         self.global_step = 0
+        # the gradient sums (``_grad_sums``) and the host's count of the
+        # micro-batches in them
         self._accum: Optional[dict] = None
         self._accum_count = 0
         self._evaluator = Evaluator.for_model(cfg, self.model)
@@ -248,7 +260,40 @@ class Trainer:
 
     def _fused(self) -> bool:
         """Whether the next batch is one whole optimizer step."""
-        return self.cfg.train.update_gap <= 1 and self._accum is None
+        return self.cfg.train.update_gap <= 1 and self._accum_count == 0
+
+    def _grad_sums(self) -> dict:
+        """The accumulator: a zeroed f32 tensor a parameter, allocated on
+        first use, eagerly and outside any graph pool (a pool's memory is
+        reused by the other graphs' replays), and kept for the trainer's
+        life, so that every graph reads and writes the same tensors."""
+        if self._accum is None:
+            self._accum = {k: torch.zeros_like(p.detach())
+                           for k, p in self.params.items()}
+        return self._accum
+
+    def _accumulate(self, batch: dict, generator) -> torch.Tensor:
+        """One micro-batch on a device batch: its gradients over every
+        rank's rows added into the accumulator in place; its loss."""
+        loss, grads, _ = self._reduce(*self._grads(batch, generator))
+        acc = self._accum
+        with torch.no_grad():
+            torch._foreach_add_(list(acc.values()), [grads[k] for k in acc])
+        return loss
+
+    def _micro_batch(self, static, generators) -> torch.Tensor:
+        """``_accumulate`` on a graph's static batch (the function a
+        micro-batch graph captures)."""
+        return self._accumulate(self.staging.device_batch(static, 0),
+                                generators[0])
+
+    def _apply(self, static=None, generators=()) -> None:
+        """The optimizer step on the gradient sums, then the sums zeroed
+        (the function the apply graph captures)."""
+        acc = self._accum
+        self.opt.step(self.params, acc)
+        with torch.no_grad():
+            torch._foreach_zero_(list(acc.values()))
 
     def _steps(self, static, generators) -> torch.Tensor:
         """Fused steps over a graph's static batches, one a generator (the
@@ -258,8 +303,9 @@ class Trainer:
                             for i, gen in enumerate(generators)])
 
     def _state(self) -> list[torch.Tensor]:
-        """Every tensor a fused step changes."""
-        return [*self.params.values(), *self.opt.state_tensors()]
+        """Every tensor a step, a micro-batch or an apply changes."""
+        return [*self.params.values(), *self.opt.state_tensors(),
+                *(self._accum or {}).values()]
 
     def _replay(self, batches: list) -> list:
         """``len(batches)`` fused steps as one replay; each step's loss."""
@@ -282,11 +328,16 @@ class Trainer:
             self.global_step += 1
             return self._step(batch_to_device(batch, self.device),
                               self.step_generator(step))
-        loss, grads = self._loss_and_grads(batch)
-        if self._accum is None:
-            self._accum = grads
+        self._grad_sums()
+        step = self.global_step
+        if self._graphs_on():
+            loss = self._graphs.replay(
+                [batch], self._micro_batch, seeds=[step_seed(self.seed, step)],
+                state=self._state(), kind="micro").clone()
         else:
-            self._accum = {k: self._accum[k] + g for k, g in grads.items()}
+            loss = self._accumulate(batch_to_device(batch, self.device),
+                                    self.step_generator(step))
+        self.global_step += 1
         self._accum_count += 1
         if self._accum_count >= self.cfg.train.update_gap:
             self.flush_gradients()
@@ -300,7 +351,7 @@ class Trainer:
         k-step graph on the card; otherwise one ``update`` a batch.  The
         same steps as ``update`` on each batch; returns their losses."""
         if (len(batches) < 2 or self.cfg.train.update_gap > 1
-                or self._accum is not None
+                or self._accum_count
                 or not all(self.staging.packs(b) for b in batches)
                 or len({b["words"].shape for b in batches}) != 1):
             return [self.update(b) for b in batches]
@@ -323,13 +374,15 @@ class Trainer:
         ``warmup``).  ``batches``: one representative a train batch shape
         (``Batcher.warmup_batches``), each given the fused step's graph
         and, when ``steps_per_dispatch`` > 1 and it packs, the chunk
-        graphs of ``allowed_chunk_sizes``; ``eval_batches``: those of
-        shapes only evaluation sees, each given the evaluation graphs
-        (with ``eval_batches=None`` the train shapes get them too).
-        Parameters, optimizer state, ``global_step``
-        and the dropout streams stay as they were.  Nothing is captured
-        on the CPU, inside ``eager_dispatch()`` or for a model that a
-        graph cannot hold.  Returns
+        graphs of ``allowed_chunk_sizes``, or with ``update_gap`` > 1 its
+        micro-batch graph (and the trainer the apply graph, as gcn_tpu
+        compiles ``_accum_add`` and ``_apply_grads``); ``eval_batches``:
+        those of shapes only evaluation sees, each given the evaluation
+        graphs (with ``eval_batches=None`` the train shapes get them
+        too).  Parameters, optimizer state, the accumulator and its
+        count, ``global_step`` and the dropout streams stay as they were.
+        Nothing is captured on the CPU, inside ``eager_dispatch()`` or
+        for a model that a graph cannot hold.  Returns
         ``{"programs": graphs captured, "seconds"}``."""
         t0 = time.perf_counter()
         reps: dict = {}
@@ -345,6 +398,8 @@ class Trainer:
         if self._graphs_on():
             cap = max(1, int(self.cfg.train.steps_per_dispatch))
             fused = self.cfg.train.update_gap <= 1
+            if not fused:
+                self._grad_sums()
             for ent in reps.values():
                 b = ent["batch"]
                 sizes = (allowed_chunk_sizes(cap)
@@ -353,8 +408,14 @@ class Trainer:
                     for k in sizes:
                         self._graphs.get([b] * k, self._steps, k,
                                          self._state())
+                elif ent["train"]:
+                    self._graphs.get([b], self._micro_batch, 1,
+                                     self._state(), kind="micro")
                 if ent["eval"]:
                     self._evaluator.warmup(b)
+            if not fused:
+                self._graphs.get([], self._apply, 0, self._state(),
+                                 kind="apply")
             torch.cuda.synchronize(self.device)
         return {"programs": len(self.graphs) + len(self._evaluator.graphs)
                 - before, "seconds": time.perf_counter() - t0}
@@ -365,11 +426,15 @@ class Trainer:
         return self._accum_count
 
     def flush_gradients(self) -> None:
-        """Apply any pending accumulated gradients."""
-        if self._accum is None or self._accum_count == 0:
+        """Apply any pending accumulated gradients (one replay of the
+        apply graph on the card); nothing when none is pending."""
+        if self._accum_count == 0:
             return
-        self.opt.step(self.params, self._accum)
-        self._accum = None
+        if self._graphs_on():
+            self._graphs.replay([], self._apply, state=self._state(),
+                                kind="apply")
+        else:
+            self._apply()
         self._accum_count = 0
 
     def update_lr(self, new_lr: float) -> None:
@@ -436,7 +501,9 @@ class Trainer:
                                     params_from_jax(params).items()})
         if opt_state is not None:
             self.opt.load_state_tree(opt_state, self.params, cut=self._cut)
-        self._accum = None
+        if self._accum is not None:  # in place: the graphs hold them
+            with torch.no_grad():
+                torch._foreach_zero_(list(self._accum.values()))
         self._accum_count = 0
         meta = blob.get("meta", {})
         if meta.get("current_lr") is not None:

@@ -9,12 +9,15 @@ every scenario through ``DistributedTrainer`` over gloo on their rows
 (``ShardedBatcher``):
 
     GCN_TPU_COORDINATOR=localhost:PORT GCN_TPU_NUM_PROCS=2 \\
-    GCN_TPU_PROC_ID=R python tests/dp_worker.py OUT_DIR [STATE_FILE]
+    GCN_TPU_PROC_ID=R python tests/dp_worker.py OUT_DIR [STATE_FILE \
+    [NAME,...]]
 
 Each rank saves its results to ``OUT_DIR/rank{R}.pt``: per scenario the
 losses, the whole parameters after the steps (``full_state_dict``) and
 the evaluation's output.
-``STATE_FILE`` (a ``torch.save``d state dict) starts the ``jax`` scenario.
+``STATE_FILE`` (a ``torch.save``d state dict, or empty) starts the ``jax``
+scenario; ``NAME,...`` runs those scenarios (by default ``SCENARIOS``;
+``accum`` only when named).
 """
 
 from __future__ import annotations
@@ -137,10 +140,14 @@ def scenario(name: str):
         "conv_l2": {"train.conv_l2": 0.01},
         "sparse": {"train.optim": "adagrad", "train.sparse_emb_grad": "true",
                    "model.emb_dropout": 0.2},
+        # update_gap 2 over 5 batches: two applies, then a flush of one
+        "accum": {"train.effective_batch_size": 2 * B},
     }[name]
     cfg = tiny_cfg(**over)
-    padded = {"padded": (3, 1, 4)}.get(name, (0, 0, 0))
-    batches = [synthetic_batch(cfg, 10 + i, padded[i]) for i in range(3)]
+    padded = {"padded": (3, 1, 4), "accum": (0, 3, 0, 0, 5)}.get(
+        name, (0, 0, 0))
+    batches = [synthetic_batch(cfg, 10 + i, pad)
+               for i, pad in enumerate(padded)]
     evals = [synthetic_batch(cfg, 20), synthetic_batch(cfg, 21, padded=3)]
     return cfg, Batches(batches), Batches(evals)
 
@@ -149,8 +156,10 @@ SCENARIOS = ("dropout", "jax", "padded", "conv_l2", "packed", "sparse")
 
 
 def run(trainer, batches, evals) -> dict:
-    """The scenario's steps and evaluation through ``trainer``."""
+    """The scenario's steps (any pending accumulation flushed) and
+    evaluation through ``trainer``."""
     losses = [float(trainer.update(b)) for b in batches]
+    trainer.flush_gradients()
     preds, probs, loss = trainer.evaluate(evals)
     return {"losses": losses,
             "params": {k: v.detach().clone() for k, v in
@@ -159,7 +168,8 @@ def run(trainer, batches, evals) -> dict:
             "sparse_emb": trainer.sparse_emb}
 
 
-def main(out_dir: str, state_file: str | None = None) -> None:
+def main(out_dir: str, state_file: str | None = None,
+         names: str = ",".join(SCENARIOS)) -> None:
     from gcn_tpu_torch.parallel import distributed
     from gcn_tpu_torch.train.distributed_trainer import DistributedTrainer
 
@@ -167,7 +177,7 @@ def main(out_dir: str, state_file: str | None = None) -> None:
     distributed.initialize(backend="gloo")
     rank, world = distributed.rank(), distributed.world_size()
     results = {}
-    for name in SCENARIOS:
+    for name in names.split(","):
         cfg, batches, evals = scenario(name)
         state = (torch.load(state_file, weights_only=True)
                  if name == "jax" and state_file else None)

@@ -1820,3 +1820,137 @@ def test_nccl_world_of_one_steps_are_trainers_bits(cuda_device):
         assert mine[0] == theirs[0] and mine[1] == theirs[1]
     finally:
         distributed.shutdown()
+
+
+# ------------------------------------------------- accumulating steps
+def _accum_run(rng, count=8):
+    """``count`` micro-batches of two signatures (N = 16 and 24)."""
+    return [loader_batch(rng, n=24 if i % 3 == 1 else 16)
+            for i in range(count)]
+
+
+def _same_opt_state(a, b):
+    assert torch.equal(a.opt.count, b.opt.count)
+    for k, st in a.opt.state.items():
+        for slot, v in st.items():
+            assert torch.equal(b.opt.state[k][slot], v), (k, slot)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("optim", ["adagrad", "adam"])
+def test_accumulating_graphs_equal_eager_steps(cuda_device, optim):
+    """update_gap 3, dropout on, 8 micro-batches of two signatures with
+    ``update_lr`` after the fourth (inside a group): applies after 3 and
+    6, then a flush of 2.  Through graphs (a micro-batch graph a
+    signature, one apply graph) the losses, parameters and optimizer
+    state equal the eager accumulating steps' in bits."""
+    from gcn_tpu_torch.train.dispatch import eager_dispatch
+
+    cfg = small_cfg(**{"train.optim": optim, "train.batch_size": 6,
+                       "train.effective_batch_size": 18})
+    graph, eager = _graph_and_eager(cfg, cuda_device)
+    batches = _accum_run(np.random.RandomState(8))
+    losses = {}
+    for name, tr in (("graph", graph), ("eager", eager)):
+        ctx = eager_dispatch() if name == "eager" else contextlib.nullcontext()
+        with ctx:
+            out = []
+            for i, b in enumerate(batches):
+                if i == 4:
+                    tr.update_lr(0.05)
+                out.append(float(tr.update(b)))
+            assert tr.pending_batches == 2
+            tr.flush_gradients()
+        losses[name] = out
+    assert losses["graph"] == losses["eager"]
+    _same_params(graph, eager)
+    _same_opt_state(graph, eager)
+    assert int(graph.opt.count) == 3 and graph.global_step == 8
+    assert sorted(k[0] for k in graph.graphs) == ["apply", "micro", "micro"]
+    assert not eager.graphs
+
+
+@pytest.mark.cuda
+def test_warmed_accumulating_run_equals_unwarmed(cuda_device):
+    """With a micro-batch of the first signature pending (its graph
+    captured), ``warmup`` at update_gap 3 captures the second signature's
+    micro-batch graph and the apply graph, changes no state (parameters,
+    optimizer state, the sums, their count, the step), and the run then
+    gives the unwarmed run's bits."""
+    cfg = small_cfg(**{"train.optim": "adagrad", "train.batch_size": 6,
+                       "train.effective_batch_size": 18})
+    warm, cold = _graph_and_eager(cfg, cuda_device)
+    batches = _accum_run(np.random.RandomState(9))
+    for tr in (warm, cold):
+        tr.update(batches[0])
+    before = [t.detach().clone() for t in warm._state()]
+    stats = warm.warmup(batches[:2], eval_batches=[])
+    assert stats["programs"] == 2
+    assert warm.pending_batches == 1 and warm.global_step == 1
+    now = warm._state()
+    assert len(now) == len(before)
+    assert all(torch.equal(a, b) for a, b in zip(now, before))
+    got = [float(warm.update(b)) for b in batches[1:]]
+    want = [float(cold.update(b)) for b in batches[1:]]
+    for tr in (warm, cold):
+        tr.flush_gradients()
+    assert got == want
+    _same_params(warm, cold)
+    _same_opt_state(warm, cold)
+
+
+@pytest.mark.cuda
+def test_accumulating_launch_tallies(cuda_device):
+    """A micro-batch replay launches kernels 1-4 as a fused step does
+    (the scans once, the grouped matmul once a layer each way); an apply
+    launches none of them."""
+    cfg = small_cfg(**{"train.batch_size": 6,
+                       "train.effective_batch_size": 18})
+    tr, _ = _graph_and_eager(cfg, cuda_device)
+    kernels = (lstm_mod.KERNEL, lstm_mod.BACKWARD_KERNEL, gmm_mod.KERNEL,
+               gmm_mod.BACKWARD_KERNEL)
+    for k in kernels:
+        k.launches = 0
+    batches = _accum_run(np.random.RandomState(10))
+    for b in batches:
+        tr.update(b)
+    torch.cuda.synchronize()
+    layers = cfg.model.num_layers
+    n = len(batches)
+    assert [k.launches for k in kernels] == [n, n, n * layers, n * layers]
+    assert tr.pending_batches == 2
+    tr.flush_gradients()
+    torch.cuda.synchronize()
+    assert [k.launches for k in kernels] == [n, n, n * layers, n * layers]
+    assert not tr.graphs[("apply",)].launches
+
+
+@pytest.mark.cuda
+def test_nccl_world_of_one_accumulating_is_trainers_bits(cuda_device):
+    """A world-size-1 NCCL ``DistributedTrainer`` at update_gap 5 (its
+    all-reduce inside each micro-batch graph) gives ``Trainer``'s losses,
+    parameters and optimizer state in bits over 7 micro-batches and a
+    flush."""
+    from gcn_tpu_torch.parallel import distributed
+    from gcn_tpu_torch.train.distributed_trainer import DistributedTrainer
+
+    cfg = small_cfg(**{"train.optim": "adagrad", "train.batch_size": 6,
+                       "train.effective_batch_size": 30})
+    model = GCNClassifier(cfg.model)
+    init_params(model, torch.Generator().manual_seed(0))
+    state = model.state_dict()
+    batches = _accum_run(np.random.RandomState(11), 7)
+    try:
+        dp = DistributedTrainer(cfg, state, device=cuda_device)
+        assert dp.backend == "nccl" and dp.world == 1 and dp._graphs_on()
+        one = Trainer(cfg, state, device=cuda_device)
+        got = [float(dp.update(b)) for b in batches]
+        want = [float(one.update(b)) for b in batches]
+        for tr in (dp, one):
+            tr.flush_gradients()
+        assert got == want
+        assert sorted(k[0] for k in dp.graphs) == ["apply", "micro", "micro"]
+        _same_params(dp, one)
+        _same_opt_state(dp, one)
+    finally:
+        distributed.shutdown()
