@@ -12,7 +12,17 @@ Phases, one JSON line each:
 
 1. device — the card's name, count and power limit;
 2. build  — ``nvcc`` builds every kernel source of the paths from
-   ``gcn_tpu_torch/csrc``, one process per source, in parallel;
+   ``gcn_tpu_torch/csrc``, one process per source, in parallel, while the
+   loader phase's datasets load;
+2b. loader — the host compiler builds the port's graph builder
+   (``csrc/graph_builder.cpp``; its seconds and the library's path, before
+   the build phase), which then prunes the in-repo TACRED and SemEval
+   splits, seed 11's split and ``LOADER_SYNTH`` synthetic sentences at
+   ``cgcn_preset``'s ``prune_k``, as does the Python walker
+   (``GCN_TPU_NATIVE=0``): any other edge, deprel, ``keep`` or root fails
+   the run.  Sentences/s both ways (the loader's whole pruning stage and
+   the native calls alone, on the host's CPU, named) and the seconds
+   ``RelationDataset`` takes to load seed 11's split both ways;
 3. kernel — each kernel (the scan and the grouped matmul, forward and
    backward; the band aggregation and its pair backward; the fused GCN
    layer and its sym-pair backward; the SDDMM and its backward; the
@@ -52,6 +62,13 @@ Phases, one JSON line each:
    in f32 and in bf16, dx, dS and the partials' sum); then the floor of
    the graph timings
    (a one-element add, timed both ways);
+3b. timing — ``gcn_tpu_torch.utils.timing``: ``calibrate()``'s bf16
+   matmul chain as a fraction of the card's 989 TFLOP/s (above 1.05 fails
+   the run); kernel 1's f32 forward at the kernel phase's shape timed by
+   ``scalar_chain_time(on_device=True)`` (a CUDA graph of each chain
+   length, the slope between 10 and 30 steps) beside its row's
+   ``graph_ms``; ``step_flops`` of one eager ``cgcn`` train step, on the
+   kernels (which torch's counter cannot see) and on the plain versions;
 4. slice  — for each path, ``Evaluator`` at full widths (random weights
    from a seeded ``torch.Generator``) over B=50 batches of the in-repo
    TACRED JSON and of synthetic sentences at the N=96 bucket (``cgcn_bert``:
@@ -253,11 +270,13 @@ import hashlib
 import io
 import json
 import os
+import platform
 import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -4084,6 +4103,245 @@ def run_accum(torch, dev, micro: list, vocab_size: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------- loader, timing
+LOADER_SYNTH = 22_631  # synthetic sentences: TACRED dev's size
+TIMING_STEPS = (10, 30)  # chain lengths of the timing phase's slope
+
+
+def host_cpu() -> str:
+    """The host CPU's model name where ``/proc/cpuinfo`` gives one, else
+    its architecture (the loader's rates are the host's)."""
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if line.startswith("model name"):
+                return line.split(":", 1)[1].strip()
+    return platform.machine()
+
+
+@contextlib.contextmanager
+def python_walker():
+    """``GCN_TPU_NATIVE=0`` inside the block: the loader prunes with the
+    Python walker."""
+    from gcn_tpu_torch.graph import native
+
+    before = os.environ.get(native.SWITCH)
+    os.environ[native.SWITCH] = "0"
+    try:
+        yield
+    finally:
+        if before is None:
+            del os.environ[native.SWITCH]
+        else:
+            os.environ[native.SWITCH] = before
+
+
+def same_graphs(a: list, b: list) -> bool:
+    """Whether two lists of ``PrunedGraph`` have the same edges, deprels,
+    ``keep`` and roots."""
+    return len(a) == len(b) and all(
+        x.root == y.root and all(
+            np.array_equal(getattr(x, f), getattr(y, f))
+            for f in ("edge_parent", "edge_child", "edge_deprel", "keep"))
+        for x, y in zip(a, b))
+
+
+def prune_both_ways(datasets: list) -> dict:
+    """Each loaded dataset's whole pruning stage (``_attach_graphs``) with
+    the native builder (best of 3) and with the Python walker (once, after
+    the first), and the native builder's calls alone (in the best pass);
+    fails if the two give other graphs."""
+    from gcn_tpu_torch.graph import native
+
+    n = sum(len(ds) for ds in datasets)
+    best = {"native": float("inf"), "python": float("inf")}
+    graphs = {}
+    call = native.prune_graph_batch_native
+    for way in ("native", "python", "native", "native"):
+        calls = []
+
+        def timed(*args):
+            t0 = time.perf_counter()
+            out = call(*args)
+            calls.append(time.perf_counter() - t0)
+            return out
+
+        native.prune_graph_batch_native = timed
+        try:
+            with (python_walker() if way == "python"
+                  else contextlib.nullcontext()):
+                t0 = time.perf_counter()
+                for ds in datasets:
+                    ds._attach_graphs()
+                wall = time.perf_counter() - t0
+        finally:
+            native.prune_graph_batch_native = call
+        if wall < best[way]:
+            best[way] = wall
+            if way == "native":
+                call_s = sum(calls)
+        graphs[way] = [ex.graph for ds in datasets for ex in ds.examples]
+    if not same_graphs(graphs["native"], graphs["python"]):
+        fail("the native graph builder and the Python walker disagree")
+    return {"sentences": n, "native_s": best["native"],
+            "python_s": best["python"], "native_call_s": call_s,
+            "native_sentences_per_s": n / best["native"],
+            "python_sentences_per_s": n / best["python"],
+            "native_call_sentences_per_s": n / call_s,
+            "speedup": best["python"] / best["native"], "same": True}
+
+
+def build_graph_builder() -> dict:
+    """Build the port's graph builder alone (the host compiler's seconds)
+    and load it: the loader phase's ``build``."""
+    from gcn_tpu_torch.graph import native
+    from gcn_tpu_torch.ops import _cuda
+
+    report = _cuda.build_all([native.LIBRARY])["graph_builder"]
+    lib = native.load_library()
+    return {"seconds": report["seconds"],
+            "library": os.path.relpath(lib._name, HERE),
+            "compiler": native.LIBRARY.cxx, "flags": _cuda.HOST_FLAGS}
+
+
+def seed11_split() -> list:
+    return [os.path.join(FLAGSHIP, "seed11", "data", f"{s}.json")
+            for s in ("train", "dev", "test")]
+
+
+def loader_inputs(tmp: str) -> dict:
+    """The loader phase's datasets, loaded (each prunes once as it loads):
+    the in-repo TACRED and SemEval splits, seed 11's split and
+    ``LOADER_SYNTH`` synthetic sentences (their JSON written under
+    ``tmp``)."""
+    from gcn_tpu_torch.config import cgcn_preset
+    from gcn_tpu_torch.data.dataset import RelationDataset
+    from gcn_tpu_torch.data.vocab import Vocab
+
+    cfg = cgcn_preset()
+    vocab = Vocab.load(os.path.join(HERE, "dataset", "vocab", "vocab.pkl"))
+    tacred = [os.path.join(HERE, "dataset", "tacred", f"{s}.json")
+              for s in ("train", "dev", "test")]
+    freq = {}
+    for path in tacred:
+        with open(path) as f:
+            for rec in json.load(f):
+                for d in rec["stanford_deprel"]:
+                    freq[d] = freq.get(d, 0) + 1
+    synth = os.path.join(tmp, "synthetic.json")
+    with open(synth, "w") as f:
+        f.write(json.dumps(synthetic_records(
+            np.random.RandomState(SEED + 6), LOADER_SYNTH, N_BUCKET, freq)))
+    semeval_vocab = Vocab.load(os.path.join(HERE, "dataset", "vocab_semeval",
+                                            "vocab.pkl"))
+    return {
+        "tacred_in_repo": [RelationDataset(p, cfg, vocab) for p in tacred],
+        "semeval_in_repo": [
+            RelationDataset(os.path.join(HERE, "dataset", "semeval",
+                                         f"{s}.json"),
+                            path_config("cgcn_semeval"), semeval_vocab)
+            for s in ("train", "test")],
+        "seed11": [RelationDataset(p, cfg, vocab) for p in seed11_split()],
+        "synthetic": [RelationDataset(synth, cfg, vocab)],
+    }
+
+
+def run_loader(build: dict, sets: dict) -> dict:
+    """The loader phase (module docstring, 2b) on ``loader_inputs``'
+    datasets; fails on any difference between the two walkers."""
+    from gcn_tpu_torch.data.dataset import RelationDataset
+
+    cfg, vocab = sets["seed11"][0].cfg, sets["seed11"][0].vocab
+    out = {"phase": "loader", "host_cpu": host_cpu(),
+           "host_cpus": os.cpu_count(), "build": build,
+           "prune_k": cfg.model.prune_k,
+           "timing": "the loader's whole pruning stage "
+                     "(RelationDataset._attach_graphs) over a set, host "
+                     "wall clock: native best of 3, Python once; "
+                     "native_call_s: the native calls alone in the best "
+                     "pass",
+           "sets": {name: prune_both_ways(ds) for name, ds in sets.items()}}
+    # the whole load of seed 11's split (JSON, ids, pruning), both ways
+    load = {"native": float("inf"), "python": float("inf")}
+    for _ in range(2):
+        for way in ("native", "python"):
+            with (python_walker() if way == "python"
+                  else contextlib.nullcontext()):
+                t0 = time.perf_counter()
+                for p in seed11_split():
+                    RelationDataset(p, cfg, vocab)
+                load[way] = min(load[way], time.perf_counter() - t0)
+    out["load_seed11_s"] = load
+    return out
+
+
+def run_timing(torch, dev, rows: list, synth_train: list,
+               vocab_size: int) -> dict:
+    """The timing phase (module docstring, 3b); fails on a calibration
+    above 1.05 of the card's peak."""
+    from gcn_tpu_torch.models.gcn import GCNClassifier, init_params
+    from gcn_tpu_torch.ops import lstm_scan as mod
+    from gcn_tpu_torch.train.trainer import Trainer
+    from gcn_tpu_torch.utils import timing
+
+    frac = timing.calibrate()
+    if not 0.0 < frac <= 1.05:
+        fail(f"calibration at {frac} of the bf16 peak")
+    out = {"phase": "timing",
+           "calibration": {"matmul_n": 4096, "fraction_of_peak": frac,
+                           "peak_tflops": timing.chip_peak() / 1e12}}
+
+    # kernel 1's f32 forward at the kernel phase's shape, chained through
+    # its w_hh (nudged by the carry times 1e-30) and the sum of its h
+    rng = np.random.RandomState(SEED + 7)
+    g, t, h = 2, N_BUCKET, 200
+    lengths = rng.randint(1, t + 1, B)
+    lengths[:2] = (1, t)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    xp = torch.tensor(rng.randn(t, g, B, 4 * h) * 0.5, dtype=torch.float32,
+                      device=dev)
+    bnd = 1.0 / np.sqrt(h)
+    w_hh = torch.tensor(rng.uniform(-bnd, bnd, (g, h, 4 * h)),
+                        dtype=torch.float32, device=dev)
+
+    def step(s):
+        return mod.lstm_scan_forward(xp, lengths, w_hh + s * 1e-30)[0].sum()
+
+    k1, k2 = TIMING_STEPS
+    chain_ms = timing.scalar_chain_time(step, k1, k2, repeats=3,
+                                        on_device=True) * 1e3
+    row = next(r for r in rows if r["name"] == "lstm_scan_forward")
+    out["lstm_scan_forward"] = {
+        "shape": {"T": t, "G": g, "B": B, "H": h},
+        "scalar_chain_ms": chain_ms, "chain_lengths": [k1, k2],
+        "chain_step": "lstm_scan_forward(xp, lengths, w_hh + s * 1e-30)"
+                      "[0].sum(): the kernel, a [2, 200, 800] add and a "
+                      "[96, 2, 50, 200] sum",
+        "kernel_row_graph_ms": row["ms"],
+        "kernel_row_ms_one_call_graph": row["ms_one_call_graph"]}
+
+    # FLOPs of one cgcn train step as torch's counter sees them: on the
+    # kernels (which it cannot see) and on the plain versions, eagerly
+    base = {"model.vocab_size": vocab_size, "train.batch_size": B,
+            "train.effective_batch_size": B}
+    cfg = path_config("cgcn", **base)
+    model = GCNClassifier(cfg.model)
+    init_params(model, torch.Generator().manual_seed(SEED))
+    state = model.state_dict()
+    batch = synth_train[0]
+    with eager_dispatch():
+        on_kernels = timing.step_flops(
+            Trainer(cfg, state, device=dev).update, batch)
+        on_plain = timing.step_flops(
+            Trainer(path_config("cgcn", **base, **PLAIN["cgcn"]), state,
+                    device=dev).update, batch)
+    out["cgcn_step_flops"] = {
+        "batch": list(batch["words"].shape), "on_kernels": on_kernels,
+        "on_plain_versions": on_plain,
+        "note": "torch.utils.flop_counter over one eager Trainer.update; "
+                "the kernels' ctypes launches are invisible to it"}
+    return out
+
+
 # the path whose train run gives each kernel's "launches" in the kernels
 # line: the one that brought the kernel in; v1 is on no path, and its
 # launches are those of the kernel phase
@@ -4140,13 +4398,38 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0]})
 
+    # the graph builder first, alone (the host compiler's seconds); then
+    # nvcc builds the kernels in the background while the loader phase's
+    # datasets load (host work), and the loader's timed passes come after
+    graph_build = build_graph_builder()
     t0 = time.perf_counter()
-    report = _cuda.build_all(list(kernel_table().values()))
-    build_s = time.perf_counter() - t0
+    built = {}
+
+    def build_kernels():
+        try:
+            built["report"] = _cuda.build_all(list(kernel_table().values()))
+        except Exception as e:  # raised again below, in the main thread
+            built["error"] = e
+        built["seconds"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=build_kernels)
+    thread.start()
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            loader_sets = loader_inputs(tmp)
+        finally:
+            thread.join()
+    if "error" in built:
+        raise built["error"]
+    report = built["report"]
     ptxas = {k: ptxas_by_function(v["log"]) for k, v in report.items()}
-    emit({"phase": "build", "seconds": build_s,
+    emit({"phase": "build", "seconds": built["seconds"],
           "per_source_s": {k: v["seconds"] for k, v in report.items()},
-          "ptxas": ptxas})
+          "ptxas": ptxas,
+          "meanwhile": "the loader phase's datasets loaded on the host"})
+    emit({**run_loader(graph_build, loader_sets), "nvidia_smi": smi,
+          "at_s": time.perf_counter() - t_start})
+    del loader_sets
 
     rng = np.random.RandomState(SEED)
     vocab = Vocab.load(os.path.join(HERE, "dataset", "vocab", "vocab.pkl"))
@@ -4179,6 +4462,8 @@ def main() -> int:
     bad = [r["name"] for r in rows if not r["ok"]]
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
+    emit({**run_timing(torch, dev, rows, synth_train, inputs["tacred"][4]),
+          "nvidia_smi": smi, "at_s": time.perf_counter() - t_start})
 
     # the other inputs from generators of their own: the BERT path's
     # sentences are the TACRED paths' (the same seed draws the synthetic

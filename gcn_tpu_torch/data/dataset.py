@@ -7,8 +7,13 @@ unpacked ``Batcher``), giving the same numpy batch dicts:
   sequences), through the dataset's own tag and label tables
   (``constants_for``); with ``bert_embeddings`` each sentence's words are
   its float ``[L, D]`` rows instead of ids,
-* dependency trees pruned once per example by ``graph.prune`` in
-  Python/numpy (the port never loads the native graph builder),
+* dependency trees pruned once at load, the whole split in one call of
+  the port's native builder (``graph.native``, built from
+  ``csrc/graph_builder.cpp`` at first use), as ``gcn_tpu`` does; under
+  ``GCN_TPU_NATIVE=0`` one example at a time by the Python walker
+  (``graph.prune``), with the same edges, ``keep`` and root (the native
+  path leaves ``PrunedGraph.dist`` at -1, as ``gcn_tpu``'s does: nothing
+  reads it),
 * batches padded to the smallest length bucket ≥ their longest sentence,
   and on the batch axis with an ``example_mask``.
 
@@ -52,6 +57,7 @@ import numpy as np
 from gcn_tpu_torch import constants, constants_semeval
 from gcn_tpu_torch.config import Config
 from gcn_tpu_torch.data.vocab import Vocab, map_to_ids
+from gcn_tpu_torch.graph import native
 from gcn_tpu_torch.graph.prune import PrunedGraph, prune_graph
 from gcn_tpu_torch.parallel.halo import attach_halo_plans, is_plan_key
 
@@ -77,10 +83,11 @@ class Example:
     pos: np.ndarray            # [L] int32
     ner: Optional[np.ndarray]  # [L] int32 (TACRED only)
     deprel: np.ndarray         # [L] int32
+    head: np.ndarray           # [L] int32 (1-indexed, 0 = root)
     subj_pos: np.ndarray       # [L] int32
     obj_pos: np.ndarray        # [L] int32
     relation: int
-    graph: PrunedGraph
+    graph: Optional[PrunedGraph] = None  # set by _attach_graphs
 
     @property
     def length(self) -> int:
@@ -107,6 +114,47 @@ class RelationDataset:
         with open(filename) as f:
             self.raw_data = json.load(f)
         self.examples = [self._preprocess(d) for d in self.raw_data]
+        self._attach_graphs()
+
+    def _attach_graphs(self) -> None:
+        """Prune every tree: the whole split in one call of the native
+        builder, or one example at a time in Python under
+        ``GCN_TPU_NATIVE=0`` (``gcn_tpu.data.dataset``'s
+        ``_attach_graphs``)."""
+        k = self.cfg.model.prune_k
+        if not self.examples:
+            return
+        if not native.native_available():
+            for ex in self.examples:
+                ex.graph = prune_graph(ex.head, ex.deprel, ex.length, k,
+                                       ex.subj_pos, ex.obj_pos)
+            return
+        b = len(self.examples)
+        n = max(ex.length for ex in self.examples)
+        heads = np.zeros((b, n), np.int32)
+        deprels = np.zeros((b, n), np.int32)
+        subj = np.full((b, n), 10**6, np.int32)
+        obj = np.full((b, n), 10**6, np.int32)
+        lengths = np.zeros((b,), np.int32)
+        for i, ex in enumerate(self.examples):
+            L = ex.length
+            heads[i, :L] = ex.head
+            deprels[i, :L] = ex.deprel
+            subj[i, :L] = ex.subj_pos
+            obj[i, :L] = ex.obj_pos
+            lengths[i] = L
+        ep, ec, ed, _, keep, ne, roots = native.prune_graph_batch_native(
+            heads, deprels, subj, obj, lengths, k)
+        for i, ex in enumerate(self.examples):
+            cnt = int(ne[i])
+            ex.graph = PrunedGraph(
+                edge_parent=ep[i, :cnt].copy(),
+                edge_child=ec[i, :cnt].copy(),
+                edge_deprel=ed[i, :cnt].copy(),
+                keep=keep[i, :ex.length].copy(),
+                dist=np.full(ex.length, -1, np.int32),
+                root=int(roots[i]),
+            )
 
     def _preprocess(self, d: dict) -> Example:
         C = self.C
@@ -138,11 +186,9 @@ class RelationDataset:
         length = len(pos)
         subj_pos = np.asarray(get_positions(ss, se, length), dtype=np.int32)
         obj_pos = np.asarray(get_positions(os_, oe, length), dtype=np.int32)
-        graph = prune_graph(head, deprel, length, self.cfg.model.prune_k,
-                            subj_pos, obj_pos)
         return Example(words=words, pos=pos, ner=ner, deprel=deprel,
-                       subj_pos=subj_pos, obj_pos=obj_pos,
-                       relation=self.label2id[d["relation"]], graph=graph)
+                       head=head, subj_pos=subj_pos, obj_pos=obj_pos,
+                       relation=self.label2id[d["relation"]])
 
     def __len__(self) -> int:
         return len(self.examples)

@@ -1,6 +1,7 @@
 """Path-centric dependency-tree pruning → edge lists (a copy of
-``gcn_tpu.graph.prune``; the port prunes in Python/numpy only and never
-loads the native graph builder).
+``gcn_tpu.graph.prune``: the Python walker, which ``RelationDataset`` runs
+under ``GCN_TPU_NATIVE=0``; otherwise it prunes through the port's own C++
+builder, ``graph.native``, which this walker is the reference of).
 
 This is the TPU-native replacement for the reference's per-forward Python
 ``Tree`` construction (reference ``model/gcn.py:102-112`` calling
@@ -130,7 +131,13 @@ def prune_graph(
     for o in obj_idx:
         chain = ancestor_chain(head, o)
         obj_ancestors.update(chain)
-        cas &= set(chain)
+        cas = set(chain) if cas is None else cas & set(chain)
+    # No entity token, or chains that end at different roots (a forest):
+    # no LCA.  gcn_tpu's walker fails there with a TypeError or a
+    # StopIteration; this one raises as the native builder's binding does.
+    if not cas:
+        raise ValueError("malformed dependency tree: the entity tokens "
+                         "have no common ancestor")
 
     # LCA = unique common ancestor with no child inside cas
     # (model/tree.py:111-124).  In a tree, cas is a root→LCA chain, so
@@ -187,3 +194,22 @@ def prune_graph(
         root=int(lca),
     )
 
+
+def graph_to_dense_adj(
+    g: PrunedGraph,
+    n: int,
+    forward_bound: int = 42,
+    self_loop_index: int = 84,
+) -> np.ndarray:
+    """The reference's dense deprel-valued adjacency (``model/tree.py:
+    167-204`` with ``directed=False, self_loop=True``) from an edge list,
+    [n, n] f32: ``deprel`` at (parent, child), ``deprel + forward_bound``
+    at (child, parent), ``self_loop_index`` on the diagonal of every node
+    an edge touches (``gcn_tpu.graph.prune.graph_to_dense_adj``)."""
+    adj = np.zeros((n, n), dtype=np.float32)
+    p, c, d = g.edge_parent, g.edge_child, g.edge_deprel
+    adj[p, c] = d
+    adj[c, p] = d + forward_bound
+    incident = np.unique(np.concatenate([p, c]))
+    adj[incident, incident] = self_loop_index
+    return adj

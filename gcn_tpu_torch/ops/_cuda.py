@@ -11,6 +11,11 @@ interrupted build leaves no lock and no half-written library.
 Nothing here runs at import time; the first launch of a kernel builds it,
 and ``build_all`` builds several at once (one ``nvcc`` each, in parallel).
 
+``HostLibrary`` is the same scheme for a C++ source that runs on the host
+(``csrc/graph_builder.cpp``): built with the host compiler (``$CXX``, else
+``g++``) and ``HOST_FLAGS``, which carry no ``-march`` flag, so the library
+runs on any CPU of the architecture it was built for.
+
 Launch counts survive CUDA graphs: a replay makes no Python call, so the
 launches made while a graph is captured are tallied (``tally_launches``)
 and added again at each replay (``count_replay``).  Each kernel counts its
@@ -36,7 +41,9 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-NVCC_TIMEOUT_S = 600
+HOST_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared",
+              "-frecord-gcc-switches"]  # the flags, readable in the library
+NVCC_TIMEOUT_S = 600  # a build's time limit, host builds too
 # the open tallies, innermost last: a launch counts in the innermost one
 # instead of ``CudaKernel.launches``.  Module-wide, not per thread:
 # autograd runs a captured step's backward kernels on a thread of its own.
@@ -106,15 +113,10 @@ class CudaKernel:
         return BUILD_DIR / f"lib{self.source.stem}-{digest}.so"
 
     def _start_build(self):
-        out = self.lib_path()
-        if out.exists():
-            return None
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        return proc, tmp, out
+        return _start_compile(
+            self.lib_path(),
+            lambda tmp: [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                         str(self.source)])
 
     def _error_string(self, lib):
         return getattr(lib, f"{self.source.stem}_error_string")
@@ -151,6 +153,68 @@ class CudaKernel:
             self.count(fname)
 
 
+class HostLibrary:
+    """A ``csrc`` C++ source built into a shared library for the host and
+    loaded with ctypes: ``functions`` maps each exported name to its
+    (argument types, result type).  ``build_dir`` and ``cxx`` (the
+    compiler, default ``$CXX`` or ``g++``) are there for tests."""
+
+    def __init__(self, source: str, functions: dict[str, tuple],
+                 build_dir: Path | None = None, cxx: str | None = None):
+        self.source = CSRC / source
+        self.functions = functions
+        self.build_dir = Path(build_dir) if build_dir else BUILD_DIR
+        self.cxx = cxx or os.environ.get("CXX", "g++")
+        self._lib = None
+
+    def lib_path(self) -> Path:
+        digest = hashlib.sha256(
+            self.source.read_bytes()
+            + " ".join([self.cxx, *HOST_FLAGS]).encode()).hexdigest()[:16]
+        return self.build_dir / f"lib{self.source.stem}-{digest}.so"
+
+    def _start_build(self):
+        return _start_compile(
+            self.lib_path(),
+            lambda tmp: [self.cxx, *HOST_FLAGS, "-o", str(tmp),
+                         str(self.source)])
+
+    def load(self) -> ctypes.CDLL:
+        """The loaded library, built first if it is not there; raises
+        ``RuntimeError`` (with the compiler's output) when the build or the
+        load fails."""
+        if self._lib is None:
+            build_all([self])
+            try:
+                lib = ctypes.CDLL(str(self.lib_path()))
+            except OSError as e:
+                raise RuntimeError(f"loading {self.lib_path()}: {e}") from e
+            for fname, (argtypes, restype) in self.functions.items():
+                fn = getattr(lib, fname)
+                fn.argtypes = argtypes
+                fn.restype = restype
+            self._lib = lib
+        return self._lib
+
+
+def _start_compile(out: Path, command):
+    """Start ``command(tmp)`` (a compiler writing ``tmp``) unless ``out``
+    exists; returns (process, tmp, out), or None when ``out`` is there.
+    The build writes to a name of this process's own, which ``build_all``
+    renames to ``out`` when it succeeds."""
+    if out.exists():
+        return None
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = command(tmp)
+    try:
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+    except OSError as e:
+        raise RuntimeError(f"{cmd[0]} could not be started: {e}") from e
+    return proc, tmp, out
+
+
 @contextlib.contextmanager
 def tally_launches():
     """Count the launches made inside the block in a dict of its own
@@ -170,11 +234,12 @@ def count_replay(tally: dict) -> None:
         kernel.count(fname, n)
 
 
-def build_all(kernels: list[CudaKernel]) -> dict[str, dict]:
-    """Build every source that has no library yet, one ``nvcc`` per
-    source, all started together.  Returns, per source, the build's
+def build_all(kernels: list[CudaKernel | HostLibrary]) -> dict[str, dict]:
+    """Build every source that has no library yet, one compiler process
+    per source, all started together.  Returns, per source, the build's
     seconds (0 when the library was already there) and the compiler's
-    output (the ``ptxas -v`` register and shared-memory report)."""
+    output (for ``nvcc``, the ``ptxas -v`` register and shared-memory
+    report)."""
     t0 = time.perf_counter()
     started = {}
     try:
@@ -191,7 +256,8 @@ def build_all(kernels: list[CudaKernel]) -> dict[str, dict]:
             log, _ = proc.communicate(timeout=NVCC_TIMEOUT_S)
             if proc.returncode != 0:
                 raise RuntimeError(
-                    f"nvcc failed for {stem} (rc {proc.returncode}):\n{log}")
+                    f"{proc.args[0]} failed for {stem} "
+                    f"(rc {proc.returncode}):\n{log}")
             os.replace(tmp, out)
             report[stem] = {"seconds": time.perf_counter() - t0, "log": log}
     finally:

@@ -3,10 +3,13 @@
 Counterpart of ``gcn_tpu.ops.pooling.pool`` and ``pool_slots``: the mask is
 True for tokens to EXCLUDE; ``max`` fills them with −1e12, ``avg`` divides
 by the kept count clamped at 1, ``sum`` adds the kept tokens.
-``pool_slots`` pools each slot of a packed row over its own tokens.
+``pool_slots`` pools each slot of a packed row over its own tokens;
+``triple_pool`` pools the sentence, subject and object in one call.
 """
 
 from __future__ import annotations
+
+import torch
 
 from gcn_tpu_torch.constants import INFINITY_NUMBER
 
@@ -40,3 +43,13 @@ def pool_slots(h, exclude_mask, kind: str = "max"):
     if kind == "sum":
         return hx.masked_fill(m, 0.0).sum(dim=2)
     raise ValueError(f"unknown pooling kind: {kind}")
+
+
+def triple_pool(h, sent_exclude, subj_exclude, obj_exclude,
+                kind: str = "max"):
+    """Sentence, subject and object pooling of h [B, N, H] under their
+    [B, N] exclude masks, concatenated → [B, 3H] (reference
+    ``model/gcn.py:114-121``; ``gcn_tpu.ops.pooling.triple_pool``)."""
+    return torch.cat([pool(h, sent_exclude, kind),
+                      pool(h, subj_exclude, kind),
+                      pool(h, obj_exclude, kind)], dim=1)

@@ -7,7 +7,10 @@
   ``<logdir>/trace.json`` (Perfetto and ``chrome://tracing`` read it),
 * ``ThroughputMeter`` — running edges/s and examples/s of the host loop,
   and ``sustained()``: the epoch's rate after one synchronisation of the
-  card, so it counts work done, not work queued.
+  card, so it counts work done, not work queued,
+* ``annotate(name)`` — a named region of the profiler's timeline
+  (``torch.profiler.record_function``), so host-side stages (batch
+  building, graph pruning) show up beside the card's kernels.
 """
 
 from __future__ import annotations
@@ -30,6 +33,12 @@ def trace(logdir: str):
     with torch.profiler.profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def annotate(name: str):
+    """Named region for the profiler timeline (host-side stages): a
+    context manager, as ``gcn_tpu``'s ``jax.profiler.TraceAnnotation``."""
+    return torch.profiler.record_function(name)
 
 
 @dataclass

@@ -1954,3 +1954,31 @@ def test_nccl_world_of_one_accumulating_is_trainers_bits(cuda_device):
         _same_opt_state(dp, one)
     finally:
         distributed.shutdown()
+
+
+@pytest.mark.cuda
+def test_device_chain_replays_a_graph_a_length(cuda_device):
+    from gcn_tpu_torch.utils import timing
+
+    x = torch.randn(256, 256, device=cuda_device)
+    calls = []
+
+    def step(s):
+        calls.append(1)
+        return (x @ x).mean() * 0.0 + s + 1.0
+
+    chain = timing.device_chain(step)
+    assert chain(3) == 3.0
+    before = len(calls)
+    assert chain(5) == 5.0 and len(calls) == before + 5  # captured once
+    assert chain(5) == 5.0 and len(calls) == before + 5  # replayed
+    dt = timing.scalar_chain_time(step, 10, 30, repeats=3, on_device=True)
+    assert 0.0 < dt < 0.01, dt
+
+
+@pytest.mark.cuda
+def test_calibration_is_a_fraction_of_the_peak(cuda_device):
+    from gcn_tpu_torch.utils import timing
+
+    frac = timing.calibrate()
+    assert 0.0 < frac <= 1.05, frac
