@@ -1,0 +1,6 @@
+"""Idle share of the device over the traced training sub-window."""
+from portbench.readers import idle_pct
+
+
+def read(run):
+    return idle_pct(run, "train")
