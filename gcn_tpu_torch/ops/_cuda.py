@@ -21,6 +21,9 @@ launches made while a graph is captured are tallied (``tally_launches``)
 and added again at each replay (``count_replay``).  Each kernel counts its
 launches in all and by exported function (``by_function``), so that a
 kernel's f32 and bf16 instances are told apart (``launches_of``).
+``BUILDS`` counts the libraries this process has compiled (a library
+found in the build directory is loaded, not counted) and the builds'
+wall seconds: a build inside a timed window shows there.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ NVCC_TIMEOUT_S = 600  # a build's time limit, host builds too
 # instead of ``CudaKernel.launches``.  Module-wide, not per thread:
 # autograd runs a captured step's backward kernels on a thread of its own.
 _TALLIES: list[dict] = []
+BUILDS = {"libraries": 0, "seconds": 0.0}  # compiled in this process
 
 
 def _nvcc() -> str:
@@ -260,6 +264,9 @@ def build_all(kernels: list[CudaKernel | HostLibrary]) -> dict[str, dict]:
                     f"(rc {proc.returncode}):\n{log}")
             os.replace(tmp, out)
             report[stem] = {"seconds": time.perf_counter() - t0, "log": log}
+        if started:
+            BUILDS["libraries"] += len(started)
+            BUILDS["seconds"] += time.perf_counter() - t0
     finally:
         for proc, tmp, _ in started.values():
             if proc.poll() is None:

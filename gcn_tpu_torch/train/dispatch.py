@@ -35,6 +35,10 @@ optimizer step on the sums one graph that takes no batch.
 * Launch counts: the launches made while a graph is captured are added to
   the kernels' counts at each replay (``ops._cuda.count_replay``); those
   of the eager warm-up call are not counted.
+* Spans (``train.profiling.annotate``): ``gcn.dispatch.replay`` around
+  a replay (reseeding, ``graph.replay()``, the launch counts),
+  ``gcn.dispatch.capture`` around a capture; ``GraphCache.captures``
+  counts the graphs a cache has captured.
 * ``eager_dispatch()`` (the counterpart of ``jax.disable_jit()``) makes
   the card run its steps eagerly, launch by launch, as the CPU always
   does: tests hold graphs against eager steps with it.
@@ -51,6 +55,7 @@ from typing import Callable, Sequence
 import torch
 
 from gcn_tpu_torch.ops import _cuda
+from gcn_tpu_torch.train.profiling import annotate
 
 _EAGER = [0]  # depth of open eager_dispatch() blocks
 
@@ -112,10 +117,11 @@ class StepGraph:
         if len(seeds) != len(self.generators):
             raise ValueError(f"{len(seeds)} seeds for "
                              f"{len(self.generators)} step slots")
-        for gen, seed in zip(self.generators, seeds):
-            gen.manual_seed(seed)
-        self.graph.replay()
-        _cuda.count_replay(self.launches)
+        with annotate("gcn.dispatch.replay"):
+            for gen, seed in zip(self.generators, seeds):
+                gen.manual_seed(seed)
+            self.graph.replay()
+            _cuda.count_replay(self.launches)
 
 
 def capture(fn: Callable, static, device: torch.device, pool,
@@ -150,12 +156,14 @@ def capture(fn: Callable, static, device: torch.device, pool,
 class GraphCache:
     """The graphs of one consumer (a trainer's steps, an evaluator's
     forwards) by the signature of the batches they take, in one memory
-    pool.  ``staging`` moves the batches to the card."""
+    pool.  ``staging`` moves the batches to the card; ``captures`` counts
+    the graphs captured."""
 
     def __init__(self, staging, device: torch.device):
         self.staging = staging
         self.device = device
         self.graphs: dict = {}
+        self.captures = 0
         self._pool = None
 
     def get(self, batches: list, fn: Callable, slots: int = 0,
@@ -177,8 +185,11 @@ class GraphCache:
         if batches:
             static = self.staging.allocate(batches)
             self.staging.send(batches, static)
-        graph = capture(fn, static, self.device, self._pool, slots, state)
+        with annotate("gcn.dispatch.capture"):
+            graph = capture(fn, static, self.device, self._pool, slots,
+                            state)
         self.graphs[key] = graph
+        self.captures += 1
         return graph, True
 
     def replay(self, batches: list, fn: Callable, seeds: Sequence[int] = (),

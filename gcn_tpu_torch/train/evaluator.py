@@ -16,7 +16,12 @@ as gcn_tpu does: each replay's probabilities leave the card by a
 later, and the losses are summed on the card and fetched once.  The CPU,
 ``eager_dispatch()`` and a model that a graph cannot hold
 (``GCNClassifier.capturable``) run the same loop a forward at a time, the
-card then reading each batch's probabilities at once.
+card then reading each batch's probabilities at once.  Spans
+(``train.profiling.annotate``): ``gcn.eval.dispatch`` around a dispatch
+(staging, replay, the copy out, the event), ``gcn.eval.wait`` around the
+host's waits for the card (a dispatch's event, the fetch of the losses'
+sum) and ``gcn.eval.unpack`` around turning a dispatch's probabilities
+into lists.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from gcn_tpu_torch.train.dispatch import (
     chunk_plan,
     graphs_on,
 )
+from gcn_tpu_torch.train.profiling import annotate
 from gcn_tpu_torch.train.transfer import Staging
 
 WINDOW = 8  # evaluation forwards in flight (gcn_tpu's window)
@@ -126,16 +132,17 @@ class Evaluator:
         """Start the forwards of ``batches`` (one shape; several only
         where they pack): (probs [k, B, C] on the host, an event to wait
         on before reading them or None, losses [k] on the device)."""
-        if not graphs_on(self.device, self.model, self.backend):
-            out = [self._eval_core(batch_to_device(b, self.device))
-                   for b in batches]
-            probs = torch.stack([p for p, _ in out]).cpu()
-            return probs, None, torch.stack([l for _, l in out])
-        probs, losses = self._graphs.replay(batches, self._forwards)
-        host = probs.to("cpu", non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        return host, done, losses.clone()
+        with annotate("gcn.eval.dispatch"):
+            if not graphs_on(self.device, self.model, self.backend):
+                out = [self._eval_core(batch_to_device(b, self.device))
+                       for b in batches]
+                probs = torch.stack([p for p, _ in out]).cpu()
+                return probs, None, torch.stack([l for _, l in out])
+            probs, losses = self._graphs.replay(batches, self._forwards)
+            host = probs.to("cpu", non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            return host, done, losses.clone()
 
     def predict_batch(self, batch: dict):
         """Predictions for the VALID rows of one padded numpy batch:
@@ -169,10 +176,12 @@ class Evaluator:
         def drain(item):
             probs, done, masks = item
             if done is not None:
-                done.synchronize()
-            for p, mask in zip(probs.numpy(), masks):
-                all_preds.extend(p.argmax(axis=1)[mask].tolist())
-                all_probs.extend(p[mask].tolist())
+                with annotate("gcn.eval.wait"):
+                    done.synchronize()
+            with annotate("gcn.eval.unpack"):
+                for p, mask in zip(probs.numpy(), masks):
+                    all_preds.extend(p.argmax(axis=1)[mask].tolist())
+                    all_probs.extend(p[mask].tolist())
 
         def dispatch(sub):
             nonlocal offsize
@@ -216,7 +225,10 @@ class Evaluator:
         if offsize:
             w = torch.tensor(weights, dtype=torch.float32,
                              device=stacked.device)
-            avg = float(torch.dot(stacked, w)) / max(n, 1)
+            total = torch.dot(stacked, w)
         else:
-            avg = float(stacked.sum()) / max(n, 1) * bs
+            total = stacked.sum()
+        with annotate("gcn.eval.wait"):  # the fetch alone
+            total = float(total)
+        avg = total / max(n, 1) if offsize else total / max(n, 1) * bs
         return all_preds, all_probs, avg

@@ -83,6 +83,7 @@ from gcn_tpu_torch.train.evaluator import (
     resolve_device,
 )
 from gcn_tpu_torch.train.optim import build_optimizer, set_learning_rate
+from gcn_tpu_torch.train.profiling import annotate
 from gcn_tpu_torch.train.transfer import Staging
 
 RING_SLOTS = 4  # pinned batch buffers: the host runs up to 4 steps ahead
@@ -320,28 +321,31 @@ class Trainer:
 
     def update(self, batch: dict) -> torch.Tensor:
         """Forward + backward on one numpy batch; steps the optimizer every
-        ``update_gap`` batches.  Returns the loss as a device scalar."""
-        if self._fused() and self._graphs_on():
-            return self._replay([batch])[0]
-        if self._fused():
+        ``update_gap`` batches.  Returns the loss as a device scalar.
+        The host's dispatch of the step is the span ``gcn.train.update``."""
+        with annotate("gcn.train.update"):
+            if self._fused() and self._graphs_on():
+                return self._replay([batch])[0]
+            if self._fused():
+                step = self.global_step
+                self.global_step += 1
+                return self._step(batch_to_device(batch, self.device),
+                                  self.step_generator(step))
+            self._grad_sums()
             step = self.global_step
+            if self._graphs_on():
+                loss = self._graphs.replay(
+                    [batch], self._micro_batch,
+                    seeds=[step_seed(self.seed, step)],
+                    state=self._state(), kind="micro").clone()
+            else:
+                loss = self._accumulate(batch_to_device(batch, self.device),
+                                        self.step_generator(step))
             self.global_step += 1
-            return self._step(batch_to_device(batch, self.device),
-                              self.step_generator(step))
-        self._grad_sums()
-        step = self.global_step
-        if self._graphs_on():
-            loss = self._graphs.replay(
-                [batch], self._micro_batch, seeds=[step_seed(self.seed, step)],
-                state=self._state(), kind="micro").clone()
-        else:
-            loss = self._accumulate(batch_to_device(batch, self.device),
-                                    self.step_generator(step))
-        self.global_step += 1
-        self._accum_count += 1
-        if self._accum_count >= self.cfg.train.update_gap:
-            self.flush_gradients()
-        return loss
+            self._accum_count += 1
+            if self._accum_count >= self.cfg.train.update_gap:
+                self.flush_gradients()
+            return loss
 
     def update_chunk(self, batches: list) -> list:
         """``len(batches)`` fused optimizer steps, as gcn_tpu's
@@ -349,7 +353,8 @@ class Trainer:
         ``chunk_plan`` pieces of at most ``steps_per_dispatch`` (all at
         once where that is 1 or less), a piece of k as one replay of a
         k-step graph on the card; otherwise one ``update`` a batch.  The
-        same steps as ``update`` on each batch; returns their losses."""
+        same steps as ``update`` on each batch; returns their losses.
+        Each dispatch is one ``gcn.train.update`` span."""
         if (len(batches) < 2 or self.cfg.train.update_gap > 1
                 or self._accum_count
                 or not all(self.staging.packs(b) for b in batches)
@@ -363,7 +368,8 @@ class Trainer:
             sub = batches[i:i + size]
             i += size
             if size > 1 and self._graphs_on():
-                losses.extend(self._replay(sub))
+                with annotate("gcn.train.update"):
+                    losses.extend(self._replay(sub))
             else:
                 losses.extend(self.update(b) for b in sub)
         return losses

@@ -17,7 +17,10 @@ The pinned buffers form a small ring (``PinnedRing``): a buffer is written
 again only after a CUDA event says that the copy which last read it has
 finished, so the host may run several batches ahead of the card without
 overwriting a batch in flight.  ``Staging`` counts the copies it starts and
-their bytes.  On the device, ``device_batch`` gives the dict that
+their bytes.  Spans (``train.profiling.annotate``): ``gcn.stage.pack``
+around writing a send's batches into the pinned buffer and enqueueing
+the copy, ``gcn.stage.wait`` around the host's wait for a slot's last
+copy.  On the device, ``device_batch`` gives the dict that
 ``train.evaluator.batch_to_device`` gives: integers int64, masks bool.
 """
 
@@ -40,6 +43,7 @@ from gcn_tpu_torch.data.packing import (
     unpack_batch,
     unpack_sentence_batch,
 )
+from gcn_tpu_torch.train.profiling import annotate
 
 _ALIGN = 64  # bytes between fields in a pinned buffer
 
@@ -58,7 +62,8 @@ class PinnedRing:
         slot = self._next
         self._next = (slot + 1) % len(self._bufs)
         if self._events[slot] is not None:
-            self._events[slot].synchronize()
+            with annotate("gcn.stage.wait"):
+                self._events[slot].synchronize()
             self._events[slot] = None
         buf = self._bufs[slot]
         if buf is None or buf.numel() < nbytes:
@@ -160,11 +165,13 @@ class Staging:
 
     def send(self, batches: list, static: StaticBatch) -> None:
         """Start the copies of ``batches`` into ``static`` on the current
-        stream; returns without waiting for them."""
-        if isinstance(static.buffers, torch.Tensor):
-            self._send_packed(batches, static)
-        else:
-            self._send_fields(batches[0], static.buffers)
+        stream; returns without waiting for them (but for a slot of the
+        ring whose last copy is still running)."""
+        with annotate("gcn.stage.pack"):
+            if isinstance(static.buffers, torch.Tensor):
+                self._send_packed(batches, static)
+            else:
+                self._send_fields(batches[0], static.buffers)
 
     def _send_packed(self, batches: list, target: StaticBatch) -> None:
         static = target.buffers

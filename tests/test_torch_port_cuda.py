@@ -1982,3 +1982,51 @@ def test_calibration_is_a_fraction_of_the_peak(cuda_device):
 
     frac = timing.calibrate()
     assert 0.0 < frac <= 1.05, frac
+
+
+@pytest.mark.cuda
+def test_graphed_step_spans_nest_under_the_profiler(cuda_device):
+    """Under ``torch.profiler``, each graphed C-GCN step is one
+    ``gcn.train.update`` holding one ``gcn.stage.pack`` and one
+    ``gcn.dispatch.replay``; once the pinned ring has wrapped, each
+    staging holds the host's wait for its slot (``gcn.stage.wait``); no
+    graph is captured after the warm-up, and spans are the shared no-op
+    again once the profiler stops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gcn_tpu_torch.train.profiling import annotate
+    from gcn_tpu_torch.train.trainer import RING_SLOTS
+
+    cfg = small_cfg()
+    tr, _ = _graph_and_eager(cfg, cuda_device)
+    rng = np.random.RandomState(6)
+    batches = [loader_batch(rng) for _ in range(2 * RING_SLOTS)]
+    tr.warmup(batches[:1])
+    captured = tr._graphs.captures
+    assert captured == len(tr.graphs) == 1
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for b in batches:
+            tr.update(b)
+        torch.cuda.synchronize()
+    assert annotate("gcn.after") is annotate("gcn.after.wait")
+    assert tr._graphs.captures == captured
+    spans = [(e.name, e.thread, e.time_range.start, e.time_range.end)
+             for e in prof.events() if e.name.startswith("gcn.")
+             and e.device_type != torch.autograd.DeviceType.CUDA]
+    names = [s[0] for s in spans]
+    assert names.count("gcn.train.update") == len(batches)
+    assert "gcn.dispatch.capture" not in names
+    steps = sorted((s for s in spans if s[0] == "gcn.train.update"),
+                   key=lambda s: s[2])
+
+    def held(outer, name):
+        return [s for s in spans if s[0] == name and s[1] == outer[1]
+                and outer[2] <= s[2] and s[3] <= outer[3]]
+
+    for i, step in enumerate(steps):
+        (pack,) = held(step, "gcn.stage.pack")
+        assert len(held(step, "gcn.dispatch.replay")) == 1
+        waits = held(pack, "gcn.stage.wait")
+        assert len(waits) == 1 if i >= RING_SLOTS else len(waits) <= 1
+    assert names.count("gcn.stage.wait") >= RING_SLOTS
